@@ -1,0 +1,101 @@
+"""Fleet bar scan: scores (M, N) against per-stream bars (M,) → survivor
+mask, and per-(stream, tile) survivor count and maximum.
+
+``batched_topk_filter`` is the port of the reference's
+``kernels.batched_topk.ops.batched_topk_filter``. The device of the input
+decides what runs: a CUDA tensor launches the hand-written kernel
+(``csrc/batched_topk.cu``) or raises, a CPU tensor runs the plain PyTorch
+version ``reference``. There is no switch between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import build
+
+NEG_BIG = -1e30
+
+# kernel launches made by ``batched_topk_filter`` since the last reset
+launches = 0
+
+
+def tile_width(n: int) -> int:
+    """Columns per tile: the reference's ``min(block_n, max(n, 128))`` at
+    its default ``block_n`` of 512."""
+    return min(512, max(n, 128))
+
+
+def _check(scores: torch.Tensor, bars: torch.Tensor) -> None:
+    if scores.dim() != 2 or scores.dtype != torch.float32:
+        raise ValueError(f"scores must be (M, N) float32, got "
+                         f"{tuple(scores.shape)} {scores.dtype}")
+    if bars.shape != scores.shape[:1] or bars.dtype != torch.float32:
+        raise ValueError(f"bars must be ({scores.shape[0]},) float32, got "
+                         f"{tuple(bars.shape)} {bars.dtype}")
+    if bars.device != scores.device:
+        raise ValueError("scores and bars must share a device")
+
+
+def reference(scores: torch.Tensor, bars: torch.Tensor):
+    """Plain PyTorch version, the reference's pad-then-scan: columns are
+    padded with NEG_BIG to a tile multiple, pad columns count toward each
+    tile's count and max and are stripped from the mask."""
+    _check(scores, bars)
+    m, n = scores.shape
+    bn = tile_width(n)
+    pad = (-n) % bn
+    sp = torch.nn.functional.pad(scores, (0, pad), value=NEG_BIG)
+    thr = bars.reshape(m, 1)
+    hit = sp > thr
+    tiles = sp.reshape(m, -1, bn)
+    counts = hit.reshape(m, -1, bn).sum(dim=2, dtype=torch.int32)
+    tmax = tiles.amax(dim=2)
+    return hit[:, :n].to(torch.int8), counts, tmax
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = build.library("batched_topk").batched_topk_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def batched_topk_filter(scores: torch.Tensor, bars: torch.Tensor):
+    """scores (M, N) float32 vs bars (M,) float32 → (mask (M, N) int8,
+    counts (M, tiles) int32, tile_max (M, tiles) float32), tiles of
+    ``tile_width(N)`` columns. Pad columns (NEG_BIG) of the last
+    tile are counted where the bar is below NEG_BIG (an unfull reservoir,
+    bar = -inf) and enter its max, as in the reference.
+
+    CUDA tensors run the kernel, CPU tensors the plain version."""
+    global launches
+    if scores.device.type == "cpu":
+        return reference(scores, bars)
+    if scores.device.type != "cuda":
+        raise ValueError(f"no kernel for device {scores.device}")
+    _check(scores, bars)
+    if not (scores.is_contiguous() and bars.is_contiguous()):
+        raise ValueError("scores and bars must be contiguous")
+    m, n = scores.shape
+    bn = tile_width(n)
+    tiles = -(-n // bn)
+    mask = torch.empty((m, n), dtype=torch.int8, device=scores.device)
+    counts = torch.empty((m, tiles), dtype=torch.int32, device=scores.device)
+    tmax = torch.empty((m, tiles), dtype=torch.float32, device=scores.device)
+    if m * tiles == 0:
+        return mask, counts, tmax
+    with torch.cuda.device(scores.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(scores.data_ptr(), bars.data_ptr(),
+                        mask.data_ptr(), counts.data_ptr(), tmax.data_ptr(),
+                        m, n, bn, tiles, stream)
+    if err:
+        raise RuntimeError(f"batched_topk launch failed: CUDA error {err}")
+    launches += 1
+    return mask, counts, tmax
