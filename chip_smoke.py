@@ -7,10 +7,13 @@ Run from the repository root, with no arguments:
 Phases, each of which ends the run with a non-zero exit code if it fails:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: both CUDA kernels compiled with nvcc for sm_90a from the
-   sources in the checkout (into build/kernels/);
+2. build: the four CUDA kernels compiled with nvcc for sm_90a from the
+   sources in the checkout (into build/kernels/), all at once; then the
+   logmem phase rule's premise on the card: torch.log2 of 2^p floors to
+   p for p = 0..30;
 3. parity: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (1,000,000 streams) and edge cases; exact;
+   its paths' shapes (1,000,000 streams; 64 and 4096 logmem tenants x
+   8192; one stream of 2^20 and 2^26 scores) and edge cases; exact;
 4. timings: each kernel, its plain version and its byte bound;
 5. main path at full width — the defaults of examples/million_streams.py:
    1,000,000 streams, 3 tiers, K=8, planned by the port's host planner,
@@ -22,7 +25,21 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    against the meter's attribution; its own launch counters must show
    both kernels on this path too;
 7. a torch.profiler profile of full-width steps: the compute engine's
-   busy share and that of any engine (compute or copy).
+   busy share and that of any engine (compute or copy);
+8. mixed fleet at full width — examples/million_streams.py
+   --logmem-streams 64 on one card: phase 5's plan for the 1,000,000
+   exact streams plus 64 logmem tenants at K=65536 (r = 4K), 16 chunks
+   of (1,000,000 x 16) and (64 x 8192) through ingest_chunks, meter off,
+   then finalize_tiers; the example's law and memory checks, launch
+   counters, 256 sampled exact streams against simulator replays, and
+   every logmem state leaf and chunk write mask against the port's own
+   CPU run of the same chunks; docs/s beside phase 5's, and a profile of
+   mixed steps as in phase 7;
+9. huge-K harness: logmem.trace_competitive_ratio at the reference's
+   RATIO_SWEEP (benchmarks/streams_bench.py) on the card, held to the
+   1 - c/sqrt(K) guarantee and to the port's CPU run;
+10. single-stream path: filter_then_merge at K=1024 over 64 batches of
+   2^20 scores, survivors against numpy's top-1024 of the whole trace.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -47,6 +64,12 @@ DOCS = 256  # docs per stream in a window
 CHUNK = 16  # docs per stream per chunk
 TIMED_WINDOWS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+LM_STREAMS, LM_K, LM_CHUNK = 64, 65_536, 8_192  # the example's logmem tenants
+LM_FLEET = 4096  # a fleet of huge-K tenants, for the kernel's timing
+# (K, streams, docs, chunk) of benchmarks/streams_bench.py's RATIO_SWEEP
+RATIO_SWEEP = ((256, 64, 16_384, 512), (4_096, 8, 131_072, 2_048),
+               (65_536, 2, 262_144, 8_192))
+TF_K, TF_BATCH, TF_BATCHES = 1024, 1 << 20, 64  # the single-stream path
 
 
 def log(*args):
@@ -75,7 +98,8 @@ def max_abs_err(outs, refs):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"shape/dtype {a.shape} {a.dtype} vs "
                                  f"{b.shape} {b.dtype}")
-        diff = (a.double() - b.double()).abs()
+        # equal entries (infinities included) differ by 0
+        diff = torch.where(a == b, 0.0, (a.double() - b.double()).abs())
         worst = max(worst, float(diff.nan_to_num(float("inf")).max()))
         if not torch.equal(a, b):
             raise AssertionError(f"kernel differs from its plain version "
@@ -110,6 +134,21 @@ def build_kernels():
         log(f"build {name}: {' | '.join(usage)}")
 
 
+def log2_rule():
+    """The logmem phase is floor(log2(t/K)) in float32: torch.log2 on the
+    card must be exact at powers of two, directly and as t/K."""
+    p = torch.arange(31, device="cuda", dtype=torch.int32)
+    direct = torch.floor(torch.log2(torch.exp2(p.float()))).int()
+    t = torch.exp2(p[:16].float()) * LM_K  # t/K = 2^p, t < 2^31
+    kf = torch.full_like(t, float(LM_K))
+    ratio = torch.floor(torch.log2(torch.maximum(t / kf, torch.ones_like(t))))
+    if not (torch.equal(direct, p) and torch.equal(ratio.int(), p[:16])):
+        raise AssertionError(f"floor(log2(2^p)) on the card is not p: "
+                             f"{direct.tolist()} {ratio.int().tolist()}")
+    log("log2 rule: floor(torch.log2(2^p)) == p on the card for p = 0..30, "
+        f"and floor(log2(t/K)) == p at K={LM_K}, t = K*2^p, p = 0..15")
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: kernel parity and timings
 # ---------------------------------------------------------------------------
@@ -142,11 +181,42 @@ def ta_inputs(g, k, b, floors):
     return ids, bq, floor
 
 
+def lm_inputs(g, m, n, kind):
+    """Logmem admission inputs: pad ids between live ones (10%), every
+    97th row all pad, every third threshold -inf; ``ninf``: all -inf
+    (pads must stay inert); ``ties``: thresholds equal to scores."""
+    scores = torch.randn(m, n, device="cuda", generator=g)
+    ids = torch.arange(n, dtype=torch.int32, device="cuda").repeat(m, 1)
+    ids[torch.rand(m, n, device="cuda", generator=g) < 0.1] = -1
+    ids[1::97] = -1
+    tau = torch.randn(m, device="cuda", generator=g)
+    tau[::3] = float("-inf")
+    if kind == "ninf":
+        tau.fill_(float("-inf"))
+    elif kind == "ties":
+        scores[:, ::3] = 0.5
+        tau[1::3] = 0.5
+    return scores, ids, tau
+
+
+def tf_inputs(g, n, kind):
+    """One stream's scores and a threshold: 0.5, -inf (pad columns
+    counted), above every score, or 0.5 with NaN scores."""
+    s = torch.randn(n, device="cuda", generator=g)
+    if kind == "nan":
+        s[::101] = float("nan")
+    thr = {"ninf": float("-inf"), "below": 100.0}.get(kind, 0.5)
+    return s, torch.tensor(thr, device="cuda")
+
+
 def kernel_parity():
     from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.logmem_update import ops as lm
     from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.kernels.topk_filter import ops as tf
     g = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"batched_topk": 0.0, "tier_assign": 0.0}
+    errs = {"batched_topk": 0.0, "tier_assign": 0.0, "logmem_update": 0.0,
+            "topk_filter": 0.0}
     for n, kind, label in ((16, "unfull", "-inf bars: pad columns counted"),
                            (16, "ties", "bars equal to scores"),
                            (16, "plain", "main-path width"),
@@ -170,44 +240,124 @@ def kernel_parity():
         errs["tier_assign"] = max(errs["tier_assign"], err)
         log(f"parity tier_assign [{label}] M={M} K={k} B={b}: exact "
             f"(max abs diff {err})")
+    for m, n, kind, label in (
+            (LM_STREAMS, LM_CHUNK, "plain", "deployment chunk"),
+            (LM_FLEET, LM_CHUNK, "plain", "fleet of huge-K tenants"),
+            (LM_STREAMS, LM_CHUNK, "ninf", "tau=-inf everywhere"),
+            (LM_FLEET, 600, "ties", "N=600, two tiles, ties"),
+            (LM_FLEET, 40, "plain", "N=40"),
+            (LM_FLEET, 16, "ninf", "N=16, one thread per row"),
+            (LM_FLEET, 8190, "plain", "N=8190, 4-byte loads")):
+        args = lm_inputs(g, m, n, kind)
+        out = lm.logmem_admit(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, lm.reference(*args))
+        errs["logmem_update"] = max(errs["logmem_update"], err)
+        log(f"parity logmem_update [{label}; pad ids between live ones, "
+            f"all-pad rows] M={m} N={n}: exact (max abs diff {err})")
+    for n, kind, dtype, label in (
+            (TF_BATCH, "plain", torch.float32, "main-path batch"),
+            (TF_BATCH * TF_BATCHES, "plain", torch.float32, "2^26 scores"),
+            (5000, "plain", torch.float32, "N=5000, partial tile"),
+            (5000, "ninf", torch.float32, "thr=-inf, pads counted"),
+            (TF_BATCH, "nan", torch.float32, "NaN scores"),
+            (TF_BATCH, "below", torch.float32, "all below thr"),
+            (TF_BATCH, "plain", torch.bfloat16, "bfloat16 scores"),
+            (4097, "ninf", torch.float32, "N=4097, 4-byte loads")):
+        s, thr = tf_inputs(g, n, kind)
+        s = s.to(dtype)
+        out = tf.topk_filter(s, thr)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, tf.reference(s, thr))
+        errs["topk_filter"] = max(errs["topk_filter"], err)
+        log(f"parity topk_filter [{label}] N={n}: exact (max abs diff "
+            f"{err})")
     return errs
+
+
+def device_ms(fn, reps, kernel):
+    """Mean device time per launch of the kernel ``fn`` launches, whose
+    name contains ``kernel``: torch.profiler over ``reps`` calls after a
+    warm-up call. The kernel's own time, without the host's launch
+    overhead, which a CUDA-event timing of a short kernel measures."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    runs = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if len(runs) != reps:
+        raise AssertionError(f"profiled {len(runs)} launches of {kernel}, "
+                             f"not {reps}")
+    return sum(e.time_range.end - e.time_range.start
+               for e in runs) / reps / 1e3  # microseconds -> ms
 
 
 def kernel_timings():
     from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.logmem_update import ops as lm
     from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.kernels.topk_filter import ops as tf
     g = torch.Generator(device="cuda").manual_seed(1)
-    out = {}
-    s, b = btk_inputs(g, CHUNK, "plain")
-    tiles = -(-CHUNK // btk.tile_width(CHUNK))
-    nbytes = 4 * M * CHUNK + 4 * M + M * CHUNK + 8 * M * tiles
-    out["batched_topk"] = {
-        "ms": cuda_ms(lambda: btk.batched_topk_filter(s, b), 200),
-        "plain_ms": cuda_ms(lambda: btk.reference(s, b), 10),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "library_ms": None,
-        "shape": f"scores ({M}, {CHUNK}) f32, bars ({M},) f32"}
-    log("library_ms batched_topk: null — no single PyTorch call returns "
-        "the survivor mask together with per-tile counts and maxima "
-        "(torch.gt gives the mask alone)")
     n_bounds, n_tiers = 2, 3
+    cases = []  # (key, kernel name in the profile, call, plain, bytes, shape)
+    s, b = btk_inputs(g, CHUNK, "plain")
+    cases.append((
+        "batched_topk", "scan_", lambda: btk.batched_topk_filter(s, b),
+        lambda: btk.reference(s, b),
+        4 * M * CHUNK + 4 * M + M * CHUNK + 8 * M,
+        f"scores ({M}, {CHUNK}) f32, bars ({M},) f32"))
     ids, bq, floor = ta_inputs(g, K, n_bounds, True)
-    nbytes = (4 * M * K + 4 * M * n_bounds + 4 * M) + (4 * M * K
-                                                       + 4 * M * n_tiers)
-    out["tier_assign"] = {
-        "ms": cuda_ms(lambda: ta.tier_assign(ids, bq, floor), 200),
-        "plain_ms": cuda_ms(lambda: ta.reference(ids, bq, floor, n_tiers),
-                            10),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "library_ms": None,
-        "shape": f"ids ({M}, {K}) i32, bounds ({M}, {n_bounds}) i32"}
-    log("library_ms tier_assign: null — no single PyTorch call assigns "
-        "floored, capped tiers with per-tier counts (torch.bucketize gives "
-        "the uncapped tier index alone)")
-    for name, t in out.items():
-        log(f"timing {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, byte bound {t['bound_ms']:.4f} ms "
-            f"at 3.35 TB/s")
+    cases.append((
+        "tier_assign", "assign_", lambda: ta.tier_assign(ids, bq, floor),
+        lambda: ta.reference(ids, bq, floor, n_tiers),
+        4 * M * K + 4 * M * n_bounds + 4 * M + 4 * M * K + 4 * M * n_tiers,
+        f"ids ({M}, {K}) i32, bounds ({M}, {n_bounds}) i32"))
+    # the path's shape first (it goes into the kernels line), then a
+    # large one
+    lm_tiles = -(-LM_CHUNK // lm.tile_width(LM_CHUNK))
+    for m, key in ((LM_STREAMS, "logmem_update"),
+                   (LM_FLEET, "logmem_update@fleet")):
+        a = lm_inputs(g, m, LM_CHUNK, "plain")
+        cases.append((
+            key, "admit_", lambda a=a: lm.logmem_admit(*a),
+            lambda a=a: lm.reference(*a),
+            8 * m * LM_CHUNK + 4 * m + m * LM_CHUNK + 12 * m * lm_tiles,
+            f"scores and ids ({m}, {LM_CHUNK}), tau ({m},)"))
+    for n, key in ((TF_BATCH, "topk_filter"),
+                   (TF_BATCH * TF_BATCHES, "topk_filter@2^26")):
+        a = tf_inputs(g, n, "plain")
+        cases.append((
+            key, "filter_tile", lambda a=a: tf.topk_filter(*a),
+            lambda a=a: tf.reference(*a),
+            4 * n + 4 + n + 8 * -(-n // tf.tile_width(n)),
+            f"scores ({n},) f32, thr () f32"))
+    out = {}
+    for key, kernel, call, plain, nbytes, shape in cases:
+        out[key] = {"ms": device_ms(call, 100, kernel),
+                    "call_ms": cuda_ms(call, 200),
+                    "plain_ms": cuda_ms(plain, 10),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "library_ms": None}
+        t = out[key]
+        log(f"timing {key} [{shape}]: kernel {t['ms']:.4f} ms on the device "
+            f"(profiler); {t['call_ms']:.4f} ms per wrapper call (CUDA "
+            f"events, host launch included); plain {t['plain_ms']:.4f} ms; "
+            f"byte bound {t['bound_ms']:.4f} ms at 3.35 TB/s")
+    for name, call in (("batched_topk", "torch.gt gives the mask alone"),
+                       ("tier_assign", "torch.bucketize gives the uncapped "
+                        "tier index alone"),
+                       ("logmem_update", "torch.gt with an id gate gives "
+                        "the mask alone"),
+                       ("topk_filter", "torch.gt gives the mask alone")):
+        log(f"library_ms {name}: null — no single PyTorch call gives the "
+            f"kernel's mask (or tiers) together with its per-tile or "
+            f"per-tier counts and maxima ({call})")
     return out
 
 
@@ -365,7 +515,8 @@ def main_path():
         f"max {max(rates):.6g} (16 chunks of {M} x {CHUNK} per window, "
         f"host-made chunks; host clock around ingest_chunks and a sync)")
     check_sample(eng, sample, trace, bounds, mig)
-    return eng, launches, rng
+    rate = {"first": docs / t_first, "median": statistics.median(rates)}
+    return eng, launches, rng, (bounds, mig, rate)
 
 
 # ---------------------------------------------------------------------------
@@ -454,10 +605,13 @@ def union_ms(events):
     return busy / 1e3
 
 
-def step_profile(eng, rng, steps=4):
+def step_profile(eng, chunks, label):
+    """Profile ``eng.ingest_chunks`` over ``chunks``: wall and device-busy
+    time per step, the top device operations, and the host's staging copy
+    of one chunk alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    chunks = window_chunks(rng, 1 + TIMED_WINDOWS, steps)
+    steps = len(chunks)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -470,7 +624,7 @@ def step_profile(eng, rng, steps=4):
     # compute engine alone: the host-to-device staging copies run on the
     # copy engine, overlapped with the steps
     compute_ms = union_ms([e for e in dev if "Memcpy" not in e.name]) / steps
-    log(f"step profile: {steps} steps of {M} x {CHUNK}: wall {wall_ms:.3f} "
+    log(f"step profile: {steps} steps of {label}: wall {wall_ms:.3f} "
         f"ms/step (profiler on); compute busy {compute_ms:.3f} ms/step = "
         f"{compute_ms / wall_ms:.3f} of wall; any engine busy (compute or "
         f"copy) {any_ms:.3f} ms/step = {any_ms / wall_ms:.3f} of wall")
@@ -485,7 +639,7 @@ def step_profile(eng, rng, steps=4):
     if compute_ms <= 0:
         raise AssertionError("the profile saw no device compute time")
     # the host side of staging one chunk: pageable arrays into pinned memory
-    dense = chunks[0][0]
+    dense = [a for pair in chunks[0] for a in pair]
     pinned = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
                           pin_memory=True) for a in dense]
     times = []
@@ -499,6 +653,207 @@ def step_profile(eng, rng, steps=4):
         f"{torch.get_num_threads()} threads)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: mixed exact + logmem fleet at full width
+# ---------------------------------------------------------------------------
+
+def mixed_window_chunks(rng, window, n_chunks=DOCS // CHUNK):
+    """``window_chunks`` plus the logmem bucket's pair in every chunk:
+    (64 x 8192) scores, ids continuing across chunks and windows."""
+    out = window_chunks(rng, window, n_chunks)
+    for c, pairs in enumerate(out):
+        lo = (window * DOCS // CHUNK + c) * LM_CHUNK
+        pairs.append((
+            rng.standard_normal((LM_STREAMS, LM_CHUNK), dtype=np.float32),
+            np.tile(np.arange(lo, lo + LM_CHUNK, dtype=np.int32),
+                    (LM_STREAMS, 1))))
+    return out
+
+
+def mixed_fleet(bounds, mig, rate5):
+    from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.logmem_update import ops as lm_ops
+    from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.streams import StreamEngine, StreamSpec, logmem
+    rng = np.random.default_rng(1)
+    specs = [StreamSpec(stream_id=i, k=K, boundaries=tuple(b),
+                        migrate=bool(g))
+             for i, (b, g) in enumerate(zip(bounds.tolist(), mig.tolist()))]
+    specs += [StreamSpec(stream_id=M + j, k=LM_K, r=float(4 * LM_K),
+                         engine="logmem") for j in range(LM_STREAMS)]
+    eng = StreamEngine(specs)
+    # buckets in (K, backend) order: the chunks' pairs are (exact, logmem)
+    lb = 1
+    if [b.engine for b in eng.buckets] != ["exact", "logmem"]:
+        raise AssertionError(f"unexpected buckets {eng.buckets}")
+    first = mixed_window_chunks(rng, 0)
+    n_chunks = len(first)
+    # keep each step's logmem write mask (the device tensor) for the
+    # comparison with the CPU run below
+    wrotes = []
+    dispatch = eng._dispatch
+
+    def recording(batches):
+        out = dispatch(batches)
+        wrotes.append(out[0][lb])
+        return out
+
+    eng._dispatch = recording
+    # the counted run: counters to 0, drive, read
+    btk.launches = ta.launches = lm_ops.launches = 0
+    t0 = time.perf_counter()
+    done = eng.ingest_chunks(first, meter=False)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    tiers = eng.finalize_tiers()
+    launches = {"logmem_update": lm_ops.launches,
+                "batched_topk": btk.launches, "tier_assign": ta.launches}
+    del eng._dispatch
+    log(f"mixed fleet launches: {launches}")
+    want = {"logmem_update": n_chunks, "batched_topk": n_chunks,
+            "tier_assign": 1}
+    if launches != want:
+        raise AssertionError(f"mixed fleet launches {launches} != {want}")
+    exact_st, lm_st = eng.states()
+    seen = (int(exact_st.seen.sum()), int(lm_st.seen.sum()))
+    want_seen = (M * CHUNK * done, LM_STREAMS * LM_CHUNK * done)
+    docs = sum(want_seen)
+    if seen != want_seen:
+        raise AssertionError(f"docs observed {seen} != {want_seen}")
+    if set(tiers) != set(range(M)):
+        raise AssertionError("finalize_tiers must hold exactly the exact "
+                             "streams")
+    counts = sum(int(t["counts"].sum()) for t in tiers.values())
+    if counts != M * K:
+        raise AssertionError(f"per-tier counts sum {counts} != M*K")
+    # the example's law and memory checks
+    n_lm = LM_CHUNK * done
+    law = float(logmem.expected_admits(np.asarray([n_lm]), LM_K)[0])
+    slack = logmem.law_slack(LM_K)
+    admit_ratio = float(lm_st.admits.double().mean()) / law
+    bps = logmem.state_bytes_per_stream(lm_st)
+    exact_bps = logmem.exact_bytes_per_stream(LM_K)
+    log(f"mixed fleet: {M} exact streams + {LM_STREAMS} logmem tenants at "
+        f"K={LM_K}: docs observed {seen[0]} + {seen[1]} = {docs}; logmem "
+        f"admits {admit_ratio:.6f}x the write law ({law:.1f} per tenant "
+        f"after {n_lm} docs; budget 3*slack = {3 * slack:.6f}); "
+        f"{bps:.0f} B/stream vs {exact_bps:.0f} exact "
+        f"({exact_bps / bps:.1f}x leaner)")
+    if not abs(admit_ratio - 1.0) <= 3.0 * slack:
+        raise AssertionError("logmem admits beyond the slack budget")
+    if not exact_bps / bps >= 8.0:
+        raise AssertionError("logmem state is not 8x leaner")
+    # the 64 tenants against the port's own CPU run of the same chunks:
+    # holds the torch epilogue (sorts, gathers, f32 arithmetic) on CUDA
+    cpu = logmem.init(LM_STREAMS, device="cpu")
+    bad = 0
+    for c, pairs in enumerate(first):
+        s, i = pairs[lb]
+        cpu, wrote = logmem.update(cpu, torch.from_numpy(s),
+                                   torch.from_numpy(i), LM_K)
+        bad += not torch.equal(wrote, wrotes[c].cpu())
+    leaves = [name for name, a, b in zip(logmem.LogmemState._fields, cpu,
+                                         lm_st)
+              if not torch.equal(a, b.cpu())]
+    log(f"mixed fleet: logmem tenants on the card vs the CPU run: "
+        f"{len(first) - bad}/{len(first)} chunk write masks equal, "
+        f"{9 - len(leaves)}/9 state leaves equal bit for bit")
+    if bad or leaves:
+        raise AssertionError(f"logmem on the card differs from the CPU: "
+                             f"{bad} masks, leaves {leaves}")
+    sample = np.sort(rng.choice(M, 256, replace=False))
+    trace = np.concatenate([ch[0][0][sample] for ch in first], axis=1)
+    check_sample(eng, sample, trace, bounds, mig, tiers)
+    rates = []
+    for w in range(1, 3):
+        chunks = mixed_window_chunks(rng, w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.ingest_chunks(chunks, meter=False)
+        torch.cuda.synchronize()
+        rates.append(docs / (time.perf_counter() - t0))
+    log(f"mixed fleet ingest: counted window {docs / t_first:.6g} docs/s, "
+        f"2 timed windows {rates[0]:.6g} and {rates[1]:.6g} docs/s "
+        f"({docs} docs per window); phase 5 (exact only, {M * DOCS} docs "
+        f"per window): first window {rate5['first']:.6g}, median of "
+        f"{TIMED_WINDOWS} timed {rate5['median']:.6g} docs/s")
+    step_profile(eng, mixed_window_chunks(rng, 3, 4),
+                 f"{M} x {CHUNK} exact + {LM_STREAMS} x {LM_CHUNK} logmem")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: huge-K harness
+# ---------------------------------------------------------------------------
+
+def huge_k_harness():
+    from repro_torch.streams import logmem
+    rng = np.random.default_rng(2)
+    for k, m, n, chunk in RATIO_SWEEP:
+        sc = rng.standard_normal((m, n)).astype(np.float32)
+        t0 = time.perf_counter()
+        rep = logmem.trace_competitive_ratio(sc, k, chunk)
+        dt = time.perf_counter() - t0
+        cpu = logmem.trace_competitive_ratio(sc, k, chunk, device="cpu")
+        slack = logmem.law_slack(k)
+        same = all(np.array_equal(rep[key], cpu[key])
+                   for key in ("ratio", "admits", "admit_ratio"))
+        lo, hi = np.min(rep["admit_ratio"]), np.max(rep["admit_ratio"])
+        log(f"huge-K harness K={k} M={m} n={n} chunk={chunk}: min ratio "
+            f"{rep['min_ratio']} (>= {1 - slack}), max c {rep['max_c']} "
+            f"(<= {logmem.LAW_SLACK_C}), admit ratio {lo}..{hi} (within "
+            f"1 +- {3 * slack}); equal to the CPU run: {same}; {dt:.3f}s "
+            f"on the card")
+        if not (rep["min_ratio"] >= 1.0 - slack
+                and rep["max_c"] <= logmem.LAW_SLACK_C
+                and np.abs(rep["admit_ratio"] - 1.0).max() <= 3.0 * slack
+                and same):
+            raise AssertionError(f"huge-K harness failed at K={k}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: single-stream filter path
+# ---------------------------------------------------------------------------
+
+def single_stream():
+    from repro_torch.core import topk
+    from repro_torch.kernels.topk_filter import ops as tf
+    rng = np.random.default_rng(3)
+    n = TF_BATCH * TF_BATCHES
+    scores = rng.standard_normal(n, dtype=np.float32)
+    dev_s = torch.from_numpy(scores).cuda()
+    dev_i = torch.arange(n, dtype=torch.int32, device="cuda")
+    st = topk.init(TF_K)
+    # the counted run: counter to 0, drive, read
+    tf.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(TF_BATCHES):
+        sl = slice(b * TF_BATCH, (b + 1) * TF_BATCH)
+        st, _ = tf.filter_then_merge(st, dev_s[sl], dev_i[sl])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = tf.launches
+    log(f"single-stream launches: topk_filter {launches}")
+    if launches != TF_BATCHES:
+        raise AssertionError(f"topk_filter launched {launches} times, "
+                             f"not {TF_BATCHES}")
+    # numpy's top-K of the whole trace, ranked by (-score, id)
+    kth = np.partition(scores, n - TF_K)[n - TF_K]
+    cand = np.flatnonzero(scores >= kth)
+    want = cand[np.lexsort((cand, -scores[cand]))][:TF_K]
+    got = st.ids.cpu().numpy()
+    ok = np.array_equal(got, want) and np.array_equal(
+        st.scores.cpu().numpy(), scores[want])
+    log(f"single-stream path: filter_then_merge K={TF_K} over "
+        f"{TF_BATCHES} batches of {TF_BATCH}: survivors equal numpy's "
+        f"top-{TF_K} of {n} scores: {ok}; {n / dt:.6g} docs/s (device-"
+        f"resident batches; host clock and a sync)")
+    if not ok:
+        raise AssertionError("single-stream survivors differ from numpy")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -510,16 +865,26 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     smi = environment()
     build_kernels()
+    log2_rule()
     errs = kernel_parity()
     times = kernel_timings()
-    eng, launches, rng = main_path()
+    eng, launches, rng, (bounds, mig, rate5) = main_path()
     self_check()
-    step_profile(eng, rng)
+    step_profile(eng, window_chunks(rng, 1 + TIMED_WINDOWS, 4),
+                 f"{M} x {CHUNK}")
+    del eng
+    launches["logmem_update"] = mixed_fleet(bounds, mig,
+                                            rate5)["logmem_update"]
+    huge_k_harness()
+    launches["topk_filter"] = single_stream()
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
-        "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47"}
+        "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",
+        "logmem_update":
+            "src/repro/kernels/logmem_update/logmem_update.py:40",
+        "topk_filter": "src/repro/kernels/topk_filter/topk_filter.py:33"}
     kernels = []
-    for name in ("batched_topk", "tier_assign"):
+    for name in replaces:
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda",

@@ -63,6 +63,16 @@ def rank_key(scores: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return hi.to(torch.int64) * 2 ** 32 + (ids.to(torch.int64) + 2 ** 31)
 
 
+def top_k_positions(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k largest values along the last axis in
+    ``jax.lax.top_k``'s order: IEEE total order (so +0.0 ranks above
+    -0.0), ties to the lower position. One sort of a unique int64 key
+    (value high, position low)."""
+    pos = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
+    key = (~ordered_bits(x)).to(torch.int64) * 2 ** 32 + pos
+    return torch.sort(key, dim=-1).indices[..., :k]
+
+
 def member(needles: torch.Tensor, haystack: torch.Tensor) -> torch.Tensor:
     """Boolean mask ``needles[..., i] in haystack[...]`` by sort + binary
     search, O((H+N)·log H) per row."""

@@ -4,4 +4,7 @@
 # csrc/ holds the CUDA source, built at first use by kernels.build.
 #   batched_topk — fleet bar scan (mask, per-tile count and max)
 #   tier_assign  — finalize-time survivor tier assignment + per-tier counts
-from . import batched_topk, tier_assign  # noqa: F401
+#   logmem_update — logmem admission scan (mask, per-tile admit/live counts
+#                   and live max)
+#   topk_filter  — one-stream bar scan behind filter_then_merge
+from . import batched_topk, logmem_update, tier_assign, topk_filter  # noqa: F401

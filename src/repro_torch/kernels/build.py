@@ -19,7 +19,7 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Sequence
 
-KERNELS = ("batched_topk", "tier_assign")
+KERNELS = ("batched_topk", "tier_assign", "logmem_update", "topk_filter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

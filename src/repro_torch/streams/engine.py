@@ -11,15 +11,18 @@ step maps survivors to tiers with ``kernels.tier_assign``. Which version
 of a kernel runs follows the tensors' device: the CUDA kernel on the card,
 its plain PyTorch version on the CPU. There is no switch.
 
-Heterogeneous fleets (per-stream K) are bucketed by K (``streams.router``);
-``StreamEngine`` plans placement for the whole fleet on the host
-(``streams.planner``), runs every bucket in each step and meters every
-transaction per stream (``streams.metering``).
+Heterogeneous fleets (per-stream K) are bucketed by (K, backend)
+(``streams.router``); ``StreamEngine`` plans placement for the whole fleet
+on the host (``streams.planner``), runs every bucket in each step and
+meters every transaction per stream (``streams.metering``). Huge-K
+tenants can take the O(log K) ``engine="logmem"`` threshold tracker
+(``streams.logmem``, admission scan ``kernels.logmem_update``) per
+``StreamSpec``; both backends mix in one fleet step.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the ``engine="logmem"`` backend (queue 1 item 4), online
-re-planning ``replan=`` (item 6), observability ``obs=`` (item 7) and
-fleet-axis sharding ``mesh=`` (item 9).
+ROADMAP item: online re-planning ``replan=`` (queue 1 item 6),
+observability ``obs=`` (item 7) and fleet-axis sharding ``mesh=`` (item
+9).
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from repro_torch.core.costs import NTierCostModel, TwoTierCostModel
 from repro_torch.kernels.batched_topk import ops as btk_ops
 from repro_torch.kernels.tier_assign import ops as ta_ops
 
-from . import metering, planner, router
+from . import logmem, metering, planner, router
 
 PAD_ID = router.PAD_ID
 
@@ -95,15 +98,6 @@ def update(state: BatchedReservoirState, batch_scores: torch.Tensor,
     return _with_seen(new, state, batch_ids), wrote
 
 
-def _top_k_positions(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Positions of the k largest values per row in ``jax.lax.top_k``'s
-    order: IEEE total order (so +0.0 ranks above -0.0), ties to the lower
-    position. One sort of a unique int64 key (value high, position low)."""
-    pos = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
-    key = (~topk.ordered_bits(x)).to(torch.int64) * 2 ** 32 + pos
-    return torch.sort(key, dim=-1).indices[..., :k]
-
-
 def filtered_update(state: BatchedReservoirState, batch_scores: torch.Tensor,
                     batch_ids: torch.Tensor
                     ) -> Tuple[BatchedReservoirState, torch.Tensor]:
@@ -124,7 +118,7 @@ def filtered_update(state: BatchedReservoirState, batch_scores: torch.Tensor,
     resident = topk.member(batch_ids, state.ids)
     keep = (mask > 0) & ~resident
     surv = torch.where(keep, batch_scores, float("-inf"))
-    top_idx = _top_k_positions(surv, min(k, w))
+    top_idx = topk.top_k_positions(surv, min(k, w))
     top_scores = torch.gather(surv, 1, top_idx)
     top_ids = torch.gather(batch_ids, 1, top_idx)
     top_ids = torch.where(torch.isfinite(top_scores), top_ids, PAD_ID)
@@ -171,28 +165,37 @@ def evicted_ids(old: BatchedReservoirState,
     return torch.where(topk.evicted(old, new), old.ids, PAD_ID)
 
 
-def step(states: Sequence[BatchedReservoirState], batches):
+def step(states: Sequence, batches, buckets: Sequence[router.Bucket]):
     """One fleet step over all buckets: ``batches`` holds one (scores,
-    ids) (M_b, W) pair per bucket. Returns (new_states, wrotes, evicted)
-    lists, one entry per bucket.
+    ids) (M_b, W) pair per bucket, ``buckets`` the router's buckets (K
+    and backend). Returns (new_states, wrotes, evicted) lists, one entry
+    per bucket.
 
     Non-finite scores are quarantined before any compare sees them (NaN
     fails every comparison, ±inf corrupts the entry bar): they become
-    inert (-inf, -1) pad slots. Wide batches (W >= K) take
-    ``filtered_update``, narrow ones the fused sort-merge ``update``,
-    whose one sort is then cheaper."""
+    inert (-inf, -1) pad slots. Logmem buckets advance through
+    ``logmem.update`` and evict nothing ((M_b, 0) evictions). Exact
+    buckets with wide batches (W >= K) take ``filtered_update``, narrow
+    ones the fused sort-merge ``update``, whose one sort is then
+    cheaper."""
     new_states, wrotes, evs = [], [], []
-    for st, (s, i) in zip(states, batches):
+    for st, (s, i), b in zip(states, batches, buckets):
         bad = (i >= 0) & ~torch.isfinite(s)
         s = torch.where(bad, float("-inf"), s)
         i = torch.where(bad, PAD_ID, i)
-        if s.shape[1] >= st.scores.shape[1]:
-            new, wrote = filtered_update(st, s, i)
+        if b.engine == "logmem":
+            new, wrote = logmem.update(st, s, i, b.k)
+            ev = torch.full((s.shape[0], 0), PAD_ID, dtype=torch.int32,
+                            device=s.device)
         else:
-            new, wrote = update(st, s, i)
+            if s.shape[1] >= st.scores.shape[1]:
+                new, wrote = filtered_update(st, s, i)
+            else:
+                new, wrote = update(st, s, i)
+            ev = evicted_ids(st, new)
         new_states.append(new)
         wrotes.append(wrote)
-        evs.append(evicted_ids(st, new))
+        evs.append(ev)
     return new_states, wrotes, evs
 
 
@@ -207,8 +210,10 @@ class StreamSpec:
     with ``migrate`` choosing Algorithm C's cascade at the boundaries — or
     a cost model (two-tier or N-tier topology) for the proactive planner
     to derive both. Streams of different tier depths mix freely in one
-    fleet. ``engine`` is the reservoir backend; only ``"exact"`` is
-    ported."""
+    fleet. ``engine`` is the reservoir backend: ``"exact"`` keeps the
+    (K,) score/id rows, ``"logmem"`` O(log K) state (``streams.logmem``;
+    huge-K tenants) at a 1 − O(1/√K) admission slack, with static
+    boundaries only."""
 
     stream_id: int
     k: int
@@ -329,16 +334,18 @@ class StreamEngine:
         if len(by_id) != len(specs):
             raise ValueError("duplicate stream ids")
         for s in specs:
-            if s.engine == "logmem":
-                raise NotImplementedError(
-                    f"stream {s.stream_id}: engine='logmem' is not ported "
-                    "yet (ROADMAP queue 1 item 4)")
-            if s.engine != "exact":
+            if s.engine not in ("exact", "logmem"):
                 raise ValueError(f"stream {s.stream_id}: unknown engine "
                                  f"{s.engine!r} (exact|logmem)")
+            if s.engine == "logmem" and s.migrate:
+                raise ValueError(
+                    f"stream {s.stream_id}: engine='logmem' stores no "
+                    "resident ids — the migration cascade needs the exact "
+                    "backend")
         self.device = device_mod.resolve(device)
         self.buckets = router.bucket_streams(
-            {s.stream_id: s.k for s in specs})
+            {s.stream_id: s.k for s in specs},
+            {s.stream_id: s.engine for s in specs})
         self.router = router.StreamRouter(self.buckets)
         self.constraints = constraints
         # fleet plan for streams that carry a cost model (2- and N-tier mix)
@@ -365,7 +372,7 @@ class StreamEngine:
             self.plan = None
         # global row order = bucket order × row order (the meter's layout)
         self._global_rows: List[np.ndarray] = []
-        ks, bounds, migs = [], [], []
+        ks, bounds, migs, logmems = [], [], [], []
         offset = 0
         self._row_of: Dict[int, int] = {}
         self._model_of_row: Dict[int, object] = {}
@@ -378,25 +385,32 @@ class StreamEngine:
                 if spec.cost_model is not None:
                     self._model_of_row[offset + j] = spec.cost_model
                 ks.append(spec.k)
+                logmems.append(spec.engine == "logmem")
                 explicit = spec.explicit_boundaries()
                 if explicit is not None:
                     bounds.append(explicit)
                     migs.append(spec.migrate)
                 else:
                     bounds.append(b_of[sid])
-                    migs.append(mig_of[sid])
+                    # planner-derived cascades need resident ids; logmem
+                    # tenants take the plan's boundaries statically
+                    migs.append(bool(mig_of[sid])
+                                and spec.engine == "exact")
             offset += b.m
         self._sid_of_row = {row: sid for sid, row in self._row_of.items()}
-        self.meter = metering.FleetMeter(ks, migrate=migs, boundaries=bounds)
-        self._states: List[BatchedReservoirState] = [
-            init(b.m, b.k, device=self.device) for b in self.buckets]
+        self.meter = metering.FleetMeter(ks, migrate=migs, boundaries=bounds,
+                                         logmem=logmems)
+        self._states: List = [
+            (logmem.init(b.m, device=self.device) if b.engine == "logmem"
+             else init(b.m, b.k, device=self.device)) for b in self.buckets]
         # the planned boundaries are fixed for the window (re-planning is
         # not ported): quantize them for tier_assign and move them to the
-        # device once
+        # device once; logmem buckets have no survivors to assign
         self._bounds_int = [
+            None if b.engine == "logmem" else
             torch.tensor(ta_ops.quantize_boundaries(
                 self.meter.boundaries[rows]), device=self.device)
-            for rows in self._global_rows]
+            for b, rows in zip(self.buckets, self._global_rows)]
 
     @property
     def m(self) -> int:
@@ -426,7 +440,7 @@ class StreamEngine:
         states. The old state tensors return to PyTorch's caching
         allocator, which hands them to the next step: the counterpart of
         the reference's buffer donation."""
-        new_states, wrotes, evs = step(self._states, batches)
+        new_states, wrotes, evs = step(self._states, batches, self.buckets)
         self._states = new_states
         return wrotes, evs, new_states
 
@@ -434,7 +448,7 @@ class StreamEngine:
         """Host side of one step: meter the transactions."""
         if not meter:
             return
-        for bi in range(len(self.buckets)):
+        for bi, b in enumerate(self.buckets):
             dense_scores, dense_ids = dense[bi]
             # mirror the device quarantine: docs whose score is
             # non-finite were demoted to pad slots in the step, so the
@@ -442,9 +456,13 @@ class StreamEngine:
             if not np.isfinite(dense_scores).all():
                 dense_ids = np.where(np.isfinite(dense_scores), dense_ids,
                                      router.PAD_ID)
+            # logmem buckets have no resident ids: no cascade check, and
+            # their (M_b, 0) eviction set scatters nothing
+            st_ids = (None if b.engine == "logmem"
+                      else new_states[bi].ids.cpu().numpy())
             self.meter.record_update(
                 self._global_rows[bi], dense_ids, wrotes[bi].cpu().numpy(),
-                evs[bi].cpu().numpy(), new_states[bi].ids.cpu().numpy())
+                evs[bi].cpu().numpy(), st_ids)
 
     def _run_chunk(self, dense, *, meter: bool = True) -> None:
         wrotes, evs, new_states = self._dispatch(self._to_device(dense))
@@ -507,21 +525,32 @@ class StreamEngine:
             count += 1
         return count
 
-    def states(self) -> List[BatchedReservoirState]:
+    def states(self) -> List:
+        """Per-bucket states: ``BatchedReservoirState`` for exact buckets,
+        ``logmem.LogmemState`` for logmem ones."""
         return list(self._states)
 
     def thresholds(self) -> Dict[int, float]:
+        """{stream_id: entry bar} — the K-th score of exact streams, the
+        active threshold tau of logmem streams (-inf while unfull)."""
         out = {}
         for bi, b in enumerate(self.buckets):
-            bars = thresholds(self._states[bi]).cpu().numpy()
+            bar_fn = (logmem.thresholds if b.engine == "logmem"
+                      else thresholds)
+            bars = bar_fn(self._states[bi]).cpu().numpy()
             out.update({sid: float(bars[j])
                         for j, sid in enumerate(b.stream_ids)})
         return out
 
     def survivors(self) -> Dict[int, np.ndarray]:
-        """{stream_id: sorted local doc ids currently in the reservoir}."""
+        """{stream_id: sorted local doc ids currently in the reservoir}.
+        Logmem streams store no ids and report an empty set."""
         out = {}
         for bi, b in enumerate(self.buckets):
+            if b.engine == "logmem":
+                out.update({sid: np.empty(0, np.int64)
+                            for sid in b.stream_ids})
+                continue
             ids = self._states[bi].ids.cpu().numpy()
             for j, sid in enumerate(b.stream_ids):
                 v = ids[j]
@@ -530,21 +559,28 @@ class StreamEngine:
 
     def finalize(self) -> Dict[int, np.ndarray]:
         """End-of-window: meter the final top-K read per stream (tiered by
-        each stream's boundaries) and return the survivors."""
-        for bi in range(len(self.buckets)):
+        each stream's boundaries) and return the survivors. Logmem streams
+        meter no reads (no ids on the device) and return empty sets."""
+        for bi, b in enumerate(self.buckets):
+            if b.engine == "logmem":
+                continue
             self.meter.record_reads(self._global_rows[bi],
                                     self._states[bi].ids.cpu().numpy())
         return self.survivors()
 
-    def assign_tiers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def assign_tiers(self
+                     ) -> List[Optional[Tuple[torch.Tensor, torch.Tensor]]]:
         """Finalize-time tier assignment on the device: one
-        ``kernels.tier_assign`` pass per bucket maps every survivor id
-        against its stream's boundary vector (and cascade floor) to the
+        ``kernels.tier_assign`` pass per exact bucket maps every survivor
+        id against its stream's boundary vector (and cascade floor) to the
         tier its final read must hit, plus the per-tier survivor counts.
         Returns one (tier (M_b, K) int32, counts (M_b, T) int32) pair of
-        device tensors per bucket."""
+        device tensors per bucket, None for logmem buckets (no ids)."""
         out = []
-        for bi in range(len(self.buckets)):
+        for bi, b in enumerate(self.buckets):
+            if b.engine == "logmem":
+                out.append(None)
+                continue
             # the cascade floor moves as migrating streams cross their
             # boundaries, so it is read from the meter on every call
             floor = torch.tensor(
@@ -558,9 +594,12 @@ class StreamEngine:
     def finalize_tiers(self) -> Dict[int, Dict]:
         """``assign_tiers`` per stream: {stream_id: {"ids", "tiers",
         "counts"}} as numpy arrays. Agrees with the host meter's tier
-        attribution."""
+        attribution. Logmem streams are absent."""
         out: Dict[int, Dict] = {}
-        for bi, (tier, counts) in enumerate(self.assign_tiers()):
+        for bi, pair in enumerate(self.assign_tiers()):
+            if pair is None:
+                continue
+            tier, counts = pair
             tier = tier.cpu().numpy()
             counts = counts.cpu().numpy()
             ids = self._states[bi].ids.cpu().numpy()

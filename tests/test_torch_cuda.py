@@ -1,14 +1,16 @@
 """repro_torch on a CUDA card: each hand-written kernel against its plain
 PyTorch version, and the engine on the card against the engine on the
-CPU (double-buffered ingest, finalize_tiers, launch counters). Every test
-here is marked ``cuda`` and skips without a card.
+CPU (double-buffered ingest of exact and logmem buckets, finalize_tiers,
+launch counters), ``filter_then_merge`` on the card against the CPU.
+Every test here is marked ``cuda`` and skips without a card.
 
 The file imports no JAX, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Its input-case helpers are shared with the CPU parity tests
-(tests/test_torch_kernels.py, tests/test_torch_engine.py).
+(tests/test_torch_kernels.py, tests/test_torch_engine.py,
+tests/test_torch_logmem.py, tests/test_torch_topk_filter.py).
 
 Tolerance: exact — integer outputs, and maxima that are input elements.
 """
@@ -19,8 +21,11 @@ import torch
 from repro_torch.core import costs as t_costs
 from repro_torch.core import placement as t_place
 from repro_torch.core import simulator as t_sim
+from repro_torch.core import topk as t_topk
 from repro_torch.kernels.batched_topk import ops as t_btk
+from repro_torch.kernels.logmem_update import ops as t_lm_ops
 from repro_torch.kernels.tier_assign import ops as t_ta
+from repro_torch.kernels.topk_filter import ops as t_tf
 from repro_torch.streams import engine as t_eng
 
 METER_FIELDS = ("observed", "writes", "reads", "deletes", "migrations",
@@ -65,6 +70,96 @@ def ta_case(m, k, b, seed):
 
 TA_CASES = [(1, 128, 1), (5, 64, 2), (16, 33, 3), (3, 7, 4), (4, 8, 2),
             (2, 5, 7)]
+
+
+TIED_POOL = np.array([-1.0, -0.0, 0.0, 0.5, 0.5, 1.0, 2.0], np.float32)
+
+
+def tied_scores(rng, shape):
+    """Half the entries from a small pool (ties, both signed zeros), half
+    standard normal."""
+    return np.where(rng.random(shape) < 0.5,
+                    TIED_POOL[rng.integers(0, TIED_POOL.size, shape)],
+                    rng.standard_normal(shape)).astype(np.float32)
+
+
+def lm_admit_case(m, n, seed):
+    """Logmem admission inputs: tied scores, pad ids between live ones
+    (with finite pad scores), an all-pad row, thresholds of -inf, equal
+    to a score, and ordinary."""
+    rng = np.random.default_rng(seed)
+    scores = tied_scores(rng, (m, n))
+    ids = np.tile(np.arange(n, dtype=np.int32), (m, 1))
+    ids[rng.random((m, n)) < 0.15] = -1
+    tau = rng.uniform(-1, 1, m).astype(np.float32)
+    tau[0] = -np.inf
+    if m > 1:
+        ids[1] = -1
+        tau[1] = -np.inf
+    if m > 2:
+        tau[2] = 0.5
+    return scores, ids, tau
+
+
+# (M, N): one thread per row (N <= 32), one warp per tile with and
+# without 16-byte loads (N % 4), partial last tiles, the deployment chunk
+LM_CASES = [(5, 40), (3, 512), (4, 600), (2, 1024), (3, 1500), (6, 7),
+            (40, 16), (64, 8192), (3, 8190)]
+
+
+def lm_chunks(m, widths, seed):
+    """Logmem chunks of the given widths: ids continue per row across
+    chunks, 10% pads, tied scores; row 1 is all pad in the fourth chunk."""
+    rng = np.random.default_rng(seed)
+    out, lo = [], 0
+    for c, w in enumerate(widths):
+        s = tied_scores(rng, (m, w))
+        i = np.tile(np.arange(lo, lo + w, dtype=np.int32), (m, 1))
+        pad = rng.random((m, w)) < 0.1
+        if c == 3:
+            pad[1] = True
+        s[pad], i[pad] = -np.inf, -1
+        out.append((s, i))
+        lo += w
+    return out
+
+
+def mixed_fleet_specs(spec_cls, docs=192, seed=5):
+    """Six exact K=4 streams and five logmem K=64 tenants, and their
+    traces."""
+    rng = np.random.default_rng(seed)
+    specs = [spec_cls(stream_id=i, k=4, r=float(docs / 2)) for i in range(6)]
+    specs += [spec_cls(stream_id=100 + i, k=64, r=float(docs / 2),
+                       engine="logmem") for i in range(5)]
+    traces = rng.standard_normal((len(specs), docs)).astype(np.float32)
+    return specs, traces
+
+
+def ingest_mixed(eng, specs, traces, rng, batch=8, only_sids=None):
+    """Route the traces as shuffled mixed batches of ``batch`` docs per
+    stream."""
+    sids = np.array([s.stream_id for s in specs])
+    keep = (np.isin(sids, list(only_sids)) if only_sids is not None
+            else np.ones(sids.size, bool))
+    for t in range(0, traces.shape[1], batch):
+        ms = np.repeat(sids[keep], batch)
+        md = np.tile(np.arange(t, t + batch), int(keep.sum()))
+        sc = traces[keep, t:t + batch].reshape(-1)
+        perm = rng.permutation(ms.size)
+        eng.ingest(ms[perm], sc[perm], md[perm])
+
+
+def tf_case(n, seed, dtype=np.float32):
+    """One stream's scores with ties and a few NaNs."""
+    rng = np.random.default_rng(seed)
+    s = tied_scores(rng, n)
+    s[rng.random(n) < 0.01] = np.nan
+    return s.astype(dtype)
+
+
+# N: under one tile, one tile, several tiles of 4096 with a partial last
+# one (5000, 100000), N % 4 != 0 (no 16-byte loads), a million
+TF_CASES = [100, 128, 4096, 5000, 100_000, 4097, 1 << 20]
 
 
 def self_check_fleet(m, docs, rng):
@@ -202,3 +297,105 @@ def test_double_buffered_ingest_equals_sequential_on_card(cuda_device):
         plain.ingest_dense(dense, meter=False)
     for a, b in zip(piped.states()[0], plain.states()[0]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", LM_CASES)
+def test_logmem_admit_kernel_equals_plain(m, n, cuda_device):
+    scores, ids, tau = lm_admit_case(m, n, n)
+    for taus in (tau, np.full_like(tau, -np.inf)):
+        args = [torch.tensor(x, device=cuda_device)
+                for x in (scores, ids, taus)]
+        before = t_lm_ops.launches
+        out = t_lm_ops.logmem_admit(*args)
+        torch.cuda.synchronize()
+        assert t_lm_ops.launches == before + 1
+        for a, r in zip(out, t_lm_ops.reference(*args)):
+            assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TF_CASES)
+def test_topk_filter_kernel_equals_plain(n, cuda_device):
+    for dtype in (torch.float32, torch.bfloat16):
+        s = torch.tensor(tf_case(n, n), device=cuda_device).to(dtype)
+        for thr in (0.5, float("-inf"), 100.0):
+            t = torch.tensor(thr, device=cuda_device)
+            before = t_tf.launches
+            out = t_tf.topk_filter(s, t)
+            torch.cuda.synchronize()
+            assert t_tf.launches == before + 1
+            for a, r in zip(out, t_tf.reference(s, t)):
+                assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_filter_then_merge_on_card_equals_cpu(cuda_device):
+    rng = np.random.default_rng(7)
+    cpu = t_topk.init(32, device="cpu")
+    gpu = t_topk.init(32, device=cuda_device)
+    for step in range(5):
+        s = tied_scores(rng, 5000)
+        i = np.arange(step * 5000, (step + 1) * 5000, dtype=np.int32)
+        cpu, cw = t_tf.filter_then_merge(cpu, torch.tensor(s),
+                                         torch.tensor(i))
+        gpu, gw = t_tf.filter_then_merge(
+            gpu, torch.tensor(s, device=cuda_device),
+            torch.tensor(i, device=cuda_device))
+        assert torch.equal(cw, gw.cpu())
+        for a, b in zip(cpu, gpu):
+            assert torch.equal(a, b.cpu())
+
+
+def mixed_dense_chunks(n_chunks, seed):
+    """Two buckets of different widths: 16 exact K=8 streams x 16 and 4
+    logmem K=256 tenants x 512, NaN and Inf in the second chunk."""
+    rng = np.random.default_rng(seed)
+    for c in range(n_chunks):
+        s0 = rng.standard_normal((16, 16)).astype(np.float32)
+        s1 = tied_scores(rng, (4, 512))
+        if c == 1:
+            s0[0, 3], s1[1, 7] = np.nan, np.inf
+        yield [(s0, np.tile(np.arange(16 * c, 16 * c + 16, dtype=np.int32),
+                            (16, 1))),
+               (s1, np.tile(np.arange(512 * c, 512 * c + 512,
+                                      dtype=np.int32), (4, 1)))]
+
+
+def mixed_engine(device):
+    specs = [t_eng.StreamSpec(stream_id=i, k=8, boundaries=(30.0, 70.0),
+                              migrate=i % 2 == 1) for i in range(16)]
+    specs += [t_eng.StreamSpec(stream_id=100 + i, k=256, r=1024.0,
+                               engine="logmem") for i in range(4)]
+    return t_eng.StreamEngine(specs, device=device)
+
+
+@pytest.mark.cuda
+def test_mixed_engine_on_card_equals_cpu(cuda_device):
+    """Exact and logmem buckets in one double-buffered ingest on the card
+    against the same engine on the CPU: every state leaf, every meter
+    counter, finalize_tiers; the logmem epilogue's sorts on CUDA keep the
+    CPU's order."""
+    cpu, gpu = mixed_engine("cpu"), mixed_engine(cuda_device)
+    b0, l0 = t_btk.launches, t_lm_ops.launches
+    cpu.ingest_chunks(mixed_dense_chunks(12, 4))
+    assert gpu.ingest_chunks(mixed_dense_chunks(12, 4)) == 12
+    assert (t_btk.launches - b0, t_lm_ops.launches - l0) == (12, 12)
+    for cs, gs in zip(cpu.states(), gpu.states()):
+        for a, b in zip(cs, gs):
+            assert torch.equal(a, b.cpu())
+    for f in METER_FIELDS + ("logmem",):
+        np.testing.assert_array_equal(getattr(cpu.meter, f),
+                                      getattr(gpu.meter, f), err_msg=f)
+    ct, gt = cpu.finalize_tiers(), gpu.finalize_tiers()
+    assert ct.keys() == gt.keys() == set(range(16))
+    for sid in ct:
+        for key in ("ids", "tiers", "counts"):
+            np.testing.assert_array_equal(ct[sid][key], gt[sid][key])
+
+
+@pytest.mark.cuda
+def test_log2_floors_powers_of_two_on_card(cuda_device):
+    """The phase rule ⌊log₂(t/K)⌋ needs log2 exact at powers of two."""
+    x = torch.tensor([2.0 ** p for p in range(31)], device=cuda_device)
+    assert torch.floor(torch.log2(x)).int().tolist() == list(range(31))

@@ -268,9 +268,10 @@ def test_not_ported_parts_raise():
                      ({"mesh": object()}, "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             t_eng.StreamEngine(spec, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="migration cascade"):
         t_eng.StreamEngine([t_eng.StreamSpec(stream_id=0, k=4, r=10.0,
-                                             engine="logmem")], device="cpu")
+                                             engine="logmem", migrate=True)],
+                           device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         t_eng.StreamEngine([t_eng.StreamSpec(stream_id=0, k=4, r=10.0,
                                              engine="fast")], device="cpu")
