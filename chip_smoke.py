@@ -7,19 +7,25 @@ Run from the repository root, with no arguments:
 Phases, each of which ends the run with a non-zero exit code if it fails:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the four CUDA kernels compiled with nvcc for sm_90a from the
+2. build: the five CUDA kernels compiled with nvcc for sm_90a from the
    sources in the checkout (into build/kernels/), all at once; then the
    logmem phase rule's premise on the card: torch.log2 of 2^p floors to
    p for p = 0..30;
 3. parity: each kernel against its plain PyTorch version on the card at
    its paths' shapes (1,000,000 streams; 64 and 4096 logmem tenants x
-   8192; one stream of 2^20 and 2^26 scores) and edge cases; exact;
-4. timings: each kernel, its plain version and its byte bound;
+   8192; one stream of 2^20 and 2^26 scores; plan_solve at the inputs of
+   the 1,000,000-stream plan's launches and of a 4-tier constrained
+   fleet's, in float32 and float64) and edge cases; exact;
+4. timings: each kernel, its plain version and its bound (bytes, or
+   operations where they take longer);
 5. main path at full width — the defaults of examples/million_streams.py:
-   1,000,000 streams, 3 tiers, K=8, planned by the port's host planner,
-   256 docs per stream ingested with ingest_chunks in 16 chunks of 16,
-   meter off, then finalize_tiers; launch counters, per-tier counts and
-   256 sampled streams against core.simulator replays;
+   1,000,000 streams, 3 tiers, K=8, planned on the card by the device
+   planner (shp.plan_ntier_arrays, plan_solve), the shared hot-tier
+   budget water-filled and the binding streams re-solved under their
+   grants, both solves held to the NumPy oracle; then 256 docs per
+   stream ingested with ingest_chunks in 16 chunks of 16, meter off, and
+   finalize_tiers; launch counters, per-tier counts and 256 sampled
+   streams against core.simulator replays;
 6. metered self-check at the defaults of examples/multi_tenant_streams.py:
    1024 tenants, survivors against simulator replays and finalize_tiers
    against the meter's attribution; its own launch counters must show
@@ -64,6 +70,8 @@ DOCS = 256  # docs per stream in a window
 CHUNK = 16  # docs per stream per chunk
 TIMED_WINDOWS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+# H100 SXM peak rates outside the tensor cores (NVIDIA's data sheet)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 LM_STREAMS, LM_K, LM_CHUNK = 64, 65_536, 8_192  # the example's logmem tenants
 LM_FLEET = 4096  # a fleet of huge-K tenants, for the kernel's timing
 # (K, streams, docs, chunk) of benchmarks/streams_bench.py's RATIO_SWEEP
@@ -209,14 +217,128 @@ def tf_inputs(g, n, kind):
     return s, torch.tensor(thr, device="cuda")
 
 
+def fleet_args(rng, m, t, constrained):
+    """A random t-tier fleet (the reference's tests/test_plan_device.py
+    draws): cost arrays and, when ``constrained``, capacities on every
+    tier, latencies and a read-latency SLO."""
+    n = rng.integers(2_000, 1_000_000, m).astype(np.float64)
+    k = np.maximum(1, (n * rng.uniform(0.001, 0.1, m))).astype(np.float64)
+    r = lambda s: 10.0 ** rng.uniform(-8, -3, s)  # noqa: E731
+    args = (r((m, t)), r((m, t)), r((m, t)), n, k, np.ones(m))
+    if not constrained:
+        return args, {}
+    cap = k[:, None] * rng.uniform(0.05, 2.0, (m, t))
+    cap[rng.random((m, t)) < 0.3] = np.inf
+    lat = np.sort(10.0 ** rng.uniform(-3, 2, (m, t)), axis=1)
+    slo = np.where(rng.random(m) < 0.6,
+                   np.sqrt(lat[:, 0] * lat[:, -1]), np.inf)
+    return args, {"cap": cap, "lat": lat, "slo": slo}
+
+
+def capture_plan_solve(plan):
+    """Run ``plan()`` and return the inputs of every plan_solve launch it
+    made: (fs, const, combos, grids) tuples on the card."""
+    from repro_torch.kernels.plan_solve import ops as ps
+    seen = []
+    real = ps.plan_solve
+
+    def recording(*args):
+        seen.append(args)
+        return real(*args)
+
+    ps.plan_solve = recording
+    try:
+        plan()
+    finally:
+        ps.plan_solve = real
+    return seen
+
+
+def as_dtype(args, dtype):
+    """plan_solve inputs with every float tensor cast to ``dtype``."""
+    cast = lambda x: x.to(dtype) if x.is_floating_point() else x  # noqa: E731
+    fs, const, combos, grids = args
+    return (cast(fs), cast(const), combos,
+            None if grids is None else tuple(cast(x) for x in grids))
+
+
+def plan_solve_inputs():
+    """plan_solve's inputs at the main path's shapes — the four launches
+    of the unconstrained 1,000,000-stream plan (float32) and the four of
+    a constrained re-solve of 400,000 of its streams under a hot-tier cap
+    (float64) — and at a 4-tier constrained fleet's (float64)."""
+    from repro_torch.core import shp
+    rng = np.random.default_rng(7)
+    cw, cr, cs, n, kv, rpw = fleet_cost_arrays(rng, M, DOCS, K)
+    sub = slice(0, 400_000)
+    cap = np.full((400_000, 3), np.inf)
+    cap[:, 0] = rng.uniform(0.5, 6.0, 400_000)
+    args4, cons4 = fleet_args(rng, 4096, 4, True)
+    return {
+        "unconstrained": capture_plan_solve(
+            lambda: shp.plan_ntier_arrays(cw, cr, cs, n, kv, rpw)),
+        "constrained": capture_plan_solve(
+            lambda: shp.plan_ntier_arrays(
+                cw[sub], cr[sub], cs[sub], n[sub], kv[sub], rpw[sub],
+                cap=cap)),
+        "4-tier": capture_plan_solve(
+            lambda: shp.plan_ntier_arrays(*args4, **cons4,
+                                          backend="device")),
+    }
+
+
+def ps_shape(args):
+    fs, _, combos, grids = args
+    m, s, j, c = fs.shape
+    return (f"M={m} S={s} J={j} C={c} G={combos.shape[0]} "
+            f"{'masked' if grids is not None else 'unmasked'} "
+            f"{str(fs.dtype).replace('torch.', '')}")
+
+
+def ps_edge_cases(g):
+    """Edge cases at the widest main-path group shape (M=1,000,000, S=3,
+    J=2, C=8): exact cost ties across tuples and subsets, NaN terms,
+    streams masked out entirely, with lower bounds and a budget."""
+    from repro_torch.kernels.plan_solve import ops as ps
+    m, s, j, c = M, 3, 2, 8
+    dev = "cuda"
+    fs = torch.randint(0, 3, (m, s, j, c), device=dev, generator=g).double()
+    const = torch.randint(0, 3, (m, 1, 3), device=dev,
+                          generator=g).double().expand(m, s, 3).contiguous()
+    ties = (fs, const)
+    fs = torch.randn(m, s, j, c, device=dev, dtype=torch.float64, generator=g)
+    fs[::7, 0, 0, 0] = float("nan")
+    const = torch.randn(m, s, 3, device=dev, dtype=torch.float64, generator=g)
+    const[::11, 1, 0] = float("inf")
+    cand = torch.sort(torch.rand(m, s, c, device=dev, dtype=torch.float64,
+                                 generator=g) * 100, dim=2).values
+    kf = torch.rand(m, device=dev, dtype=torch.float64, generator=g) * 60 + 20
+    masks = [torch.rand(m, s, c, device=dev, generator=g) < 0.8
+             for _ in range(j)]
+    masks[0][::13] = False
+    rhs = torch.rand(m, s, device=dev, dtype=torch.float64, generator=g) - 0.3
+    kw = dict(cand=cand, kf=kf, masks=masks,
+              pair_caps=[kf[:, None] * torch.rand(
+                  m, s, device=dev, dtype=torch.float64, generator=g) * 1.5],
+              alpha=(torch.rand(m, s, j, device=dev, dtype=torch.float64,
+                                generator=g) - 0.5) / 50,
+              rhs=rhs, atol=1e-9 * rhs.abs() + 1e-15)
+    combos = torch.as_tensor(ps.monotone_combos(c, j).astype(np.uint8),
+                             device=dev)
+    return {"ties": (*ties, combos, None),
+            "NaN terms, infeasible subsets and streams, lower bounds and "
+            "budget": ps.solve_inputs(fs, tuple(const.unbind(2)), **kw)}
+
+
 def kernel_parity():
     from repro_torch.kernels.batched_topk import ops as btk
     from repro_torch.kernels.logmem_update import ops as lm
     from repro_torch.kernels.tier_assign import ops as ta
     from repro_torch.kernels.topk_filter import ops as tf
     g = torch.Generator(device="cuda").manual_seed(0)
+    from repro_torch.kernels.plan_solve import ops as ps
     errs = {"batched_topk": 0.0, "tier_assign": 0.0, "logmem_update": 0.0,
-            "topk_filter": 0.0}
+            "topk_filter": 0.0, "plan_solve": 0.0}
     for n, kind, label in ((16, "unfull", "-inf bars: pad columns counted"),
                            (16, "ties", "bars equal to scores"),
                            (16, "plain", "main-path width"),
@@ -272,7 +394,22 @@ def kernel_parity():
         errs["topk_filter"] = max(errs["topk_filter"], err)
         log(f"parity topk_filter [{label}] N={n}: exact (max abs diff "
             f"{err})")
-    return errs
+    solves = plan_solve_inputs()
+    cases = [(f"{name} launch {i}", as_dtype(a, dtype))
+             for name, launches in solves.items()
+             for i, a in enumerate(launches)
+             for dtype in (torch.float32, torch.float64)]
+    for label, args in ps_edge_cases(g).items():
+        cases += [(label, as_dtype(args, dtype))
+                  for dtype in (torch.float32, torch.float64)]
+    for label, args in cases:
+        out = ps.plan_solve(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, ps.reference(*args))
+        errs["plan_solve"] = max(errs["plan_solve"], err)
+        log(f"parity plan_solve [{label}] {ps_shape(args)}: exact (val and "
+            f"idx; max abs diff {err})")
+    return errs, solves
 
 
 def device_ms(fn, reps, kernel):
@@ -296,6 +433,62 @@ def device_ms(fn, reps, kernel):
                              f"not {reps}")
     return sum(e.time_range.end - e.time_range.start
                for e in runs) / reps / 1e3  # microseconds -> ms
+
+
+def ps_work(args):
+    """(bytes, floating-point operations) one plan_solve launch needs:
+    every input read once, the outputs written once; per tuple the step
+    terms and constants added, and when masked the latency deltas added
+    and each pairwise lower bound's slack (a multiply and a subtract)."""
+    fs, const, combos, grids = args
+    m, s, j, c = fs.shape
+    g = combos.shape[0]
+    tensors = [fs, const, combos] + list(grids or ())
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    nbytes += m * (fs.element_size() + 4)
+    per_tuple = j + const.shape[2]
+    if grids is not None:
+        per_tuple += j + 2 * (j - 1)
+    return nbytes, m * s * (g * per_tuple + (grids is not None))
+
+
+def plan_solve_timings(solves):
+    """plan_solve's device time per launch (profiler), wrapper and plain
+    times and bound, summed over each solve's launches; the main path's
+    unconstrained solve goes into the kernels line."""
+    from repro_torch.kernels.plan_solve import ops as ps
+    out = {}
+    for name, launches in solves.items():
+        tot = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "bytes_ms": 0.0, "ops_ms": 0.0}
+        for i, args in enumerate(launches):
+            nbytes, flops = ps_work(args)
+            t = {"ms": device_ms(lambda: ps.plan_solve(*args), 20,
+                                 "plan_solve_kernel"),
+                 "call_ms": cuda_ms(lambda: ps.plan_solve(*args), 20),
+                 "plain_ms": cuda_ms(lambda: ps.reference(*args), 3),
+                 "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "ops_ms": flops / PEAK_FLOPS[args[0].dtype] * 1e3}
+            t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+            for key in tot:
+                tot[key] += t[key]
+            log(f"timing plan_solve [{name} launch {i}: {ps_shape(args)}]: "
+                f"kernel {t['ms']:.4f} ms on the device (profiler); "
+                f"{t['call_ms']:.4f} ms per wrapper call; plain "
+                f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+                f"(bytes {t['bytes_ms']:.4f} at 3.35 TB/s, operations "
+                f"{t['ops_ms']:.4f})")
+        tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                           else "operations")
+        tot["library_ms"] = None
+        out[name] = tot
+        log(f"timing plan_solve [{name}, {len(launches)} launches per "
+            f"solve]: kernel {tot['ms']:.4f} ms; wrapper calls "
+            f"{tot['call_ms']:.4f} ms; plain {tot['plain_ms']:.4f} ms; "
+            f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+    log("library_ms plan_solve: null — no single PyTorch call gives the "
+        "masked joint first minimum over monotone tuples and subsets")
+    return out["unconstrained"]
 
 
 def kernel_timings():
@@ -343,7 +536,7 @@ def kernel_timings():
                     "call_ms": cuda_ms(call, 200),
                     "plain_ms": cuda_ms(plain, 10),
                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                    "library_ms": None}
+                    "bound_by": "bytes", "library_ms": None}
         t = out[key]
         log(f"timing {key} [{shape}]: kernel {t['ms']:.4f} ms on the device "
             f"(profiler); {t['call_ms']:.4f} ms per wrapper call (CUDA "
@@ -380,35 +573,143 @@ def fleet_cost_arrays(rng, m, n_docs, k):
             rng.uniform(0.5, 4.0, m))
 
 
+def eval_plan(args, bounds, mig):
+    """The float64 plan objective at given (bounds, migrate), with the
+    planner's conventions (the reference's tests/test_plan_device.py)."""
+    from repro_torch.core import shp
+    cw, cr, cs, n, k, rpw = args
+    m, t = cw.shape
+    edges = np.concatenate([np.zeros((m, 1)), bounds, n[:, None]], 1)
+    frac = np.diff(edges, axis=1) / n[:, None]
+    writes = (np.diff(shp._w_approx(edges, k[:, None]), axis=1) * cw).sum(1)
+    reads = rpw * k * (frac * cr).sum(1)
+    tot_nm = writes + reads + k * np.max(np.where(frac > 0, cs, -np.inf), 1)
+    fee = np.zeros(m)
+    prev = np.zeros(m, np.int64)
+    usedm = np.concatenate([frac[:, :-1] > 0, np.ones((m, 1), bool)], 1)
+    crossing = usedm[:, 1:] & np.logical_or.accumulate(usedm, 1)[:, :-1]
+    for ti in range(1, t):
+        fee = fee + np.where(crossing[:, ti - 1],
+                             cr[np.arange(m), prev] + cw[:, ti], 0.0)
+        prev = np.where(usedm[:, ti], ti, prev)
+    return np.where(mig, writes + k * (frac * cs).sum(1) + k * fee, tot_nm)
+
+
+def check_f32_plan(label, args, ref, got):
+    """The reference's float32 rule: the device plan re-evaluates within
+    1e-5 of the oracle's optimum; reported totals within 5e-3."""
+    tot_err = float(np.max(np.abs(got["total"] / ref["total"] - 1)))
+    subopt = float(np.max(np.abs(
+        eval_plan(args, got["bounds"], got["migrate"]) / ref["total"] - 1)))
+    log(f"{label}: float32 device plan vs the NumPy oracle: totals within "
+        f"{tot_err:.3e} relative (limit 5e-3), re-evaluated suboptimality "
+        f"{subopt:.3e} (limit 1e-5)")
+    if not (tot_err < 5e-3 and subopt < 1e-5):
+        raise AssertionError(f"{label}: float32 plan off the oracle")
+
+
+def check_f64_plan(label, args, ref, got):
+    """The reference's float64 rule: feasibility and migrate equal,
+    infeasible bounds zeroed, totals within 1e-11 relative, bounds equal
+    or re-evaluating to the oracle's total within 1e-11."""
+    feas = np.isfinite(ref["total"])
+    rel = float(np.max(np.abs(got["total"][feas] / ref["total"][feas] - 1),
+                       initial=0.0))
+    moved = feas & ~(got["bounds"] == ref["bounds"]).all(axis=1)
+    re_ev = eval_plan(args, got["bounds"], got["migrate"])
+    rel_b = float(np.max(np.abs(re_ev[moved] / ref["total"][moved] - 1),
+                         initial=0.0))
+    ok = (np.array_equal(np.isfinite(got["total"]), feas)
+          and np.array_equal(got["migrate"], ref["migrate"])
+          and (got["bounds"][~feas] == 0).all() and rel <= 1e-11
+          and rel_b <= 1e-11)
+    log(f"{label}: float64 device plan vs the NumPy oracle: {int(feas.sum())}"
+        f" feasible, feasibility and migrate equal: {ok}; totals within "
+        f"{rel:.3e} relative, {int(moved.sum())} plans with other bounds "
+        f"re-evaluate within {rel_b:.3e} (limit 1e-11)")
+    if not ok:
+        raise AssertionError(f"{label}: float64 plan off the oracle")
+
+
 def plan_fleet(rng, hot_frac=0.6):
-    """The example's plan: closed-form solve, fleet-shared hot-tier
-    budget water-filled, binding streams re-solved under their grant."""
+    """The example's plan on the card: closed-form solve, fleet-shared
+    hot-tier budget water-filled, binding streams re-solved under their
+    grant — through shp.plan_ntier_arrays, whose "auto" rule takes the
+    device planner here. Both solves are then held to the NumPy oracle
+    on the same fleet."""
     from repro_torch.core import constraints as cons
     from repro_torch.core import shp
+    from repro_torch.kernels.plan_solve import ops as ps
     from repro_torch.streams import planner
-    cw, cr, cs, n, kv, rpw = fleet_cost_arrays(rng, M, DOCS, K)
+    args = fleet_cost_arrays(rng, M, DOCS, K)
+    cw, cr, cs, n, kv, rpw = args
+    # the counted run: counter to 0, plan, read
+    ps.launches = 0
     t0 = time.perf_counter()
-    plan = shp.plan_ntier_arrays(cw, cr, cs, n, kv, rpw)
+    plan = shp.plan_ntier_arrays(*args)
     t_solve = time.perf_counter() - t0
+    n_solve = ps.launches
     bounds, mig = plan["bounds"].copy(), plan["migrate"].copy()
     desired = cons.peak_occupancy_arrays(bounds, n, kv, mig)[:, 0]
     budget = float(desired.sum()) * hot_frac
     grants = planner.waterfill(desired, budget)
     idx = np.flatnonzero(grants < desired - 1e-9)
-    t0 = time.perf_counter()
+    sub = tuple(a[idx] for a in args)
     cap = np.full((idx.size, 3), np.inf)
     cap[:, 0] = grants[idx]
-    re = shp.plan_ntier_arrays(cw[idx], cr[idx], cs[idx], n[idx], kv[idx],
-                               rpw[idx], cap=cap)
-    bounds[idx], mig[idx] = re["bounds"], re["migrate"]
+    t0 = time.perf_counter()
+    re = shp.plan_ntier_arrays(*sub, cap=cap)
     t_resolve = time.perf_counter() - t0
+    launches = ps.launches
+    log(f"plan launches: plan_solve {n_solve} in the solve, "
+        f"{launches - n_solve} in the re-solve")
+    if n_solve != 4 or launches != 8:
+        raise AssertionError(f"the plan missed plan_solve: {n_solve}, "
+                             f"{launches}")
+    bounds[idx], mig[idx] = re["bounds"], re["migrate"]
     hot = cons.peak_occupancy_arrays(bounds, n, kv, mig)[:, 0].sum()
     if not hot <= budget * (1 + 1e-9) + 1e-6:
         raise AssertionError("hot-tier budget oversubscribed")
-    log(f"plan: {M} streams, 3 tiers: solve {t_solve:.3f}s, constrained "
-        f"re-solve of {idx.size} binding streams {t_resolve:.3f}s; hot "
-        f"peak {hot:.0f} <= budget {budget:.0f}; {int(mig.sum())} migrating")
-    return bounds, mig
+    t0 = time.perf_counter()
+    host = shp.plan_ntier_arrays(*args, backend="numpy")
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_re = shp.plan_ntier_arrays(*sub, cap=cap, backend="numpy")
+    t_host_re = time.perf_counter() - t0
+    log(f"plan: {M} streams, 3 tiers on the card: solve {t_solve:.3f}s "
+        f"(NumPy oracle {t_host:.3f}s), constrained re-solve of {idx.size} "
+        f"binding streams {t_resolve:.3f}s (NumPy oracle {t_host_re:.3f}s); "
+        f"hot peak {hot:.0f} <= budget {budget:.0f}; {int(mig.sum())} "
+        f"migrating")
+    check_f32_plan("plan", args, host, plan)
+    check_f64_plan("re-solve", sub, host_re, re)
+    plan_profile(args)
+    return bounds, mig, launches
+
+
+def plan_profile(args):
+    """torch.profiler over one more unconstrained solve of the fleet: its
+    wall time, the device's busy share, and the top device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import shp
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        shp.plan_ntier_arrays(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = union_ms(dev)
+    log(f"plan profile: {M}-stream solve: wall {wall_ms:.3f} ms (profiler "
+        f"on); device busy {busy:.3f} ms = {busy / wall_ms:.3f} of wall; "
+        f"{len(dev)} device operations")
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in ops[:8]:
+        log(f"plan profile: {e.self_device_time_total / 1e3:9.4f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
 
 
 def window_chunks(rng, window, n_chunks=DOCS // CHUNK):
@@ -452,7 +753,7 @@ def main_path():
     from repro_torch.kernels.tier_assign import ops as ta
     from repro_torch.streams import StreamEngine, StreamSpec
     rng = np.random.default_rng(0)
-    bounds, mig = plan_fleet(rng)
+    bounds, mig, ps_launches = plan_fleet(rng)
     t0 = time.perf_counter()
     eng = StreamEngine([StreamSpec(stream_id=i, k=K, boundaries=tuple(b),
                                    migrate=bool(g))
@@ -474,6 +775,7 @@ def main_path():
     t_fin = time.perf_counter() - t0
     launches = {"batched_topk": btk.launches, "tier_assign": ta.launches}
     log(f"main-path launches: {launches}")
+    launches["plan_solve"] = ps_launches
     t0 = time.perf_counter()
     eng.assign_tiers()
     torch.cuda.synchronize()
@@ -866,8 +1168,10 @@ def main():
     smi = environment()
     build_kernels()
     log2_rule()
-    errs = kernel_parity()
+    errs, solves = kernel_parity()
     times = kernel_timings()
+    times["plan_solve"] = plan_solve_timings(solves)
+    del solves
     eng, launches, rng, (bounds, mig, rate5) = main_path()
     self_check()
     step_profile(eng, window_chunks(rng, 1 + TIMED_WINDOWS, 4),
@@ -882,7 +1186,8 @@ def main():
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",
         "logmem_update":
             "src/repro/kernels/logmem_update/logmem_update.py:40",
-        "topk_filter": "src/repro/kernels/topk_filter/topk_filter.py:33"}
+        "topk_filter": "src/repro/kernels/topk_filter/topk_filter.py:33",
+        "plan_solve": "src/repro/kernels/plan_solve/plan_solve.py:81"}
     kernels = []
     for name in replaces:
         t = times[name]
@@ -892,7 +1197,7 @@ def main():
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -21,8 +21,10 @@ from dataclasses import dataclass
 from typing import Literal, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import constraints as constraints_mod
+from . import shp_device
 from .constraints import ConstraintSet, ReadLatencySLO
 from .costs import NTierCostModel, TwoTierCostModel
 
@@ -746,21 +748,57 @@ def _cascade_fee(cr, cw, used_cols):
     return fee
 
 
+# Backend for the vectorized N-tier solve: "auto" routes fleets (M >=
+# _DEVICE_MIN_M, T <= 4) on a CUDA device through the device solver
+# (``core.shp_device`` + the ``kernels.plan_solve`` reduction) and keeps
+# small or deep problems, and CPU callers, on the NumPy oracle below —
+# the reference the device path is tested against.
+_DEVICE_MIN_M = 64
+
+
+def _auto_device(device) -> torch.device:
+    """``device`` when given, else the CUDA card when there is one, else
+    the CPU (which keeps "auto" on the host solver)."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def plan_ntier_arrays(cw, cr, cs, n, k, rpw, *, cap=None, lat=None,
-                      slo=None, force_constrained=False, backend=None):
+                      slo=None, force_constrained=False, backend=None,
+                      device=None):
     """Vectorized multi-threshold planner over M streams sharing one tier
-    count T (see ``plan_ntier_arrays_numpy`` for the model). ``backend``
-    None, "auto" or "numpy" runs the NumPy solver; "jax", the device
-    solver, raises until it is ported."""
+    count T — dispatches between the device solver and the NumPy oracle
+    (same contract; see ``plan_ntier_arrays_numpy`` for the model).
+
+    ``backend`` "numpy" runs the host solver; "device" runs
+    ``shp_device`` on ``device`` (the CUDA card unless the caller names
+    another; raises without one, and raises ``DeviceSolverUnavailable``
+    for T > 4); None or "auto" takes the device for 2 <= T <= 3
+    constrained or T <= 4 unconstrained fleets of M >= 64 streams when
+    the device (``device``, else the card if there is one) is CUDA, and
+    the NumPy solver otherwise."""
     cw = np.asarray(cw, np.float64)
     m, t = cw.shape
     if t > MAX_TIERS:
         raise ValueError(f"topologies over {MAX_TIERS} tiers not supported")
     if backend == "jax":
-        raise NotImplementedError(
-            "the device planner is not ported yet (ROADMAP queue 1 item 5)")
-    if backend not in (None, "auto", "numpy"):
+        raise ValueError("the port's device planner backend is 'device', "
+                         "not 'jax'")
+    if backend not in (None, "auto", "numpy", "device"):
         raise ValueError(f"unknown planner backend {backend!r}")
+    b = backend
+    if b in (None, "auto"):
+        # constrained 4-tier fleets stay on the oracle: their exact joint
+        # enumeration is G ~ C^3 tuples per subset
+        con = force_constrained or not constraints_mod.trivial(cap, slo)
+        t_max = _ENUM_MAX_STEPS + (0 if con else 1)
+        b = ("device" if 2 <= t <= t_max and m >= _DEVICE_MIN_M
+             and _auto_device(device).type == "cuda" else "numpy")
+    if b == "device":
+        return shp_device.plan_ntier_arrays_device(
+            cw, cr, cs, n, k, rpw, cap=cap, lat=lat, slo=slo,
+            force_constrained=force_constrained, device=device)
     return plan_ntier_arrays_numpy(cw, cr, cs, n, k, rpw, cap=cap, lat=lat,
                                    slo=slo,
                                    force_constrained=force_constrained)
@@ -1033,9 +1071,11 @@ def plan_placement_ntier(cm: NTierCostModel,
                               migrate=migrate, n_docs=wl.n_docs, t=cm.t)
 
 
-def plan_ntier_batch(models: Sequence[NTierCostModel], constraints=None):
+def plan_ntier_batch(models: Sequence[NTierCostModel], constraints=None, *,
+                     device=None):
     """Vectorized plan for a batch of N-tier models sharing one T.
-    ``constraints`` is a shared ``ConstraintSet`` or one per model.
+    ``constraints`` is a shared ``ConstraintSet`` or one per model;
+    ``device`` goes to ``plan_ntier_arrays``.
     Returns (total (M,), bounds (M, T-1), migrate (M,), strategies list)."""
     t = models[0].t
     if any(m.t != t for m in models):
@@ -1053,7 +1093,8 @@ def plan_ntier_batch(models: Sequence[NTierCostModel], constraints=None):
     cap = np.stack([c[0] for c in compiled])
     lat = np.stack([c[1] for c in compiled])
     slo = np.array([c[2] for c in compiled])
-    out = plan_ntier_arrays(cw, cr, cs, n, k, rpw, cap=cap, lat=lat, slo=slo)
+    out = plan_ntier_arrays(cw, cr, cs, n, k, rpw, cap=cap, lat=lat, slo=slo,
+                            device=device)
     strategies = [("infeasible" if not np.isfinite(out["total"][i])
                    else ntier_strategy_name(out["bounds"][i], n[i], t,
                                             bool(out["migrate"][i])))

@@ -7,4 +7,6 @@
 #   logmem_update — logmem admission scan (mask, per-tile admit/live counts
 #                   and live max)
 #   topk_filter  — one-stream bar scan behind filter_then_merge
-from . import batched_topk, logmem_update, tier_assign, topk_filter  # noqa: F401
+#   plan_solve   — the device planner's masked joint argmin over monotone
+#                  boundary tuples and tier subsets
+from . import batched_topk, logmem_update, plan_solve, tier_assign, topk_filter  # noqa: F401

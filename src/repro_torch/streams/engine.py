@@ -355,7 +355,8 @@ class StreamEngine:
                 raise ValueError(
                     "each stream needs r, boundaries, or a cost_model")
             plan = planner.plan_fleet_mixed(
-                [s.cost_model for s in planned], constraints=constraints)
+                [s.cost_model for s in planned], constraints=constraints,
+                device=self.device)
             bad = [s.stream_id for i, s in enumerate(planned)
                    if not plan.feasible(i)]
             if bad:

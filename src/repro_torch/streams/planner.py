@@ -131,7 +131,8 @@ def _safe_div(num: np.ndarray, den: np.ndarray) -> np.ndarray:
 
 
 def plan_fleet(models_or_costs, constraints: Optional[ConstraintSet] = None,
-               lat: Optional[np.ndarray] = None) -> FleetPlan:
+               lat: Optional[np.ndarray] = None, *,
+               device=None) -> FleetPlan:
     """Plan every stream in the fleet in one vectorized pass.
 
     Accepts a sequence of ``TwoTierCostModel`` or a prebuilt ``FleetCosts``.
@@ -144,7 +145,8 @@ def plan_fleet(models_or_costs, constraints: Optional[ConstraintSet] = None,
     per-tier read latencies ((2,) or (M, 2)) for ``ReadLatencySLO``
     constraints — the legacy two-tier cost models carry none. Byte-
     denominated capacities need document sizes: plan those fleets via
-    ``plan_fleet_mixed`` with full cost models.
+    ``plan_fleet_mixed`` with full cost models. ``device`` goes to
+    ``shp.plan_ntier_arrays`` (its "auto" rule picks the solver).
     """
     fc = (models_or_costs if isinstance(models_or_costs, FleetCosts)
           else FleetCosts.from_models(models_or_costs))
@@ -157,7 +159,7 @@ def plan_fleet(models_or_costs, constraints: Optional[ConstraintSet] = None,
             raise ValueError(
                 "byte-denominated capacities need document sizes — plan "
                 "via plan_fleet_mixed with full cost models")
-        return _plan_fleet_constrained(fc, constraints, lat)
+        return _plan_fleet_constrained(fc, constraints, lat, device)
     n, k, rpw = fc.n, fc.k, fc.reads_per_window
     log_n_over_k = np.log(n / k)
 
@@ -197,7 +199,7 @@ def plan_fleet(models_or_costs, constraints: Optional[ConstraintSet] = None,
 
 
 def _plan_fleet_constrained(fc: FleetCosts, cset: ConstraintSet,
-                            lat: Optional[np.ndarray]) -> FleetPlan:
+                            lat: Optional[np.ndarray], device) -> FleetPlan:
     """The constrained two-tier fleet pass: stack the struct-of-arrays
     view into (M, 2) tier columns and run the constrained N-tier solver,
     mapping its boundary-vector plans back onto the four legacy candidate
@@ -215,7 +217,8 @@ def _plan_fleet_constrained(fc: FleetCosts, cset: ConstraintSet,
         (m, 2))
     slo = np.broadcast_to(np.float64(cset.max_read_latency), (m,))
     out = shp.plan_ntier_arrays(cw, cr, cs, fc.n, fc.k, fc.reads_per_window,
-                                cap=cap, lat=lat_arr, slo=slo)
+                                cap=cap, lat=lat_arr, slo=slo,
+                                device=device)
     feasible = np.isfinite(out["total"])
     r = out["bounds"][:, 0]
     mig = out["migrate"]
@@ -314,7 +317,7 @@ def _as_ntier_models(models) -> List[NTierCostModel]:
 
 
 def _plan_mixed_ntier(nt_models, csets, boundaries, migrate,
-                      strategies, totals, only=None) -> None:
+                      strategies, totals, only=None, device=None) -> None:
     """One N-tier pass per distinct tier count (constrained when the
     per-stream sets say so), writing the per-stream results in place.
     ``only`` restricts to a subset of stream indices (the unconstrained
@@ -326,7 +329,7 @@ def _plan_mixed_ntier(nt_models, csets, boundaries, migrate,
     for t, idxs in sorted(by_t.items()):
         tot, bounds, mig, strats = shp.plan_ntier_batch(
             [nt_models[i] for i in idxs],
-            constraints=[csets[i] for i in idxs])
+            constraints=[csets[i] for i in idxs], device=device)
         for j, i in enumerate(idxs):
             boundaries[i] = tuple(float(b) for b in bounds[j])
             migrate[i] = bool(mig[j])
@@ -335,7 +338,8 @@ def _plan_mixed_ntier(nt_models, csets, boundaries, migrate,
 
 
 def plan_fleet_mixed(models: Sequence[TwoTierCostModel | NTierCostModel],
-                     constraints=None, *, mesh=None) -> MixedFleetPlan:
+                     constraints=None, *, mesh=None,
+                     device=None) -> MixedFleetPlan:
     """Plan a heterogeneous fleet in a handful of vectorized passes: one
     legacy two-tier pass plus one N-tier pass per distinct tier count.
 
@@ -347,6 +351,8 @@ def plan_fleet_mixed(models: Sequence[TwoTierCostModel | NTierCostModel],
     the binding streams under their grant — the fleet's total expected
     occupancy then never exceeds C (asserted by the property tests).
 
+    ``device`` goes to ``shp.plan_ntier_arrays`` for every N-tier pass
+    (the CUDA device plans fleets on the card; see its "auto" rule).
     ``mesh`` (sharded planning across devices) is not ported yet
     (ROADMAP queue 1 item 9) and raises.
     """
@@ -380,7 +386,7 @@ def plan_fleet_mixed(models: Sequence[TwoTierCostModel | NTierCostModel],
         two_idx = [i for i, cm in enumerate(models)
                    if isinstance(cm, TwoTierCostModel)]
         if two_idx:
-            plan = plan_fleet([models[i] for i in two_idx])
+            plan = plan_fleet([models[i] for i in two_idx], device=device)
             for j, i in enumerate(two_idx):
                 boundaries[i] = (float(plan.r[j]),)
                 migrate[i] = plan.migrate(j)
@@ -394,7 +400,8 @@ def plan_fleet_mixed(models: Sequence[TwoTierCostModel | NTierCostModel],
                 raise TypeError(
                     f"stream {i}: unsupported cost model {type(cm)}")
         _plan_mixed_ntier(models, [None] * m, boundaries, migrate,
-                          strategies, totals, only=ntier_idx)
+                          strategies, totals, only=ntier_idx,
+                          device=device)
         return MixedFleetPlan(boundaries=tuple(boundaries),
                               migrate_flags=migrate,
                               strategies=tuple(strategies), totals=totals)
@@ -402,7 +409,7 @@ def plan_fleet_mixed(models: Sequence[TwoTierCostModel | NTierCostModel],
     nt_models = _as_ntier_models(models)
     csets = list(per_stream)
     _plan_mixed_ntier(nt_models, csets, boundaries, migrate,
-                      strategies, totals)
+                      strategies, totals, device=device)
     done_tiers: List[int] = []
     for cap_c in sorted(shared, key=lambda c: c.tier):
         if cap_c.max_bytes is not None:
@@ -435,7 +442,8 @@ def plan_fleet_mixed(models: Sequence[TwoTierCostModel | NTierCostModel],
                       for t in done_tiers]
             csets[i] = ConstraintSet(*csets[i], *extra)
         _plan_mixed_ntier(nt_models, csets, boundaries, migrate,
-                          strategies, totals, only=list(binding))
+                          strategies, totals, only=list(binding),
+                          device=device)
         done_tiers.append(cap_c.tier)
     return MixedFleetPlan(boundaries=tuple(boundaries),
                           migrate_flags=migrate,

@@ -1,8 +1,9 @@
 """repro_torch on a CUDA card: each hand-written kernel against its plain
 PyTorch version, and the engine on the card against the engine on the
 CPU (double-buffered ingest of exact and logmem buckets, finalize_tiers,
-launch counters), ``filter_then_merge`` on the card against the CPU.
-Every test here is marked ``cuda`` and skips without a card.
+launch counters), ``filter_then_merge`` on the card against the CPU,
+and the device planner on the card against the NumPy oracle. Every test
+here is marked ``cuda`` and skips without a card.
 
 The file imports no JAX, so it runs on the card's machine:
 
@@ -10,9 +11,13 @@ The file imports no JAX, so it runs on the card's machine:
 
 Its input-case helpers are shared with the CPU parity tests
 (tests/test_torch_kernels.py, tests/test_torch_engine.py,
-tests/test_torch_logmem.py, tests/test_torch_topk_filter.py).
+tests/test_torch_logmem.py, tests/test_torch_topk_filter.py,
+tests/test_torch_plan_solve.py).
 
-Tolerance: exact — integer outputs, and maxima that are input elements.
+Tolerance: exact — integer outputs, maxima that are input elements, and
+plan_solve's minima, which both versions reach by the same adds in the
+same order. The planner on the card is held to the oracle with the
+reference's own tolerances (float64: 1e-11 relative on totals).
 """
 import numpy as np
 import pytest
@@ -20,10 +25,13 @@ import torch
 
 from repro_torch.core import costs as t_costs
 from repro_torch.core import placement as t_place
+from repro_torch.core import shp as t_shp
+from repro_torch.core import shp_device as t_dev
 from repro_torch.core import simulator as t_sim
 from repro_torch.core import topk as t_topk
 from repro_torch.kernels.batched_topk import ops as t_btk
 from repro_torch.kernels.logmem_update import ops as t_lm_ops
+from repro_torch.kernels.plan_solve import ops as t_ps
 from repro_torch.kernels.tier_assign import ops as t_ta
 from repro_torch.kernels.topk_filter import ops as t_tf
 from repro_torch.streams import engine as t_eng
@@ -160,6 +168,71 @@ def tf_case(n, seed, dtype=np.float32):
 # N: under one tile, one tile, several tiles of 4096 with a partial last
 # one (5000, 100000), N % 4 != 0 (no 16-byte loads), a million
 TF_CASES = [100, 128, 4096, 5000, 100_000, 4097, 1 << 20]
+
+
+def ps_case(m, s, j, c, kind, seed, dtype=np.float64):
+    """Inputs of ``plan_solve.enum_solve`` for M streams, S subsets, J
+    steps, C sorted candidates (numpy). ``kind``: "plain" (unmasked),
+    "masked" (step masks), "lb" (masks and pairwise lower bounds),
+    "budget" (masks and a latency budget), "all" (all three, stream 0
+    masked out entirely), "ties" (integer terms and constants equal
+    across subsets: exact cost ties across tuples and subsets), "nan" (a
+    NaN term in some subsets)."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        fs = rng.integers(0, 3, (m, s, j, c)).astype(dtype)
+        consts = [np.repeat(rng.integers(0, 3, (m, 1)), s, 1).astype(dtype)
+                  for _ in range(3)]
+    else:
+        fs = rng.standard_normal((m, s, j, c)).astype(dtype)
+        consts = [rng.standard_normal((m, s)).astype(dtype)
+                  for _ in range(3)]
+        consts[0][rng.random((m, s)) < 0.1] = np.inf  # infeasible subsets
+    if kind == "nan":
+        fs[rng.random((m, s)) < 0.2, 0, 0] = np.nan
+    case = {"fs": fs, "consts": consts,
+            "cand": np.sort(rng.uniform(0, 100, (m, s, c)), 2).astype(dtype)}
+    if kind in ("masked", "lb", "budget", "all"):
+        case["masks"] = [rng.random((m, s, c)) < 0.8 for _ in range(j)]
+        case["masks"][0][:, :, 0] = True
+        if kind == "all":
+            for mk in case["masks"]:
+                mk[0] = False
+    if kind in ("lb", "all") and j > 1:
+        kf = rng.uniform(20, 80, m).astype(dtype)
+        caps = []
+        for _ in range(j - 1):
+            cap = (kf[:, None] * rng.uniform(0.1, 1.5, (m, s))).astype(dtype)
+            cap[rng.random((m, s)) < 0.2] = np.inf
+            caps.append(cap)
+        case.update(kf=kf, pair_caps=caps)
+    if kind in ("budget", "all"):
+        case["alpha"] = (rng.uniform(-1, 1, (m, s, j)) / 100).astype(dtype)
+        rhs = rng.uniform(-0.3, 1.0, (m, s)).astype(dtype)
+        case["rhs"] = rhs
+        case["atol"] = (1e-9 * np.abs(rhs) + 1e-15).astype(dtype)
+    return case
+
+
+def ps_tensors(case, device):
+    """``ps_case`` as torch keyword arguments on ``device``."""
+    def conv(x):
+        if isinstance(x, list):
+            return [conv(a) for a in x]
+        return torch.tensor(x, device=device)
+    out = {key: conv(v) for key, v in case.items()}
+    return out.pop("fs"), out.pop("consts"), out
+
+
+# (M, S, J, C, kind): the planner's group shapes (unconstrained 3-tier
+# fleets: S <= 3, J <= 2, C <= 6; constrained: C <= 8), a 4-tier
+# constrained shape (J = 3, C = 21) and every kind of case
+PS_CASES = [(300, 3, 1, 4, "plain"), (300, 1, 2, 6, "plain"),
+            (300, 2, 1, 4, "masked"), (300, 1, 2, 8, "lb"),
+            (300, 3, 2, 6, "budget"), (300, 3, 2, 8, "all"),
+            (300, 3, 2, 6, "ties"), (300, 3, 2, 6, "nan"),
+            (40, 1, 3, 21, "all"), (40, 4, 2, 21, "all"),
+            (40, 2, 3, 9, "ties")]
 
 
 def self_check_fleet(m, docs, rng):
@@ -392,6 +465,78 @@ def test_mixed_engine_on_card_equals_cpu(cuda_device):
     for sid in ct:
         for key in ("ids", "tiers", "counts"):
             np.testing.assert_array_equal(ct[sid][key], gt[sid][key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,s,j,c,kind", PS_CASES)
+def test_plan_solve_kernel_equals_plain(m, s, j, c, kind, dtype,
+                                        cuda_device):
+    fs, consts, kw = ps_tensors(ps_case(m, s, j, c, kind, m + c, dtype),
+                                cuda_device)
+    args = t_ps.solve_inputs(fs, consts, **kw)
+    n0 = t_ps.launches
+    out = t_ps.plan_solve(*args)
+    torch.cuda.synchronize()
+    assert t_ps.launches == n0 + 1
+    for a, r in zip(out, t_ps.reference(*args)):
+        assert torch.equal(a, r)
+
+
+def planner_fleet(rng, m, t, constrained):
+    """A random t-tier fleet's cost arrays and, when ``constrained``,
+    capacities, latencies and an SLO (the reference's planner tests'
+    draws)."""
+    n = rng.integers(2_000, 1_000_000, m).astype(np.float64)
+    k = np.maximum(1, n * rng.uniform(0.001, 0.1, m))
+    r = lambda s: 10.0 ** rng.uniform(-8, -3, s)  # noqa: E731
+    args = (r((m, t)), r((m, t)), r((m, t)), n, k, np.ones(m))
+    if not constrained:
+        return args, {}
+    cap = k[:, None] * rng.uniform(0.05, 2.0, (m, t))
+    cap[rng.random((m, t)) < 0.3] = np.inf
+    lat = np.sort(10.0 ** rng.uniform(-3, 2, (m, t)), axis=1)
+    slo = np.where(rng.random(m) < 0.6, np.sqrt(lat[:, 0] * lat[:, -1]),
+                   np.inf)
+    return args, {"cap": cap, "lat": lat, "slo": slo}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,constrained", [(2, True), (3, False), (3, True),
+                                           (4, False), (4, True)])
+def test_device_planner_on_card_matches_oracle(t, constrained, cuda_device):
+    """float64 plans on the card: feasibility and migrate equal to the
+    NumPy oracle's, totals within 1e-11 relative, infeasible bounds
+    zeroed."""
+    args, cons = planner_fleet(np.random.default_rng(t), 2000, t,
+                               constrained)
+    ref = t_shp.plan_ntier_arrays(*args, **cons, backend="numpy")
+    n0 = t_ps.launches
+    got = t_dev.plan_ntier_arrays_device(*args, **cons, precision="float64",
+                                         device=cuda_device)
+    assert t_ps.launches - n0 == 2 * t - 2  # one per group of subsets
+    feas = np.isfinite(ref["total"])
+    np.testing.assert_array_equal(np.isfinite(got["total"]), feas)
+    assert (got["bounds"][~feas] == 0).all()
+    np.testing.assert_allclose(got["total"][feas], ref["total"][feas],
+                               rtol=1e-11)
+    np.testing.assert_array_equal(got["migrate"], ref["migrate"])
+
+
+@pytest.mark.cuda
+def test_engine_on_card_plans_on_card(cuda_device):
+    rng = np.random.default_rng(0)
+    args, _ = planner_fleet(rng, 64, 3, False)
+    n0 = t_ps.launches
+    out = t_shp.plan_ntier_arrays(*args)  # "auto": the card
+    assert t_ps.launches - n0 == 4 and np.isfinite(out["total"]).all()
+    specs = self_check_fleet(64, 128, rng)
+    models = [s.cost_model.as_ntier() for s in specs]
+    n0 = t_ps.launches
+    eng = t_eng.StreamEngine(
+        [t_eng.StreamSpec(stream_id=i, k=cm.workload.k, cost_model=cm)
+         for i, cm in enumerate(models)], device=cuda_device)
+    assert t_ps.launches - n0 == 2 and eng.plan.m == 64
 
 
 @pytest.mark.cuda
