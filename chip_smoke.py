@@ -7,7 +7,7 @@ Run from the repository root, with no arguments:
 Phases, each of which ends the run with a non-zero exit code if it fails:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the five CUDA kernels compiled with nvcc for sm_90a from the
+2. build: the seven CUDA kernels compiled with nvcc for sm_90a from the
    sources in the checkout (into build/kernels/), all at once; then the
    logmem phase rule's premise on the card: torch.log2 of 2^p floors to
    p for p = 0..30;
@@ -15,9 +15,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    its paths' shapes (1,000,000 streams; 64 and 4096 logmem tenants x
    8192; one stream of 2^20 and 2^26 scores; plan_solve at the inputs of
    the 1,000,000-stream plan's launches and of a 4-tier constrained
-   fleet's, in float32 and float64) and edge cases; exact;
+   fleet's, in float32 and float64) and edge cases; exact; then
+   flash_attention and entropy_scores at the score producer's shapes
+   and edge cases (see below);
 4. timings: each kernel, its plain version and its bound (bytes, or
-   operations where they take longer);
+   operations where they take longer), with the PyTorch call that
+   computes the same function where there is one;
 5. main path at full width — the defaults of examples/million_streams.py:
    1,000,000 streams, 3 tiers, K=8, planned on the card by the device
    planner (shp.plan_ntier_arrays, plan_solve), the shared hot-tier
@@ -45,7 +48,24 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    RATIO_SWEEP (benchmarks/streams_bench.py) on the card, held to the
    1 - c/sqrt(K) guarantee and to the port's CPU run;
 10. single-stream path: filter_then_merge at K=1024 over 64 batches of
-   2^20 scores, survivors against numpy's top-1024 of the whole trace.
+   2^20 scores, survivors against numpy's top-1024 of the whole trace;
+11. the score producer at full width: llama3.2-1b (16 layers, d_model
+   2048, 32 heads over 8 KV heads, vocab 128,256, float32) with weights
+   from a seeded torch.Generator on the card, serving 64 requests in
+   batches of 8 (prompts of 1024 tokens, 32 generated) through
+   launch.serve.serve, once retained by the single-tenant curator and
+   TieredStore and once by the 8-tenant StreamEngine; flash_attention
+   runs every prefill layer (16 launches a batch) and entropy_scores
+   every scored decode step (31 a batch); the first batch teacher-forced
+   through the kernel route and the plain route (grouped attention,
+   -sum p log p) on the card; retained sets against the top-K of the
+   scores and simulator replays; profiles of a prefill and of decode
+   steps.
+
+Phase 3 also holds flash_attention and entropy_scores against their
+plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
+(bfloat16) relative and absolute, the tolerances of the reference's own
+kernel tests: the kernels sum in another order.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -68,7 +88,8 @@ M = 1_000_000  # streams on the main path
 K = 8
 DOCS = 256  # docs per stream in a window
 CHUNK = 16  # docs per stream per chunk
-TIMED_WINDOWS = 3
+TIMED_WINDOWS = 1  # phase 5's timed windows after the counted one
+MIXED_TIMED_WINDOWS = 1  # phase 8's
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # H100 SXM peak rates outside the tensor cores (NVIDIA's data sheet)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
@@ -78,10 +99,31 @@ LM_FLEET = 4096  # a fleet of huge-K tenants, for the kernel's timing
 RATIO_SWEEP = ((256, 64, 16_384, 512), (4_096, 8, 131_072, 2_048),
                (65_536, 2, 262_144, 8_192))
 TF_K, TF_BATCH, TF_BATCHES = 1024, 1 << 20, 64  # the single-stream path
+ARCH = "llama3.2-1b"  # the score producer, at full width
+SERVE = dict(requests=64, batch=8, prompt_len=1024, gen_len=32, topk=8)
+SERVE_TENANTS = 8
+# flash_attention at the serve path's prefill: (B, S, H, KV, hd)
+FA_PATH = (SERVE["batch"], SERVE["prompt_len"], 32, 8, 64)
+ENT_PATH = (SERVE["batch"], 128_256)  # entropy_scores per decode step
+ENT_LARGE = (2048, 128_256)  # a large scorer shape, 1.05 GB of float32
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+class phase_clock:
+    """Logs the wall seconds a phase took when its block ends."""
+
+    def __init__(self, label):
+        self.label = label
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        log(f"phase clock: {self.label} took "
+            f"{time.perf_counter() - self.t0:.1f}s")
 
 
 def cuda_ms(fn, reps):
@@ -112,6 +154,25 @@ def max_abs_err(outs, refs):
         if not torch.equal(a, b):
             raise AssertionError(f"kernel differs from its plain version "
                                  f"(max abs diff {worst})")
+    return worst
+
+
+def within_tol(outs, refs, tol):
+    """A kernel's outputs against its plain version's where the two sum in
+    another order: every output finite where the plain one is, and
+    |a - b| <= tol * (1 + |b|). Returns the largest absolute
+    difference."""
+    worst = 0.0
+    for a, b in zip(outs, refs):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"shape/dtype {a.shape} {a.dtype} vs "
+                                 f"{b.shape} {b.dtype}")
+        a, b = a.double(), b.double()
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        if not bool((diff <= tol * (1 + b.abs())).all()):
+            raise AssertionError(f"kernel differs from its plain version "
+                                 f"beyond {tol} (max abs diff {worst})")
     return worst
 
 
@@ -418,14 +479,19 @@ def device_ms(fn, reps, kernel, attempts=3):
     warm-up call. The kernel's own time, without the host's launch
     overhead, which a CUDA-event timing of a short kernel measures.
 
-    The profiler can drop a kernel record now and then (seen for a 3 us
-    kernel launched 100 times back to back), so a profile that does not
-    hold exactly ``reps`` launches is taken again, up to ``attempts``
-    times in all, and the timing fails after that."""
+    The profiler drops kernel records now and then (seen for 3 us and
+    0.1 ms kernels launched back to back: from a few records to all of
+    them in one profile), so a profile that does not hold exactly
+    ``reps`` launches is taken again, up to ``attempts`` times in all.
+    When none is complete, the mean is taken over the records of the
+    fullest profile, which must hold at least a tenth of the launches;
+    the timing fails otherwise, and when a profile holds more records
+    than launches (another kernel matching the name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    best = []
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -434,13 +500,23 @@ def device_ms(fn, reps, kernel, attempts=3):
             torch.cuda.synchronize()
         runs = [e for e in prof.events()
                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(runs) > reps:
+            raise AssertionError(f"profiled {len(runs)} launches of {kernel} "
+                                 f"for {reps} calls")
+        if len(runs) > len(best):
+            best = runs
         if len(runs) == reps:
-            return sum(e.time_range.end - e.time_range.start
-                       for e in runs) / reps / 1e3  # microseconds -> ms
+            break
         log(f"profile {attempt} of {attempts} held {len(runs)} launches of "
             f"{kernel}, not {reps}")
-    raise AssertionError(f"profiled a number of launches of {kernel} other "
-                         f"than {reps} in each of {attempts} profiles")
+    if len(best) < max(1, reps // 10):
+        raise AssertionError(f"no profile of {kernel} held a tenth of its "
+                             f"{reps} launches in {attempts} attempts")
+    if len(best) < reps:
+        log(f"timing {kernel}: mean over the {len(best)} of {reps} launches "
+            f"the fullest profile held")
+    return sum(e.time_range.end - e.time_range.start
+               for e in best) / len(best) / 1e3  # microseconds -> ms
 
 
 def ps_work(args):
@@ -559,6 +635,151 @@ def kernel_timings():
         log(f"library_ms {name}: null — no single PyTorch call gives the "
             f"kernel's mask (or tiers) together with its per-tile or "
             f"per-tier counts and maxima ({call})")
+    return out
+
+
+# (label, B, Sq, Skv, H, KV, hd, causal, window) for flash_attention
+FA_CASES = (("serve prefill", *FA_PATH[:2], *FA_PATH[1:], True, 0),  # Sq = Skv
+            ("causal", 1, 128, 128, 2, 2, 64, True, 0),
+            ("window 16", 1, 128, 128, 2, 2, 32, True, 16),
+            ("window 64", 1, 128, 128, 2, 2, 32, True, 64),
+            ("non-causal", 1, 64, 64, 2, 2, 32, False, 0),
+            ("ragged Sq = Skv = 100", 1, 100, 100, 2, 2, 64, True, 0),
+            ("Sq < Skv", 1, 64, 192, 2, 2, 32, True, 0),
+            ("GQA 32 over 8, ragged", 2, 300, 300, 32, 8, 64, True, 0),
+            ("GQA, Sq < Skv, window 100", 1, 200, 520, 8, 2, 64, True, 100),
+            ("Sq > Skv: rows with no key", 1, 40, 24, 2, 2, 16, True, 0))
+
+
+def fa_inputs(g, b, sq, skv, h, kvh, hd, dtype):
+    shape = lambda s, n: (b, s, n, hd)  # noqa: E731
+    return [torch.randn(shape(sq, h), device="cuda", generator=g).to(dtype),
+            torch.randn(shape(skv, kvh), device="cuda", generator=g).to(dtype),
+            torch.randn(shape(skv, kvh), device="cuda", generator=g).to(dtype)]
+
+
+def ent_inputs(g, b, v, kind, dtype):
+    """Logits of three kinds: 3 x N(0, 1) (as the reference's tests),
+    peaked (one logit at 100) and uniform (all zero); labels at random."""
+    if kind == "peaked":
+        logits = torch.zeros((b, v), device="cuda")
+        logits[:, 7] = 100.0
+    elif kind == "uniform":
+        logits = torch.zeros((b, v), device="cuda")
+    else:
+        logits = torch.randn((b, v), device="cuda", generator=g) * 3
+    labels = torch.randint(0, v, (b,), device="cuda", dtype=torch.int32,
+                           generator=g)
+    return logits.to(dtype), labels
+
+
+def score_kernel_parity():
+    """flash_attention and entropy_scores against their plain versions on
+    the card, float32 and bfloat16: the largest absolute difference in
+    float32 (the serve path's type) per kernel."""
+    from repro_torch.kernels.entropy_scores import ops as ent
+    from repro_torch.kernels.flash_attention import ops as fa
+    g = torch.Generator(device="cuda").manual_seed(4)
+    errs = {"flash_attention": 0.0, "entropy_scores": 0.0}
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    for label, b, sq, skv, h, kvh, hd, causal, window in FA_CASES:
+        for dtype, tol in tols.items():
+            q, k, v = fa_inputs(g, b, sq, skv, h, kvh, hd, dtype)
+            kw = dict(causal=causal, window=window)
+            out = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = within_tol([out.float()],
+                             [fa.reference(q, k, v, **kw).float()], tol)
+            if dtype == torch.float32:
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+            log(f"parity flash_attention [{label}] B={b} Sq={sq} Skv={skv} "
+                f"H={h} KV={kvh} hd={hd} causal={causal} window={window} "
+                f"{str(dtype)[6:]}: max abs diff {err:.3e} (limit {tol} "
+                f"relative and absolute)")
+    for b, v, kind, label in ((*ENT_PATH, "normal", "serve decode step"),
+                              (*ENT_LARGE, "normal", "large scorer shape"),
+                              (5, 5001, "normal", "V=5001, scalar loads"),
+                              (3, 128_257, "normal", "V=128,257"),
+                              (4, 4096, "peaked", "peaked"),
+                              (4, 4096, "uniform", "uniform")):
+        for dtype, tol in tols.items():
+            if b * v > 8 * 128_256 and dtype != torch.float32:
+                continue
+            logits, labels = ent_inputs(g, b, v, kind, dtype)
+            out = ent.entropy_nll(logits, labels)
+            torch.cuda.synchronize()
+            err = within_tol(out, ent.reference(logits, labels), tol)
+            if dtype == torch.float32:
+                errs["entropy_scores"] = max(errs["entropy_scores"], err)
+            log(f"parity entropy_scores [{label}] B={b} V={v} "
+                f"{str(dtype)[6:]}: entropy and nll max abs diff {err:.3e} "
+                f"(limit {tol} relative and absolute)")
+    return errs
+
+
+def score_kernel_timings():
+    """flash_attention at the serve path's prefill shape and entropy_scores
+    at its decode shape (and a large scorer shape): device ms (profiler),
+    wrapper ms, plain ms, bound, and the PyTorch call that computes the
+    same function as the yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.entropy_scores import ops as ent
+    from repro_torch.kernels.flash_attention import ops as fa
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    b, s, h, kvh, hd = FA_PATH
+    q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
+    # the library yardstick: SDPA on (B, heads, S, hd) with grouped heads
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = b * h * s * (s + 1) // 2  # causal: visible (query, key) pairs
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * hd * pairs  # a multiply-add each for q.k and p.v
+    t = {"ms": device_ms(lambda: fa.flash_attention(q, k, v), 10,
+                         "flash_fwd"),
+         "call_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
+         "plain_ms": cuda_ms(lambda: fa.reference(q, k, v), 3),
+         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "ops_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
+    t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+    t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+    out["flash_attention"] = t
+    log(f"timing flash_attention [q ({b}, {s}, {h}, {hd}), k and v ({b}, "
+        f"{s}, {kvh}, {hd}) f32, causal]: kernel {t['ms']:.4f} ms on the "
+        f"device (profiler); {t['call_ms']:.4f} ms per wrapper call; plain "
+        f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}: {flops:.4g} operations at 67 TFLOP/s float32, "
+        f"{t['bytes_ms']:.4f} ms of bytes); library_ms "
+        f"{t['library_ms']:.4f} = torch.nn.functional."
+        f"scaled_dot_product_attention(is_causal, enable_gqa) on (B, heads, "
+        f"S, hd) copies, never called by the port")
+    del q, k, v, qt, kt, vt
+    for key, (b, v) in (("entropy_scores", ENT_PATH),
+                        ("entropy_scores@large", ENT_LARGE)):
+        logits, labels = ent_inputs(g, b, v, "normal", torch.float32)
+        lab64 = labels.long()
+        nbytes = 4 * b * v + 4 * b + 8 * b
+        flops = 5 * b * v  # compare, subtract, exp, add, multiply-add
+        t = {"ms": device_ms(lambda: ent.entropy_nll(logits, labels), 50,
+                             "entropy_nll_rows"),
+             "call_ms": cuda_ms(lambda: ent.entropy_nll(logits, labels), 50),
+             "plain_ms": cuda_ms(lambda: ent.reference(logits, labels), 5),
+             "library_ms": cuda_ms(lambda: F.cross_entropy(
+                 logits, lab64, reduction="none"), 20),
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations")
+        out[key] = t
+        log(f"timing {key} [logits ({b}, {v}) f32]: kernel {t['ms']:.4f} ms "
+            f"on the device (profiler); {t['call_ms']:.4f} ms per wrapper "
+            f"call; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']}); library_ms {t['library_ms']:.4f} = "
+            f"torch.nn.functional.cross_entropy(reduction='none'), which "
+            f"computes the NLL half alone, never called by the port")
+        del logits, labels, lab64
     return out
 
 
@@ -1075,7 +1296,7 @@ def mixed_fleet(bounds, mig, rate5):
     trace = np.concatenate([ch[0][0][sample] for ch in first], axis=1)
     check_sample(eng, sample, trace, bounds, mig, tiers)
     rates = []
-    for w in range(1, 3):
+    for w in range(1, MIXED_TIMED_WINDOWS + 1):
         chunks = mixed_window_chunks(rng, w)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1083,11 +1304,12 @@ def mixed_fleet(bounds, mig, rate5):
         torch.cuda.synchronize()
         rates.append(docs / (time.perf_counter() - t0))
     log(f"mixed fleet ingest: counted window {docs / t_first:.6g} docs/s, "
-        f"2 timed windows {rates[0]:.6g} and {rates[1]:.6g} docs/s "
+        f"{len(rates)} timed window(s) "
+        f"{' and '.join(f'{r:.6g}' for r in rates)} docs/s "
         f"({docs} docs per window); phase 5 (exact only, {M * DOCS} docs "
         f"per window): first window {rate5['first']:.6g}, median of "
         f"{TIMED_WINDOWS} timed {rate5['median']:.6g} docs/s")
-    step_profile(eng, mixed_window_chunks(rng, 3, 4),
+    step_profile(eng, mixed_window_chunks(rng, 1 + MIXED_TIMED_WINDOWS, 4),
                  f"{M} x {CHUNK} exact + {LM_STREAMS} x {LM_CHUNK} logmem")
     return launches
 
@@ -1164,6 +1386,191 @@ def single_stream():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the score producer at full width
+# ---------------------------------------------------------------------------
+
+def profile_report(prof, label, steps, wall_ms, smi):
+    """Device busy share and top device operations of a profiled window
+    of ``steps`` steps that took ``wall_ms`` per step."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = union_ms(dev) / steps
+    log(f"{label} profile: {steps} step(s): wall {wall_ms:.3f} ms/step "
+        f"(profiler on); device busy {busy:.3f} ms/step = "
+        f"{busy / wall_ms:.3f} of wall; {len(dev) // steps} device "
+        f"operations per step; {smi}")
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in ops) or 1.0
+    for e in ops[:8]:
+        log(f"{label} profile: {e.self_device_time_total / 1e3 / steps:9.4f} "
+            f"ms/step {e.self_device_time_total / total:6.3f}  {e.key[:90]}")
+    if busy <= 0:
+        raise AssertionError(f"the {label} profile saw no device time")
+
+
+def serve_profile(params, cfg, prompts, smi, steps=4):
+    """torch.profiler over one prefill of a batch, then over ``steps``
+    decode steps (each: the model, the entropy_scores kernel, argmax):
+    wall ms, the device's busy share, the top operations."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import interestingness
+    from repro_torch.models import lm
+    b, s = prompts.shape
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    cache = lm.init_cache(cfg, b, s + steps + 1, device=prompts.device)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, {"tokens": prompts}, cache)
+        tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_report(prof, f"prefill ({b} x {s})", 1, wall_ms, smi)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = lm.decode_step(params, cfg, tok, cache)
+            interestingness.entropy_score(logits[:, None])
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    profile_report(prof, f"decode (batch {b})", steps, wall_ms, smi)
+
+
+def teacher_forced(params, cfg, prompts):
+    """The first batch through the kernel route and, fed the kernel
+    route's tokens, through the plain route (grouped attention in
+    prefill, -sum p log p per step) on the card: logits and scores held
+    within the stated tolerance, argmax agreement printed."""
+    from repro_torch.launch import serve
+    gen = SERVE["gen_len"]
+    a = serve.generate(params, cfg, prompts, gen, keep_logits=True)
+    b = serve.generate(params, cfg, prompts, gen, use_kernel=False,
+                       forced=a.tokens, keep_logits=True)
+    d_pre = float((a.logits[0] - b.logits[0]).abs().max())
+    d_dec = max(float((x - y).abs().max())
+                for x, y in zip(a.logits[1:], b.logits[1:]))
+    d_sc = float((a.scores - b.scores).abs().max())
+    agree = float((a.tokens == b.tokens).float().mean())
+    scale = float(a.logits[0].abs().max())
+    log(f"teacher-forced, first batch ({prompts.shape[0]} x "
+        f"{prompts.shape[1]} prompt tokens, {gen} generated): kernel route "
+        f"vs plain route on the card: prefill logits max abs diff "
+        f"{d_pre:.3e}, decode logits {d_dec:.3e} (limit 1e-3; logits up to "
+        f"{scale:.3f}), scores {d_sc:.3e} (limit 1e-4; scores near "
+        f"{float(a.scores.mean()):.4f}); argmax agrees in {agree:.4f} of "
+        f"{a.tokens.numel()} steps")
+    if not (d_pre <= 1e-3 and d_dec <= 1e-3 and d_sc <= 1e-4):
+        raise AssertionError("kernel route differs from the plain route "
+                             "beyond the stated tolerance")
+
+
+def check_serve(res, cfg, batches, label, smi):
+    """Launch counts of one counted serve run, finite scores of the right
+    shape, and the timing lines."""
+    from repro_torch.kernels.entropy_scores import ops as ent
+    from repro_torch.kernels.flash_attention import ops as fa
+    launches = {"flash_attention": fa.launches,
+                "entropy_scores": ent.launches}
+    want = {"flash_attention": cfg.n_layers * batches,
+            "entropy_scores": (SERVE["gen_len"] - 1) * batches}
+    log(f"serve [{label}] launches: {launches} (want {want}: one "
+        f"flash_attention per layer per prefill, one entropy_scores per "
+        f"scored decode step)")
+    if launches != want:
+        raise AssertionError(f"serve [{label}] launches {launches} != "
+                             f"{want}")
+    n = SERVE["requests"]
+    if not (res.scores.shape == (n,) and np.isfinite(res.scores).all()
+            and res.tokens.shape == (n, SERVE["gen_len"])
+            and ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"serve [{label}]: scores or tokens malformed")
+    pre = [x * 1e3 for x in res.prefill_s]
+    dec = [x * 1e3 / (SERVE["gen_len"] - 1) for x in res.decode_s]
+    gen_tok = n * SERVE["gen_len"] / res.seconds
+    log(f"serve [{label}]: {n} requests in {res.seconds:.3f}s: prefill "
+        f"ms per batch of {SERVE['batch']} x {SERVE['prompt_len']} median "
+        f"{statistics.median(pre):.3f} (min {min(pre):.3f}, max "
+        f"{max(pre):.3f}); decode ms per token step (batch "
+        f"{SERVE['batch']}) median {statistics.median(dec):.3f} (min "
+        f"{min(dec):.3f}, max {max(dec):.3f}); {res.tokens_per_s:.6g} "
+        f"tokens/s (prompt and generated), {gen_tok:.6g} generated "
+        f"tokens/s; host clock, device synced at each phase end; {smi}")
+    return launches
+
+
+def score_producer(smi):
+    """Phase 11. Returns the launches of flash_attention and entropy_scores
+    summed over the two counted serve runs (single tenant, 8 tenants)."""
+    from repro_torch import configs
+    from repro_torch.core import placement, simulator
+    from repro_torch.kernels.entropy_scores import ops as ent
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"score producer: {ARCH} full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+        f"KV heads, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype}): {lm.param_count(cfg)} parameters drawn on the "
+        f"card in {time.perf_counter() - t0:.3f}s; TF32 off for matmul and "
+        f"cuDNN; {smi}")
+    b, plen = SERVE["batch"], SERVE["prompt_len"]
+    first = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, plen)), device="cuda")
+    teacher_forced(params, cfg, first)
+    batches = -(-SERVE["requests"] // b)
+    torch.cuda.reset_peak_memory_stats()
+    # the counted runs: counters to 0, serve, read
+    fa.launches = ent.launches = 0
+    one = serve.serve(cfg, params, tenants=1, device="cuda", **SERVE)
+    launches = check_serve(one, cfg, batches, "single tenant", smi)
+    log(f"serve [single tenant] scores: "
+        f"{' '.join(f'{x:.7g}' for x in one.scores)}")
+    order = np.lexsort((np.arange(SERVE["requests"]), -one.scores))
+    want = sorted(order[:SERVE["topk"]].tolist())
+    log(f"serve [single tenant]: curation {one.curator.stats.as_dict()}, "
+        f"ledger {one.store.ledger.as_dict()}; retained {one.retained}, "
+        f"top-{SERVE['topk']} of the scores (ties to the lower id) {want}")
+    if one.retained != want:
+        raise AssertionError("retained set is not the top-K of the scores")
+    fa.launches = ent.launches = 0
+    many = serve.serve(cfg, params, tenants=SERVE_TENANTS, device="cuda",
+                       **SERVE)
+    for key, n in check_serve(many, cfg, batches, f"{SERVE_TENANTS} tenants",
+                              smi).items():
+        launches[key] += n
+    eng, bad = many.engine, 0
+    ids = np.arange(SERVE["requests"])
+    for t, spec in enumerate(many.specs):
+        row = eng.stream_row(t)
+        pol = placement.Policy(boundaries=tuple(eng.meter.boundaries[row]),
+                               migrate_at_r=bool(eng.meter.migrate[row]))
+        trace = many.scores[ids % SERVE_TENANTS == t].astype(np.float64)
+        sim = simulator.simulate(trace, spec.k, pol)
+        bad += not np.array_equal(many.retained[t], sim.survivor_ids)
+    rec = many.reconcile
+    log(f"serve [{SERVE_TENANTS} tenants]: survivors of "
+        f"{SERVE_TENANTS - bad}/{SERVE_TENANTS} tenants equal their "
+        f"core.simulator replay; K per tenant {[s.k for s in many.specs]}; "
+        f"writes actual {rec['fleet_actual']:.0f} expected "
+        f"{rec['fleet_expected']:.1f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if bad:
+        raise AssertionError("tenant survivors differ from simulator "
+                             "replays")
+    serve_profile(params, cfg, first, smi)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1174,28 +1581,41 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     smi = environment()
-    build_kernels()
-    log2_rule()
-    errs, solves = kernel_parity()
-    times = kernel_timings()
-    times["plan_solve"] = plan_solve_timings(solves)
-    del solves
-    eng, launches, rng, (bounds, mig, rate5) = main_path()
-    self_check()
-    step_profile(eng, window_chunks(rng, 1 + TIMED_WINDOWS, 4),
-                 f"{M} x {CHUNK}")
-    del eng
-    launches["logmem_update"] = mixed_fleet(bounds, mig,
-                                            rate5)["logmem_update"]
-    huge_k_harness()
-    launches["topk_filter"] = single_stream()
+    with phase_clock("build and log2 rule (phase 2)"):
+        build_kernels()
+        log2_rule()
+    with phase_clock("parity and timings (phases 3-4)"):
+        errs, solves = kernel_parity()
+        times = kernel_timings()
+        times["plan_solve"] = plan_solve_timings(solves)
+        del solves
+        errs.update(score_kernel_parity())
+        times.update(score_kernel_timings())
+    with phase_clock("main path, self-check, step profile (phases 5-7)"):
+        eng, launches, rng, (bounds, mig, rate5) = main_path()
+        self_check()
+        step_profile(eng, window_chunks(rng, 1 + TIMED_WINDOWS, 4),
+                     f"{M} x {CHUNK}")
+        del eng
+    with phase_clock("mixed fleet, huge-K harness, single stream "
+                     "(phases 8-10)"):
+        launches["logmem_update"] = mixed_fleet(bounds, mig,
+                                                rate5)["logmem_update"]
+        huge_k_harness()
+        launches["topk_filter"] = single_stream()
+    with phase_clock("score producer (phase 11)"):
+        launches.update(score_producer(smi))
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",
         "logmem_update":
             "src/repro/kernels/logmem_update/logmem_update.py:40",
         "topk_filter": "src/repro/kernels/topk_filter/topk_filter.py:33",
-        "plan_solve": "src/repro/kernels/plan_solve/plan_solve.py:81"}
+        "plan_solve": "src/repro/kernels/plan_solve/plan_solve.py:81",
+        "entropy_scores":
+            "src/repro/kernels/entropy_scores/entropy_scores.py:56",
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:64"}
     kernels = []
     for name in replaces:
         t = times[name]

@@ -86,3 +86,43 @@ class TierTopology:
 
     def replace(self, **kw) -> "TierTopology":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Presets
+# ---------------------------------------------------------------------------
+
+def hbm_dram_disk_preset(n_docs: int, k: int, doc_gb: float,
+                         window_seconds: float,
+                         hbm_bw_gbps: float = 819.0,
+                         host_link_gbps: float = 32.0,
+                         disk_bw_gbps: float = 2.0,
+                         hbm_capacity_premium: float = 50.0,
+                         hbm_capacity_docs: float | None = None
+                         ) -> "NTierCostModel":
+    """Hardware-derived 3-tier hierarchy: device HBM → host DRAM → local
+    disk/object store, extending ``costs.hbm_host_preset`` one level down.
+    "Cost" is seconds of bandwidth occupancy plus a capacity-opportunity
+    rental premium that falls two orders of magnitude per level.
+    ``hbm_capacity_docs`` declares the device slab's hard slot budget
+    (HBM is the one tier that physically cannot oversubscribe); the
+    constrained planner then keeps the hot boundary under it."""
+    from .costs import DAYS_PER_MONTH, NTierCostModel, TierCosts, WorkloadSpec
+    months = window_seconds / (DAYS_PER_MONTH * 24 * 3600)
+    hbm = TierCosts("device-hbm", put_per_doc=doc_gb / hbm_bw_gbps,
+                    get_per_doc=doc_gb / hbm_bw_gbps,
+                    storage_per_gb_month=hbm_capacity_premium)
+    dram = TierCosts("host-dram", put_per_doc=doc_gb / host_link_gbps,
+                     get_per_doc=doc_gb / host_link_gbps,
+                     storage_per_gb_month=hbm_capacity_premium / 100.0)
+    disk = TierCosts("local-disk", put_per_doc=doc_gb / disk_bw_gbps,
+                     get_per_doc=doc_gb / disk_bw_gbps,
+                     storage_per_gb_month=hbm_capacity_premium / 10_000.0)
+    topo = TierTopology(tiers=(
+        TierSpec(hbm, capacity_docs=hbm_capacity_docs,
+                 read_latency_s=doc_gb / hbm_bw_gbps),
+        TierSpec(dram, read_latency_s=doc_gb / host_link_gbps),
+        TierSpec(disk, read_latency_s=doc_gb / disk_bw_gbps),
+    ), name="hbm-dram-disk")
+    wl = WorkloadSpec(n_docs=n_docs, k=k, doc_gb=doc_gb, window_months=months)
+    return NTierCostModel(topology=topo, workload=wl)

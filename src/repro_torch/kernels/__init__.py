@@ -9,4 +9,6 @@
 #   topk_filter  — one-stream bar scan behind filter_then_merge
 #   plan_solve   — the device planner's masked joint argmin over monotone
 #                  boundary tuples and tier subsets
-from . import batched_topk, logmem_update, plan_solve, tier_assign, topk_filter  # noqa: F401
+#   entropy_scores — per-row predictive entropy and NLL of (B, V) logits
+#   flash_attention — forward attention, online softmax, grouped KV heads
+from . import batched_topk, entropy_scores, flash_attention, logmem_update, plan_solve, tier_assign, topk_filter  # noqa: F401

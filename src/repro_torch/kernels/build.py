@@ -20,7 +20,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 KERNELS = ("batched_topk", "tier_assign", "logmem_update", "topk_filter",
-           "plan_solve")
+           "plan_solve", "entropy_scores", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

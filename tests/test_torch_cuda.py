@@ -2,8 +2,9 @@
 PyTorch version, and the engine on the card against the engine on the
 CPU (double-buffered ingest of exact and logmem buckets, finalize_tiers,
 launch counters), ``filter_then_merge`` on the card against the CPU,
-and the device planner on the card against the NumPy oracle. Every test
-here is marked ``cuda`` and skips without a card.
+the device planner on the card against the NumPy oracle, and the serve
+loop on the card (flash_attention and entropy_scores) against the CPU.
+Every test here is marked ``cuda`` and skips without a card.
 
 The file imports no JAX, so it runs on the card's machine:
 
@@ -18,6 +19,9 @@ Tolerance: exact — integer outputs, maxima that are input elements, and
 plan_solve's minima, which both versions reach by the same adds in the
 same order. The planner on the card is held to the oracle with the
 reference's own tolerances (float64: 1e-11 relative on totals).
+flash_attention and entropy_nll sum in another order than their plain
+versions: 2e-5 in float32 and 2e-2 in bfloat16 (the reference's
+tolerances for its kernels), and serve's scores within 2e-5.
 """
 import numpy as np
 import pytest
@@ -29,11 +33,16 @@ from repro_torch.core import shp as t_shp
 from repro_torch.core import shp_device as t_dev
 from repro_torch.core import simulator as t_sim
 from repro_torch.core import topk as t_topk
+from repro_torch import configs as t_configs
 from repro_torch.kernels.batched_topk import ops as t_btk
+from repro_torch.kernels.entropy_scores import ops as t_ent
+from repro_torch.kernels.flash_attention import ops as t_fa
 from repro_torch.kernels.logmem_update import ops as t_lm_ops
 from repro_torch.kernels.plan_solve import ops as t_ps
 from repro_torch.kernels.tier_assign import ops as t_ta
 from repro_torch.kernels.topk_filter import ops as t_tf
+from repro_torch.launch import serve as t_serve
+from repro_torch.models import lm as t_lm
 from repro_torch.streams import engine as t_eng
 
 METER_FIELDS = ("observed", "writes", "reads", "deletes", "migrations",
@@ -544,3 +553,124 @@ def test_log2_floors_powers_of_two_on_card(cuda_device):
     """The phase rule ⌊log₂(t/K)⌋ needs log2 exact at powers of two."""
     x = torch.tensor([2.0 ** p for p in range(31)], device=cuda_device)
     assert torch.floor(torch.log2(x)).int().tolist() == list(range(31))
+
+
+# (b, sq, skv, h, kvh, hd, causal, window): the reference's sweeps, ragged
+# and cross lengths, windows, non-causal, grouped heads, the serve path's
+# head layout
+FA_CASES = [(1, 128, 128, 2, 2, 64, True, 0), (2, 256, 256, 1, 1, 32, True, 0),
+            (1, 100, 100, 2, 2, 64, True, 0), (1, 64, 192, 2, 2, 32, True, 0),
+            (1, 128, 128, 2, 2, 32, True, 16), (1, 128, 128, 2, 2, 32, True, 64),
+            (1, 64, 64, 2, 2, 32, False, 0), (1, 70, 33, 4, 2, 16, False, 16),
+            (1, 40, 24, 2, 2, 16, True, 0), (2, 300, 300, 32, 8, 64, True, 0),
+            (1, 200, 520, 8, 2, 64, True, 100)]
+
+
+def fa_case(b, sq, skv, h, kvh, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, hd)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window", FA_CASES)
+def test_flash_attention_kernel_equals_plain(b, sq, skv, h, kvh, hd, causal,
+                                             window, dtype, cuda_device):
+    q, k, v = (torch.tensor(x, device=cuda_device).to(dtype)
+               for x in fa_case(b, sq, skv, h, kvh, hd, sq + skv))
+    before = t_fa.launches
+    out = t_fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert t_fa.launches == before + 1
+    ref = t_fa.reference(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == ref.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_head_dim_outside_the_build_raises(cuda_device):
+    q = torch.zeros((1, 4, 2, 128), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="head dims"):
+        t_fa.flash_attention(q, q, q)
+
+
+ENT_CASES = [(1, 128), (3, 300), (8, 2048), (5, 5000), (16, 32000),
+             (8, 128256), (4, 128257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,v", ENT_CASES)
+def test_entropy_nll_kernel_equals_plain(b, v, dtype, cuda_device):
+    rng = np.random.default_rng(b * 1000 + v)
+    logits = torch.tensor(rng.standard_normal((b, v)) * 3,
+                          device=cuda_device).to(dtype)
+    labels = torch.tensor(rng.integers(0, v, b), dtype=torch.int32,
+                          device=cuda_device)
+    before = t_ent.launches
+    ent, nll = t_ent.entropy_nll(logits, labels)
+    torch.cuda.synchronize()
+    assert t_ent.launches == before + 1
+    r_ent, r_nll = t_ent.reference(logits, labels)
+    torch.testing.assert_close(ent, r_ent, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(nll, r_nll, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_entropy_nll_extremes_and_unaligned_rows(cuda_device):
+    v = 1024
+    peaked = torch.zeros((1, v), device=cuda_device)
+    peaked[0, 3] = 100.0
+    ent, nll = t_ent.entropy_nll(peaked, torch.tensor([3], device=cuda_device))
+    assert float(ent[0]) < 1e-3 and abs(float(nll[0])) < 1e-3
+    ent, _ = t_ent.entropy_nll(torch.zeros((2, v), device=cuda_device),
+                               torch.zeros(2, dtype=torch.int32,
+                                           device=cuda_device))
+    torch.testing.assert_close(ent.cpu(), torch.full((2,), float(np.log(v))))
+    # a view that starts 4 bytes into its storage takes the scalar loads
+    base = torch.randn(3 * v + 1, device=cuda_device)
+    rows = base[1:].view(3, v)
+    labels = torch.tensor([0, 5, v - 1], device=cuda_device)
+    for a, r in zip(t_ent.entropy_nll(rows, labels),
+                    t_ent.reference(rows, labels)):
+        torch.testing.assert_close(a, r, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tenants", [1, 3])
+def test_serve_on_card_equals_cpu(tenants, cuda_device):
+    """The reduced llama3.2-1b serve loop on the card (flash_attention in
+    prefill, entropy_scores per decode step) against the CPU's run with
+    the same weights: tokens equal, scores within 2e-5, retention equal
+    where no two scores lie within that tolerance (checked first)."""
+    cfg = t_configs.get_config("llama3.2-1b", reduced=True)
+    cpu = t_lm.init_params(cfg, seed=0, device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(cuda_device)
+
+    gpu = to_card(cpu)
+    run = dict(requests=24, batch=8, prompt_len=8, gen_len=6, topk=8,
+               tenants=tenants)
+    t_fa.launches = t_ent.launches = 0
+    res = t_serve.serve(cfg, gpu, device=cuda_device, **run)
+    batches, layers = 3, cfg.n_layers
+    assert (t_fa.launches, t_ent.launches) == (layers * batches,
+                                                5 * batches)
+    ref = t_serve.serve(cfg, cpu, device="cpu", **run)
+    np.testing.assert_array_equal(res.tokens, ref.tokens)
+    np.testing.assert_allclose(res.scores, ref.scores, rtol=2e-5, atol=2e-5)
+    assert np.diff(np.sort(ref.scores)).min() > 4e-5
+    if tenants == 1:
+        assert res.retained == ref.retained
+        assert res.store.ledger.as_dict() == ref.store.ledger.as_dict()
+    else:
+        for t in ref.retained:
+            np.testing.assert_array_equal(res.retained[t], ref.retained[t])

@@ -1,0 +1,172 @@
+"""The port's flash attention (its plain version, which the wrapper runs on
+the CPU) against the reference's Pallas kernel in interpret mode and its
+jnp oracle, on the same numpy-seeded inputs: the sweeps of
+tests/test_flash_attention.py (causal float32/bfloat16, padded tails,
+Sq < Skv, sliding windows, non-causal), grouped KV heads against the
+reference on expanded heads, and the model's GQA attention.
+
+Tolerance: 2e-5 in float32 and 2e-2 in bfloat16, those of the reference's
+own tests (the softmax sums in another order; bfloat16 rounds the
+output).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as r_ops
+from repro.kernels.flash_attention import ref as r_ref
+from repro_torch.kernels.flash_attention import ops as t_ops
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def make(b, sq, skv, h, hd, kvh=None, seed=0):
+    rng = np.random.default_rng(seed)
+    kvh = kvh or h
+    return (rng.standard_normal((b, sq, h, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, hd)).astype(np.float32))
+
+
+def to_jax(arrays, dtype):
+    return [jnp.asarray(a, dtype) for a in arrays]
+
+
+def to_torch(arrays, dtype):
+    return [torch.tensor(a).to(dtype) for a in arrays]
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+def close(a, b, tol):
+    np.testing.assert_allclose(f32(a), f32(b), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hd", [
+    (1, 128, 128, 2, 64),
+    (2, 256, 256, 1, 32),
+    (1, 100, 100, 2, 64),   # padded tails
+    (1, 64, 192, 2, 32),    # cross lengths (q is the suffix)
+])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_reference_causal(b, sq, skv, h, hd, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = make(b, sq, skv, h, hd)
+    out = t_ops.flash_attention(*to_torch(arrays, tdt), causal=True)
+    assert out.dtype == tdt and out.shape == (b, sq, h, hd)
+    qj = to_jax(arrays, jdt)
+    close(out, r_ops.flash_attention(*qj, causal=True, block_q=64,
+                                     block_k=64), tol)
+    close(out, r_ref.flash_attention(*qj, causal=True), tol)
+
+
+@pytest.mark.parametrize("window", [16, 64])
+def test_plain_sliding_window(window):
+    arrays = make(1, 128, 128, 2, 32)
+    out = t_ops.flash_attention(*to_torch(arrays, torch.float32),
+                                causal=True, window=window)
+    qj = to_jax(arrays, jnp.float32)
+    close(out, r_ops.flash_attention(*qj, causal=True, window=window,
+                                     block_q=32, block_k=32), 2e-5)
+    close(out, r_ref.flash_attention(*qj, causal=True, window=window), 2e-5)
+
+
+def test_plain_non_causal():
+    arrays = make(1, 64, 64, 2, 32)
+    out = t_ops.flash_attention(*to_torch(arrays, torch.float32),
+                                causal=False)
+    qj = to_jax(arrays, jnp.float32)
+    close(out, r_ops.flash_attention(*qj, causal=False, block_q=32,
+                                     block_k=32), 2e-5)
+    close(out, r_ref.flash_attention(*qj, causal=False), 2e-5)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,window", [
+    (2, 64, 64, 8, 2, 32, 0),
+    (1, 48, 80, 4, 1, 16, 0),   # Sq < Skv, one KV head
+    (1, 96, 96, 32, 8, 64, 16),  # the serve path's head layout, windowed
+])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_gqa_matches_reference_on_expanded_heads(b, sq, skv, h, kvh,
+                                                       hd, window, dtype):
+    """KV heads are read in place: query head h sees KV head h // (H/KV),
+    as the reference does on K/V repeated to H heads."""
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = make(b, sq, skv, h, hd, kvh=kvh, seed=3)
+    out = t_ops.flash_attention(*to_torch((q, k, v), tdt), causal=True,
+                                window=window)
+    g = h // kvh
+    qj, kj, vj = to_jax((q, np.repeat(k, g, axis=2), np.repeat(v, g, axis=2)),
+                        jdt)
+    close(out, r_ref.flash_attention(qj, kj, vj, causal=True, window=window),
+          tol)
+    if dtype == "float32":
+        close(out, r_ops.flash_attention(qj, kj, vj, causal=True,
+                                         window=window, block_q=32,
+                                         block_k=32), tol)
+
+
+def test_plain_matches_model_grouped_attention():
+    """The same function as models.attention.grouped_attention over
+    consecutive positions (the reference's model path), grouped heads."""
+    from repro.models import attention as r_attn
+    from repro_torch.models import attention as t_attn
+    q, k, v = make(2, 64, 64, 4, 32, kvh=2, seed=7)
+    pos = np.broadcast_to(np.arange(64, dtype=np.int32), (2, 64))
+    ref = r_attn.grouped_attention(*to_jax((q, k, v), jnp.float32),
+                                   jnp.asarray(pos), jnp.asarray(pos),
+                                   causal=True, window=0)
+    tq, tk, tv = to_torch((q, k, v), torch.float32)
+    tpos = torch.tensor(pos)
+    close(t_ops.flash_attention(tq, tk, tv, causal=True), ref, 2e-5)
+    close(t_attn.grouped_attention(tq, tk, tv, tpos, tpos, causal=True,
+                                   window=0), ref, 2e-5)
+
+
+def test_all_masked_rows_average_every_key():
+    """Causal with Sq > Skv: the first rows see no key and average v over
+    all Skv keys, as the reference's plain version does."""
+    q, k, v = make(1, 40, 24, 2, 16, seed=5)
+    out = t_ops.flash_attention(*to_torch((q, k, v), torch.float32),
+                                causal=True)
+    close(out, r_ref.flash_attention(*to_jax((q, k, v), jnp.float32),
+                                     causal=True), 2e-5)
+    np.testing.assert_allclose(out[0, :16].numpy(),
+                               np.broadcast_to(v[0].mean(0), (16, 2, 16)),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_scale_zero_means_unset_and_shape_checks():
+    arrays = to_torch(make(1, 16, 16, 2, 16), torch.float32)
+    torch.testing.assert_close(t_ops.flash_attention(*arrays, scale=0.0),
+                               t_ops.flash_attention(*arrays, scale=0.25))
+    q, k, v = arrays
+    with pytest.raises(ValueError, match="KV heads"):
+        t_ops.flash_attention(q, k[:, :, :1].repeat(1, 1, 3, 1),
+                              v[:, :, :1].repeat(1, 1, 3, 1))
+    with pytest.raises(ValueError, match="share"):
+        t_ops.flash_attention(q, k.double(), v)
+
+
+def test_padded_tails_follow_the_oracle_not_the_pallas_wrapper():
+    """Recorded divergence (ROADMAP queue 3): the reference's wrapper pads
+    Sq and Skv to its blocks and the Pallas kernel takes positions and
+    the key bound from the padded lengths, so where Sq != Skv (or the
+    attention is not causal) zero-padded keys take part. The port
+    follows the jnp oracle, which the reference's tests hold the kernel
+    to. Smallest input: one head, Sq=2, Skv=1, q = k = 1, v = 3."""
+    q, k = np.ones((1, 2, 1, 8), np.float32), np.ones((1, 1, 1, 8), np.float32)
+    v = np.full((1, 1, 1, 8), 3.0, np.float32)
+    port = t_ops.flash_attention(*to_torch((q, k, v), torch.float32))
+    oracle = r_ref.flash_attention(*to_jax((q, k, v), jnp.float32))
+    pallas = r_ops.flash_attention(*to_jax((q, k, v), jnp.float32))
+    close(port, oracle, 2e-5)
+    np.testing.assert_allclose(f32(port)[0, :, 0, 0], [3.0, 3.0], rtol=1e-6)
+    np.testing.assert_allclose(f32(pallas)[0, :, 0, 0], [3.0, 2.8325784],
+                               rtol=1e-5)

@@ -162,7 +162,13 @@ def test_import_guard_no_jax_no_reference_package():
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'repro' or n.startswith('repro.')]\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "need = ['repro_torch.models.lm', 'repro_torch.models.attention',"
+        " 'repro_torch.launch.serve', 'repro_torch.data.curation',"
+        " 'repro_torch.configs.llama3_2_1b', 'repro_torch.core.interestingness',"
+        " 'repro_torch.kernels.flash_attention.ops',"
+        " 'repro_torch.kernels.entropy_scores.ops']\n"
+        "assert all(n in sys.modules for n in need), need\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

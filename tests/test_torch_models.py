@@ -1,0 +1,195 @@
+"""The port's configs and LM against the reference's, at reduced size with
+the reference's weights carried across by ``from_reference_params``:
+``get_config`` field by field for all ten architectures, parameter
+counts and shapes, ``forward``, and ``prefill`` then ``decode_step``
+against ``repro.models.lm``; prefill-then-decode against the port's own
+forward (as tests/test_decode.py holds the reference); and
+``NotImplementedError`` for the families the port does not run.
+
+Tolerance: float32 logits within 2e-5 absolute and relative of the
+reference's (matrix products and softmax sums in another order on
+another backend), the same for the port's kernel route (flash attention's
+plain version) against its plain route; prefill/decode against forward
+as the reference's own test (2e-3 relative, 3e-4 absolute).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as r_configs
+from repro.models import lm as r_lm
+from repro_torch import configs as t_configs
+from repro_torch.models import common as t_common
+from repro_torch.models import lm as t_lm
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+PORTED = ["llama3.2-1b", "yi-9b", "starcoder2-3b", "command-r-plus-104b"]
+UNPORTED = {"deepseek-v2-236b": "MoE FFN|MLA",
+            "grok-1-314b": "soft-capping|MoE FFN",
+            "mamba2-2.7b": "'ssm' mixer", "hymba-1.5b": "mixer",
+            "whisper-base": "encoder-decoder", "pixtral-12b": "frontend"}
+
+
+def ref_setup(arch, seed=0):
+    cfg = r_configs.get_config(arch, reduced=True)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(seed))
+    params_np = jax.tree.map(np.asarray, params)
+    tcfg = t_configs.get_config(arch, reduced=True)
+    return cfg, params, tcfg, t_lm.from_reference_params(params_np, tcfg,
+                                                         device="cpu")
+
+
+def tokens_for(cfg, b, s, seed=3):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s))
+
+
+def close(a, b, **tol):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), **(tol or TOL))
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_get_config_equals_reference_for_every_arch(reduced):
+    assert t_configs.list_archs() == r_configs.list_archs()
+    for arch in r_configs.list_archs():
+        t = t_configs.get_config(arch, reduced=reduced)
+        r = r_configs.get_config(arch, reduced=reduced)
+        assert dataclasses.asdict(t) == dataclasses.asdict(r), arch
+        assert (t.n_layers, t.max_window, t.attention_free) == \
+            (r.n_layers, r.max_window, r.attention_free)
+    assert {k: dataclasses.asdict(v) for k, v in t_configs.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in r_configs.SHAPES.items()}
+    with pytest.raises(KeyError):
+        t_configs.get_config("nope")
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_param_count_and_shapes_equal_reference(arch):
+    for reduced in (True, False):
+        cfg = r_configs.get_config(arch, reduced=reduced)
+        assert t_lm.param_count(t_configs.get_config(arch, reduced=reduced)) \
+            == r_lm.param_count(cfg)
+    _, params, tcfg, tparams = ref_setup(arch)
+    ours = t_lm.init_params(tcfg, seed=0, device="cpu")
+    ref_leaves = jax.tree_util.tree_leaves_with_path(params)
+    for path, leaf in ref_leaves:
+        keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+        if keys[0] == "dec":  # stacked over the layer axis
+            for i in range(leaf.shape[0]):
+                node_t, node_o = tparams["dec"][keys[1]][i], \
+                    ours["dec"][keys[1]][i]
+                for k in keys[2:]:
+                    node_t, node_o = node_t[k], node_o[k]
+                np.testing.assert_array_equal(node_t.numpy(),
+                                              np.asarray(leaf[i]))
+                assert tuple(node_o.shape) == leaf.shape[1:]
+        else:
+            node_t, node_o = tparams, ours
+            for k in keys:
+                node_t, node_o = node_t[k], node_o[k]
+            np.testing.assert_array_equal(node_t.numpy(), np.asarray(leaf))
+            assert tuple(node_o.shape) == leaf.shape
+
+
+def test_init_dense_is_a_truncated_fan_in_normal():
+    gen = torch.Generator().manual_seed(0)
+    w = t_common.init_dense(gen, (512, 4, 64), (0,))
+    std = 1 / np.sqrt(512)
+    assert float(w.abs().max()) <= 2 * std * (1 + 1e-6)
+    # a standard normal truncated to ±2 has std 0.8796
+    assert abs(float(w.std()) / std - 0.8796) < 0.01
+    p = t_lm.init_params(t_configs.get_config("llama3.2-1b", reduced=True),
+                         seed=5, device="cpu")
+    q = t_lm.init_params(t_configs.get_config("llama3.2-1b", reduced=True),
+                         seed=5, device="cpu")
+    torch.testing.assert_close(p["embed"], q["embed"])
+    assert not bool(p["final_norm"]["scale"].any())
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "yi-9b", "starcoder2-3b"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_forward_matches_reference(arch, use_kernel):
+    cfg, params, tcfg, tparams = ref_setup(arch)
+    toks = tokens_for(cfg, 2, 24)
+    ref, _ = r_lm.forward(params, cfg, {"tokens": jnp.asarray(toks)})
+    got, aux = t_lm.forward(tparams, tcfg, {"tokens": torch.tensor(toks)},
+                            use_kernel=use_kernel)
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    close(got, ref)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b"])
+def test_prefill_and_decode_match_reference(arch):
+    cfg, params, tcfg, tparams = ref_setup(arch)
+    toks = tokens_for(cfg, 2, 20)
+    t0, kv_len = 12, 21
+    r_cache = r_lm.init_cache(cfg, 2, kv_len)
+    r_logits, r_cache = r_lm.prefill(params, cfg,
+                                     {"tokens": jnp.asarray(toks[:, :t0])},
+                                     r_cache)
+    t_cache = t_lm.init_cache(tcfg, 2, kv_len, device="cpu")
+    t_logits, t_cache = t_lm.prefill(tparams, tcfg,
+                                     {"tokens": torch.tensor(toks[:, :t0])},
+                                     t_cache)
+    close(t_logits, r_logits)
+    assert t_cache["pos"] == int(r_cache["pos"]) == t0
+    for t in range(t0, 20):
+        r_logits, r_cache = r_lm.decode_step(params, cfg,
+                                             jnp.asarray(toks[:, t]), r_cache)
+        t_logits, t_cache = t_lm.decode_step(tparams, tcfg,
+                                             torch.tensor(toks[:, t]),
+                                             t_cache)
+        close(t_logits, r_logits)
+    for li, lc in enumerate(t_cache["groups"][0]):
+        np.testing.assert_array_equal(lc["kv"].pos.numpy(),
+                                      np.asarray(r_cache["groups"][0]["kv"]
+                                                 .pos[li]))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_prefill_then_decode_matches_forward(arch, use_kernel):
+    tcfg = t_configs.get_config(arch, reduced=True)
+    params = t_lm.init_params(tcfg, seed=1, device="cpu")
+    toks = torch.tensor(tokens_for(tcfg, 2, 20))
+    full, _ = t_lm.forward(params, tcfg, {"tokens": toks},
+                           use_kernel=use_kernel)
+    t0 = 10
+    w = tcfg.max_window
+    cache = t_lm.init_cache(tcfg, 2, min(w, 21) if w else 21, device="cpu")
+    logits, cache = t_lm.prefill(params, tcfg, {"tokens": toks[:, :t0]},
+                                 cache, use_kernel=use_kernel)
+    close(logits, full[:, t0 - 1], rtol=2e-3, atol=2e-4)
+    for t in range(t0, 20):
+        logits, cache = t_lm.decode_step(params, tcfg, toks[:, t], cache)
+        close(logits, full[:, t], rtol=2e-3, atol=3e-4)
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_unported_families_raise(arch):
+    cfg = t_configs.get_config(arch, reduced=True)
+    for call in (lambda: t_lm.init_params(cfg, device="cpu"),
+                 lambda: t_lm.param_count(cfg),
+                 lambda: t_lm.init_cache(cfg, 1, 8, device="cpu")):
+        with pytest.raises(NotImplementedError,
+                           match=f"({UNPORTED[arch]}).*queue 1 item 10"):
+            call()
+
+
+def test_attention_softcap_raises():
+    cfg = t_configs.get_config("llama3.2-1b", reduced=True).replace(
+        attn_logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="soft-capping"):
+        t_lm.init_params(cfg, device="cpu")
+
+
+def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = t_configs.get_config("llama3.2-1b", reduced=True)
+    for call in (lambda: t_lm.init_params(cfg),
+                 lambda: t_lm.init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

@@ -1,0 +1,284 @@
+"""The port's serve loop (``repro_torch.launch.serve``) against the
+reference's — ``lm.prefill`` / ``lm.decode_step`` driven as
+examples/serve_topk.py drives them, with its ``make_tenant_engine`` — at
+reduced size with the reference's weights carried across: generated
+tokens equal, scores within tolerance, the curator's ledger and retained
+ids equal single-tenant, and with tenants=3 the engine's survivors and
+meter reconciliation equal. Plus HotTier / TieredStore / TopKCurator and
+``hbm_dram_disk_preset`` against the originals.
+
+Tolerance: scores (mean entropies) within 2e-5 (the port's kernel route
+takes entropy as lse − Σe·l/Σe, the reference −Σp·log p, after logits
+that agree to ~1e-6). Retention is exact, which holds only when no two
+scores lie within that tolerance of each other: a near-tie could flip a
+write. Each retention test asserts that no such near-tie exists in its
+scores before it compares ledgers and retained ids.
+"""
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as r_configs
+from repro.core import costs as r_costs
+from repro.core import placement as r_place
+from repro.core import shp as r_shp
+from repro.core import tiers as r_tiers
+from repro.core import topology as r_topo
+from repro.data import curation as r_cur
+from repro.models import lm as r_lm
+from repro_torch import configs as t_configs
+from repro_torch.core import placement as t_place
+from repro_torch.core import tiers as t_tiers
+from repro_torch.core import topology as t_topo
+from repro_torch.data import curation as t_cur
+from repro_torch.launch import serve as t_serve
+from repro_torch.models import lm as t_lm
+
+TOL = 2e-5
+ROOT = Path(__file__).resolve().parents[1]
+RUN = dict(requests=24, batch=8, prompt_len=8, gen_len=6, topk=8)
+
+
+@pytest.fixture(scope="module")
+def example():
+    """examples/serve_topk.py as a module (its main() does not run)."""
+    spec = importlib.util.spec_from_file_location(
+        "serve_topk_example", ROOT / "examples" / "serve_topk.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def model():
+    cfg = r_configs.get_config("llama3.2-1b", reduced=True)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(0))
+    tcfg = t_configs.get_config("llama3.2-1b", reduced=True)
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    return cfg, params, tcfg, tparams
+
+
+@pytest.fixture(autouse=True)
+def numpy_reference_planner():
+    prev = r_shp.set_planner_backend("numpy")
+    yield
+    r_shp.set_planner_backend(prev)
+
+
+def reference_serve(example, cfg, params, *, requests, batch, prompt_len,
+                    gen_len, topk, tenants=1):
+    """examples/serve_topk.py's loop (:194-216) and retention set-up."""
+    doc_gb = (prompt_len + gen_len) * 4 / 1e9
+    curator = store = engine = None
+    if tenants > 1:
+        engine, _ = example.make_tenant_engine(tenants, requests, topk,
+                                               doc_gb)
+    else:
+        cm = r_costs.hbm_host_preset(n_docs=requests, k=topk, doc_gb=doc_gb,
+                                     window_seconds=60.0)
+        pol = r_place.from_plan(r_shp.plan_placement(cm))
+        store = r_tiers.TieredStore(
+            pol, r_tiers.HotTier(topk, (prompt_len + gen_len,),
+                                 dtype=jnp.int32), r_tiers.ColdTier())
+        curator = r_cur.TopKCurator(topk, store, policy=pol)
+    prefill = jax.jit(lambda p, b, c: r_lm.prefill(p, cfg, b, c))
+    step = jax.jit(lambda p, t, c: r_lm.decode_step(p, cfg, t, c))
+    rng = np.random.default_rng(0)
+    served, all_scores, all_tokens = 0, [], []
+    while served < requests:
+        b = min(batch, requests - served)
+        prompts = rng.integers(0, cfg.vocab_size, (b, prompt_len))
+        cache = r_lm.init_cache(cfg, b, prompt_len + gen_len + 1)
+        logits, cache = prefill(params,
+                                {"tokens": jnp.asarray(prompts, jnp.int32)},
+                                cache)
+        toks = [jnp.argmax(logits, -1)]
+        ent_sum = jnp.zeros((b,), jnp.float32)
+        for _ in range(gen_len - 1):
+            logits, cache = step(params, toks[-1], cache)
+            logp = jax.nn.log_softmax(logits.astype(jnp.float32), -1)
+            ent_sum += -jnp.sum(jnp.exp(logp) * logp, -1)
+            toks.append(jnp.argmax(logits, -1))
+        gen = jnp.stack(toks, 1)
+        scores = np.asarray(ent_sum / (gen_len - 1))
+        ids = np.arange(served, served + b)
+        if engine is not None:
+            engine.ingest(ids % tenants, scores, ids // tenants)
+        else:
+            payloads = np.concatenate([prompts, np.asarray(gen)], axis=1)
+            curator.observe_batch(ids, scores, payloads)
+        all_scores.append(scores)
+        all_tokens.append(np.asarray(gen))
+        served += b
+    return (np.concatenate(all_scores), np.concatenate(all_tokens), curator,
+            store, engine)
+
+
+def assert_no_near_tie(scores):
+    """Exact retention needs every pair of scores apart by more than the
+    score tolerance (twice it: each side may move by TOL)."""
+    gaps = np.diff(np.sort(scores.astype(np.float64)))
+    assert gaps.min() > 2 * TOL, (
+        f"a near-tie ({gaps.min():.3g}) within the score tolerance: "
+        f"retention may differ legitimately")
+
+
+def assert_same(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for key in a:
+            assert_same(a[key], b[key])
+    else:
+        np.testing.assert_array_equal(a, b)
+
+
+def test_serve_single_tenant_matches_reference(example, model):
+    cfg, params, tcfg, tparams = model
+    r_scores, r_tokens, r_curator, r_store, _ = reference_serve(
+        example, cfg, params, **RUN)
+    res = t_serve.serve(tcfg, tparams, tenants=1, device="cpu", **RUN)
+    np.testing.assert_array_equal(res.tokens, r_tokens)
+    np.testing.assert_allclose(res.scores, r_scores, rtol=TOL, atol=TOL)
+    assert_no_near_tie(r_scores)
+    assert res.curator.stats.as_dict() == r_curator.stats.as_dict()
+    assert res.store.ledger.as_dict() == r_store.ledger.as_dict()
+    retained, ours = r_curator.finalize(), res.curator.finalize()
+    assert res.retained == sorted(retained) == sorted(ours)
+    assert res.store.ledger.as_dict() == r_store.ledger.as_dict()
+    for d in retained:
+        np.testing.assert_array_equal(ours[d].cpu().numpy()
+                                      if isinstance(ours[d], torch.Tensor)
+                                      else ours[d], np.asarray(retained[d]))
+    # the retained set is the top-K of the scores, ties to the lower id
+    want = np.lexsort((np.arange(len(r_scores)), -r_scores))[:RUN["topk"]]
+    assert res.retained == sorted(want.tolist())
+
+
+def test_serve_tenants_matches_reference(example, model):
+    cfg, params, tcfg, tparams = model
+    _, _, _, _, r_engine = reference_serve(example, cfg, params, tenants=3,
+                                           **RUN)
+    res = t_serve.serve(tcfg, tparams, tenants=3, device="cpu", **RUN)
+    assert_no_near_tie(res.scores)
+    r_surv = r_engine.finalize()
+    assert r_surv.keys() == res.retained.keys()
+    for t in r_surv:
+        np.testing.assert_array_equal(res.retained[t], r_surv[t])
+    assert_same(res.reconcile, r_engine.meter.reconcile(batch=8 // 3))
+    assert [s.k for s in res.specs] == [7, 4, 7]
+
+
+def test_kernel_route_equals_plain_route_on_cpu(model):
+    """use_kernel=False (grouped attention, −Σp·log p) against the default
+    route, teacher-forced on the default route's tokens."""
+    _, _, tcfg, tparams = model
+    prompts = torch.tensor(np.random.default_rng(1).integers(
+        0, tcfg.vocab_size, (4, 12)))
+    a = t_serve.generate(tparams, tcfg, prompts, 7, keep_logits=True)
+    b = t_serve.generate(tparams, tcfg, prompts, 7, use_kernel=False,
+                         forced=a.tokens, keep_logits=True)
+    torch.testing.assert_close(a.scores, b.scores, rtol=TOL, atol=TOL)
+    for x, y in zip(a.logits, b.logits):
+        torch.testing.assert_close(x, y, rtol=TOL, atol=TOL)
+    assert torch.equal(a.tokens, b.tokens)
+    assert a.tokens.shape == (4, 7) and len(a.logits) == 7
+
+
+def test_cli_flags_not_ported_raise():
+    for argv in (["--mesh", "2"], ["--obs-out", "x"], ["--obs-port", "0"],
+                 ["--ckpt-dir", "x"]):
+        item = {"--mesh": 9, "--ckpt-dir": 8}.get(argv[0], 7)
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1 item {item}"):
+            t_serve.main(argv + ["--device", "cpu"])
+
+
+def test_cli_serves_on_cpu(capsys):
+    t_serve.main(["--device", "cpu", "--requests", "12", "--gen-len", "3",
+                  "--prompt-len", "4", "--tenants", "2"])
+    out = capsys.readouterr().out
+    assert "served 12 requests" in out and "tenant 1: top-4" in out
+
+
+# ---------------------------------------------------------------------------
+# the retention runtime against the originals
+# ---------------------------------------------------------------------------
+
+def policies():
+    return [dict(r=5.0, migrate_at_r=True),
+            dict(boundaries=(4.0, 9.0), migrate_at_r=True),
+            dict(boundaries=(3.0, 3.0), migrate_at_r=True),
+            dict(boundaries=(6.0, 40.0), migrate_at_r=False)]
+
+
+@pytest.mark.parametrize("pol", policies())
+def test_curator_and_tiered_store_match_reference(pol, tmp_path):
+    rng = np.random.default_rng(11)
+    n, k, width = 60, 6, 5
+    scores = np.round(rng.standard_normal(n), 1)  # ties at the threshold
+    payloads = rng.integers(0, 1000, (n, width))
+    n_tiers = len(pol.get("boundaries", (0,))) + 1
+
+    def build(place, tiers, cur, device_kw, spill):
+        policy = place.Policy(**pol)
+        stores = [tiers.HotTier(k, (width,), **device_kw), tiers.ColdTier()]
+        if n_tiers == 3:
+            stores.append(tiers.ColdTier(str(spill)))
+        store = tiers.TieredStore(policy, *stores)
+        return cur.TopKCurator(k, store, policy=policy), store
+
+    rc, rs = build(r_place, r_tiers, r_cur, {"dtype": jnp.int32},
+                   tmp_path / "ref")
+    tc, ts = build(t_place, t_tiers, t_cur,
+                   {"dtype": torch.int32, "device": "cpu"}, tmp_path / "port")
+    for lo in range(0, n, 7):
+        ids = np.arange(lo, min(lo + 7, n))[::-1]  # observe_batch sorts
+        rc.observe_batch(ids, scores[ids], payloads[ids])
+        tc.observe_batch(ids, scores[ids], payloads[ids])
+        assert tc.stats.as_dict() == rc.stats.as_dict()
+        assert ts.ledger.as_dict() == rs.ledger.as_dict()
+    np.testing.assert_array_equal(tc.survivor_ids(), rc.survivor_ids())
+    assert tc.threshold == rc.threshold
+    assert tc.expected_writes() == rc.expected_writes()
+    rf, tf = rc.finalize(), tc.finalize()
+    assert rf.keys() == tf.keys()
+    for d in rf:
+        got = tf[d].numpy() if isinstance(tf[d], torch.Tensor) else tf[d]
+        np.testing.assert_array_equal(got, np.asarray(rf[d]))
+    assert ts.ledger.as_dict() == rs.ledger.as_dict()
+    assert [ts.tier_index_of(int(d)) for d in rf] == \
+        [rs.tier_index_of(int(d)) for d in rf]
+
+
+def test_hot_tier_matches_reference():
+    rh = r_tiers.HotTier(3, (4,), dtype=jnp.float32)
+    th = t_tiers.HotTier(3, (4,), dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(0)
+    for doc in (5, 7, 5, 9):
+        p = rng.standard_normal(4).astype(np.float32)
+        assert th.put(doc, p) == rh.put(doc, jnp.asarray(p))
+    th.delete(7)
+    rh.delete(7)
+    assert sorted(th.doc_ids()) == sorted(rh.doc_ids()) == [5, 9]
+    for doc in (5, 9):
+        np.testing.assert_array_equal(th.get(doc).numpy(),
+                                      np.asarray(rh.get(doc)))
+    th.put(11, np.ones(4, np.float32))
+    with pytest.raises(RuntimeError, match="full"):
+        th.put(12, np.ones(4, np.float32))
+    assert t_tiers.payload_nbytes(th.get(5)) == \
+        r_tiers.payload_nbytes(rh.get(5)) == 16
+
+
+def test_hbm_dram_disk_preset_equals_reference():
+    for kw in (dict(n_docs=100, k=8, doc_gb=1e-6, window_seconds=30.0),
+               dict(n_docs=7, k=3, doc_gb=4.8e-8, window_seconds=120.0,
+                    hbm_capacity_docs=2.0, host_link_gbps=16.0)):
+        assert repr(t_topo.hbm_dram_disk_preset(**kw)) == \
+            repr(r_topo.hbm_dram_disk_preset(**kw))
