@@ -16,11 +16,15 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    8192; one stream of 2^20 and 2^26 scores; plan_solve at the inputs of
    the 1,000,000-stream plan's launches and of a 4-tier constrained
    fleet's, in float32 and float64) and edge cases; exact; then
-   flash_attention and entropy_scores at the score producer's shapes
-   and edge cases (see below);
+   flash_attention and entropy_scores at both score producers' shapes
+   (head dims 64 and 128; vocabularies of 128,256 and 49,152) and edge
+   cases, among them a 4096-key sliding window over 4608 keys at head
+   dim 128 (see below);
 4. timings: each kernel, its plain version and its bound (bytes, or
    operations where they take longer), with the PyTorch call that
-   computes the same function where there is one;
+   computes the same function where there is one; flash_attention and
+   entropy_scores at both score producers' shapes, each the median of
+   5 profiled windows with its spread;
 5. main path at full width — the defaults of examples/million_streams.py:
    1,000,000 streams, 3 tiers, K=8, planned on the card by the device
    planner (shp.plan_ntier_arrays, plan_solve), the shared hot-tier
@@ -60,7 +64,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    through the kernel route and the plain route (grouped attention,
    -sum p log p) on the card; retained sets against the top-K of the
    scores and simulator replays; profiles of a prefill and of decode
-   steps.
+   steps;
+12. starcoder2-3b at full width (30 layers, d_model 3072, 24 heads over
+   2 KV heads, head_dim 128, d_ff 12288, GELU, LayerNorm and biases,
+   vocab 49,152, window 4096, float32; seeded random weights on the
+   card): the first batch teacher-forced through both routes, then 16
+   requests in 2 batches of 8 (prompts of 1024, 32 generated, top-8
+   retained) with exactly 60 flash_attention and 62 entropy_scores
+   launches; profiles of a prefill and of decode steps.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -73,6 +84,7 @@ repository's sources beside it, the script exits non-zero and prints no
 result.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -93,6 +105,7 @@ MIXED_TIMED_WINDOWS = 1  # phase 8's
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # H100 SXM peak rates outside the tensor cores (NVIDIA's data sheet)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+TF32_FLOPS = 495e12  # dense TF32 on the tensor cores (the data sheet)
 LM_STREAMS, LM_K, LM_CHUNK = 64, 65_536, 8_192  # the example's logmem tenants
 LM_FLEET = 4096  # a fleet of huge-K tenants, for the kernel's timing
 # (K, streams, docs, chunk) of benchmarks/streams_bench.py's RATIO_SWEEP
@@ -106,6 +119,12 @@ SERVE_TENANTS = 8
 FA_PATH = (SERVE["batch"], SERVE["prompt_len"], 32, 8, 64)
 ENT_PATH = (SERVE["batch"], 128_256)  # entropy_scores per decode step
 ENT_LARGE = (2048, 128_256)  # a large scorer shape, 1.05 GB of float32
+# the second model served at full width, with head dim 128
+SC_ARCH = "starcoder2-3b"
+SC_SERVE = dict(requests=16, batch=8, prompt_len=1024, gen_len=32, topk=8)
+FA_SC = (SC_SERVE["batch"], SC_SERVE["prompt_len"], 24, 2, 128)
+ENT_SC = (SC_SERVE["batch"], 49_152)
+WINDOWS = 5  # timing windows of the redesigned kernels (median, spread)
 
 
 def log(*args):
@@ -191,16 +210,64 @@ def environment():
     return smi
 
 
+def ptxas_usage(text, demangle):
+    """(kernel name, its registers and spill bytes) per kernel entry of an
+    ``nvcc -Xptxas -v`` report; ``demangle`` maps mangled names to
+    demangled ones (or to nothing)."""
+    out, entry, spills = [], "?", 0
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spills = sum(map(int, re.findall(r"(\d+) bytes spill", ln)))
+        elif "Used" in ln and "registers" in ln:
+            regs = ln.split("Used")[1].split("registers")[0].strip()
+            out.append((entry, f"{regs} registers, {spills} bytes of spill "
+                               f"stores and loads"))
+    names = demangle([e for e, _ in out])
+    return [(signature_name(names.get(e, e)), u) for e, u in out]
+
+
+def signature_name(name):
+    """A demangled kernel name without its return type, namespace and
+    parameter list (template arguments such as "(bool)1" keep theirs)."""
+    if name.endswith(")"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    for junk in ("void ", "(anonymous namespace)::", "<unnamed>::"):
+        name = name.replace(junk, "")
+    return name
+
+
 def build_kernels():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     reports = build.build()
     log(f"build: {len(reports)} kernels compiled in "
         f"{time.perf_counter() - t0:.2f}s into {build.BUILD_DIR}")
+    filt = Path(build.nvcc()).parent / "cu++filt"
+
+    def demangle(names):
+        if not names or not filt.exists():
+            return {}
+        got = subprocess.run([str(filt)], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        return dict(zip(names, got.stdout.splitlines()))
+
     for name, text in reports.items():
-        usage = [ln.split("info    :")[-1].strip()
-                 for ln in text.splitlines() if "registers" in ln]
-        log(f"build {name}: {' | '.join(usage)}")
+        for entry, usage in ptxas_usage(text, demangle):
+            log(f"build {name}: {entry}: {usage}")
+    if "flash_attention" in reports:
+        from repro_torch.kernels.flash_attention import ops as fa
+        fn = build.library("flash_attention").flash_attention_smem_bytes
+        for hd in fa.HEAD_DIMS:
+            log(f"build flash_attention: hd {hd}: {fn(hd, 0)} bytes of "
+                f"dynamic shared memory a block in float32, {fn(hd, 1)} in "
+                f"bfloat16")
 
 
 def log2_rule():
@@ -473,50 +540,74 @@ def kernel_parity():
     return errs, solves
 
 
-def device_ms(fn, reps, kernel, attempts=3):
-    """Mean device time per launch of the kernel ``fn`` launches, whose
-    name contains ``kernel``: torch.profiler over ``reps`` calls after a
-    warm-up call. The kernel's own time, without the host's launch
-    overhead, which a CUDA-event timing of a short kernel measures.
+def device_parts(fn, reps, kernels, attempts=3):
+    """{kernel: mean device ms per launch} for each kernel ``fn``
+    launches, named by a substring in ``kernels`` (one name or a tuple),
+    over ``reps`` calls. torch.profiler after a warm-up call: the
+    kernels' own time, without the host's launch overhead, which a
+    CUDA-event timing of a short kernel measures.
 
     The profiler drops kernel records now and then (seen for 3 us and
     0.1 ms kernels launched back to back: from a few records to all of
     them in one profile), so a profile that does not hold exactly
-    ``reps`` launches is taken again, up to ``attempts`` times in all.
-    When none is complete, the mean is taken over the records of the
-    fullest profile, which must hold at least a tenth of the launches;
-    the timing fails otherwise, and when a profile holds more records
-    than launches (another kernel matching the name)."""
+    ``reps`` launches of every kernel is taken again, up to ``attempts``
+    times in all. When none is complete, each mean is taken over the
+    records of the fullest profile, which must hold at least a tenth of
+    the launches of every kernel; the timing fails otherwise, and when a
+    profile holds more records than launches (another kernel matching a
+    name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    if isinstance(kernels, str):
+        kernels = (kernels,)
     fn()
     torch.cuda.synchronize()
-    best = []
+    best, held = None, -1
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        runs = [e for e in prof.events()
-                if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if len(runs) > reps:
-            raise AssertionError(f"profiled {len(runs)} launches of {kernel} "
-                                 f"for {reps} calls")
-        if len(runs) > len(best):
-            best = runs
-        if len(runs) == reps:
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        runs = {k: [e for e in dev if k in e.name] for k in kernels}
+        for k, r in runs.items():
+            if len(r) > reps:
+                raise AssertionError(f"profiled {len(r)} launches of {k} "
+                                     f"for {reps} calls")
+        n = min(len(r) for r in runs.values())
+        if n > held:
+            best, held = runs, n
+        if n == reps:
             break
-        log(f"profile {attempt} of {attempts} held {len(runs)} launches of "
-            f"{kernel}, not {reps}")
-    if len(best) < max(1, reps // 10):
-        raise AssertionError(f"no profile of {kernel} held a tenth of its "
+        held_now = ", ".join(f"{len(r)} launches of {k}"
+                             for k, r in runs.items())
+        log(f"profile {attempt} of {attempts} held {held_now}, not {reps} "
+            f"each")
+    if held < max(1, reps // 10):
+        raise AssertionError(f"no profile of {kernels} held a tenth of its "
                              f"{reps} launches in {attempts} attempts")
-    if len(best) < reps:
-        log(f"timing {kernel}: mean over the {len(best)} of {reps} launches "
-            f"the fullest profile held")
-    return sum(e.time_range.end - e.time_range.start
-               for e in best) / len(best) / 1e3  # microseconds -> ms
+    if held < reps:
+        log(f"timing {kernels}: means over the records the fullest profile "
+            f"held ({held} or more of {reps} launches each)")
+    return {k: sum(e.time_range.end - e.time_range.start for e in r)
+            / len(r) / 1e3 for k, r in best.items()}  # us -> ms
+
+
+def device_ms(fn, reps, kernels):
+    """Mean device ms per call of ``fn``: ``device_parts`` summed (a call
+    that launches two kernels counts both)."""
+    return sum(device_parts(fn, reps, kernels).values())
+
+
+def device_ms_windows(fn, reps, kernels, windows=5):
+    """``device_ms`` over ``windows`` timing windows: (median, min, max)
+    ms per call, so a kernel's time is read beside its spread, and each
+    kernel's median ms per launch."""
+    runs = [device_parts(fn, reps, kernels) for _ in range(windows)]
+    got = sorted(sum(r.values()) for r in runs)
+    parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    return statistics.median(got), got[0], got[-1], parts
 
 
 def ps_work(args):
@@ -648,7 +739,15 @@ FA_CASES = (("serve prefill", *FA_PATH[:2], *FA_PATH[1:], True, 0),  # Sq = Skv
             ("Sq < Skv", 1, 64, 192, 2, 2, 32, True, 0),
             ("GQA 32 over 8, ragged", 2, 300, 300, 32, 8, 64, True, 0),
             ("GQA, Sq < Skv, window 100", 1, 200, 520, 8, 2, 64, True, 100),
-            ("Sq > Skv: rows with no key", 1, 40, 24, 2, 2, 16, True, 0))
+            ("Sq > Skv: rows with no key", 1, 40, 24, 2, 2, 16, True, 0),
+            ("starcoder2-3b prefill, hd 128", *FA_SC[:2], *FA_SC[1:], True,
+             0),
+            ("GQA 24 over 2, ragged, hd 128", 2, 300, 300, 24, 2, 128, True,
+             0),
+            ("window 4096, Skv > 4096, hd 128", 1, 4608, 4608, 8, 2, 128,
+             True, 4096),
+            ("Sq > Skv: rows with no key, hd 128", 1, 40, 24, 2, 1, 128, True,
+             0))
 
 
 def fa_inputs(g, b, sq, skv, h, kvh, hd, dtype):
@@ -697,7 +796,9 @@ def score_kernel_parity():
                 f"{str(dtype)[6:]}: max abs diff {err:.3e} (limit {tol} "
                 f"relative and absolute)")
     for b, v, kind, label in ((*ENT_PATH, "normal", "serve decode step"),
+                              (*ENT_SC, "normal", f"{SC_ARCH} decode step"),
                               (*ENT_LARGE, "normal", "large scorer shape"),
+                              (132, 128_256, "normal", "132 rows, 2 spans"),
                               (5, 5001, "normal", "V=5001, scalar loads"),
                               (3, 128_257, "normal", "V=128,257"),
                               (4, 4096, "peaked", "peaked"),
@@ -705,6 +806,7 @@ def score_kernel_parity():
         for dtype, tol in tols.items():
             if b * v > 8 * 128_256 and dtype != torch.float32:
                 continue
+            splits, width = ent.split_columns(b, v)
             logits, labels = ent_inputs(g, b, v, kind, dtype)
             out = ent.entropy_nll(logits, labels)
             torch.cuda.synchronize()
@@ -712,57 +814,72 @@ def score_kernel_parity():
             if dtype == torch.float32:
                 errs["entropy_scores"] = max(errs["entropy_scores"], err)
             log(f"parity entropy_scores [{label}] B={b} V={v} "
-                f"{str(dtype)[6:]}: entropy and nll max abs diff {err:.3e} "
-                f"(limit {tol} relative and absolute)")
+                f"{str(dtype)[6:]} ({splits} spans of {width}): entropy and "
+                f"nll max abs diff {err:.3e} (limit {tol} relative and "
+                f"absolute)")
     return errs
 
 
 def score_kernel_timings():
-    """flash_attention at the serve path's prefill shape and entropy_scores
-    at its decode shape (and a large scorer shape): device ms (profiler),
-    wrapper ms, plain ms, bound, and the PyTorch call that computes the
-    same function as the yardstick."""
+    """flash_attention at the two serve paths' prefill shapes (head dims 64
+    and 128) and entropy_scores at their decode shapes (and a large scorer
+    shape): device ms (profiler; median of WINDOWS windows, with the
+    spread), wrapper ms, plain ms, bound, and the PyTorch call that
+    computes the same function as the yardstick. The first shape of each
+    kernel goes into the kernels line."""
     import torch.nn.functional as F
     from repro_torch.kernels.entropy_scores import ops as ent
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(5)
     out = {}
-    b, s, h, kvh, hd = FA_PATH
-    q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
-    # the library yardstick: SDPA on (B, heads, S, hd) with grouped heads
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pairs = b * h * s * (s + 1) // 2  # causal: visible (query, key) pairs
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * hd * pairs  # a multiply-add each for q.k and p.v
-    t = {"ms": device_ms(lambda: fa.flash_attention(q, k, v), 10,
-                         "flash_fwd"),
-         "call_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
-         "plain_ms": cuda_ms(lambda: fa.reference(q, k, v), 3),
-         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-             qt, kt, vt, is_causal=True, enable_gqa=True), 10),
-         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-         "ops_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
-    t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
-    t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
-    out["flash_attention"] = t
-    log(f"timing flash_attention [q ({b}, {s}, {h}, {hd}), k and v ({b}, "
-        f"{s}, {kvh}, {hd}) f32, causal]: kernel {t['ms']:.4f} ms on the "
-        f"device (profiler); {t['call_ms']:.4f} ms per wrapper call; plain "
-        f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']}: {flops:.4g} operations at 67 TFLOP/s float32, "
-        f"{t['bytes_ms']:.4f} ms of bytes); library_ms "
-        f"{t['library_ms']:.4f} = torch.nn.functional."
-        f"scaled_dot_product_attention(is_causal, enable_gqa) on (B, heads, "
-        f"S, hd) copies, never called by the port")
-    del q, k, v, qt, kt, vt
+    for key, (b, s, h, kvh, hd) in (("flash_attention", FA_PATH),
+                                    ("flash_attention@hd128", FA_SC)):
+        q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
+        # the library yardstick: SDPA on (B, heads, S, hd), grouped heads
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pairs = b * h * s * (s + 1) // 2  # causal: visible (query, key) pairs
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * hd * pairs  # a multiply-add each for q.k and p.v
+        # the kernel takes each multiply-add as three TF32 products (3xTF32)
+        # on the tensor cores; the float32 units' bound is logged beside
+        med, lo, hi, _ = device_ms_windows(
+            lambda: fa.flash_attention(q, k, v), 10, "flash_fwd", WINDOWS)
+        t = {"ms": med,
+             "call_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
+             "plain_ms": cuda_ms(lambda: fa.reference(q, k, v), 3),
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": 3 * flops / TF32_FLOPS * 1e3,
+             "f32_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations")
+        out[key] = t
+        log(f"timing {key} [q ({b}, {s}, {h}, {hd}), k and v ({b}, {s}, "
+            f"{kvh}, {hd}) f32, causal]: kernel {med:.4f} ms on the device "
+            f"(profiler, median of {WINDOWS} windows of 10 calls; min "
+            f"{lo:.4f}, max {hi:.4f}); {t['call_ms']:.4f} ms per wrapper "
+            f"call; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']}: {flops:.4g} operations as 3xTF32 at "
+            f"495/3 TFLOP/s; {t['f32_ms']:.4f} ms at the 67 TFLOP/s of the "
+            f"float32 units; {t['bytes_ms']:.4f} ms of bytes); "
+            f"{flops / med / 1e9:.2f} TFLOP/s; library_ms "
+            f"{t['library_ms']:.4f} = torch.nn.functional."
+            f"scaled_dot_product_attention(is_causal, enable_gqa) on (B, "
+            f"heads, S, hd) copies, never called by the port")
+        del q, k, v, qt, kt, vt
     for key, (b, v) in (("entropy_scores", ENT_PATH),
+                        ("entropy_scores@starcoder2", ENT_SC),
                         ("entropy_scores@large", ENT_LARGE)):
         logits, labels = ent_inputs(g, b, v, "normal", torch.float32)
         lab64 = labels.long()
         nbytes = 4 * b * v + 4 * b + 8 * b
         flops = 5 * b * v  # compare, subtract, exp, add, multiply-add
-        t = {"ms": device_ms(lambda: ent.entropy_nll(logits, labels), 50,
-                             "entropy_nll_rows"),
+        med, lo, hi, parts = device_ms_windows(
+            lambda: ent.entropy_nll(logits, labels), 50,
+            ("entropy_nll_part", "entropy_nll_merge"), WINDOWS)
+        t = {"ms": med,
              "call_ms": cuda_ms(lambda: ent.entropy_nll(logits, labels), 50),
              "plain_ms": cuda_ms(lambda: ent.reference(logits, labels), 5),
              "library_ms": cuda_ms(lambda: F.cross_entropy(
@@ -773,10 +890,15 @@ def score_kernel_timings():
         t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations")
         out[key] = t
-        log(f"timing {key} [logits ({b}, {v}) f32]: kernel {t['ms']:.4f} ms "
-            f"on the device (profiler); {t['call_ms']:.4f} ms per wrapper "
-            f"call; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
-            f"ms ({t['bound_by']}); library_ms {t['library_ms']:.4f} = "
+        splits, width = ent.split_columns(b, v)
+        passes = ", ".join(f"{k} {x:.4f}" for k, x in parts.items())
+        log(f"timing {key} [logits ({b}, {v}) f32, {splits} spans of "
+            f"{width}]: kernel {med:.4f} ms on the device (profiler, both "
+            f"passes, median of {WINDOWS} windows of 50 calls; min {lo:.4f}, "
+            f"max {hi:.4f}; medians {passes}); {t['call_ms']:.4f} ms per "
+            f"wrapper call; plain "
+            f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); library_ms {t['library_ms']:.4f} = "
             f"torch.nn.functional.cross_entropy(reduction='none'), which "
             f"computes the NLL half alone, never called by the port")
         del logits, labels, lab64
@@ -1427,7 +1549,7 @@ def serve_profile(params, cfg, prompts, smi, steps=4):
         tok = torch.argmax(logits, -1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    profile_report(prof, f"prefill ({b} x {s})", 1, wall_ms, smi)
+    profile_report(prof, f"{cfg.name} prefill ({b} x {s})", 1, wall_ms, smi)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -1436,16 +1558,17 @@ def serve_profile(params, cfg, prompts, smi, steps=4):
             tok = torch.argmax(logits, -1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    profile_report(prof, f"decode (batch {b})", steps, wall_ms, smi)
+    profile_report(prof, f"{cfg.name} decode (batch {b})", steps, wall_ms,
+                   smi)
 
 
-def teacher_forced(params, cfg, prompts):
+def teacher_forced(params, cfg, prompts, gen):
     """The first batch through the kernel route and, fed the kernel
     route's tokens, through the plain route (grouped attention in
-    prefill, -sum p log p per step) on the card: logits and scores held
-    within the stated tolerance, argmax agreement printed."""
+    prefill, -sum p log p per step) on the card, ``gen`` tokens each:
+    logits and scores held within the stated tolerance, argmax agreement
+    printed."""
     from repro_torch.launch import serve
-    gen = SERVE["gen_len"]
     a = serve.generate(params, cfg, prompts, gen, keep_logits=True)
     b = serve.generate(params, cfg, prompts, gen, use_kernel=False,
                        forced=a.tokens, keep_logits=True)
@@ -1455,7 +1578,7 @@ def teacher_forced(params, cfg, prompts):
     d_sc = float((a.scores - b.scores).abs().max())
     agree = float((a.tokens == b.tokens).float().mean())
     scale = float(a.logits[0].abs().max())
-    log(f"teacher-forced, first batch ({prompts.shape[0]} x "
+    log(f"teacher-forced [{cfg.name}], first batch ({prompts.shape[0]} x "
         f"{prompts.shape[1]} prompt tokens, {gen} generated): kernel route "
         f"vs plain route on the card: prefill logits max abs diff "
         f"{d_pre:.3e}, decode logits {d_dec:.3e} (limit 1e-3; logits up to "
@@ -1467,34 +1590,35 @@ def teacher_forced(params, cfg, prompts):
                              "beyond the stated tolerance")
 
 
-def check_serve(res, cfg, batches, label, smi):
-    """Launch counts of one counted serve run, finite scores of the right
-    shape, and the timing lines."""
+def check_serve(res, cfg, run, label, smi):
+    """Launch counts of one counted serve run of ``run`` (serve's
+    arguments), finite scores of the right shape, and the timing lines."""
     from repro_torch.kernels.entropy_scores import ops as ent
     from repro_torch.kernels.flash_attention import ops as fa
     launches = {"flash_attention": fa.launches,
                 "entropy_scores": ent.launches}
+    batches = -(-run["requests"] // run["batch"])
     want = {"flash_attention": cfg.n_layers * batches,
-            "entropy_scores": (SERVE["gen_len"] - 1) * batches}
+            "entropy_scores": (run["gen_len"] - 1) * batches}
     log(f"serve [{label}] launches: {launches} (want {want}: one "
         f"flash_attention per layer per prefill, one entropy_scores per "
         f"scored decode step)")
     if launches != want:
         raise AssertionError(f"serve [{label}] launches {launches} != "
                              f"{want}")
-    n = SERVE["requests"]
+    n = run["requests"]
     if not (res.scores.shape == (n,) and np.isfinite(res.scores).all()
-            and res.tokens.shape == (n, SERVE["gen_len"])
+            and res.tokens.shape == (n, run["gen_len"])
             and ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"serve [{label}]: scores or tokens malformed")
     pre = [x * 1e3 for x in res.prefill_s]
-    dec = [x * 1e3 / (SERVE["gen_len"] - 1) for x in res.decode_s]
-    gen_tok = n * SERVE["gen_len"] / res.seconds
+    dec = [x * 1e3 / (run["gen_len"] - 1) for x in res.decode_s]
+    gen_tok = n * run["gen_len"] / res.seconds
     log(f"serve [{label}]: {n} requests in {res.seconds:.3f}s: prefill "
-        f"ms per batch of {SERVE['batch']} x {SERVE['prompt_len']} median "
+        f"ms per batch of {run['batch']} x {run['prompt_len']} median "
         f"{statistics.median(pre):.3f} (min {min(pre):.3f}, max "
         f"{max(pre):.3f}); decode ms per token step (batch "
-        f"{SERVE['batch']}) median {statistics.median(dec):.3f} (min "
+        f"{run['batch']}) median {statistics.median(dec):.3f} (min "
         f"{min(dec):.3f}, max {max(dec):.3f}); {res.tokens_per_s:.6g} "
         f"tokens/s (prompt and generated), {gen_tok:.6g} generated "
         f"tokens/s; host clock, device synced at each phase end; {smi}")
@@ -1526,13 +1650,12 @@ def score_producer(smi):
     b, plen = SERVE["batch"], SERVE["prompt_len"]
     first = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, plen)), device="cuda")
-    teacher_forced(params, cfg, first)
-    batches = -(-SERVE["requests"] // b)
+    teacher_forced(params, cfg, first, SERVE["gen_len"])
     torch.cuda.reset_peak_memory_stats()
     # the counted runs: counters to 0, serve, read
     fa.launches = ent.launches = 0
     one = serve.serve(cfg, params, tenants=1, device="cuda", **SERVE)
-    launches = check_serve(one, cfg, batches, "single tenant", smi)
+    launches = check_serve(one, cfg, SERVE, "single tenant", smi)
     log(f"serve [single tenant] scores: "
         f"{' '.join(f'{x:.7g}' for x in one.scores)}")
     order = np.lexsort((np.arange(SERVE["requests"]), -one.scores))
@@ -1545,7 +1668,7 @@ def score_producer(smi):
     fa.launches = ent.launches = 0
     many = serve.serve(cfg, params, tenants=SERVE_TENANTS, device="cuda",
                        **SERVE)
-    for key, n in check_serve(many, cfg, batches, f"{SERVE_TENANTS} tenants",
+    for key, n in check_serve(many, cfg, SERVE, f"{SERVE_TENANTS} tenants",
                               smi).items():
         launches[key] += n
     eng, bad = many.engine, 0
@@ -1567,6 +1690,52 @@ def score_producer(smi):
     if bad:
         raise AssertionError("tenant survivors differ from simulator "
                              "replays")
+    serve_profile(params, cfg, first, smi)
+    return launches
+
+
+def starcoder_serve(smi):
+    """Phase 12: starcoder2-3b at full width (head dim 128, 24 heads over
+    2 KV heads, LayerNorm, GELU, biases, window 4096), random weights
+    from a seeded torch.Generator on the card: the first batch
+    teacher-forced through both routes, then one counted single-tenant
+    serve run whose launches must be exact, then the profiles. Returns
+    the launches."""
+    from repro_torch import configs
+    from repro_torch.kernels.entropy_scores import ops as ent
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    torch.cuda.empty_cache()  # the previous model's blocks
+    cfg = configs.get_config(SC_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"serve {SC_ARCH}: full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.ffn_act}, vocab "
+        f"{cfg.vocab_size}, window {cfg.layers[0].windows[0]}, "
+        f"{cfg.param_dtype}): {lm.param_count(cfg)} parameters drawn on the "
+        f"card in {time.perf_counter() - t0:.3f}s; {smi}")
+    b, plen = SC_SERVE["batch"], SC_SERVE["prompt_len"]
+    first = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, plen)), device="cuda")
+    teacher_forced(params, cfg, first, SC_SERVE["gen_len"])
+    torch.cuda.reset_peak_memory_stats()
+    # the counted run: counters to 0, serve, read
+    fa.launches = ent.launches = 0
+    res = serve.serve(cfg, params, tenants=1, device="cuda", **SC_SERVE)
+    launches = check_serve(res, cfg, SC_SERVE, f"{SC_ARCH}, single tenant",
+                           smi)
+    order = np.lexsort((np.arange(SC_SERVE["requests"]), -res.scores))
+    want = sorted(order[:SC_SERVE["topk"]].tolist())
+    log(f"serve [{SC_ARCH}]: scores "
+        f"{' '.join(f'{x:.7g}' for x in res.scores)}; retained "
+        f"{res.retained}, top-{SC_SERVE['topk']} of the scores (ties to the "
+        f"lower id) {want}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if res.retained != want:
+        raise AssertionError("retained set is not the top-K of the scores")
     serve_profile(params, cfg, first, smi)
     return launches
 
@@ -1605,6 +1774,9 @@ def main():
         launches["topk_filter"] = single_stream()
     with phase_clock("score producer (phase 11)"):
         launches.update(score_producer(smi))
+    with phase_clock(f"{SC_ARCH} at full width (phase 12)"):
+        for key, n in starcoder_serve(smi).items():
+            launches[key] += n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",

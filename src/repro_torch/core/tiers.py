@@ -58,7 +58,11 @@ class HotTier:
     Slot bookkeeping is host-side; payload bytes stay on ``device`` (the
     CUDA card unless given). A write copies the payload into
     its slot in place (``buf[slot].copy_``), where the reference rebinds
-    its immutable slab."""
+    its immutable slab. So a read returns a copy of the slot (one device
+    copy of one payload per read; reads happen at finalize and on
+    migration, not per step): a later write that reuses the slot cannot
+    change a payload already read, as with the reference's immutable
+    arrays."""
 
     def __init__(self, k: int, payload_shape, dtype=torch.float32,
                  device=None):
@@ -80,7 +84,7 @@ class HotTier:
         return payload_nbytes(payload)
 
     def get(self, doc_id: int):
-        return self._buf[self._slot_of[doc_id]]
+        return self._buf[self._slot_of[doc_id]].clone()
 
     def delete(self, doc_id: int) -> None:
         self._free.append(self._slot_of.pop(doc_id))
@@ -94,7 +98,10 @@ class HotTier:
 
 class ColdTier:
     """Host-resident store: numpy copies keyed by doc id, optionally spilled
-    to a directory (object-store stand-in)."""
+    to a directory (object-store stand-in). A tensor payload is copied
+    when kept, so a caller that changes its tensor afterwards (a CPU
+    tensor shares memory with its ``.numpy()``) does not change what was
+    stored."""
 
     def __init__(self, directory: Optional[str] = None):
         self._mem: Dict[int, np.ndarray] = {}
@@ -106,8 +113,8 @@ class ColdTier:
         return os.path.join(self._dir, f"doc_{doc_id}.npy")
 
     def put(self, doc_id: int, payload) -> int:
-        arr = (payload.cpu().numpy() if isinstance(payload, torch.Tensor)
-               else np.asarray(payload))
+        arr = (payload.detach().cpu().numpy().copy()
+               if isinstance(payload, torch.Tensor) else np.asarray(payload))
         if self._dir:
             np.save(self._path(doc_id), arr)
         else:

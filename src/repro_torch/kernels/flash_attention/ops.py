@@ -24,7 +24,9 @@ import torch
 from .. import build
 
 NEG = -2.0e9  # the reference's mask value
-HEAD_DIMS = (16, 32, 64)  # head dims the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
+ROWS = 64  # the fewest query rows a block of the kernel takes
+MAX_GRID = 65535  # the kernel's grid: batch and Sq / ROWS each up to this
 
 # kernel launches made by ``flash_attention`` since the last reset
 launches = 0
@@ -103,8 +105,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if hd not in HEAD_DIMS:
         raise NotImplementedError(f"the flash_attention kernel is built for "
                                   f"head dims {HEAD_DIMS}, not {hd}")
+    if b > MAX_GRID or -(-sq // ROWS) > MAX_GRID:
+        raise ValueError(f"the flash_attention kernel takes a batch and "
+                         f"Sq / {ROWS} up to {MAX_GRID}, got {b} and {sq}")
     scale = scale or 1.0 / math.sqrt(hd)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel copies 16-byte pieces of rows: contiguous, aligned
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0 or skv == 0:
         return out.zero_()

@@ -563,7 +563,12 @@ FA_CASES = [(1, 128, 128, 2, 2, 64, True, 0), (2, 256, 256, 1, 1, 32, True, 0),
             (1, 128, 128, 2, 2, 32, True, 16), (1, 128, 128, 2, 2, 32, True, 64),
             (1, 64, 64, 2, 2, 32, False, 0), (1, 70, 33, 4, 2, 16, False, 16),
             (1, 40, 24, 2, 2, 16, True, 0), (2, 300, 300, 32, 8, 64, True, 0),
-            (1, 200, 520, 8, 2, 64, True, 100)]
+            (1, 200, 520, 8, 2, 64, True, 100),
+            # head dim 128: starcoder2-3b's heads (24 over 2), ragged GQA,
+            # Sq < Skv with a window, non-causal, rows with no key
+            (1, 256, 256, 24, 2, 128, True, 0), (2, 300, 300, 8, 2, 128, True, 0),
+            (1, 100, 700, 8, 2, 128, True, 256), (1, 96, 96, 4, 4, 128, False, 0),
+            (1, 40, 24, 2, 1, 128, True, 0)]
 
 
 def fa_case(b, sq, skv, h, kvh, hd, seed):
@@ -592,13 +597,16 @@ def test_flash_attention_kernel_equals_plain(b, sq, skv, h, kvh, hd, causal,
 
 @pytest.mark.cuda
 def test_flash_attention_head_dim_outside_the_build_raises(cuda_device):
-    q = torch.zeros((1, 4, 2, 128), device=cuda_device)
+    q = torch.zeros((1, 4, 2, 48), device=cuda_device)
     with pytest.raises(NotImplementedError, match="head dims"):
         t_fa.flash_attention(q, q, q)
 
 
+# (b, v): one span and many (ops.split_columns), starcoder2-3b's
+# vocabulary, rows that fill the card (one span a row) and 132 rows (two)
 ENT_CASES = [(1, 128), (3, 300), (8, 2048), (5, 5000), (16, 32000),
-             (8, 128256), (4, 128257)]
+             (8, 128256), (4, 128257), (8, 49152), (132, 128256),
+             (300, 5001)]
 
 
 @pytest.mark.cuda
@@ -674,3 +682,23 @@ def test_serve_on_card_equals_cpu(tenants, cuda_device):
     else:
         for t in ref.retained:
             np.testing.assert_array_equal(res.retained[t], ref.retained[t])
+
+
+@pytest.mark.cuda
+def test_entropy_nll_kernel_is_deterministic(cuda_device):
+    """The span merge runs in a fixed order: two calls agree bit for bit."""
+    logits = torch.randn((8, 128256), device=cuda_device) * 3
+    labels = torch.arange(8, device=cuda_device)
+    a, b = t_ent.entropy_nll(logits, labels), t_ent.entropy_nll(logits, labels)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_flash_attention_copies_an_unaligned_view(cuda_device):
+    """A q that starts 4 bytes into its storage is copied to an aligned
+    tensor before the kernel's 16-byte copies."""
+    base = torch.randn(1 * 64 * 2 * 64 + 1, device=cuda_device)
+    q = base[1:].view(1, 64, 2, 64)
+    k = torch.randn((1, 64, 2, 64), device=cuda_device)
+    torch.testing.assert_close(t_fa.flash_attention(q, k, k),
+                               t_fa.reference(q, k, k), rtol=2e-5, atol=2e-5)

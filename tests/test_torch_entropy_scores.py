@@ -123,3 +123,32 @@ def test_random_score_is_uniform_on_the_generator():
     assert ref.shape == s.shape and abs(ref.mean() - 0.5) < 0.02
     torch.testing.assert_close(
         s, t_itf.random_score(torch.Generator().manual_seed(3), 4096))
+
+
+@pytest.mark.parametrize("b,v", [(8, 128256), (8, 49152), (2048, 128256),
+                                 (132, 128256), (1, 100), (3, 5001),
+                                 (4, 128257), (264, 4096), (1, 1),
+                                 (16, 32000), (1, 2048)])
+def test_split_columns_cover_each_row_once(b, v):
+    """The kernel's spans: [i·width, min((i+1)·width, V)) for i < splits
+    cover [0, V) exactly once, none empty, each start 16-byte aligned for
+    float32 and bfloat16."""
+    splits, width = t_ops.split_columns(b, v)
+    spans = [(i * width, min((i + 1) * width, v)) for i in range(splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == v
+    assert all(lo < hi for lo, hi in spans)
+    assert all(a[1] == b_[0] for a, b_ in zip(spans, spans[1:]))
+    assert width % t_ops.ALIGN == 0
+
+
+def test_split_columns_fill_the_card_and_stop_at_one_span():
+    # the decode shapes: B alone leaves the card idle, so rows are split
+    for b, v in ((8, 128256), (8, 49152)):
+        splits, width = t_ops.split_columns(b, v)
+        assert b * splits >= t_ops.SMS and width >= t_ops.MIN_WIDTH
+    # rows that fill the card take one span each
+    assert t_ops.split_columns(2048, 128256) == (1, 128256)
+    assert t_ops.split_columns(t_ops.FILL, 128256)[0] == 1
+    # V below one span's minimum width: one span
+    assert t_ops.split_columns(8, 1000) == (1, 1000)
+    assert t_ops.split_columns(1, 5)[0] == 1

@@ -170,3 +170,55 @@ def test_padded_tails_follow_the_oracle_not_the_pallas_wrapper():
     np.testing.assert_allclose(f32(port)[0, :, 0, 0], [3.0, 3.0], rtol=1e-6)
     np.testing.assert_allclose(f32(pallas)[0, :, 0, 0], [3.0, 2.8325784],
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kvh,window", [
+    (1, 64, 64, 2, 2, 0),     # causal
+    (1, 48, 80, 4, 2, 0),     # GQA, Sq < Skv, padded tails
+    (1, 96, 96, 6, 2, 32),    # starcoder2-3b's grouping (3 per KV head), windowed
+    (2, 8, 8, 2, 1, 0),       # small S
+])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_reference_at_head_dim_128(b, sq, skv, h, kvh, window,
+                                                 dtype):
+    """Head dim 128, which the kernel now takes (yi-9b, starcoder2-3b,
+    command-r-plus-104b, grok-1, pixtral-12b): the plain version against
+    the jnp oracle and the Pallas kernel in interpret mode on K/V expanded
+    to H heads."""
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = make(b, sq, skv, h, 128, kvh=kvh, seed=11)
+    out = t_ops.flash_attention(*to_torch((q, k, v), tdt), causal=True,
+                                window=window)
+    assert out.dtype == tdt and out.shape == (b, sq, h, 128)
+    g = h // kvh
+    qj, kj, vj = to_jax((q, np.repeat(k, g, axis=2), np.repeat(v, g, axis=2)),
+                        jdt)
+    close(out, r_ref.flash_attention(qj, kj, vj, causal=True, window=window),
+          tol)
+    if sq == skv:  # the Pallas wrapper pads ragged tails (see below)
+        close(out, r_ops.flash_attention(qj, kj, vj, causal=True,
+                                         window=window, block_q=32,
+                                         block_k=32), tol)
+
+
+def test_plain_non_causal_at_head_dim_128():
+    arrays = make(1, 64, 64, 2, 128, seed=12)
+    out = t_ops.flash_attention(*to_torch(arrays, torch.float32),
+                                causal=False)
+    qj = to_jax(arrays, jnp.float32)
+    close(out, r_ops.flash_attention(*qj, causal=False, block_q=32,
+                                     block_k=32), 2e-5)
+    close(out, r_ref.flash_attention(*qj, causal=False), 2e-5)
+
+
+def test_head_dims_of_the_build_cover_every_config():
+    """Every head dim of the ten configs (full and reduced) is one the
+    kernel is built for; MLA's unequal q/v head dims stay unbuilt."""
+    from repro_torch import configs
+    dims = set()
+    for arch in configs.ARCHS:
+        for reduced in (False, True):
+            cfg = configs.get_config(arch, reduced=reduced)
+            if cfg.n_heads and not cfg.use_mla:
+                dims.add(cfg.head_dim)
+    assert dims <= set(t_ops.HEAD_DIMS) and 128 in dims

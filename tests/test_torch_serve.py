@@ -64,6 +64,18 @@ def model():
     return cfg, params, tcfg, tparams
 
 
+@pytest.fixture(scope="module")
+def starcoder():
+    """Reduced starcoder2-3b (LayerNorm, GELU, qkv and FFN biases, tied
+    embeddings, a sliding window of 8) with the reference's weights."""
+    cfg = r_configs.get_config("starcoder2-3b", reduced=True)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(1))
+    tcfg = t_configs.get_config("starcoder2-3b", reduced=True)
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    return cfg, params, tcfg, tparams
+
+
 @pytest.fixture(autouse=True)
 def numpy_reference_planner():
     prev = r_shp.set_planner_backend("numpy")
@@ -158,6 +170,27 @@ def test_serve_single_tenant_matches_reference(example, model):
     # the retained set is the top-K of the scores, ties to the lower id
     want = np.lexsort((np.arange(len(r_scores)), -r_scores))[:RUN["topk"]]
     assert res.retained == sorted(want.tolist())
+
+
+def test_serve_starcoder2_reduced_matches_reference(example, starcoder):
+    """The serve loop on the family chip_smoke.py serves at full width as
+    starcoder2-3b: the 14-token requests run past the window of 8, so
+    decode reads a rolling cache; tokens equal, scores within 2e-5,
+    curation and retention equal."""
+    cfg, params, tcfg, tparams = starcoder
+    assert cfg.layers[0].windows[0] < RUN["prompt_len"] + RUN["gen_len"]
+    r_scores, r_tokens, r_curator, r_store, _ = reference_serve(
+        example, cfg, params, **RUN)
+    res = t_serve.serve(tcfg, tparams, tenants=1, device="cpu", **RUN)
+    np.testing.assert_array_equal(res.tokens, r_tokens)
+    np.testing.assert_allclose(res.scores, r_scores, rtol=TOL, atol=TOL)
+    assert_no_near_tie(r_scores)
+    assert res.curator.stats.as_dict() == r_curator.stats.as_dict()
+    assert res.store.ledger.as_dict() == r_store.ledger.as_dict()
+    retained, ours = r_curator.finalize(), res.curator.finalize()
+    assert res.retained == sorted(retained) == sorted(ours)
+    for d in retained:
+        np.testing.assert_array_equal(ours[d].numpy(), np.asarray(retained[d]))
 
 
 def test_serve_tenants_matches_reference(example, model):
