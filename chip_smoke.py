@@ -15,7 +15,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    its paths' shapes (1,000,000 streams; 64 and 4096 logmem tenants x
    8192; one stream of 2^20 and 2^26 scores; plan_solve at the inputs of
    the 1,000,000-stream plan's launches and of a 4-tier constrained
-   fleet's, in float32 and float64) and edge cases; exact; then
+   fleet's, in float32 and float64, through both of its kernels) and
+   edge cases (for plan_solve also ties at G=5456, a NaN in a last
+   subset's last tuple alone, and a NaN-skipped first subset before
+   infeasible ones, which must give (+inf, 0)); exact; then
    flash_attention and entropy_scores at both score producers' shapes
    (head dims 64 and 128; vocabularies of 128,256 and 49,152) and edge
    cases, among them a 4096-key sliding window over 4608 keys at head
@@ -23,7 +26,8 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 4. timings: each kernel, its plain version and its bound (bytes, or
    operations where they take longer), with the PyTorch call that
    computes the same function where there is one; flash_attention and
-   entropy_scores at both score producers' shapes, each the median of
+   entropy_scores at both score producers' shapes, and each plan_solve
+   launch (with the kernel and launch plan it took), each the median of
    5 profiled windows with its spread;
 5. main path at full width — the defaults of examples/million_streams.py:
    1,000,000 streams, 3 tiers, K=8, planned on the card by the device
@@ -423,10 +427,34 @@ def ps_shape(args):
             f"{str(fs.dtype).replace('torch.', '')}")
 
 
+def ps_nan_seams(g, m, s, j, c):
+    """Terms where the last subset is the cheapest but holds a NaN in its
+    last tuple alone (even streams), and where the first subset is the
+    cheapest but holds a NaN while every later one is infeasible (streams
+    1, 5, 9, ...: those return (+inf, 0), never a later subset's
+    winner)."""
+    from repro_torch.kernels.plan_solve import ops as ps
+    fs = torch.randn(m, s, j, c, device="cuda", dtype=torch.float64,
+                     generator=g)
+    const = torch.randn(m, s, 3, device="cuda", dtype=torch.float64,
+                        generator=g)
+    fs[:, -1] -= 10
+    fs[::2, -1, 0, -1] = float("nan")  # c0 = C-1: the last tuple alone
+    fs[1::4, 0] -= 20
+    fs[1::4, 0, 0, 0] = float("nan")
+    const[1::4, 1:, 0] = float("inf")
+    combos = torch.as_tensor(ps.monotone_combos(c, j).astype(np.uint8),
+                             device="cuda")
+    return fs, const, combos, None
+
+
 def ps_edge_cases(g):
     """Edge cases at the widest main-path group shape (M=1,000,000, S=3,
     J=2, C=8): exact cost ties across tuples and subsets, NaN terms,
-    streams masked out entirely, with lower bounds and a budget."""
+    streams masked out entirely, with lower bounds and a budget; NaNs at
+    the reductions' seams (``ps_nan_seams``) there and at the 4-tier
+    fleet's widest shape (M=4096, J=3, C=31: one block a stream), with
+    ties there too."""
     from repro_torch.kernels.plan_solve import ops as ps
     m, s, j, c = M, 3, 2, 8
     dev = "cuda"
@@ -453,9 +481,18 @@ def ps_edge_cases(g):
               rhs=rhs, atol=1e-9 * rhs.abs() + 1e-15)
     combos = torch.as_tensor(ps.monotone_combos(c, j).astype(np.uint8),
                              device=dev)
+    wide = torch.randint(0, 3, (4096, 2, 3, 31), device=dev, generator=g)
+    wide_const = torch.randint(0, 3, (4096, 1, 3), device=dev, generator=g)
     return {"ties": (*ties, combos, None),
             "NaN terms, infeasible subsets and streams, lower bounds and "
-            "budget": ps.solve_inputs(fs, tuple(const.unbind(2)), **kw)}
+            "budget": ps.solve_inputs(fs, tuple(const.unbind(2)), **kw),
+            "NaN seams": ps_nan_seams(g, m, s, j, c),
+            "ties at G=5456": (
+                wide.double(), wide_const.double().expand(4096, 2, 3)
+                .contiguous(), torch.as_tensor(
+                    ps.monotone_combos(31, 3).astype(np.uint8), device=dev),
+                None),
+            "NaN seams at G=5456": ps_nan_seams(g, 4096, 3, 3, 31)}
 
 
 def kernel_parity():
@@ -535,8 +572,13 @@ def kernel_parity():
         torch.cuda.synchronize()
         err = max_abs_err(out, ps.reference(*args))
         errs["plan_solve"] = max(errs["plan_solve"], err)
-        log(f"parity plan_solve [{label}] {ps_shape(args)}: exact (val and "
-            f"idx; max abs diff {err})")
+        if label.startswith("NaN seams"):  # (+inf, 0) where subset 0 held NaN
+            cut = out[0][1::4], out[1][1::4]
+            if not (torch.isinf(cut[0]).all() and (cut[1] == 0).all()):
+                raise AssertionError(f"plan_solve [{label}]: a NaN-skipped "
+                                     f"first subset did not give (+inf, 0)")
+        log(f"parity plan_solve [{label}] {ps_shape(args)}; "
+            f"{ps_kernel(args)[0]}: exact (val and idx; max abs diff {err})")
     return errs, solves
 
 
@@ -627,19 +669,36 @@ def ps_work(args):
     return nbytes, m * s * (g * per_tuple + (grids is not None))
 
 
+def ps_kernel(args):
+    """(profiler name, log text) of the kernel plan_solve launches for
+    ``args``: the mapping ``launch_plan`` picks."""
+    from repro_torch.kernels.plan_solve import ops as ps
+    mapping, tile, threads, smem = ps.launch_plan(*args)
+    how = (f"{tile} streams a block, a thread each" if mapping == "rows"
+           else "a block a stream")
+    return (f"plan_solve_{mapping}",
+            f"plan_solve_{mapping}: {how}, {threads} threads, {smem} bytes "
+            f"of shared memory")
+
+
 def plan_solve_timings(solves):
-    """plan_solve's device time per launch (profiler), wrapper and plain
-    times and bound, summed over each solve's launches; the main path's
+    """plan_solve's device time per launch (profiler; median of WINDOWS
+    windows of 20 calls, with the spread), wrapper and plain times and
+    bound; a solve is the sum of its launches (their medians, the spread
+    from the sums of their minima and maxima). The main path's
     unconstrained solve goes into the kernels line."""
     from repro_torch.kernels.plan_solve import ops as ps
     out = {}
     for name, launches in solves.items():
-        tot = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0}
+        tot = {"ms": 0.0, "lo": 0.0, "hi": 0.0, "call_ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+               "ops_ms": 0.0}
         for i, args in enumerate(launches):
             nbytes, flops = ps_work(args)
-            t = {"ms": device_ms(lambda: ps.plan_solve(*args), 20,
-                                 "plan_solve_kernel"),
+            kernel, how = ps_kernel(args)
+            med, lo, hi, _ = device_ms_windows(
+                lambda: ps.plan_solve(*args), 20, kernel, WINDOWS)
+            t = {"ms": med, "lo": lo, "hi": hi,
                  "call_ms": cuda_ms(lambda: ps.plan_solve(*args), 20),
                  "plain_ms": cuda_ms(lambda: ps.reference(*args), 3),
                  "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -647,9 +706,10 @@ def plan_solve_timings(solves):
             t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
             for key in tot:
                 tot[key] += t[key]
-            log(f"timing plan_solve [{name} launch {i}: {ps_shape(args)}]: "
-                f"kernel {t['ms']:.4f} ms on the device (profiler); "
-                f"{t['call_ms']:.4f} ms per wrapper call; plain "
+            log(f"timing plan_solve [{name} launch {i}: {ps_shape(args)}; "
+                f"{how}]: kernel {med:.4f} ms on the device (profiler, "
+                f"median of {WINDOWS} windows of 20 calls; min {lo:.4f}, max "
+                f"{hi:.4f}); {t['call_ms']:.4f} ms per wrapper call; plain "
                 f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
                 f"(bytes {t['bytes_ms']:.4f} at 3.35 TB/s, operations "
                 f"{t['ops_ms']:.4f})")
@@ -658,9 +718,11 @@ def plan_solve_timings(solves):
         tot["library_ms"] = None
         out[name] = tot
         log(f"timing plan_solve [{name}, {len(launches)} launches per "
-            f"solve]: kernel {tot['ms']:.4f} ms; wrapper calls "
-            f"{tot['call_ms']:.4f} ms; plain {tot['plain_ms']:.4f} ms; "
-            f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+            f"solve]: kernel {tot['ms']:.4f} ms [{tot['lo']:.4f}-"
+            f"{tot['hi']:.4f}] (sum of the launches' medians [of their "
+            f"minima - maxima]); wrapper calls {tot['call_ms']:.4f} ms; "
+            f"plain {tot['plain_ms']:.4f} ms; bound {tot['bound_ms']:.4f} "
+            f"ms ({tot['bound_by']})")
     log("library_ms plan_solve: null — no single PyTorch call gives the "
         "masked joint first minimum over monotone tuples and subsets")
     return out["unconstrained"]

@@ -5,9 +5,10 @@ The port of the reference's ``kernels.plan_solve.ops`` (``enum_solve``'s
 Pallas route) and of the body of ``plan_solve_pallas``. ``enum_solve``
 builds the mask, lower-bound and latency-delta grids from the solver's
 terms and hands them to ``plan_solve``. The device of the input decides
-what runs there: a CUDA tensor launches the hand-written kernel
-(``csrc/plan_solve.cu``) or raises, a CPU tensor runs the plain PyTorch
-version ``reference``. There is no switch between the two.
+what runs there: a CUDA tensor launches one of the two hand-written
+kernels of ``csrc/plan_solve.cu`` (``launch_plan`` picks it from the
+shape) or raises, a CPU tensor runs the plain PyTorch version
+``reference``. There is no switch between the two.
 
 Semantics both versions keep, bit for bit:
 
@@ -28,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import math
 
 import numpy as np
 import torch
@@ -37,6 +39,13 @@ from .. import build
 MAX_CANDIDATES = 256  # the kernel keeps combo tables as uint8
 MAX_CONSTS = 4  # per-subset addends the kernel holds in registers
 SMEM_LIMIT = 232_448  # dynamic shared memory one Hopper block may use
+# from this many tuples a subset (or J > 3), one block per stream
+# (plan_solve_streams); below it tiles of streams, a thread each
+# (plan_solve_rows)
+STREAMS_MIN_G = 64
+ROW_TILE = 128  # plan_solve_rows' most streams (and threads) a block
+MAX_THREADS = 256  # plan_solve_streams' largest block
+TILE_BYTES = 16 * 1024  # staged rows a plan_solve_rows buffer aims at
 
 # kernel launches made by ``plan_solve`` since the last reset
 launches = 0
@@ -128,12 +137,94 @@ def reference(fs, const, combos, grids=None):
     return val, idx
 
 
+def _pad(n: int) -> int:
+    """Elements between two streams' staged rows of ``n`` 4- or 8-byte
+    elements: an odd number (``pad`` in csrc/plan_solve.cu)."""
+    return n | 1
+
+
+def _chunked(i, k, size):
+    """Is input ``i`` (``k`` elements of ``size`` bytes a stream) staged by
+    plan_solve_rows as 16-byte chunks, unpadded: the mask always, others
+    when at most 4 threads of a warp, one stream each, would read one bank
+    at once (``bank_ways`` in csrc/plan_solve.cu)?"""
+    return i == 3 or math.gcd(k, 16 if size == 8 else 32) <= 4
+
+
+def _parts(s, j, c, p, masked, itemsize):
+    """(elements a stream, element bytes) of each input a block stages:
+    fs, const and, when masked, cand, mask, lb, deltas and rhs_atol."""
+    parts = [(s * j * c, itemsize), (s * p, itemsize)]
+    if masked:
+        parts += [(s * c, itemsize), (s * j * c, 1),
+                  (s * max(j - 1, 1) * c, itemsize), (s * j * c, itemsize),
+                  (s * 2, itemsize)]
+    return parts
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _smem_bytes(n, s, j, c, g, p, masked, itemsize, mapping, nres=0):
+    """Dynamic shared memory of a block of ``mapping`` that stages ``n``
+    streams' rows: for "rows" two buffers, each input in chunks or padded
+    rows (``_chunked``); for "streams" one buffer of aligned 16-byte
+    chunks, the combo table and ``nres`` partial results. The total of
+    ``layout`` in csrc/plan_solve.cu, which refuses a launch whose bytes
+    differ."""
+    rows = 0
+    for i, (k, size) in enumerate(_parts(s, j, c, p, masked, itemsize)):
+        if mapping == "rows" and not _chunked(i, k, size):  # padded rows
+            rows += _align16(n * _pad(k) * size)
+        else:  # the aligned 16-byte chunks that hold the span
+            rows += _align16(n * k * size) + 16
+    if mapping == "rows":
+        return 2 * rows
+    return (rows + _align16(g * j) + 16 + _align16(nres * itemsize)
+            + _align16(nres * 4))
+
+
+def launch_plan(fs, const, combos, grids=None):
+    """How ``plan_solve`` launches its kernel for these inputs: (mapping,
+    streams a block, threads a block, bytes of dynamic shared memory).
+    ``mapping`` is "rows" (G < STREAMS_MIN_G and J <= 3: tiles of
+    streams, a thread a stream walking its tuples as nested loops, each
+    block double-buffering the tiles it walks) or "streams" (a block a
+    stream, its threads striding the tuples of the combo table). Raises
+    ValueError when a block's staged rows and combo table exceed a
+    block's shared memory."""
+    m, s, j, c = fs.shape
+    g, p, masked = combos.shape[0], const.shape[2], grids is not None
+    size = fs.element_size()
+    if g >= STREAMS_MIN_G or j > 3:
+        mapping, tile = "streams", 1
+        threads = min(MAX_THREADS, -(-g // 32) * 32)
+        nres = s * threads // 32
+    else:
+        mapping, nres = "rows", 0
+        stream_bytes = sum(k * sz if _chunked(i, k, sz) else _pad(k) * sz
+                           for i, (k, sz) in enumerate(
+                               _parts(s, j, c, p, masked, size)))
+        tile = min(m, ROW_TILE, TILE_BYTES // stream_bytes)
+        tile = max(1, tile // 32 * 32 if tile >= 32 else tile)  # whole warps
+        threads = -(-tile // 32) * 32
+    smem = _smem_bytes(tile, s, j, c, g, p, masked, size, mapping, nres)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"plan_solve ({mapping}) needs {smem} bytes of shared memory "
+            f"for M={m} S={s} J={j} C={c} G={g} {fs.dtype}"
+            f"{' masked' if masked else ''}, more than a block's "
+            f"{SMEM_LIMIT}")
+    return mapping, tile, threads, smem
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(dtype: torch.dtype):
     suffix = "f64" if dtype == torch.float64 else "f32"
     fn = getattr(build.library("plan_solve"), f"plan_solve_launch_{suffix}")
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [
-        ctypes.c_int] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int] * 9 + [ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -145,7 +236,8 @@ def plan_solve(fs, const, combos, grids=None):
     deltas (M, S, J, C), rhs_atol (M, S, 2)) → (val (M,), idx (M,) int32
     = s·G + g of the first minimum).
 
-    CUDA tensors run the kernel, CPU tensors the plain version."""
+    CUDA tensors run a kernel (the mapping of ``launch_plan``), CPU
+    tensors the plain version."""
     global launches
     if fs.device.type == "cpu":
         return reference(fs, const, combos, grids)
@@ -157,8 +249,10 @@ def plan_solve(fs, const, combos, grids=None):
         raise ValueError("plan_solve's inputs must be contiguous")
     m, s, j, c = fs.shape
     g = combos.shape[0]
-    if g * j > SMEM_LIMIT:
-        raise ValueError(f"combo table of {g} x {j} exceeds shared memory")
+    if g < 1 or m >= 2 ** 31:
+        raise ValueError(f"plan_solve needs G >= 1 tuples and M < 2^31 "
+                         f"streams, got G={g}, M={m}")
+    mapping, tile, threads, smem = launch_plan(fs, const, combos, grids)
     val = torch.empty((m,), dtype=fs.dtype, device=fs.device)
     idx = torch.empty((m,), dtype=torch.int32, device=fs.device)
     if m == 0:
@@ -171,7 +265,8 @@ def plan_solve(fs, const, combos, grids=None):
             fs.data_ptr(), const.data_ptr(), ptr(cand), ptr(mask), ptr(lb),
             ptr(deltas), ptr(rhs_atol), combos.data_ptr(), val.data_ptr(),
             idx.data_ptr(), m, s, j, c, g, const.shape[2],
-            int(grids is not None), stream)
+            int(grids is not None), int(mapping == "streams"), tile, threads,
+            smem, stream)
     if err:
         raise RuntimeError(f"plan_solve launch failed: CUDA error {err}")
     launches += 1

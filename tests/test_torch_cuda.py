@@ -186,7 +186,10 @@ def ps_case(m, s, j, c, kind, seed, dtype=np.float64):
     "budget" (masks and a latency budget), "all" (all three, stream 0
     masked out entirely), "ties" (integer terms and constants equal
     across subsets: exact cost ties across tuples and subsets), "nan" (a
-    NaN term in some subsets)."""
+    NaN term in some subsets), "late_nan" (the cheapest subset, the last,
+    holds a NaN in its last tuple alone in half the streams), "nan_then_inf"
+    (the cheapest subset, the first, holds a NaN and every later subset is
+    infeasible in half the streams: those return (+inf, 0))."""
     rng = np.random.default_rng(seed)
     if kind == "ties":
         fs = rng.integers(0, 3, (m, s, j, c)).astype(dtype)
@@ -199,6 +202,14 @@ def ps_case(m, s, j, c, kind, seed, dtype=np.float64):
         consts[0][rng.random((m, s)) < 0.1] = np.inf  # infeasible subsets
     if kind == "nan":
         fs[rng.random((m, s)) < 0.2, 0, 0] = np.nan
+    if kind == "late_nan":  # c0 = C-1 only in the last monotone tuple
+        fs[:, -1] -= 10
+        fs[rng.random(m) < 0.5, -1, 0, -1] = np.nan
+    if kind == "nan_then_inf":
+        half = rng.random(m) < 0.5
+        fs[:, 0] -= 10
+        fs[half, 0, 0, 0] = np.nan
+        consts[0][half, 1:] = np.inf
     case = {"fs": fs, "consts": consts,
             "cand": np.sort(rng.uniform(0, 100, (m, s, c)), 2).astype(dtype)}
     if kind in ("masked", "lb", "budget", "all"):
@@ -234,14 +245,26 @@ def ps_tensors(case, device):
 
 
 # (M, S, J, C, kind): the planner's group shapes (unconstrained 3-tier
-# fleets: S <= 3, J <= 2, C <= 6; constrained: C <= 8), a 4-tier
-# constrained shape (J = 3, C = 21) and every kind of case
+# fleets: S <= 3, J <= 2, C <= 6; constrained: C <= 8), 4-tier
+# constrained shapes (J = 3, C = 21 and 31; S = 4, J = 2, C = 19) and
+# every kind of case. Both kernel mappings (plan_solve.launch_plan: tiles
+# of streams for G < 64 and J <= 3, a block a stream otherwise) see ties,
+# a NaN in the last tuple of the last subset and a NaN-skipped first
+# subset before infeasible ones; tiles see J = 1, 2, 3 masked and not;
+# M = 1000 leaves a partial tile, M = 1 a lone stream; J = 4 takes a
+# block a stream at G = 35.
 PS_CASES = [(300, 3, 1, 4, "plain"), (300, 1, 2, 6, "plain"),
             (300, 2, 1, 4, "masked"), (300, 1, 2, 8, "lb"),
             (300, 3, 2, 6, "budget"), (300, 3, 2, 8, "all"),
             (300, 3, 2, 6, "ties"), (300, 3, 2, 6, "nan"),
             (40, 1, 3, 21, "all"), (40, 4, 2, 21, "all"),
-            (40, 2, 3, 9, "ties")]
+            (40, 2, 3, 9, "ties"), (64, 1, 3, 31, "all"),
+            (64, 4, 2, 19, "all"), (64, 2, 3, 31, "ties"),
+            (300, 3, 2, 8, "late_nan"), (64, 2, 3, 12, "late_nan"),
+            (300, 3, 2, 6, "nan_then_inf"), (64, 3, 3, 12, "nan_then_inf"),
+            (1000, 3, 2, 8, "all"), (1, 3, 2, 6, "budget"),
+            (1, 1, 3, 31, "lb"), (300, 2, 3, 5, "all"),
+            (300, 3, 3, 6, "nan_then_inf"), (40, 2, 4, 4, "all")]
 
 
 def self_check_fleet(m, docs, rng):

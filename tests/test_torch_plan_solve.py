@@ -20,14 +20,21 @@ from repro_torch.kernels.plan_solve import ops as t_ops
 from test_torch_cuda import ps_case, ps_tensors
 
 # J in {1, 2, 3}; unmasked, masked, lower bounds, latency budget, all
-# three with an all-infeasible stream, exact ties; float64 and float32
+# three with an all-infeasible stream, exact ties (J = 3 at C = 12: 364
+# tuples a subset); a NaN-skipped first subset before infeasible ones,
+# and a NaN in the last tuple of the last subset alone; float64 and
+# float32
 CASES = [(16, 3, 1, 4, "plain", np.float64), (16, 2, 1, 6, "masked",
                                                 np.float64),
          (16, 1, 2, 6, "plain", np.float64), (16, 3, 2, 8, "lb", np.float64),
          (16, 2, 2, 6, "budget", np.float64), (16, 3, 2, 8, "all",
                                                np.float64),
          (16, 3, 2, 5, "ties", np.float64), (8, 2, 3, 7, "all", np.float64),
-         (8, 2, 3, 5, "ties", np.float64), (16, 3, 2, 6, "all", np.float32)]
+         (8, 2, 3, 5, "ties", np.float64), (16, 3, 2, 6, "all", np.float32),
+         (8, 2, 3, 12, "ties", np.float64),
+         (16, 3, 2, 6, "nan_then_inf", np.float64),
+         (16, 3, 2, 6, "nan_then_inf", np.float32),
+         (16, 3, 2, 6, "late_nan", np.float64)]
 
 
 def _jax_kwargs(case):
@@ -59,6 +66,10 @@ def test_enum_solve_plain_equals_pallas(m, s, j, c, kind, dtype):
         assert tv[0] == np.inf and ts[0] == 0 and (tsel[0] == 0).all()
     if kind == "ties":  # ties were there to break
         assert len(np.unique(jv)) < m
+    if kind == "nan_then_inf":  # not s = 1's winner: the index stays 0
+        cut = np.isnan(case["fs"][:, 0, 0, 0])
+        assert cut.any() and (jv[cut] == np.inf).all()
+        assert (js[cut] == 0).all() and (jsel[cut] == 0).all()
 
 
 @pytest.mark.parametrize("m,s,j,c,kind,dtype",
@@ -145,3 +156,95 @@ def test_nan_term_in_masked_column_follows_the_jnp_route():
     assert [o.tolist() for o in pallas] == [[np.inf], [0], [[0]]]
     assert [o.tolist() for o in folded] == [[0.0], [0], [[1]]]
     assert [o.tolist() for o in port] == [[0.0], [0], [[1]]]
+
+
+def _shapes(m, s, j, c, masked, dtype, g=None):
+    """Meta tensors of plan_solve's inputs: shapes and types alone."""
+    meta = dict(device="meta", dtype=dtype)
+    g = len(t_ops.monotone_combos(c, j)) if g is None else g
+    grids = None
+    if masked:
+        grids = (torch.empty((m, s, c), **meta),
+                 torch.empty((m, s, j, c), device="meta", dtype=torch.bool),
+                 torch.empty((m, s, max(j - 1, 1), c), **meta),
+                 torch.empty((m, s, j, c), **meta),
+                 torch.empty((m, s, 2), **meta))
+    return (torch.empty((m, s, j, c), **meta), torch.empty((m, s, 3), **meta),
+            torch.empty((g, j), device="meta", dtype=torch.uint8), grids)
+
+
+# the launches of phase 4 of chip_smoke.py: the 1,000,000-stream plan,
+# the 400,000-stream re-solve and the 4-tier constrained fleet
+@pytest.mark.parametrize("m,s,j,c,masked,dtype,mapping,threads", [
+    (1_000_000, 3, 1, 4, False, torch.float32, "rows", 128),
+    (1_000_000, 1, 2, 6, False, torch.float32, "rows", 128),
+    (400_000, 3, 1, 6, True, torch.float64, "rows", 32),
+    (400_000, 1, 2, 8, True, torch.float64, "rows", 32),
+    (4096, 6, 1, 9, True, torch.float64, "rows", 32),
+    (4096, 4, 2, 19, True, torch.float64, "streams", 192),
+    (4096, 1, 3, 31, True, torch.float64, "streams", 256),
+    (4096, 3, 2, 12, False, torch.float64, "streams", 96),
+    (4096, 1, 3, 17, False, torch.float64, "streams", 256)])
+def test_launch_plan_picks_the_mapping_from_g(m, s, j, c, masked, dtype,
+                                              mapping, threads):
+    args = _shapes(m, s, j, c, masked, dtype)
+    g = args[2].shape[0]
+    got, tile, nthreads, smem = t_ops.launch_plan(*args)
+    assert (got, nthreads) == (mapping, threads)
+    assert (got == "streams") == (g >= t_ops.STREAMS_MIN_G or j > 3)
+    size = args[0].element_size()
+    if got == "rows":  # a thread a stream; the tile near its target
+        assert 1 < tile <= nthreads < tile + 32
+        assert smem == t_ops._smem_bytes(tile, s, j, c, g, 3, masked, size,
+                                         "rows")
+        assert t_ops._smem_bytes(tile, s, j, c, 10 * g, 3, masked, size,
+                                 "rows") == smem  # no combo table
+        assert smem <= 2 * t_ops.TILE_BYTES + 1024  # two buffers
+    else:
+        assert tile == 1
+        assert smem == t_ops._smem_bytes(1, s, j, c, g, 3, masked, size,
+                                         "streams", s * threads // 32)
+    assert smem <= t_ops.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,stride", [(4, 5), (12, 13), (9, 9), (16, 17),
+                                      (3, 3), (1, 1)])
+def test_staged_rows_lie_at_odd_strides(n, stride):
+    """A warp's threads, one stream each, read distinct banks: an odd
+    number of 4-byte (float32) or 8-byte (float64) words between two
+    streams' staged rows."""
+    assert t_ops._pad(n) == stride >= n and stride % 2 == 1
+
+
+def test_cuda_cases_cross_both_mappings():
+    """tests/test_torch_cuda.py's plan_solve cases reach both kernels,
+    each with ties, late NaNs, a NaN-skipped first subset and a lone
+    stream; the tiles of streams with a partial last tile and every J
+    and masking they are built for."""
+    from test_torch_cuda import PS_CASES
+    seen = set()
+    for m, s, j, c, kind in PS_CASES:
+        for dtype in (torch.float32, torch.float64):
+            masked = kind in ("masked", "lb", "budget", "all")
+            mapping, tile, *_ = t_ops.launch_plan(
+                *_shapes(m, s, j, c, masked, dtype))
+            seen.add((mapping, kind))
+            seen.add((mapping, "partial tile" if m % tile else "whole"))
+            seen.add((mapping, f"M={m}"))
+            seen.add((mapping, f"J={j}", masked))
+    for mapping in ("rows", "streams"):
+        for kind in ("all", "ties", "late_nan", "nan_then_inf", "M=1"):
+            assert (mapping, kind) in seen, (mapping, kind)
+    assert ("rows", "partial tile") in seen
+    for j in (1, 2, 3):  # every instantiation of the tiles' kernel
+        for masked in (False, True):
+            assert ("rows", f"J={j}", masked) in seen, (j, masked)
+    assert ("streams", "J=4", True) in seen
+
+
+def test_launch_plan_raises_beyond_shared_memory():
+    with pytest.raises(ValueError, match="streams.*shared memory"):
+        t_ops.launch_plan(*_shapes(64, 1, 3, 70, True, torch.float64,
+                                   g=80_000))
+    with pytest.raises(ValueError, match="rows.*shared memory"):
+        t_ops.launch_plan(*_shapes(64, 200, 1, 63, True, torch.float64))
