@@ -16,9 +16,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    8192; one stream of 2^20 and 2^26 scores; plan_solve at the inputs of
    the 1,000,000-stream plan's launches and of a 4-tier constrained
    fleet's, in float32 and float64, through both of its kernels) and
-   edge cases (for plan_solve also ties at G=5456, a NaN in a last
-   subset's last tuple alone, and a NaN-skipped first subset before
-   infeasible ones, which must give (+inf, 0)); exact; then
+   edge cases (for batched_topk NaN scores and bars and signed zeros,
+   for tier_assign ids at the boundaries and at INT32_MAX - 1 and floors
+   of T - 1, both also from a base 4 bytes off 16-byte alignment, each
+   logging the kernel its launch_plan picks; for plan_solve also ties at
+   G=5456, a NaN in a last subset's last tuple alone, and a NaN-skipped
+   first subset before infeasible ones, which must give (+inf, 0));
+   exact (NaN where the plain version has NaN); then
    flash_attention and entropy_scores at both score producers' shapes
    (head dims 64 and 128; vocabularies of 128,256 and 49,152) and edge
    cases, among them a 4096-key sliding window over 4608 keys at head
@@ -26,9 +30,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 4. timings: each kernel, its plain version and its bound (bytes, or
    operations where they take longer), with the PyTorch call that
    computes the same function where there is one; flash_attention and
-   entropy_scores at both score producers' shapes, and each plan_solve
-   launch (with the kernel and launch plan it took), each the median of
-   5 profiled windows with its spread;
+   entropy_scores at both score producers' shapes, batched_topk and
+   tier_assign at the main path's, and each plan_solve launch (with the
+   kernel and launch plan it took), each the median of 5 profiled
+   windows with its spread;
 5. main path at full width — the defaults of examples/million_streams.py:
    1,000,000 streams, 3 tiers, K=8, planned on the card by the device
    planner (shp.plan_ntier_arrays, plan_solve), the shared hot-tier
@@ -164,17 +169,22 @@ def cuda_ms(fn, reps):
 
 
 def max_abs_err(outs, refs):
-    """Exact comparison of a kernel's outputs with its plain version's;
-    returns the largest absolute difference (0.0 when equal)."""
+    """Exact comparison of a kernel's outputs with its plain version's:
+    equal entries, NaN where the plain version has NaN; returns the
+    largest absolute difference (0.0 when equal)."""
     worst = 0.0
     for a, b in zip(outs, refs):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"shape/dtype {a.shape} {a.dtype} vs "
                                  f"{b.shape} {b.dtype}")
-        # equal entries (infinities included) differ by 0
-        diff = torch.where(a == b, 0.0, (a.double() - b.double()).abs())
+        # equal entries (infinities and NaN against NaN included) differ
+        # by 0
+        same = a == b
+        if a.is_floating_point():
+            same |= a.isnan() & b.isnan()
+        diff = torch.where(same, 0.0, (a.double() - b.double()).abs())
         worst = max(worst, float(diff.nan_to_num(float("inf")).max()))
-        if not torch.equal(a, b):
+        if not bool(same.all()):
             raise AssertionError(f"kernel differs from its plain version "
                                  f"(max abs diff {worst})")
     return worst
@@ -293,7 +303,25 @@ def log2_rule():
 # phases 3-4: kernel parity and timings
 # ---------------------------------------------------------------------------
 
+def offset_view(x):
+    """A contiguous copy of ``x`` that starts 4 bytes into its storage (a
+    base off 16-byte alignment)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def plan_text(plan):
+    """A launch_plan's (kernel, lanes a row) as log text."""
+    kernel, lanes = plan
+    return f"{kernel}, {lanes} lane{'s' if lanes > 1 else ''} a row"
+
+
 def btk_inputs(g, n, kind):
+    """Scores and bars: "unfull" (every other bar -inf), "ties" (bars equal
+    to scores), "nan" (NaN scores in every 7th row, NaN bars in every 5th,
+    -inf bars in every 3rd, signed zeros at zero bars), "plain"."""
     scores = torch.randn(M, n, device="cuda", generator=g)
     bars = torch.randn(M, device="cuda", generator=g)
     if kind == "unfull":
@@ -302,10 +330,22 @@ def btk_inputs(g, n, kind):
         scores[:, ::3] = 0.5
         bars[::2] = 0.5
         bars[1::2] = scores[1::2, n // 2]
+    elif kind == "nan":
+        scores[::7, n // 3] = float("nan")
+        scores[1::4, ::2] = -0.0
+        scores[2::4, ::2] = 0.0
+        bars[1::4] = 0.0
+        bars[2::4] = -0.0
+        bars[::3] = float("-inf")
+        bars[::5] = float("nan")
     return scores.contiguous(), bars
 
 
-def ta_inputs(g, k, b, floors):
+def ta_inputs(g, k, b, floors, edges=False):
+    """Ids with -1 pads against sorted boundaries with ±inf; ``floors``:
+    random cascade floors; ``edges``: ids equal to a boundary, ids of
+    INT32_MAX - 1 and a boundary there, floors of T - 1 in every third
+    row."""
     from repro_torch.kernels.tier_assign import ops as ta
     ids = torch.randint(0, DOCS, (M, k), device="cuda", dtype=torch.int32,
                         generator=g)
@@ -314,10 +354,17 @@ def ta_inputs(g, k, b, floors):
     bounds = np.sort(rng.uniform(0, DOCS, (M, b)), axis=1)
     bounds[::5, -1] = np.inf
     bounds[::7, 0] = -np.inf
+    if edges:
+        bounds[1::11, -1] = np.iinfo(np.int32).max - 1
     bq = torch.tensor(ta.quantize_boundaries(bounds), device="cuda")
     floor = (torch.randint(0, b + 1, (M,), device="cuda", dtype=torch.int32,
                            generator=g) if floors
              else torch.zeros(M, device="cuda", dtype=torch.int32))
+    if edges:
+        ids[1::2, 0] = bq[1::2, 0]
+        ids[1::4, 1] = bq[1::4, -1]
+        ids[::6, k - 1] = np.iinfo(np.int32).max - 1
+        floor[::3] = b
     return ids, bq, floor
 
 
@@ -504,29 +551,43 @@ def kernel_parity():
     from repro_torch.kernels.plan_solve import ops as ps
     errs = {"batched_topk": 0.0, "tier_assign": 0.0, "logmem_update": 0.0,
             "topk_filter": 0.0, "plan_solve": 0.0}
-    for n, kind, label in ((16, "unfull", "-inf bars: pad columns counted"),
-                           (16, "ties", "bars equal to scores"),
-                           (16, "plain", "main-path width"),
-                           (7, "unfull", "N=7, -inf bars"),
-                           (600, "unfull", "N=600, two tiles, -inf bars")):
+    for n, kind, offset, label in (
+            (16, "unfull", False, "-inf bars: pad columns counted"),
+            (16, "ties", False, "bars equal to scores"),
+            (16, "plain", False, "main-path width"),
+            (16, "nan", False, "NaN scores and bars, signed zeros"),
+            (16, "nan", True, "base 4 bytes off 16-byte alignment, NaN"),
+            (7, "unfull", False, "N=7, -inf bars"),
+            (600, "unfull", False, "N=600, two tiles, -inf bars")):
         s, b = btk_inputs(g, n, kind)
+        if offset:
+            s = offset_view(s)
+        plan = btk.launch_plan(s, b)
         out = btk.batched_topk_filter(s, b)
         torch.cuda.synchronize()
         err = max_abs_err(out, btk.reference(s, b))
         errs["batched_topk"] = max(errs["batched_topk"], err)
-        log(f"parity batched_topk [{label}] M={M} N={n}: exact "
-            f"(max abs diff {err})")
-    for k, b, floors, label in ((8, 2, True, "floors, ±inf bounds, -1 pads"),
-                                (8, 2, False, "no floors"),
-                                (5, 3, True, "K=5, 4 tiers"),
-                                (40, 2, True, "K=40, two lane rounds")):
-        ids, bq, floor = ta_inputs(g, k, b, floors)
+        log(f"parity batched_topk [{label}] M={M} N={n}; {plan_text(plan)}: "
+            f"exact (max abs diff {err})")
+    for k, b, floors, edges, offset, label in (
+            (8, 2, True, False, False, "floors, ±inf bounds, -1 pads"),
+            (8, 2, False, False, False, "no floors"),
+            (8, 2, True, True, False, "ids at boundaries and INT32_MAX-1, "
+             "floors T-1"),
+            (8, 2, True, True, True, "base 4 bytes off 16-byte alignment"),
+            (5, 3, True, False, False, "K=5, 4 tiers"),
+            (16, 7, True, True, False, "K=16, 8 tiers"),
+            (40, 2, True, False, False, "K=40, two lane rounds")):
+        ids, bq, floor = ta_inputs(g, k, b, floors, edges)
+        if offset:
+            ids = offset_view(ids)
+        plan = ta.launch_plan(ids, bq, floor)
         out = ta.tier_assign(ids, bq, floor)
         torch.cuda.synchronize()
         err = max_abs_err(out, ta.reference(ids, bq, floor, b + 1))
         errs["tier_assign"] = max(errs["tier_assign"], err)
-        log(f"parity tier_assign [{label}] M={M} K={k} B={b}: exact "
-            f"(max abs diff {err})")
+        log(f"parity tier_assign [{label}] M={M} K={k} B={b}; "
+            f"{plan_text(plan)}: exact (max abs diff {err})")
     for m, n, kind, label in (
             (LM_STREAMS, LM_CHUNK, "plain", "deployment chunk"),
             (LM_FLEET, LM_CHUNK, "plain", "fleet of huge-K tenants"),
@@ -767,18 +828,26 @@ def kernel_timings():
             lambda a=a: tf.reference(*a),
             4 * n + 4 + n + 8 * -(-n // tf.tile_width(n)),
             f"scores ({n},) f32, thr () f32"))
+    plans = {"batched_topk": btk.launch_plan(s, b),
+             "tier_assign": ta.launch_plan(ids, bq, floor)}
     out = {}
     for key, kernel, call, plain, nbytes, shape in cases:
-        out[key] = {"ms": device_ms(call, 100, kernel),
+        if key in plans:  # the redesigned kernels: median of WINDOWS
+            med, lo, hi, _ = device_ms_windows(call, 100, kernel, WINDOWS)
+            how = (f"{plan_text(plans[key])}; median of {WINDOWS} windows "
+                   f"of 100 calls; min {lo:.4f}, max {hi:.4f}")
+        else:
+            med, how = device_ms(call, 100, kernel), "mean of 100 calls"
+        out[key] = {"ms": med,
                     "call_ms": cuda_ms(call, 200),
                     "plain_ms": cuda_ms(plain, 10),
                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                     "bound_by": "bytes", "library_ms": None}
         t = out[key]
         log(f"timing {key} [{shape}]: kernel {t['ms']:.4f} ms on the device "
-            f"(profiler); {t['call_ms']:.4f} ms per wrapper call (CUDA "
-            f"events, host launch included); plain {t['plain_ms']:.4f} ms; "
-            f"byte bound {t['bound_ms']:.4f} ms at 3.35 TB/s")
+            f"(profiler, {how}); {t['call_ms']:.4f} ms per wrapper call "
+            f"(CUDA events, host launch included); plain {t['plain_ms']:.4f} "
+            f"ms; byte bound {t['bound_ms']:.4f} ms at 3.35 TB/s")
     for name, call in (("batched_topk", "torch.gt gives the mask alone"),
                        ("tier_assign", "torch.bucketize gives the uncapped "
                         "tier index alone"),

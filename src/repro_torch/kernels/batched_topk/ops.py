@@ -3,8 +3,9 @@ mask, and per-(stream, tile) survivor count and maximum.
 
 ``batched_topk_filter`` is the port of the reference's
 ``kernels.batched_topk.ops.batched_topk_filter``. The device of the input
-decides what runs: a CUDA tensor launches the hand-written kernel
-(``csrc/batched_topk.cu``) or raises, a CPU tensor runs the plain PyTorch
+decides what runs: a CUDA tensor launches one of the hand-written
+kernels of ``csrc/batched_topk.cu`` (``launch_plan`` picks it from the
+shape and the alignment) or raises, a CPU tensor runs the plain PyTorch
 version ``reference``. There is no switch between the two.
 """
 from __future__ import annotations
@@ -17,6 +18,9 @@ import torch
 from .. import build
 
 NEG_BIG = -1e30
+NARROW = 32  # widest row scan_narrow gives to a single thread
+# the kernel ids of csrc/batched_topk.cu
+KERNELS = {"scan_narrow": 0, "scan_wide": 1, "scan_vec": 2}
 
 # kernel launches made by ``batched_topk_filter`` since the last reset
 launches = 0
@@ -56,12 +60,32 @@ def reference(scores: torch.Tensor, bars: torch.Tensor):
     return hit[:, :n].to(torch.int8), counts, tmax
 
 
+def launch_plan(scores: torch.Tensor, bars: torch.Tensor):
+    """(kernel, lanes a row) that ``batched_topk_filter`` launches for
+    ``scores`` (M, N) and ``bars`` (M,): "scan_vec" (a group of N/4 lanes
+    a row, one 16-byte load a lane) when the row is one tile of N = 4G
+    scores, G a power of two up to 32, and the base is 16-byte aligned;
+    else "scan_narrow" (a thread a row) for one tile of at most NARROW
+    scores; else "scan_wide" (a warp a tile). Raises ValueError unless
+    both are contiguous."""
+    if not (scores.is_contiguous() and bars.is_contiguous()):
+        raise ValueError("scores and bars must be contiguous")
+    n = scores.shape[1]
+    single = n <= tile_width(n)
+    lanes = n // 4
+    if (single and n % 4 == 0 and 1 <= lanes <= 32
+            and lanes & (lanes - 1) == 0 and scores.data_ptr() % 16 == 0):
+        return "scan_vec", lanes
+    if single and n <= NARROW:
+        return "scan_narrow", 1
+    return "scan_wide", 32
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.library("batched_topk").batched_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -73,15 +97,15 @@ def batched_topk_filter(scores: torch.Tensor, bars: torch.Tensor):
     tile are counted where the bar is below NEG_BIG (an unfull reservoir,
     bar = -inf) and enter its max, as in the reference.
 
-    CUDA tensors run the kernel, CPU tensors the plain version."""
+    CUDA tensors run the kernel ``launch_plan`` names, CPU tensors the
+    plain version."""
     global launches
     if scores.device.type == "cpu":
         return reference(scores, bars)
     if scores.device.type != "cuda":
         raise ValueError(f"no kernel for device {scores.device}")
     _check(scores, bars)
-    if not (scores.is_contiguous() and bars.is_contiguous()):
-        raise ValueError("scores and bars must be contiguous")
+    kernel, lanes = launch_plan(scores, bars)
     m, n = scores.shape
     bn = tile_width(n)
     tiles = -(-n // bn)
@@ -94,7 +118,7 @@ def batched_topk_filter(scores: torch.Tensor, bars: torch.Tensor):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(scores.data_ptr(), bars.data_ptr(),
                         mask.data_ptr(), counts.data_ptr(), tmax.data_ptr(),
-                        m, n, bn, tiles, stream)
+                        m, n, bn, tiles, KERNELS[kernel], lanes, stream)
     if err:
         raise RuntimeError(f"batched_topk launch failed: CUDA error {err}")
     launches += 1

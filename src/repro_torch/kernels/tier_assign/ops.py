@@ -6,8 +6,9 @@ The port of the reference's ``kernels.tier_assign.ops``. Boundaries are
 quantized on the host once (``quantize_boundaries``, float64 as in the
 reference) and the wrapper takes the int32 result, so a caller whose
 boundaries do not change moves them to the card once. The device of the
-input decides what runs: a CUDA tensor launches the hand-written kernel
-(``csrc/tier_assign.cu``) or raises, a CPU tensor runs the plain PyTorch
+input decides what runs: a CUDA tensor launches one of the hand-written
+kernels of ``csrc/tier_assign.cu`` (``launch_plan`` picks it from the
+shape and the alignment) or raises, a CPU tensor runs the plain PyTorch
 version ``reference``. There is no switch between the two.
 """
 from __future__ import annotations
@@ -22,6 +23,9 @@ from .. import build
 
 _INT_MAX = np.iinfo(np.int32).max
 MAX_TIERS = 8  # the planner's limit; the kernel keeps counts in registers
+NARROW = 32  # widest row assign_narrow gives to a single thread
+# the kernel ids of csrc/tier_assign.cu
+KERNELS = {"assign_narrow": 0, "assign_wide": 1, "assign_vec": 2}
 
 # kernel launches made by ``tier_assign`` since the last reset
 launches = 0
@@ -66,12 +70,33 @@ def reference(ids: torch.Tensor, bounds_int: torch.Tensor,
     return tier, one_hot.sum(dim=1, dtype=torch.int32)
 
 
+def launch_plan(ids: torch.Tensor, bounds_int: torch.Tensor,
+                floor: torch.Tensor):
+    """(kernel, lanes a row) that ``tier_assign`` launches for ``ids``
+    (M, K), ``bounds_int`` (M, B) and ``floor`` (M,): "assign_vec" (a
+    group of K/4 lanes a row, one 16-byte load and store a lane) when
+    K = 4G, G a power of two up to 32, and the ids' base is 16-byte
+    aligned; else "assign_narrow" (a thread a row) for at most NARROW ids;
+    else "assign_wide" (a warp a row). Raises ValueError unless all three
+    are contiguous."""
+    if not (ids.is_contiguous() and bounds_int.is_contiguous()
+            and floor.is_contiguous()):
+        raise ValueError("ids, bounds_int and floor must be contiguous")
+    k = ids.shape[1]
+    lanes = k // 4
+    if (k % 4 == 0 and 1 <= lanes <= 32 and lanes & (lanes - 1) == 0
+            and ids.data_ptr() % 16 == 0):
+        return "assign_vec", lanes
+    if k <= NARROW:
+        return "assign_narrow", 1
+    return "assign_wide", 32
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.library("tier_assign").tier_assign_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -83,7 +108,8 @@ def tier_assign(ids: torch.Tensor, bounds_int: torch.Tensor,
     -1 at padding, counts (M, T) int32 survivors per tier). T defaults to
     B + 1.
 
-    CUDA tensors run the kernel, CPU tensors the plain version."""
+    CUDA tensors run the kernel ``launch_plan`` names, CPU tensors the
+    plain version."""
     global launches
     t = int(n_tiers) if n_tiers is not None else bounds_int.shape[1] + 1
     if ids.device.type == "cpu":
@@ -91,9 +117,7 @@ def tier_assign(ids: torch.Tensor, bounds_int: torch.Tensor,
     if ids.device.type != "cuda":
         raise ValueError(f"no kernel for device {ids.device}")
     _check(ids, bounds_int, floor, t)
-    if not (ids.is_contiguous() and bounds_int.is_contiguous()
-            and floor.is_contiguous()):
-        raise ValueError("ids, bounds_int and floor must be contiguous")
+    kernel, lanes = launch_plan(ids, bounds_int, floor)
     m, k = ids.shape
     tier = torch.empty((m, k), dtype=torch.int32, device=ids.device)
     counts = torch.empty((m, t), dtype=torch.int32, device=ids.device)
@@ -103,7 +127,8 @@ def tier_assign(ids: torch.Tensor, bounds_int: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(ids.data_ptr(), bounds_int.data_ptr(),
                         floor.data_ptr(), tier.data_ptr(), counts.data_ptr(),
-                        m, k, bounds_int.shape[1], t, stream)
+                        m, k, bounds_int.shape[1], t, KERNELS[kernel], lanes,
+                        stream)
     if err:
         raise RuntimeError(f"tier_assign launch failed: CUDA error {err}")
     launches += 1

@@ -88,6 +88,110 @@ def ta_case(m, k, b, seed):
 TA_CASES = [(1, 128, 1), (5, 64, 2), (16, 33, 3), (3, 7, 4), (4, 8, 2),
             (2, 5, 7)]
 
+INT32_MAX = np.iinfo(np.int32).max
+
+
+def btk_seam_case(m, n, kind, seed):
+    """``btk_case``'s scores and bars, then by ``kind``: "nan" (NaN scores
+    in some rows, NaN bars in others), "zeros" (scores of -0.0 and +0.0
+    and bars of -0.0 and +0.0), "ninf" (every bar -inf: pad columns
+    counted), "plain" (as they are)."""
+    scores, bars = btk_case(m, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "nan":
+        scores[rng.random((m, n)) < 0.05] = np.nan
+        bars[rng.random(m) < 0.2] = np.nan
+        scores[-1, 0] = np.nan
+    elif kind == "zeros":
+        zeros = np.array([-0.0, 0.0], np.float32)
+        hit = rng.random((m, n)) < 0.4
+        scores[hit] = zeros[rng.integers(0, 2, int(hit.sum()))]
+        bars = zeros[rng.integers(0, 2, m)]
+    elif kind == "ninf":
+        bars[:] = -np.inf
+    return scores, bars
+
+
+# (M, N, kind, view 4 bytes off 16-byte alignment, kernel launch_plan
+# picks): rows ending inside a warp and a block at the main width N = 16,
+# the other widths the vector kernel takes (4 to 128) and ones it
+# refuses (12, 7), misaligned views, NaN, signed zeros and -inf bars
+BTK_SEAM_CASES = [
+    (1, 16, "ninf", False, "scan_vec"), (7, 16, "nan", False, "scan_vec"),
+    (9, 16, "zeros", False, "scan_vec"), (33, 16, "plain", False, "scan_vec"),
+    (4097, 16, "nan", False, "scan_vec"),
+    (4097, 16, "ninf", False, "scan_vec"),
+    (33, 4, "nan", False, "scan_vec"), (9, 8, "zeros", False, "scan_vec"),
+    (33, 32, "ninf", False, "scan_vec"), (9, 64, "nan", False, "scan_vec"),
+    (7, 128, "zeros", False, "scan_vec"),
+    (33, 12, "nan", False, "scan_narrow"),
+    (9, 7, "zeros", False, "scan_narrow"),
+    (4097, 16, "nan", True, "scan_narrow"),
+    (9, 16, "ninf", True, "scan_narrow"),
+    (9, 64, "zeros", True, "scan_wide"), (5, 600, "nan", False, "scan_wide")]
+
+
+def ta_edge_case(m, k, b, t, seed):
+    """Tier-assignment inputs at the edges, T tiers over B boundaries:
+    ids equal to a boundary, ids of INT32_MAX - 1 (and a boundary there in
+    the middle row), -1 and other negative pads, +inf boundaries, floors
+    of T - 1 in every third row."""
+    rng = np.random.default_rng(seed)
+    bounds = np.sort(rng.integers(0, 1000, (m, b)), axis=1).astype(float)
+    ids = rng.integers(0, 1000, (m, k))
+    if b:
+        bounds[::4, -1] = np.inf
+        bounds[m // 2, -1] = INT32_MAX - 1
+        col = np.minimum(rng.integers(0, b, (m, k)), b - 1)
+        at = (rng.random((m, k)) < 0.4) & np.isfinite(
+            np.take_along_axis(bounds, col, 1))
+        ids[at] = np.take_along_axis(bounds, col, 1)[at]
+    ids[rng.random((m, k)) < 0.1] = INT32_MAX - 1
+    ids[m // 2, 0] = INT32_MAX - 1
+    ids[rng.random((m, k)) < 0.15] = -1
+    ids[rng.random((m, k)) < 0.03] = -7
+    floor = rng.integers(0, t, m)
+    floor[::3] = t - 1
+    return ids.astype(np.int32), bounds, floor.astype(np.int32)
+
+
+# (M, K, B, T, view 4 bytes off 16-byte alignment, kernel launch_plan
+# picks): rows ending inside a warp and a block at the main K = 8, B = 2,
+# T = 3, T from 1 to 8 (below, at and above B + 1), the other widths the
+# vector kernel takes (4 to 128) and ones it refuses (6, 5), misaligned
+# views
+TA_SEAM_CASES = [
+    (1, 8, 2, 3, False, "assign_vec"), (7, 8, 2, 3, False, "assign_vec"),
+    (9, 8, 2, 3, False, "assign_vec"), (33, 8, 2, 3, False, "assign_vec"),
+    (4097, 8, 2, 3, False, "assign_vec"),
+    (33, 8, 2, 1, False, "assign_vec"), (33, 8, 1, 2, False, "assign_vec"),
+    (9, 8, 3, 4, False, "assign_vec"), (9, 8, 2, 5, False, "assign_vec"),
+    (9, 8, 5, 6, False, "assign_vec"), (9, 8, 6, 7, False, "assign_vec"),
+    (9, 8, 7, 8, False, "assign_vec"), (9, 8, 7, 3, False, "assign_vec"),
+    (33, 4, 2, 3, False, "assign_vec"), (9, 16, 3, 4, False, "assign_vec"),
+    (9, 64, 2, 3, False, "assign_vec"), (5, 128, 7, 8, False, "assign_vec"),
+    (33, 6, 2, 3, False, "assign_narrow"),
+    (9, 5, 3, 4, False, "assign_narrow"),
+    (4097, 8, 2, 3, True, "assign_narrow"),
+    (9, 64, 2, 3, True, "assign_wide"), (3, 40, 2, 3, False, "assign_wide")]
+
+
+def offset_view(x):
+    """A contiguous copy of ``x`` that starts 4 bytes into its storage, so
+    its base is off 16-byte alignment."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def same_exactly(outs, refs):
+    """Equal outputs, NaN where the plain version has NaN (signed zeros
+    compare equal, as in the reference's own tests)."""
+    for a, r in zip(outs, refs):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        torch.testing.assert_close(a, r, rtol=0, atol=0, equal_nan=True)
+
 
 TIED_POOL = np.array([-1.0, -0.0, 0.0, 0.5, 0.5, 1.0, 2.0], np.float32)
 
@@ -359,6 +463,37 @@ def test_tier_assign_kernel_equals_plain(m, k, b, cuda_device):
     assert t_ta.launches == before + 1
     for a, r in zip(out, t_ta.reference(*args, b + 1)):
         assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,kind,offset,want", BTK_SEAM_CASES)
+def test_batched_topk_kernel_seams(m, n, kind, offset, want, cuda_device):
+    scores, bars = btk_seam_case(m, n, kind, m + n)
+    s, b = (torch.tensor(x, device=cuda_device) for x in (scores, bars))
+    if offset:
+        s = offset_view(s)
+    assert t_btk.launch_plan(s, b)[0] == want
+    before = t_btk.launches
+    out = t_btk.batched_topk_filter(s, b)
+    torch.cuda.synchronize()
+    assert t_btk.launches == before + 1
+    same_exactly(out, t_btk.reference(s, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,b,t,offset,want", TA_SEAM_CASES)
+def test_tier_assign_kernel_seams(m, k, b, t, offset, want, cuda_device):
+    ids, bounds, floor = ta_edge_case(m, k, b, t, m + k + b + t)
+    args = [torch.tensor(x, device=cuda_device) for x in
+            (ids, t_ta.quantize_boundaries(bounds), floor)]
+    if offset:
+        args[0] = offset_view(args[0])
+    assert t_ta.launch_plan(*args)[0] == want
+    before = t_ta.launches
+    out = t_ta.tier_assign(*args, n_tiers=t)
+    torch.cuda.synchronize()
+    assert t_ta.launches == before + 1
+    same_exactly(out, t_ta.reference(*args, t))
 
 
 @pytest.mark.cuda
