@@ -18,8 +18,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    fleet's, in float32 and float64, through both of its kernels) and
    edge cases (for batched_topk NaN scores and bars and signed zeros,
    for tier_assign ids at the boundaries and at INT32_MAX - 1 and floors
-   of T - 1, both also from a base 4 bytes off 16-byte alignment, each
-   logging the kernel its launch_plan picks; for plan_solve also ties at
+   of T - 1, for logmem_update grids of 1, 131, 133 and 1,025 streams,
+   rows of 512, 513 and 36, NaN scores and thresholds, signed zeros and
+   all-pad tiles, all three also from a base 4 bytes off 16-byte
+   alignment, each logging the kernel its launch_plan picks; for
+   plan_solve also ties at
    G=5456, a NaN in a last subset's last tuple alone, and a NaN-skipped
    first subset before infeasible ones, which must give (+inf, 0));
    exact (NaN where the plain version has NaN); then
@@ -31,9 +34,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    operations where they take longer), with the PyTorch call that
    computes the same function where there is one; flash_attention and
    entropy_scores at both score producers' shapes, batched_topk and
-   tier_assign at the main path's, and each plan_solve launch (with the
-   kernel and launch plan it took), each the median of 5 profiled
-   windows with its spread;
+   tier_assign at the main path's, logmem_update and topk_filter at
+   their paths' shapes and a large one, and each plan_solve launch (with
+   the kernel and launch plan it took), each the median of 5 profiled
+   windows with its spread; logmem_update at 64 x 8192 and topk_filter
+   at 2^20, whose inputs stay in the card's L2 between back-to-back
+   calls, also L2-cold (128 MiB written before each call);
 5. main path at full width — the defaults of examples/million_streams.py:
    1,000,000 streams, 3 tiers, K=8, planned on the card by the device
    planner (shp.plan_ntier_arrays, plan_solve), the shared hot-tier
@@ -134,6 +140,7 @@ SC_SERVE = dict(requests=16, batch=8, prompt_len=1024, gen_len=32, topk=8)
 FA_SC = (SC_SERVE["batch"], SC_SERVE["prompt_len"], 24, 2, 128)
 ENT_SC = (SC_SERVE["batch"], 49_152)
 WINDOWS = 5  # timing windows of the redesigned kernels (median, spread)
+L2_FLUSH_BYTES = 128 << 20  # written between calls of an L2-cold timing
 
 
 def log(*args):
@@ -371,7 +378,11 @@ def ta_inputs(g, k, b, floors, edges=False):
 def lm_inputs(g, m, n, kind):
     """Logmem admission inputs: pad ids between live ones (10%), every
     97th row all pad, every third threshold -inf; ``ninf``: all -inf
-    (pads must stay inert); ``ties``: thresholds equal to scores."""
+    (pads must stay inert); ``ties``: thresholds equal to scores;
+    ``nan``: NaN scores among live entries (every 7th row) and NaN
+    thresholds (every 5th); ``zeros``: scores of -0.0 and +0.0 against
+    thresholds of 0.0 and -0.0; ``padtile``: the second tile of every row
+    all pad (a tile without a live entry inside a live row)."""
     scores = torch.randn(m, n, device="cuda", generator=g)
     ids = torch.arange(n, dtype=torch.int32, device="cuda").repeat(m, 1)
     ids[torch.rand(m, n, device="cuda", generator=g) < 0.1] = -1
@@ -383,6 +394,18 @@ def lm_inputs(g, m, n, kind):
     elif kind == "ties":
         scores[:, ::3] = 0.5
         tau[1::3] = 0.5
+    elif kind == "nan":
+        scores[::7, n // 3::5] = float("nan")
+        tau[::5] = float("nan")
+    elif kind == "zeros":
+        scores[:, ::3] = -0.0
+        scores[:, 1::3] = 0.0
+        tau[1::3] = 0.0
+        tau[2::3] = -0.0
+    elif kind == "padtile":
+        from repro_torch.kernels.logmem_update import ops as lm
+        bn = lm.tile_width(n)
+        ids[:, bn:2 * bn] = -1
     return scores, ids, tau
 
 
@@ -542,9 +565,66 @@ def ps_edge_cases(g):
             "NaN seams at G=5456": ps_nan_seams(g, 4096, 3, 3, 31)}
 
 
+# (M, N, lm_inputs kind, base 4 bytes off 16-byte alignment, label):
+# the paths' shapes, then the seams of the block-a-tile kernels: grids
+# of 1 and of 131, 133 and 1,025 streams (either side of the card's 132
+# SMs and of 8 blocks an SM), one whole tile, a partial tile of one
+# column, short rows (a tile of 128 columns holding 36 or 40), NaN, signed
+# zeros, an all-pad tile in a live row, a misaligned base
+LM_PARITY = (
+    (LM_STREAMS, LM_CHUNK, "plain", False, "deployment chunk"),
+    (LM_FLEET, LM_CHUNK, "plain", False, "fleet of huge-K tenants"),
+    (LM_STREAMS, LM_CHUNK, "ninf", False, "tau=-inf everywhere"),
+    (1, LM_CHUNK, "plain", False, "one stream"),
+    (131, LM_CHUNK, "ties", False, "131 streams, ties"),
+    (133, LM_CHUNK, "plain", False, "133 streams"),
+    (1025, LM_CHUNK, "ninf", False, "1,025 streams, tau=-inf"),
+    (LM_FLEET, 512, "plain", False, "N=512, one whole tile"),
+    (LM_FLEET, 513, "ninf", False, "N=513, a last tile of one column"),
+    (LM_FLEET, 600, "ties", False, "N=600, two tiles, ties"),
+    (LM_FLEET, 36, "plain", False, "N=36, a short row"),
+    (LM_FLEET, 40, "plain", False, "N=40"),
+    (LM_FLEET, 16, "ninf", False, "N=16, one thread per row"),
+    (LM_FLEET, 8190, "plain", False, "N=8190, 4-byte loads"),
+    (LM_STREAMS, LM_CHUNK, "nan", False,
+     "NaN scores among live entries, tau=NaN"),
+    (LM_STREAMS, LM_CHUNK, "zeros", False, "±0 scores against tau=±0"),
+    (LM_STREAMS, LM_CHUNK, "padtile", False, "an all-pad tile in live rows"),
+    (LM_STREAMS, LM_CHUNK, "nan", True,
+     "base 4 bytes off 16-byte alignment, NaN"),
+    (LM_FLEET, 36, "zeros", True, "N=36 off 16-byte alignment, ±0"))
+
+
+def lm_plan_text(plan):
+    """A logmem launch_plan's (kernel, threads a block) as log text."""
+    kernel, threads = plan
+    how = "a thread a row" if kernel == "admit_narrow" else "a block a tile"
+    return f"{kernel}, {threads} threads a block, {how}"
+
+
+def lm_parity(g):
+    """logmem_admit against its plain version at LM_PARITY's cases, each
+    logging the kernel its launch_plan picks; the largest difference (0.0:
+    exact, NaN where the plain version has NaN)."""
+    from repro_torch.kernels.logmem_update import ops as lm
+    worst = 0.0
+    for m, n, kind, offset, label in LM_PARITY:
+        args = lm_inputs(g, m, n, kind)
+        if offset:
+            args = (offset_view(args[0]), offset_view(args[1]), args[2])
+        plan = lm.launch_plan(*args)
+        out = lm.logmem_admit(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, lm.reference(*args))
+        worst = max(worst, err)
+        log(f"parity logmem_update [{label}; pad ids between live ones, "
+            f"all-pad rows] M={m} N={n}; {lm_plan_text(plan)}: exact (max "
+            f"abs diff {err})")
+    return worst
+
+
 def kernel_parity():
     from repro_torch.kernels.batched_topk import ops as btk
-    from repro_torch.kernels.logmem_update import ops as lm
     from repro_torch.kernels.tier_assign import ops as ta
     from repro_torch.kernels.topk_filter import ops as tf
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -588,21 +668,7 @@ def kernel_parity():
         errs["tier_assign"] = max(errs["tier_assign"], err)
         log(f"parity tier_assign [{label}] M={M} K={k} B={b}; "
             f"{plan_text(plan)}: exact (max abs diff {err})")
-    for m, n, kind, label in (
-            (LM_STREAMS, LM_CHUNK, "plain", "deployment chunk"),
-            (LM_FLEET, LM_CHUNK, "plain", "fleet of huge-K tenants"),
-            (LM_STREAMS, LM_CHUNK, "ninf", "tau=-inf everywhere"),
-            (LM_FLEET, 600, "ties", "N=600, two tiles, ties"),
-            (LM_FLEET, 40, "plain", "N=40"),
-            (LM_FLEET, 16, "ninf", "N=16, one thread per row"),
-            (LM_FLEET, 8190, "plain", "N=8190, 4-byte loads")):
-        args = lm_inputs(g, m, n, kind)
-        out = lm.logmem_admit(*args)
-        torch.cuda.synchronize()
-        err = max_abs_err(out, lm.reference(*args))
-        errs["logmem_update"] = max(errs["logmem_update"], err)
-        log(f"parity logmem_update [{label}; pad ids between live ones, "
-            f"all-pad rows] M={m} N={n}: exact (max abs diff {err})")
+    errs["logmem_update"] = lm_parity(g)
     for n, kind, dtype, label in (
             (TF_BATCH, "plain", torch.float32, "main-path batch"),
             (TF_BATCH * TF_BATCHES, "plain", torch.float32, "2^26 scores"),
@@ -789,26 +855,54 @@ def plan_solve_timings(solves):
     return out["unconstrained"]
 
 
+def tf_plan_text(s):
+    """The kernel topk_filter launches for scores ``s`` as log text."""
+    from repro_torch.kernels.topk_filter import ops as tf
+    n = s.numel()
+    vec = n % 4 == 0 and s.data_ptr() % 16 == 0
+    return (f"filter_tile, 256 threads a tile of {tf.tile_width(n)}, "
+            f"{16 if vec else 4}-byte loads")
+
+
+def l2_cold(fn, flush):
+    """``fn`` after writing all of ``flush`` (a buffer larger than the
+    card's 50 MB L2), so each call finds its inputs in device memory."""
+    def run():
+        flush.fill_(1.0)
+        return fn()
+    return run
+
+
 def kernel_timings():
+    """Phase 4 for the four scan kernels: each the median of WINDOWS
+    profiled windows of 100 calls with its spread, its launch plan, its
+    wrapper and plain times and its byte bound; logmem_update at the
+    mixed fleet's chunk and topk_filter at one batch (inputs of 4.7 and
+    5.2 MB, which stay in L2 between back-to-back calls) also L2-cold,
+    with L2_FLUSH_BYTES written before each call and only the kernel's
+    own records counted."""
     from repro_torch.kernels.batched_topk import ops as btk
     from repro_torch.kernels.logmem_update import ops as lm
     from repro_torch.kernels.tier_assign import ops as ta
     from repro_torch.kernels.topk_filter import ops as tf
     g = torch.Generator(device="cuda").manual_seed(1)
     n_bounds, n_tiers = 2, 3
-    cases = []  # (key, kernel name in the profile, call, plain, bytes, shape)
+    cases = []  # (key, kernel name in the profile, call, plain, bytes,
+    plans = {}  # shape); the launch plan of each key as log text
     s, b = btk_inputs(g, CHUNK, "plain")
     cases.append((
         "batched_topk", "scan_", lambda: btk.batched_topk_filter(s, b),
         lambda: btk.reference(s, b),
         4 * M * CHUNK + 4 * M + M * CHUNK + 8 * M,
         f"scores ({M}, {CHUNK}) f32, bars ({M},) f32"))
+    plans["batched_topk"] = plan_text(btk.launch_plan(s, b))
     ids, bq, floor = ta_inputs(g, K, n_bounds, True)
     cases.append((
         "tier_assign", "assign_", lambda: ta.tier_assign(ids, bq, floor),
         lambda: ta.reference(ids, bq, floor, n_tiers),
         4 * M * K + 4 * M * n_bounds + 4 * M + 4 * M * K + 4 * M * n_tiers,
         f"ids ({M}, {K}) i32, bounds ({M}, {n_bounds}) i32"))
+    plans["tier_assign"] = plan_text(ta.launch_plan(ids, bq, floor))
     # the path's shape first (it goes into the kernels line), then a
     # large one
     lm_tiles = -(-LM_CHUNK // lm.tile_width(LM_CHUNK))
@@ -820,6 +914,7 @@ def kernel_timings():
             lambda a=a: lm.reference(*a),
             8 * m * LM_CHUNK + 4 * m + m * LM_CHUNK + 12 * m * lm_tiles,
             f"scores and ids ({m}, {LM_CHUNK}), tau ({m},)"))
+        plans[key] = lm_plan_text(lm.launch_plan(*a))
     for n, key in ((TF_BATCH, "topk_filter"),
                    (TF_BATCH * TF_BATCHES, "topk_filter@2^26")):
         a = tf_inputs(g, n, "plain")
@@ -828,16 +923,11 @@ def kernel_timings():
             lambda a=a: tf.reference(*a),
             4 * n + 4 + n + 8 * -(-n // tf.tile_width(n)),
             f"scores ({n},) f32, thr () f32"))
-    plans = {"batched_topk": btk.launch_plan(s, b),
-             "tier_assign": ta.launch_plan(ids, bq, floor)}
+        plans[key] = tf_plan_text(a[0])
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     out = {}
     for key, kernel, call, plain, nbytes, shape in cases:
-        if key in plans:  # the redesigned kernels: median of WINDOWS
-            med, lo, hi, _ = device_ms_windows(call, 100, kernel, WINDOWS)
-            how = (f"{plan_text(plans[key])}; median of {WINDOWS} windows "
-                   f"of 100 calls; min {lo:.4f}, max {hi:.4f}")
-        else:
-            med, how = device_ms(call, 100, kernel), "mean of 100 calls"
+        med, lo, hi, _ = device_ms_windows(call, 100, kernel, WINDOWS)
         out[key] = {"ms": med,
                     "call_ms": cuda_ms(call, 200),
                     "plain_ms": cuda_ms(plain, 10),
@@ -845,9 +935,22 @@ def kernel_timings():
                     "bound_by": "bytes", "library_ms": None}
         t = out[key]
         log(f"timing {key} [{shape}]: kernel {t['ms']:.4f} ms on the device "
-            f"(profiler, {how}); {t['call_ms']:.4f} ms per wrapper call "
-            f"(CUDA events, host launch included); plain {t['plain_ms']:.4f} "
-            f"ms; byte bound {t['bound_ms']:.4f} ms at 3.35 TB/s")
+            f"(profiler, {plans[key]}; median of {WINDOWS} windows of 100 "
+            f"calls; min {lo:.4f}, max {hi:.4f}); {t['call_ms']:.4f} ms per "
+            f"wrapper call (CUDA events, host launch included); plain "
+            f"{t['plain_ms']:.4f} ms; byte bound {t['bound_ms']:.4f} ms at "
+            f"3.35 TB/s ({t['bound_ms'] / med:.0%} of it L2-warm)")
+        if key in ("logmem_update", "topk_filter"):
+            cmed, clo, chi, _ = device_ms_windows(l2_cold(call, flush), 100,
+                                                  kernel, WINDOWS)
+            log(f"timing {key} L2-cold [{shape}]: kernel {cmed:.4f} ms on the "
+                f"device (profiler, {L2_FLUSH_BYTES >> 20} MiB written before "
+                f"each call, the kernel's own records alone; median of "
+                f"{WINDOWS} windows of 100 calls; min {clo:.4f}, max "
+                f"{chi:.4f}); {t['bound_ms'] / cmed:.0%} of its byte bound "
+                f"{t['bound_ms']:.4f} ms (L2-warm {med:.4f} ms, "
+                f"{t['bound_ms'] / med:.0%})")
+    del flush
     for name, call in (("batched_topk", "torch.gt gives the mask alone"),
                        ("tier_assign", "torch.bucketize gives the uncapped "
                         "tier index alone"),

@@ -7,7 +7,8 @@ count, live count and live maximum.
 consumes it lives in ``streams.logmem.update``. The device of the input
 decides what runs: a CUDA tensor launches the hand-written kernel
 (``csrc/logmem_update.cu``) or raises, a CPU tensor runs the plain
-PyTorch version ``reference``. There is no switch between the two.
+PyTorch version ``reference``. There is no switch between the two:
+``launch_plan`` names the kernel a CUDA tensor launches.
 """
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ import torch
 from .. import build
 
 PAD_ID = -1
+NARROW = 32  # widest row admit_narrow gives to a single thread
+# the kernel ids of csrc/logmem_update.cu
+KERNELS = {"admit_narrow": 0, "admit_tile": 1, "admit_vec": 2}
 
 # kernel launches made by ``logmem_admit`` since the last reset
 launches = 0
@@ -63,12 +67,32 @@ def reference(scores: torch.Tensor, ids: torch.Tensor, tau: torch.Tensor):
     return hit[:, :n].to(torch.int8), acounts, lcounts, tmax
 
 
+def launch_plan(scores: torch.Tensor, ids: torch.Tensor,
+                tau: torch.Tensor):
+    """(kernel, threads a block) that ``logmem_admit`` launches for
+    ``scores`` and ``ids`` (M, N) and ``tau`` (M,): "admit_narrow" (a
+    thread a row) for rows of at most NARROW entries; else a block of 128
+    threads a (stream, tile): "admit_vec" (a float4 of scores and an int4
+    of ids a thread) when N % 4 == 0 and both bases are 16-byte aligned,
+    "admit_tile" (up to 4 scalars of each a thread) otherwise. Raises
+    ValueError unless all three are contiguous."""
+    if not (scores.is_contiguous() and ids.is_contiguous()
+            and tau.is_contiguous()):
+        raise ValueError("scores, ids and tau must be contiguous")
+    n = scores.shape[1]
+    if n <= NARROW:
+        return "admit_narrow", 256
+    if (n % 4 == 0 and scores.data_ptr() % 16 == 0
+            and ids.data_ptr() % 16 == 0):
+        return "admit_vec", 128
+    return "admit_tile", 128
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.library("logmem_update").logmem_admit_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,16 +104,15 @@ def logmem_admit(scores: torch.Tensor, ids: torch.Tensor, tau: torch.Tensor):
     ``tile_width(N)`` columns. Padding is inert in every output, even
     under tau = -inf: the scan gates on ids, not on a score sentinel.
 
-    CUDA tensors run the kernel, CPU tensors the plain version."""
+    CUDA tensors run the kernel ``launch_plan`` names, CPU tensors the
+    plain version."""
     global launches
     if scores.device.type == "cpu":
         return reference(scores, ids, tau)
     if scores.device.type != "cuda":
         raise ValueError(f"no kernel for device {scores.device}")
     _check(scores, ids, tau)
-    if not (scores.is_contiguous() and ids.is_contiguous()
-            and tau.is_contiguous()):
-        raise ValueError("scores, ids and tau must be contiguous")
+    kernel, threads = launch_plan(scores, ids, tau)
     m, n = scores.shape
     bn = tile_width(n)
     tiles = -(-n // bn)
@@ -100,15 +123,12 @@ def logmem_admit(scores: torch.Tensor, ids: torch.Tensor, tau: torch.Tensor):
     tmax = torch.empty((m, tiles), dtype=torch.float32, device=dev)
     if m * tiles == 0:
         return mask, acounts, lcounts, tmax
-    # 16-byte loads need rows of whole float4s on 16-byte addresses
-    vec = int(n % 4 == 0 and scores.data_ptr() % 16 == 0
-              and ids.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(scores.data_ptr(), ids.data_ptr(), tau.data_ptr(),
                         mask.data_ptr(), acounts.data_ptr(),
                         lcounts.data_ptr(), tmax.data_ptr(), m, n, bn, tiles,
-                        vec, stream)
+                        KERNELS[kernel], threads, stream)
     if err:
         raise RuntimeError(f"logmem_admit launch failed: CUDA error {err}")
     launches += 1

@@ -228,6 +228,56 @@ LM_CASES = [(5, 40), (3, 512), (4, 600), (2, 1024), (3, 1500), (6, 7),
             (40, 16), (64, 8192), (3, 8190)]
 
 
+def lm_seam_case(m, n, kind, seed):
+    """``lm_admit_case``'s inputs, then by ``kind``: "nan" (NaN scores
+    among live entries, NaN thresholds in some rows), "zeros" (every other
+    row's scores made non-positive, then -0.0 and +0.0 sprinkled in, so
+    tiles whose largest live scores are signed zeros, against thresholds
+    of -0.0 and +0.0), "padtile" (the second tile of every row all pad: a
+    tile without a live entry inside a live row), "plain" (as they
+    are)."""
+    scores, ids, tau = lm_admit_case(m, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "nan":
+        scores[rng.random((m, n)) < 0.05] = np.nan
+        scores[-1, n // 2], ids[-1, n // 2] = np.nan, n // 2
+        tau[rng.random(m) < 0.3] = np.nan
+    elif kind == "zeros":
+        scores[::2] = -np.abs(scores[::2])
+        zeros = np.array([-0.0, 0.0], np.float32)
+        hit = rng.random((m, n)) < 0.4
+        scores[hit] = zeros[rng.integers(0, 2, int(hit.sum()))]
+        tau = zeros[rng.integers(0, 2, m)]
+    elif kind == "padtile":
+        bn = t_lm_ops.tile_width(n)
+        ids[:, bn:2 * bn] = -1
+    return scores, ids, tau
+
+
+# (M, N, kind, views 4 bytes off 16-byte alignment, kernel launch_plan
+# picks): grids of 1 and of 131, 133 and 1,025 streams at the deployment
+# width N = 8,192, one whole tile (512), a last tile of one column (513),
+# short rows in a 128-column tile (36, 33), rows of at most 32 (a thread
+# a row), widths off a multiple of 4 and misaligned views (4-byte
+# loads), NaN, signed zeros and all-pad tiles
+LM_SEAM_CASES = [
+    (1, 8192, "plain", False, "admit_vec"),
+    (131, 8192, "nan", False, "admit_vec"),
+    (133, 8192, "zeros", False, "admit_vec"),
+    (1025, 8192, "padtile", False, "admit_vec"),
+    (7, 512, "zeros", False, "admit_vec"), (9, 36, "nan", False, "admit_vec"),
+    (5, 600, "padtile", False, "admit_vec"),
+    (4, 1500, "nan", False, "admit_vec"),
+    (7, 513, "nan", False, "admit_tile"),
+    (9, 33, "zeros", False, "admit_tile"),
+    (3, 8190, "padtile", False, "admit_tile"),
+    (9, 36, "zeros", True, "admit_tile"),
+    (5, 8192, "nan", True, "admit_tile"),
+    (33, 16, "nan", False, "admit_narrow"),
+    (9, 32, "zeros", False, "admit_narrow"),
+    (9, 7, "nan", True, "admit_narrow")]
+
+
 def lm_chunks(m, widths, seed):
     """Logmem chunks of the given widths: ids continue per row across
     chunks, 10% pads, tied scores; row 1 is all pad in the fourth chunk."""
@@ -552,6 +602,21 @@ def test_logmem_admit_kernel_equals_plain(m, n, cuda_device):
         assert t_lm_ops.launches == before + 1
         for a, r in zip(out, t_lm_ops.reference(*args)):
             assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,kind,offset,want", LM_SEAM_CASES)
+def test_logmem_admit_kernel_seams(m, n, kind, offset, want, cuda_device):
+    args = [torch.tensor(x, device=cuda_device)
+            for x in lm_seam_case(m, n, kind, m + n)]
+    if offset:
+        args[0], args[1] = offset_view(args[0]), offset_view(args[1])
+    assert t_lm_ops.launch_plan(*args)[0] == want
+    before = t_lm_ops.launches
+    out = t_lm_ops.logmem_admit(*args)
+    torch.cuda.synchronize()
+    assert t_lm_ops.launches == before + 1
+    same_exactly(out, t_lm_ops.reference(*args))
 
 
 @pytest.mark.cuda

@@ -21,7 +21,8 @@ from repro.streams import logmem as j_lm
 from repro_torch.kernels.logmem_update import ops as t_lm_ops
 from repro_torch.streams import engine as t_eng
 from repro_torch.streams import logmem as t_lm
-from test_torch_cuda import (METER_FIELDS, lm_admit_case, lm_chunks,
+from test_torch_cuda import (LM_SEAM_CASES, METER_FIELDS, lm_admit_case,
+                             lm_chunks, lm_seam_case, offset_view,
                              mixed_fleet_specs, ingest_mixed)
 
 
@@ -54,6 +55,45 @@ def test_logmem_admit_plain_equals_pallas_and_jnp(n):
         for a, b in zip(jm, tm):
             assert np.asarray(a).dtype == b.numpy().dtype
             np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+# the seams of the block-a-tile kernels: NaN scores and thresholds,
+# signed zeros, all-pad tiles inside live rows, the deployment width at a
+# few rows, a short row and a last tile of one column
+@pytest.mark.parametrize("m,n,kind", [
+    (5, 600, "nan"), (6, 36, "nan"), (6, 513, "zeros"), (5, 1500, "zeros"),
+    (4, 1024, "padtile"), (3, 8192, "padtile"), (2, 8192, "nan"),
+    (7, 20, "zeros")])
+def test_logmem_admit_plain_equals_pallas_and_jnp_at_seams(m, n, kind):
+    scores, ids, tau = lm_seam_case(m, n, kind, m + n)
+    tm = t_lm_ops.logmem_admit(torch.tensor(scores), torch.tensor(ids),
+                               torch.tensor(tau))
+    for use_pallas in (True, False):
+        jm = j_lm_ops.logmem_admit(jnp.asarray(scores), jnp.asarray(ids),
+                                   jnp.asarray(tau), use_pallas=use_pallas)
+        for a, b in zip(jm, tm):
+            assert np.asarray(a).dtype == b.numpy().dtype
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("m,n,kind,offset,want", LM_SEAM_CASES)
+def test_logmem_admit_launch_plan(m, n, kind, offset, want):
+    args = [torch.tensor(x) for x in lm_seam_case(m, n, kind, 0)]
+    if offset:
+        args[0], args[1] = offset_view(args[0]), offset_view(args[1])
+    kernel, threads = t_lm_ops.launch_plan(*args)
+    assert kernel == want
+    assert threads == {"admit_narrow": 256, "admit_tile": 128,
+                       "admit_vec": 128}[kernel]
+
+
+def test_logmem_admit_launch_plan_refuses_strided_inputs():
+    scores, ids, tau = (torch.tensor(x) for x in lm_admit_case(4, 64, 0))
+    for args in ((scores[:, ::2], ids[:, ::2], tau),
+                 (scores, ids.t().contiguous().t(), tau),
+                 (scores[:2], ids[:2], tau[::2])):
+        with pytest.raises(ValueError, match="contiguous"):
+            t_lm_ops.launch_plan(*args)
 
 
 def test_logmem_admit_gates_on_ids_and_runs_plain_on_cpu():
