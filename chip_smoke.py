@@ -20,12 +20,15 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    for tier_assign ids at the boundaries and at INT32_MAX - 1 and floors
    of T - 1, for logmem_update grids of 1, 131, 133 and 1,025 streams,
    rows of 512, 513 and 36, NaN scores and thresholds, signed zeros and
-   all-pad tiles, all three also from a base 4 bytes off 16-byte
-   alignment, each logging the kernel its launch_plan picks; for
+   all-pad tiles, for topk_filter partial tiles, N % 4 != 0 and NaN,
+   all four also from a base 4 bytes off 16-byte alignment, each
+   logging the kernel its launch_plan picks; for
    plan_solve also ties at
    G=5456, a NaN in a last subset's last tuple alone, and a NaN-skipped
    first subset before infeasible ones, which must give (+inf, 0));
-   exact (NaN where the plain version has NaN); then
+   exact (NaN where the plain version has NaN), and batched_topk,
+   logmem_update and topk_filter also bit for bit, among them tiles whose
+   maximum is +0.0 or -0.0; then
    flash_attention and entropy_scores at both score producers' shapes
    (head dims 64 and 128; vocabularies of 128,256 and 49,152) and edge
    cases, among them a 4096-key sliding window over 4608 keys at head
@@ -37,9 +40,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    tier_assign at the main path's, logmem_update and topk_filter at
    their paths' shapes and a large one, and each plan_solve launch (with
    the kernel and launch plan it took), each the median of 5 profiled
-   windows with its spread; logmem_update at 64 x 8192 and topk_filter
-   at 2^20, whose inputs stay in the card's L2 between back-to-back
-   calls, also L2-cold (128 MiB written before each call);
+   windows with its spread; logmem_update at 64 x 8192, topk_filter
+   at 2^20 and entropy_scores at 8 x 128,256, whose inputs stay in the
+   card's L2 between back-to-back calls, also L2-cold (128 MiB written
+   before each call);
 5. main path at full width — the defaults of examples/million_streams.py:
    1,000,000 streams, 3 tiers, K=8, planned on the card by the device
    planner (shp.plan_ntier_arrays, plan_solve), the shared hot-tier
@@ -68,6 +72,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    1 - c/sqrt(K) guarantee and to the port's CPU run;
 10. single-stream path: filter_then_merge at K=1024 over 64 batches of
    2^20 scores, survivors against numpy's top-1024 of the whole trace;
+   then torch.profiler windows of 12 cold batches: the topk_filter
+   kernel's device time inside its caller, the step's other device
+   operations and the device's busy share;
 11. the score producer at full width: llama3.2-1b (16 layers, d_model
    2048, 32 heads over 8 KV heads, vocab 128,256, float32) with weights
    from a seeded torch.Generator on the card, serving 64 requests in
@@ -141,6 +148,7 @@ FA_SC = (SC_SERVE["batch"], SC_SERVE["prompt_len"], 24, 2, 128)
 ENT_SC = (SC_SERVE["batch"], 49_152)
 WINDOWS = 5  # timing windows of the redesigned kernels (median, spread)
 L2_FLUSH_BYTES = 128 << 20  # written between calls of an L2-cold timing
+TF_WINDOW_BATCHES = 12  # filter_then_merge batches in a phase 10 window
 
 
 def log(*args):
@@ -195,6 +203,22 @@ def max_abs_err(outs, refs):
             raise AssertionError(f"kernel differs from its plain version "
                                  f"(max abs diff {worst})")
     return worst
+
+
+def same_bits(outs, refs):
+    """A kernel's outputs against its plain version's bit for bit (a -0.0
+    differs from a +0.0), NaN where the plain version has NaN (any NaN);
+    raises where they differ."""
+    for a, b in zip(outs, refs):
+        if a.is_floating_point():
+            nan = b.isnan()
+            if not torch.equal(a.isnan(), nan):
+                raise AssertionError("kernel's NaN differ from its plain "
+                                     "version's")
+            a, b = a[~nan].view(torch.int32), b[~nan].view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError("kernel's bits differ from its plain "
+                                 "version's")
 
 
 def within_tol(outs, refs, tol):
@@ -328,7 +352,10 @@ def plan_text(plan):
 def btk_inputs(g, n, kind):
     """Scores and bars: "unfull" (every other bar -inf), "ties" (bars equal
     to scores), "nan" (NaN scores in every 7th row, NaN bars in every 5th,
-    -inf bars in every 3rd, signed zeros at zero bars), "plain"."""
+    -inf bars in every 3rd, signed zeros at zero bars), "zeros" (scores
+    made non-positive, every 4th -0.0, so tile maxima of -0.0, with +0.0
+    put back in every third row and none left in the next: tile maxima of
+    +0.0 and below zero; bars of ±0 and -inf), "plain"."""
     scores = torch.randn(M, n, device="cuda", generator=g)
     bars = torch.randn(M, device="cuda", generator=g)
     if kind == "unfull":
@@ -345,6 +372,14 @@ def btk_inputs(g, n, kind):
         bars[2::4] = -0.0
         bars[::3] = float("-inf")
         bars[::5] = float("nan")
+    elif kind == "zeros":
+        scores = -scores.abs()
+        scores[:, ::4] = -0.0
+        scores[1::3, 1::8] = 0.0
+        scores[2::3, ::4] = -1.0
+        bars[::2] = 0.0
+        bars[1::4] = -0.0
+        bars[3::4] = float("-inf")
     return scores.contiguous(), bars
 
 
@@ -411,11 +446,20 @@ def lm_inputs(g, m, n, kind):
 
 def tf_inputs(g, n, kind):
     """One stream's scores and a threshold: 0.5, -inf (pad columns
-    counted), above every score, or 0.5 with NaN scores."""
+    counted), above every score, 0.5 with NaN scores, or 0.0 against
+    "zeros": scores made non-positive, every 4th -0.0, +0.0 put back in
+    every other tile of 4096 (tile maxima of +0.0 and -0.0), a few NaN
+    (demoted to NEG_BIG)."""
     s = torch.randn(n, device="cuda", generator=g)
     if kind == "nan":
         s[::101] = float("nan")
-    thr = {"ninf": float("-inf"), "below": 100.0}.get(kind, 0.5)
+    elif kind == "zeros":
+        s = -s.abs()
+        s[::4] = -0.0
+        s[7::8192] = 0.0
+        s[3::1009] = float("nan")
+    thr = {"ninf": float("-inf"), "below": 100.0,
+           "zeros": 0.0}.get(kind, 0.5)
     return s, torch.tensor(thr, device="cuda")
 
 
@@ -615,11 +659,13 @@ def lm_parity(g):
         plan = lm.launch_plan(*args)
         out = lm.logmem_admit(*args)
         torch.cuda.synchronize()
-        err = max_abs_err(out, lm.reference(*args))
+        ref = lm.reference(*args)
+        err = max_abs_err(out, ref)
+        same_bits(out, ref)
         worst = max(worst, err)
         log(f"parity logmem_update [{label}; pad ids between live ones, "
-            f"all-pad rows] M={m} N={n}; {lm_plan_text(plan)}: exact (max "
-            f"abs diff {err})")
+            f"all-pad rows] M={m} N={n}; {lm_plan_text(plan)}: exact, equal "
+            f"bits (max abs diff {err})")
     return worst
 
 
@@ -638,17 +684,23 @@ def kernel_parity():
             (16, "nan", False, "NaN scores and bars, signed zeros"),
             (16, "nan", True, "base 4 bytes off 16-byte alignment, NaN"),
             (7, "unfull", False, "N=7, -inf bars"),
-            (600, "unfull", False, "N=600, two tiles, -inf bars")):
+            (600, "unfull", False, "N=600, two tiles, -inf bars"),
+            (16, "zeros", False, "tile maxima of ±0"),
+            (16, "zeros", True, "tile maxima of ±0, base off alignment"),
+            (7, "zeros", False, "N=7, tile maxima of ±0"),
+            (600, "zeros", False, "N=600, tile maxima of ±0")):
         s, b = btk_inputs(g, n, kind)
         if offset:
             s = offset_view(s)
         plan = btk.launch_plan(s, b)
         out = btk.batched_topk_filter(s, b)
         torch.cuda.synchronize()
-        err = max_abs_err(out, btk.reference(s, b))
+        ref = btk.reference(s, b)
+        err = max_abs_err(out, ref)
+        same_bits(out, ref)
         errs["batched_topk"] = max(errs["batched_topk"], err)
         log(f"parity batched_topk [{label}] M={M} N={n}; {plan_text(plan)}: "
-            f"exact (max abs diff {err})")
+            f"exact, equal bits (max abs diff {err})")
     for k, b, floors, edges, offset, label in (
             (8, 2, True, False, False, "floors, ±inf bounds, -1 pads"),
             (8, 2, False, False, False, "no floors"),
@@ -669,23 +721,35 @@ def kernel_parity():
         log(f"parity tier_assign [{label}] M={M} K={k} B={b}; "
             f"{plan_text(plan)}: exact (max abs diff {err})")
     errs["logmem_update"] = lm_parity(g)
-    for n, kind, dtype, label in (
-            (TF_BATCH, "plain", torch.float32, "main-path batch"),
-            (TF_BATCH * TF_BATCHES, "plain", torch.float32, "2^26 scores"),
-            (5000, "plain", torch.float32, "N=5000, partial tile"),
-            (5000, "ninf", torch.float32, "thr=-inf, pads counted"),
-            (TF_BATCH, "nan", torch.float32, "NaN scores"),
-            (TF_BATCH, "below", torch.float32, "all below thr"),
-            (TF_BATCH, "plain", torch.bfloat16, "bfloat16 scores"),
-            (4097, "ninf", torch.float32, "N=4097, 4-byte loads")):
+    f32 = torch.float32
+    for n, kind, dtype, offset, label in (
+            (TF_BATCH, "plain", f32, False, "main-path batch"),
+            (TF_BATCH * TF_BATCHES, "plain", f32, False, "2^26 scores"),
+            (5000, "plain", f32, False, "N=5000, partial tile"),
+            (5000, "ninf", f32, False, "thr=-inf, pads counted"),
+            (TF_BATCH, "nan", f32, False, "NaN scores"),
+            (TF_BATCH, "below", f32, False, "all below thr"),
+            (TF_BATCH, "plain", torch.bfloat16, False, "bfloat16 scores"),
+            (4097, "ninf", f32, False, "N=4097, 4-byte loads"),
+            (TF_BATCH, "zeros", f32, False, "tile maxima of ±0"),
+            (5000, "zeros", f32, False, "N=5000, tile maxima of ±0"),
+            (4097, "zeros", f32, False, "N=4097, tile maxima of ±0"),
+            (100, "ninf", f32, False, "N=100, one tile of 128"),
+            (TF_BATCH, "zeros", f32, True,
+             "base 4 bytes off 16-byte alignment, ±0")):
         s, thr = tf_inputs(g, n, kind)
         s = s.to(dtype)
+        if offset:
+            s = offset_view(s)
+        plan = tf.launch_plan(s.to(f32))
         out = tf.topk_filter(s, thr)
         torch.cuda.synchronize()
-        err = max_abs_err(out, tf.reference(s, thr))
+        ref = tf.reference(s, thr)
+        err = max_abs_err(out, ref)
+        same_bits(out, ref)
         errs["topk_filter"] = max(errs["topk_filter"], err)
-        log(f"parity topk_filter [{label}] N={n}: exact (max abs diff "
-            f"{err})")
+        log(f"parity topk_filter [{label}] N={n}; {tf_plan_text(plan)}: "
+            f"exact, equal bits (max abs diff {err})")
     solves = plan_solve_inputs()
     cases = [(f"{name} launch {i}", as_dtype(a, dtype))
              for name, launches in solves.items()
@@ -855,18 +919,16 @@ def plan_solve_timings(solves):
     return out["unconstrained"]
 
 
-def tf_plan_text(s):
-    """The kernel topk_filter launches for scores ``s`` as log text."""
-    from repro_torch.kernels.topk_filter import ops as tf
-    n = s.numel()
-    vec = n % 4 == 0 and s.data_ptr() % 16 == 0
-    return (f"filter_tile, 256 threads a tile of {tf.tile_width(n)}, "
-            f"{16 if vec else 4}-byte loads")
+def tf_plan_text(plan):
+    """A topk_filter launch_plan's (kernel, reason) as log text."""
+    kernel, reason = plan
+    return f"{kernel} ({reason})"
 
 
 def l2_cold(fn, flush):
     """``fn`` after writing all of ``flush`` (a buffer larger than the
-    card's 50 MB L2), so each call finds its inputs in device memory."""
+    card's 50 MB L2), so each call finds its inputs in device memory and
+    the L2 full of dirty lines."""
     def run():
         flush.fill_(1.0)
         return fn()
@@ -919,11 +981,11 @@ def kernel_timings():
                    (TF_BATCH * TF_BATCHES, "topk_filter@2^26")):
         a = tf_inputs(g, n, "plain")
         cases.append((
-            key, "filter_tile", lambda a=a: tf.topk_filter(*a),
+            key, "filter_", lambda a=a: tf.topk_filter(*a),
             lambda a=a: tf.reference(*a),
             4 * n + 4 + n + 8 * -(-n // tf.tile_width(n)),
             f"scores ({n},) f32, thr () f32"))
-        plans[key] = tf_plan_text(a[0])
+        plans[key] = tf_plan_text(tf.launch_plan(a[0]))
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     out = {}
     for key, kernel, call, plain, nbytes, shape in cases:
@@ -1135,6 +1197,20 @@ def score_kernel_timings():
             f"({t['bound_by']}); library_ms {t['library_ms']:.4f} = "
             f"torch.nn.functional.cross_entropy(reduction='none'), which "
             f"computes the NLL half alone, never called by the port")
+        if key == "entropy_scores":  # 4.1 MB of logits: they stay in L2
+            flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+            cmed, clo, chi, cparts = device_ms_windows(
+                l2_cold(lambda: ent.entropy_nll(logits, labels), flush), 50,
+                ("entropy_nll_part", "entropy_nll_merge"), WINDOWS)
+            passes = ", ".join(f"{k} {x:.4f}" for k, x in cparts.items())
+            log(f"timing {key} L2-cold [logits ({b}, {v}) f32]: kernel "
+                f"{cmed:.4f} ms on the device (profiler, both passes, "
+                f"{L2_FLUSH_BYTES >> 20} MiB written before each call, the "
+                f"kernel's own records alone; median of {WINDOWS} windows "
+                f"of 50 calls; min {clo:.4f}, max {chi:.4f}; medians "
+                f"{passes}); {t['bound_ms'] / cmed:.0%} of its bound "
+                f"{t['bound_ms']:.4f} ms (L2-warm {med:.4f} ms)")
+            del flush
         del logits, labels, lab64
     return out
 
@@ -1739,7 +1815,84 @@ def single_stream():
         f"resident batches; host clock and a sync)")
     if not ok:
         raise AssertionError("single-stream survivors differ from numpy")
+    single_stream_profile(st, dev_s, dev_i)
     return launches
+
+
+def single_stream_profile(state, dev_s, dev_i, attempts=3 * WINDOWS):
+    """Phase 10's profile: WINDOWS torch.profiler windows of
+    TF_WINDOW_BATCHES filter_then_merge batches from the full reservoir
+    ``state``. Each window opens with one lead-in batch that is not
+    counted: late in a long process the profiler was seen to drop the
+    topk_filter records of a profile's first batch (its other kernels
+    kept; a lead-in launch of topk_filter alone did not help). Device
+    records count from the CPU marker of the counted batches on. Attempt
+    i takes batches i * (TF_WINDOW_BATCHES + 1) on (modulo TF_BATCHES),
+    so the batches run on in the trace's order and each was last read
+    TF_BATCHES batches (256 MB) before: cold, as on the path. A window
+    counts only if it holds the kernel's record of every counted batch;
+    fails unless WINDOWS of ``attempts`` do. Logs the topk_filter
+    kernel's median device time (its own records alone; median of the
+    windows' medians [min-max]), the step's other device operations per
+    batch and the device's busy share of the counted batches' wall
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels.topk_filter import ops as tf
+    plan = tf_plan_text(tf.launch_plan(dev_s[:TF_BATCH]))
+
+    def batch(st, b):
+        sl = slice(b % TF_BATCHES * TF_BATCH, (b % TF_BATCHES + 1) * TF_BATCH)
+        return tf.filter_then_merge(st, dev_s[sl], dev_i[sl])[0]
+
+    meds, busy, ops = [], [], {}
+    for i in range(attempts):
+        if len(meds) == WINDOWS:
+            break
+        b0 = i * (TF_WINDOW_BATCHES + 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st = batch(state, b0)  # the lead-in
+            torch.cuda.synchronize()
+            with record_function("counted batches"):
+                t0 = time.perf_counter()
+                for b in range(b0 + 1, b0 + 1 + TF_WINDOW_BATCHES):
+                    st = batch(st, b)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        start = min(e.time_range.start for e in prof.events()
+                    if e.name == "counted batches")
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.time_range.start >= start
+               and e.name != "counted batches"]  # the marker's device span
+        kern = [(e.time_range.end - e.time_range.start) / 1e3
+                for e in dev if "filter_" in e.name]
+        if len(kern) != TF_WINDOW_BATCHES:
+            log(f"single-stream profile: attempt {i} held {len(kern)} "
+                f"topk_filter records for {TF_WINDOW_BATCHES} batches; "
+                f"not counted")
+            continue
+        meds.append(statistics.median(kern))
+        busy.append(union_ms(dev) / wall_ms)
+        for e in dev:
+            key = e.name[:70]
+            ops[key] = ops.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    if len(meds) < WINDOWS:
+        raise AssertionError(f"{len(meds)} of {attempts} profiled windows "
+                             f"held every topk_filter record, not "
+                             f"{WINDOWS}")
+    got = sorted(meds)
+    log(f"single-stream profile [{plan}]: topk_filter in filter_then_merge "
+        f"{statistics.median(meds):.4f} ms on the device [{got[0]:.4f}-"
+        f"{got[-1]:.4f}] (median of {WINDOWS} windows' medians over "
+        f"{TF_WINDOW_BATCHES} cold batches, the kernel's own records "
+        f"alone); device busy {statistics.median(busy):.3f} of wall "
+        f"[{min(busy):.3f}-{max(busy):.3f}] (profiler on)")
+    per = WINDOWS * TF_WINDOW_BATCHES
+    for key, ms in sorted(ops.items(), key=lambda x: -x[1])[:8]:
+        log(f"single-stream profile: {ms / per:9.4f} ms/batch  {key}")
 
 
 # ---------------------------------------------------------------------------

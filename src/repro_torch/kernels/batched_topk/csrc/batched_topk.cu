@@ -6,7 +6,8 @@
 // f32 against one bar per stream (M,) it writes the survivor mask
 // `s > bar` (M, N) int8 and, per (stream, tile) of `bn` columns, the
 // survivor count (int32) and the tile maximum (f32, NaN if any score of
-// the tile is NaN, as jnp.max).
+// the tile is NaN, and +0.0 if the maximum is zero and the tile holds a
+// +0.0, as jnp.max).
 //
 // The reference pads every row to a multiple of `bn` with the finite
 // NEG_BIG = -1e30 in device memory and scans the padded copy: pad columns
@@ -25,8 +26,10 @@
 // of its 16 byte stores of the mask wrote 32 partial sectors 16 bytes
 // apart, which go to L2 one by one (L1 does not keep writes): 32 memory
 // instructions a warp for 32 rows, 1,024 sectors moved for 2.5 KB.
-// Design against that, with no atomics (results do not depend on
-// scheduling); `ops.launch_plan` picks the kernel from the shape and the
+// Design against that, with no atomics: integer sums and a max taken
+// over order-preserving ints (NaN above +inf, -0.0 below +0.0) do not
+// depend on the order of the reduction, so results do not depend on
+// scheduling; `ops.launch_plan` picks the kernel from the shape and the
 // alignment and the launcher refuses a pick the inputs do not allow:
 // - scan_vec<G>, rows of N = 4G scores (G a power of two up to 32, one
 //   tile a row) from a 16-byte aligned base: a group of G lanes a row,
@@ -45,7 +48,7 @@
 //   off 16-byte alignment): one thread a row, scalar loads, as before;
 // - scan_wide, wider rows: one warp per (stream, tile), neighbouring
 //   lanes on neighbouring scores (coalesced 4-byte loads), count and max
-//   reduced by shuffles.
+//   reduced by one `redux.sync` each.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -58,18 +61,24 @@ constexpr int kNarrow = 32;  // widest row scanned by a single thread
 // the kernel ids of `ops.launch_plan`
 enum Kernel { kScanNarrow = 0, kScanWide = 1, kScanVec = 2 };
 
-// max that propagates NaN, like jnp.max
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+// a float as an int of the same order, NaN above +inf (so a NaN max
+// propagates and +0.0 ranks above -0.0, as jnp.max gives), and back
+__device__ __forceinline__ int ordered(float f) {
+  const int i = __float_as_int(f);
+  return isnan(f) ? 0x7fffffff : (i >= 0 ? i : i ^ 0x7fffffff);
+}
+__device__ __forceinline__ float from_ordered(int k) {
+  return k == 0x7fffffff ? __int_as_float(0x7fc00000)
+                         : __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
 }
 
 // the NEG_BIG columns that pad a tile of `real` columns to `bn`
 __device__ __forceinline__ void add_pad(int real, int bn, float bar,
-                                        int& cnt, float& mx) {
+                                        int& cnt, int& mx) {
   const int pad = bn - real;
   if (pad > 0) {
     if (kNegBig > bar) cnt += pad;
-    mx = nan_max(mx, kNegBig);
+    mx = max(mx, ordered(kNegBig));
   }
 }
 
@@ -87,8 +96,8 @@ __global__ void scan_vec(const float4* __restrict__ scores,
   // G divides 32, so a group is live or dead as a whole; dead lanes of the
   // last warp still take part in the shuffles
   const bool live = row < m;
-  float bar = 0.0f, mx = -INFINITY;
-  int cnt = 0;
+  float bar = 0.0f;
+  int cnt = 0, mx = ordered(-INFINITY);
   if (live) {
     bar = bars[row];
     const float4 s = scores[chunk];
@@ -96,17 +105,18 @@ __global__ void scan_vec(const float4* __restrict__ scores,
                    h3 = s.w > bar;
     mask[chunk] = h0 | (h1 << 8) | (h2 << 16) | (h3 << 24);
     cnt = static_cast<int>(h0 + h1 + h2 + h3);
-    mx = nan_max(nan_max(s.x, s.y), nan_max(s.z, s.w));
+    mx = max(max(ordered(s.x), ordered(s.y)),
+             max(ordered(s.z), ordered(s.w)));
   }
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1) {
     cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-    mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   }
   if (live && (threadIdx.x & (G - 1)) == 0) {
     add_pad(4 * G, bn, bar, cnt, mx);
     counts[row] = cnt;
-    tmax[row] = mx;
+    tmax[row] = from_ordered(mx);
   }
 }
 
@@ -123,18 +133,17 @@ __global__ void scan_narrow(const float* __restrict__ scores,
   const float bar = bars[row];
   const float* srow = scores + row * n;
   int8_t* mrow = mask + row * n;
-  int cnt = 0;
-  float mx = -INFINITY;
+  int cnt = 0, mx = ordered(-INFINITY);
   for (int c = 0; c < n; ++c) {
     const float s = srow[c];
     const bool hit = s > bar;
     mrow[c] = hit ? 1 : 0;
     cnt += hit ? 1 : 0;
-    mx = nan_max(mx, s);
+    mx = max(mx, ordered(s));
   }
   add_pad(n, bn, bar, cnt, mx);
   counts[row] = cnt;
-  tmax[row] = mx;
+  tmax[row] = from_ordered(mx);
 }
 
 // one warp per (stream, tile)
@@ -155,24 +164,20 @@ __global__ void scan_wide(const float* __restrict__ scores,
   const int c1 = min(c0 + bn, n);
   const float* srow = scores + row * n;
   int8_t* mrow = mask + row * n;
-  int cnt = 0;
-  float mx = -INFINITY;
+  int cnt = 0, mx = ordered(-INFINITY);
   for (int c = c0 + lane; c < c1; c += 32) {
     const float s = srow[c];
     const bool hit = s > bar;
     mrow[c] = hit ? 1 : 0;
     cnt += hit ? 1 : 0;
-    mx = nan_max(mx, s);
+    mx = max(mx, ordered(s));
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-    mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  }
+  cnt = __reduce_add_sync(0xffffffffu, cnt);
+  mx = __reduce_max_sync(0xffffffffu, mx);
   if (lane == 0) {
     add_pad(c1 - c0, bn, bar, cnt, mx);
     counts[warp] = cnt;
-    tmax[warp] = mx;
+    tmax[warp] = from_ordered(mx);
   }
 }
 

@@ -16,6 +16,7 @@ import functools
 import torch
 
 from .. import build
+from ..tile_max import tile_max
 
 NEG_BIG = -1e30
 NARROW = 32  # widest row scan_narrow gives to a single thread
@@ -46,7 +47,8 @@ def _check(scores: torch.Tensor, bars: torch.Tensor) -> None:
 def reference(scores: torch.Tensor, bars: torch.Tensor):
     """Plain PyTorch version, the reference's pad-then-scan: columns are
     padded with NEG_BIG to a tile multiple, pad columns count toward each
-    tile's count and max and are stripped from the mask."""
+    tile's count and max and are stripped from the mask. A tile max of
+    zero is +0.0 if the tile holds a +0.0 (``tile_max``)."""
     _check(scores, bars)
     m, n = scores.shape
     bn = tile_width(n)
@@ -56,7 +58,7 @@ def reference(scores: torch.Tensor, bars: torch.Tensor):
     hit = sp > thr
     tiles = sp.reshape(m, -1, bn)
     counts = hit.reshape(m, -1, bn).sum(dim=2, dtype=torch.int32)
-    tmax = tiles.amax(dim=2)
+    tmax = tile_max(tiles, 2)
     return hit[:, :n].to(torch.int8), counts, tmax
 
 

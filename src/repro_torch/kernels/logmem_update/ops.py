@@ -18,6 +18,7 @@ import functools
 import torch
 
 from .. import build
+from ..tile_max import tile_max
 
 PAD_ID = -1
 NARROW = 32  # widest row admit_narrow gives to a single thread
@@ -52,7 +53,8 @@ def _check(scores: torch.Tensor, ids: torch.Tensor,
 def reference(scores: torch.Tensor, ids: torch.Tensor, tau: torch.Tensor):
     """Plain PyTorch version, the reference's pad-then-scan: rows are
     padded with id -1 to a tile multiple; pad columns are not live, so
-    they enter no output."""
+    they enter no output. A live max of zero is +0.0 if a live entry of
+    the tile is +0.0 (``tile_max``)."""
     _check(scores, ids, tau)
     m, n = scores.shape
     bn = tile_width(n)
@@ -63,7 +65,8 @@ def reference(scores: torch.Tensor, ids: torch.Tensor, tau: torch.Tensor):
     hit = live & (sp > tau.reshape(m, 1))
     acounts = hit.reshape(m, -1, bn).sum(dim=2, dtype=torch.int32)
     lcounts = live.reshape(m, -1, bn).sum(dim=2, dtype=torch.int32)
-    tmax = torch.where(live, sp, float("-inf")).reshape(m, -1, bn).amax(2)
+    tmax = tile_max(torch.where(live, sp, float("-inf")).reshape(m, -1, bn),
+                    2)
     return hit[:, :n].to(torch.int8), acounts, lcounts, tmax
 
 

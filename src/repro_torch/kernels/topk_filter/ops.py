@@ -4,9 +4,10 @@ survivor mask, and per-tile survivor count and maximum; and
 
 ``topk_filter`` is the port of the reference's
 ``kernels.topk_filter.ops.topk_filter``. The device of the input decides
-what runs: a CUDA tensor launches the hand-written kernel
-(``csrc/topk_filter.cu``) or raises, a CPU tensor runs the plain PyTorch
-version ``reference``. There is no switch between the two.
+what runs: a CUDA tensor launches one of the hand-written kernels of
+``csrc/topk_filter.cu`` (``launch_plan`` picks it from the width and the
+alignment) or raises, a CPU tensor runs the plain PyTorch version
+``reference``. There is no switch between the two.
 """
 from __future__ import annotations
 
@@ -18,8 +19,11 @@ import torch
 from repro_torch.core import topk
 
 from .. import build
+from ..tile_max import tile_max
 
 NEG_BIG = -1e30
+# the kernel ids of csrc/topk_filter.cu
+KERNELS = {"filter_tile": 0, "filter_vec": 1}
 
 # kernel launches made by ``topk_filter`` since the last reset
 launches = 0
@@ -46,7 +50,8 @@ def reference(scores: torch.Tensor, threshold: torch.Tensor):
     """Plain PyTorch version, the reference's pad-then-scan: scores cast
     to float32, padded with NEG_BIG to a tile multiple, NaN demoted to
     NEG_BIG; pad columns count toward the last tile's count and max and
-    are stripped from the mask."""
+    are stripped from the mask. A tile max of zero is +0.0 if the tile
+    holds a +0.0 (``tile_max``)."""
     _check(scores, threshold)
     n = scores.shape[0]
     bn = tile_width(n)
@@ -55,15 +60,32 @@ def reference(scores: torch.Tensor, threshold: torch.Tensor):
     sp = torch.where(torch.isnan(sp), NEG_BIG, sp)
     hit = sp > threshold.to(torch.float32).reshape(())
     counts = hit.reshape(-1, bn).sum(dim=1, dtype=torch.int32)
-    return hit[:n].to(torch.int8), counts, sp.reshape(-1, bn).amax(dim=1)
+    return hit[:n].to(torch.int8), counts, tile_max(sp.reshape(-1, bn), 1)
+
+
+def launch_plan(scores: torch.Tensor):
+    """(kernel, reason) that ``topk_filter`` launches for float32
+    ``scores`` (N,): "filter_vec" (a block of 512 threads a tile, both
+    float4 loads of a thread issued before its first compare) when
+    N % 4 == 0 and the base is 16-byte aligned, else "filter_tile" (a
+    block of 256 a tile, 4-byte loads in a loop). Raises ValueError
+    unless ``scores`` is contiguous."""
+    if not scores.is_contiguous():
+        raise ValueError("scores must be contiguous")
+    n = scores.shape[0]
+    if n % 4:
+        return "filter_tile", f"N = {n} is not a multiple of 4"
+    if scores.data_ptr() % 16:
+        return "filter_tile", "the base is off 16-byte alignment"
+    return ("filter_vec",
+            f"N = {n} a multiple of 4 from a 16-byte aligned base")
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.library("topk_filter").topk_filter_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -76,7 +98,8 @@ def topk_filter(scores: torch.Tensor, threshold: torch.Tensor):
     where the threshold is below NEG_BIG and enter its max, as in the
     reference.
 
-    CUDA tensors run the kernel, CPU tensors the plain version."""
+    CUDA tensors run the kernel ``launch_plan`` names, CPU tensors the
+    plain version."""
     global launches
     if scores.device.type == "cpu":
         return reference(scores, threshold)
@@ -85,6 +108,7 @@ def topk_filter(scores: torch.Tensor, threshold: torch.Tensor):
     _check(scores, threshold)
     scores = scores.to(torch.float32).contiguous()
     thr = threshold.to(torch.float32).reshape(1).contiguous()
+    kernel = launch_plan(scores)[0]
     n = scores.shape[0]
     bn = tile_width(n)
     tiles = -(-n // bn)
@@ -94,12 +118,11 @@ def topk_filter(scores: torch.Tensor, threshold: torch.Tensor):
     tmax = torch.empty((tiles,), dtype=torch.float32, device=dev)
     if tiles == 0:
         return mask, counts, tmax
-    vec = int(n % 4 == 0 and scores.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(scores.data_ptr(), thr.data_ptr(), mask.data_ptr(),
                         counts.data_ptr(), tmax.data_ptr(), n, bn, tiles,
-                        vec, stream)
+                        KERNELS[kernel], stream)
     if err:
         raise RuntimeError(f"topk_filter launch failed: CUDA error {err}")
     launches += 1

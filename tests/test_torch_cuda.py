@@ -333,6 +333,95 @@ def tf_case(n, seed, dtype=np.float32):
 TF_CASES = [100, 128, 4096, 5000, 100_000, 4097, 1 << 20]
 
 
+def same_bits(outs, refs):
+    """Outputs equal to the plain version's bit for bit (a -0.0 differs
+    from a +0.0), NaN where the plain version has NaN (any NaN)."""
+    for a, r in zip(outs, refs):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        if a.is_floating_point():
+            nan = r.isnan()
+            assert torch.equal(a.isnan(), nan)
+            bits = {2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[a.element_size()]
+            a, r = a[~nan].view(bits), r[~nan].view(bits)
+        assert torch.equal(a, r)
+
+
+# one tile of 128 scores whose maximum is zero, against a bar of 5.0:
+# [-0.0, +0.0, -1.0 x 126] and its reverse (+0.0, as jnp.max gives
+# wherever a +0.0 is in the tile) and -0.0 alone (-0.0)
+ZERO_ROWS = ("mixed", "reversed", "negative")
+
+
+def zero_row(kind):
+    row = np.full(128, -1.0, np.float32)
+    row[:2] = (-0.0, 0.0)
+    if kind == "reversed":
+        row = row[::-1].copy()
+    elif kind == "negative":
+        row[:] = -0.0
+    return row
+
+
+def zero_tied_scores(rng, m, n, bn):
+    """``tied_scores`` (m, n) whose (row, tile of ``bn`` columns) pairs
+    cycle through three kinds: as drawn; made non-positive (every zero
+    then -0.0, so a tile max of -0.0 where it holds a zero); made
+    non-positive with +0.0 put back at 3% of the entries (+0.0 beside
+    -0.0)."""
+    s = tied_scores(rng, (m, n))
+    for r in range(m):
+        for t, c in enumerate(range(0, n, bn)):
+            kind = (r * -(-n // bn) + t) % 3
+            if kind:
+                s[r, c:c + bn] = -np.abs(s[r, c:c + bn])
+            if kind == 2:
+                put = rng.random(s[r, c:c + bn].shape) < 0.03
+                s[r, c:c + bn][put] = 0.0
+    return s
+
+
+# (M, N, view 4 bytes off 16-byte alignment, kernel launch_plan picks) of
+# batched_topk over zero_tied_scores against bars of ±0 and the pool's
+# values: the vector kernel at N = 16 and 64, a thread a row at N = 7
+# and off alignment, a warp a tile at N = 600 and off alignment
+BTK_ZERO_CASES = [(9, 16, False, "scan_vec"), (5, 64, False, "scan_vec"),
+                  (9, 7, False, "scan_narrow"), (7, 600, False, "scan_wide"),
+                  (3, 128, False, "scan_vec"), (33, 16, True, "scan_narrow"),
+                  (5, 64, True, "scan_wide")]
+
+
+def btk_zero_case(m, n, seed):
+    rng = np.random.default_rng(seed)
+    scores = zero_tied_scores(rng, m, n, t_btk.tile_width(n))
+    bars = TIED_POOL[rng.integers(0, TIED_POOL.size, m)]
+    bars[::3] = -0.0
+    return scores, bars
+
+
+# (N, view 4 bytes off 16-byte alignment, kernel launch_plan picks) of
+# topk_filter: a batch of the single-stream path, a partial last tile
+# (5000), one tile under 128 columns (100), N % 4 != 0 (4097, 102), bases
+# off 16-byte alignment
+TF_PLAN_CASES = [(1 << 20, False, "filter_vec"), (5000, False, "filter_vec"),
+                 (8192, False, "filter_vec"), (100, False, "filter_vec"),
+                 (4097, False, "filter_tile"), (102, False, "filter_tile"),
+                 (5000, True, "filter_tile"), (1 << 20, True, "filter_tile")]
+
+
+def tf_zero_case(n, seed):
+    """``zero_tied_scores`` as one stream of N scores, with a few NaNs."""
+    rng = np.random.default_rng(seed)
+    s = zero_tied_scores(rng, 1, n, t_tf.tile_width(n))[0]
+    s[rng.random(n) < 0.01] = np.nan
+    return s
+
+
+# (M, N) of logmem_admit at lm_seam_case(m, n, "zeros", m + n): a last
+# tile of one column, two tiles, a thread a row, the deployment width
+LM_ZERO_CASES = [(6, 513), (5, 1500), (7, 20), (4, 8192)]
+
+
 def ps_case(m, s, j, c, kind, seed, dtype=np.float64):
     """Inputs of ``plan_solve.enum_solve`` for M streams, S subsets, J
     steps, C sorted candidates (numpy). ``kind``: "plain" (unmasked),
@@ -650,6 +739,120 @@ def test_filter_then_merge_on_card_equals_cpu(cuda_device):
         assert torch.equal(cw, gw.cpu())
         for a, b in zip(cpu, gpu):
             assert torch.equal(a, b.cpu())
+
+
+def zero_row_run(kernel, kind, device):
+    """(kernel outputs, plain outputs) of one scan kernel on ``zero_row``
+    against 5.0 on ``device``; the kernel's launch counter must rise by
+    one."""
+    row = torch.tensor(zero_row(kind), device=device)
+    five = torch.tensor([5.0], device=device)
+    if kernel == "batched_topk":
+        mod, args = t_btk, (row[None], five)
+        call = t_btk.batched_topk_filter
+    elif kernel == "topk_filter":
+        mod, args, call = t_tf, (row, five[0]), t_tf.topk_filter
+    else:
+        ids = torch.arange(128, dtype=torch.int32, device=device)[None]
+        mod, args = t_lm_ops, (row[None], ids, five)
+        call = t_lm_ops.logmem_admit
+    before = mod.launches
+    out = call(*args)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    return out, mod.reference(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ZERO_ROWS)
+@pytest.mark.parametrize("kernel",
+                         ["batched_topk", "topk_filter", "logmem_update"])
+def test_scan_kernels_zero_row_by_bits(kernel, kind, cuda_device):
+    out, ref = zero_row_run(kernel, kind, cuda_device)
+    same_bits(out, ref)
+    assert bool(torch.signbit(out[-1]).all()) == (kind == "negative")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,kind,offset,want", BTK_SEAM_CASES)
+def test_batched_topk_kernel_seams_by_bits(m, n, kind, offset, want,
+                                           cuda_device):
+    scores, bars = btk_seam_case(m, n, kind, m + n)
+    s, b = (torch.tensor(x, device=cuda_device) for x in (scores, bars))
+    if offset:
+        s = offset_view(s)
+    assert t_btk.launch_plan(s, b)[0] == want
+    same_bits(t_btk.batched_topk_filter(s, b), t_btk.reference(s, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,offset,want", BTK_ZERO_CASES)
+def test_batched_topk_kernel_tied_zeros_by_bits(m, n, offset, want,
+                                                cuda_device):
+    scores, bars = btk_zero_case(m, n, m + n)
+    s, b = (torch.tensor(x, device=cuda_device) for x in (scores, bars))
+    if offset:
+        s = offset_view(s)
+    assert t_btk.launch_plan(s, b)[0] == want
+    same_bits(t_btk.batched_topk_filter(s, b), t_btk.reference(s, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,kind,offset,want", LM_SEAM_CASES + [
+    (m, n, "zeros", False, None) for m, n in LM_ZERO_CASES])
+def test_logmem_admit_kernel_seams_by_bits(m, n, kind, offset, want,
+                                           cuda_device):
+    args = [torch.tensor(x, device=cuda_device)
+            for x in lm_seam_case(m, n, kind, m + n)]
+    if offset:
+        args[0], args[1] = offset_view(args[0]), offset_view(args[1])
+    assert want in (None, t_lm_ops.launch_plan(*args)[0])
+    same_bits(t_lm_ops.logmem_admit(*args), t_lm_ops.reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.0, -0.0, float("-inf")])
+@pytest.mark.parametrize("n,offset,want", TF_PLAN_CASES)
+def test_topk_filter_kernel_plans_by_bits(n, offset, want, thr,
+                                          cuda_device):
+    s = torch.tensor(tf_zero_case(n, n), device=cuda_device)
+    if offset:
+        s = offset_view(s)
+    t = torch.tensor(thr, device=cuda_device)
+    assert t_tf.launch_plan(s)[0] == want
+    before = t_tf.launches
+    out = t_tf.topk_filter(s, t)
+    torch.cuda.synchronize()
+    assert t_tf.launches == before + 1
+    same_bits(out, t_tf.reference(s, t))
+
+
+@pytest.mark.cuda
+def test_topk_filter_launcher_refuses_picks_the_inputs_do_not_allow(
+        cuda_device):
+    """filter_vec on a base off 16-byte alignment or on N % 4 != 0, or an
+    unknown kernel id: the launcher returns an error and launches
+    nothing."""
+    t = torch.tensor(0.5, device=cuda_device)
+    for s, kernel in ((offset_view(torch.zeros(8192, device=cuda_device)),
+                       t_tf.KERNELS["filter_vec"]),
+                      (torch.zeros(4097, device=cuda_device),
+                       t_tf.KERNELS["filter_vec"]),
+                      (torch.zeros(8192, device=cuda_device), 7)):
+        n = s.numel()
+        bn = t_tf.tile_width(n)
+        tiles = -(-n // bn)
+        mask = torch.empty(n, dtype=torch.int8, device=cuda_device)
+        counts = torch.full((tiles,), -1, dtype=torch.int32,
+                            device=cuda_device)
+        tmax = torch.empty(tiles, device=cuda_device)
+        err = t_tf._kernel()(s.data_ptr(), t.data_ptr(), mask.data_ptr(),
+                             counts.data_ptr(), tmax.data_ptr(), n, bn,
+                             tiles, kernel,
+                             torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err != 0
+        assert (counts == -1).all()
 
 
 def mixed_dense_chunks(n_chunks, seed):

@@ -16,7 +16,7 @@ from repro.core import topk as j_topk
 from repro.kernels.topk_filter import ops as j_tf
 from repro_torch.core import topk as t_topk
 from repro_torch.kernels.topk_filter import ops as t_tf
-from test_torch_cuda import tf_case, tied_scores
+from test_torch_cuda import TF_PLAN_CASES, offset_view, tf_case, tied_scores
 
 
 @pytest.mark.parametrize("n", [128, 4096, 5000, 100_000, 100])
@@ -76,3 +76,27 @@ def test_filter_then_merge_bit_equal(k, n):
         assert int(js.seen) == int(ts.seen)
     if n >= k:
         assert (ts.ids.numpy() == -(2 ** 31) + 1).any()  # the +inf entry
+
+
+@pytest.mark.parametrize("n,offset,want", TF_PLAN_CASES)
+def test_topk_filter_launch_plan(n, offset, want):
+    """filter_vec (a block of 512 threads a tile, float4 loads) for N % 4
+    == 0 from a 16-byte aligned base, partial last tiles included; else
+    filter_tile; the reason names the width or the alignment."""
+    s = torch.tensor(tf_case(n, 0))
+    if offset:
+        s = offset_view(s)
+    kernel, reason = t_tf.launch_plan(s)
+    assert kernel == want
+    if kernel == "filter_vec":
+        assert reason.endswith("a multiple of 4 from a 16-byte aligned base")
+    elif n % 4:
+        assert reason == f"N = {n} is not a multiple of 4"
+    else:
+        assert reason == "the base is off 16-byte alignment"
+
+
+def test_topk_filter_launch_plan_refuses_strided_inputs():
+    s = torch.tensor(tf_case(8192, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        t_tf.launch_plan(s[::2])
