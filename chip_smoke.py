@@ -25,7 +25,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    logging the kernel its launch_plan picks; for
    plan_solve also ties at
    G=5456, a NaN in a last subset's last tuple alone, and a NaN-skipped
-   first subset before infeasible ones, which must give (+inf, 0));
+   first subset before infeasible ones, which must give (+inf, 0); and
+   at the online re-solve's four-tier shape (4,096 streams of phase
+   13b's fleet, float64, masked, terms with +inf) as it comes, with
+   every tuple of some streams +inf, which must give (+inf, 0), and
+   behind an all-+inf subset, whose streams must take the second);
    exact (NaN where the plain version has NaN), and batched_topk,
    logmem_update and topk_filter also bit for bit, among them tiles whose
    maximum is +0.0 or -0.0; then
@@ -39,7 +43,8 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    entropy_scores at both score producers' shapes, batched_topk and
    tier_assign at the main path's, logmem_update and topk_filter at
    their paths' shapes and a large one, and each plan_solve launch (with
-   the kernel and launch plan it took), each the median of 5 profiled
+   the kernel and launch plan it took; the re-solve's among them), each
+   the median of 5 profiled
    windows with its spread; logmem_update at 64 x 8192, topk_filter
    at 2^20 and entropy_scores at 8 x 128,256, whose inputs stay in the
    card's L2 between back-to-back calls, also L2-cold (128 MiB written
@@ -93,7 +98,30 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    card): the first batch teacher-forced through both routes, then 16
    requests in 2 batches of 8 (prompts of 1024, 32 generated, top-8
    retained) with exactly 60 flash_attention and 62 entropy_scores
-   launches; profiles of a prefill and of decode steps.
+   launches; profiles of a prefill and of decode steps;
+13. drift-aware re-planning at fleet scale: examples/online_replanning.py's
+   setting (K=64, windows of 12,000 docs, an 8x record-rate burst at doc
+   3,000, chunks of 64, DriftConfig(alpha=0.05)) through
+   StreamEngine(replan=) on the card, meter on: 13a 65,536 two-tier
+   tenants of the example's make_fleet shape (costs jittered, hot tier
+   of 4K docs), 13b 4,096 four-tier tenants drawn as
+   tests/test_constraints.py draws its N-tier models, with K/2 caps on
+   tiers 1 and 3 (the re-solve's four-tier subsets take plan_solve's
+   masked route with +inf terms); chunks made one at a time from a
+   seeded generator (7.9e8 + 4.9e7 docs), then finalize_tiers. Logged
+   and checked: launches of batched_topk, tier_assign and plan_solve
+   (plan_solve > 0 inside 13b's re-plans), replan / applied / feasible /
+   admission counts, the re-plan hook's host seconds; 512 sampled
+   streams of each engine against the port's CPU run of the same chunks
+   (started from the card's planned boundaries, the re-solve pinned to
+   the device route): replan and admission events, drift leaves,
+   boundaries, survivors and tiers equal, suffix costs within 1e-11;
+   tests/test_online.py:387's acceptance on 16 sampled 13a streams
+   (re-planned < static, <= 1.10 x the process oracle) and 13a's
+   check_constraints; docs/s with replan= beside the same fleet without
+   it; a torch.profiler window of 13b's largest re-planning chunk (host
+   and device ms) and its plan_solve launches timed alone (median of 5
+   windows) beside their plain version and bound.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -149,6 +177,12 @@ ENT_SC = (SC_SERVE["batch"], 49_152)
 WINDOWS = 5  # timing windows of the redesigned kernels (median, spread)
 L2_FLUSH_BYTES = 128 << 20  # written between calls of an L2-cold timing
 TF_WINDOW_BATCHES = 12  # filter_then_merge batches in a phase 10 window
+# phase 13: examples/online_replanning.py's setting at fleet scale
+RP_DOCS, RP_K, RP_CHUNK = 12_000, 64, 64  # window, K, docs a chunk
+RP_DRIFT_AT, RP_MULT, RP_ALPHA = 3_000, 8.0, 0.05  # burst, DriftConfig
+RP_TWO, RP_FOUR = 65_536, 4_096  # tenants of 13a and 13b
+RP_SAMPLE = 512  # streams of each engine held to the port's CPU run
+RP_ORACLE = 16  # 13a streams scored against the process oracle
 
 
 def log(*args):
@@ -530,7 +564,43 @@ def plan_solve_inputs():
         "4-tier": capture_plan_solve(
             lambda: shp.plan_ntier_arrays(*args4, **cons4,
                                           backend="device")),
+        "re-solve": resolve_solve_inputs(),
     }
+
+
+def resolve_solve_inputs():
+    """plan_solve's inputs at the online re-solve's four-tier shape
+    (phase 13b): all RP_FOUR of its tenants flagged at once, at random
+    positions after the burst and random rates; float64, masked (a pair
+    cap on tier 1), +inf terms (tier 3's folded capacity mask)."""
+    from repro_torch.online import replan, replan_device
+    rng = np.random.default_rng(14)
+    st = replan.Replanner(four_tier_fleet(rng, RP_FOUR),
+                          constraints=rp_constraints(True))._stacks[4]
+    n = st["n"]
+    args = [st[key] for key in ("cw", "cr", "cs", "n", "k", "rpw", "cap",
+                                "lat", "slo")]
+    args += [np.floor(rng.uniform(RP_DRIFT_AT / RP_DOCS, 0.95, RP_FOUR) * n),
+             rng.uniform(1.0, RP_MULT, RP_FOUR),
+             np.sort(rng.uniform(0, 1, (RP_FOUR, 3)) * n[:, None], axis=1)]
+    return capture_plan_solve(
+        lambda: replan_device.solve_group(*args, device="cuda"))
+
+
+def blocked_resolve_cases(args):
+    """The re-solve's inputs with every tuple of streams 0, 97, 194, ...
+    +inf (all infeasible: they must give (+inf, 0)), and with an all-+inf
+    copy of the subset ahead of it (S = 2: a finite winner must come from
+    the second subset)."""
+    fs, const, combos, grids = args
+    stream = fs.clone()
+    stream[::97] = float("inf")
+    cat = lambda x: torch.cat([x, x], dim=1).contiguous()  # noqa: E731
+    subset = (torch.cat([torch.full_like(fs, float("inf")), fs],
+                        dim=1).contiguous(), cat(const), combos,
+              tuple(cat(x) for x in grids))
+    return {"re-solve, all-+inf streams": (stream, const, combos, grids),
+            "re-solve, all-+inf first subset": subset}
 
 
 def ps_shape(args):
@@ -758,6 +828,7 @@ def kernel_parity():
     for label, args in ps_edge_cases(g).items():
         cases += [(label, as_dtype(args, dtype))
                   for dtype in (torch.float32, torch.float64)]
+    cases += list(blocked_resolve_cases(solves["re-solve"][0]).items())
     for label, args in cases:
         out = ps.plan_solve(*args)
         torch.cuda.synchronize()
@@ -768,6 +839,20 @@ def kernel_parity():
             if not (torch.isinf(cut[0]).all() and (cut[1] == 0).all()):
                 raise AssertionError(f"plan_solve [{label}]: a NaN-skipped "
                                      f"first subset did not give (+inf, 0)")
+        if label == "re-solve, all-+inf streams":
+            cut = out[0][::97], out[1][::97]
+            if not (torch.isinf(cut[0]).all() and (cut[1] == 0).all()):
+                raise AssertionError(f"plan_solve [{label}]: an infeasible "
+                                     f"stream did not give (+inf, 0)")
+        if label == "re-solve, all-+inf first subset":
+            fin = torch.isfinite(out[0])
+            if not (bool(fin.any()) and bool(
+                    (out[1][fin] >= args[2].shape[0]).all())):
+                raise AssertionError(f"plan_solve [{label}]: a winner came "
+                                     f"from the all-+inf subset")
+        if label.startswith("re-solve") and not bool(
+                torch.isinf(args[0]).any()):
+            raise AssertionError(f"plan_solve [{label}]: no +inf term")
         log(f"parity plan_solve [{label}] {ps_shape(args)}; "
             f"{ps_kernel(args)[0]}: exact (val and idx; max abs diff {err})")
     return errs, solves
@@ -2127,6 +2212,444 @@ def starcoder_serve(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: drift-aware re-planning at fleet scale
+# ---------------------------------------------------------------------------
+
+def two_tier_fleet(rng, m):
+    """examples/online_replanning.py's ``make_fleet`` shape at the phase's
+    window: hot tier write-cheap / read-expensive, cold tier the reverse,
+    costs jittered so every tenant gets its own r*."""
+    from repro_torch.core import costs
+    wl = costs.WorkloadSpec(n_docs=RP_DOCS, k=RP_K, doc_gb=1e-4,
+                            window_months=0.5)
+    jit = rng.uniform(0.9, 1.1, (m, 2))
+    return [costs.TwoTierCostModel(
+        tier_a=costs.TierCosts("hot", put_per_doc=1e-6,
+                               get_per_doc=2.7e-4 * float(a),
+                               storage_per_gb_month=0.05),
+        tier_b=costs.TierCosts("cold", put_per_doc=8e-5 * float(b),
+                               get_per_doc=1e-6, storage_per_gb_month=0.02),
+        workload=wl) for a, b in jit]
+
+
+def four_tier_fleet(rng, m):
+    """tests/test_constraints.py's random N-tier models at four tiers (each
+    tier's put, get and rental 10^U(-8, -3), transfer fees, a random doc
+    size and window length), at the phase's window and K."""
+    from repro_torch.core import costs, topology
+    out = []
+    for _ in range(m):
+        specs = tuple(
+            topology.TierSpec(
+                costs.TierCosts(f"t{i}", *(10.0 ** rng.uniform(-8, -3, 3))),
+                xfer_in_per_gb=float(10.0 ** rng.uniform(-7, -3)),
+                xfer_out_per_gb=float(10.0 ** rng.uniform(-6, -2)))
+            for i in range(4))
+        wl = costs.WorkloadSpec(n_docs=RP_DOCS, k=RP_K,
+                                doc_gb=float(rng.uniform(1e-4, 1.0)),
+                                window_months=float(rng.uniform(0.03, 3.0)))
+        out.append(topology.TierTopology(tiers=specs).cost_model(wl))
+    return out
+
+
+def rp_constraints(four):
+    """13a: a hot tier of 4K docs (examples/online_replanning.py); 13b:
+    K/2 docs on tier 1 (a pair cap on a middle tier: plan_solve's masked
+    route) and on tier 3 (its folded mask puts +inf in the terms)."""
+    from repro_torch.core import constraints as cons
+    if four:
+        return cons.ConstraintSet(cons.TierCapacity(1, 0.5 * RP_K),
+                                  cons.TierCapacity(3, 0.5 * RP_K))
+    return cons.ConstraintSet(cons.TierCapacity(0, 4 * RP_K))
+
+
+class RpChunks:
+    """The drifted window as ingest_dense-shaped chunks, made chunk by
+    chunk from one seeded generator: doc i scores -E/θ_i in float32 with
+    E ~ Exp(1) and θ = 1 before RP_DRIFT_AT, RP_MULT from it on (the law
+    of ``core.simulator.drifted_rank_trace``). The sampled rows' scores
+    are kept; the seconds spent making chunks are counted so a rate can
+    leave them out."""
+
+    def __init__(self, seed, m, sample=None):
+        from repro_torch.core import simulator
+        self.seed, self.m, self.sample = seed, m, sample
+        self.theta = simulator.drift_weights(
+            RP_DOCS, [(RP_DRIFT_AT, RP_MULT)]).astype(np.float32)
+        self.kept, self.gen_s = [], 0.0
+
+    def __iter__(self):
+        rng = np.random.default_rng(self.seed)
+        for c0 in range(0, RP_DOCS, RP_CHUNK):
+            t0 = time.perf_counter()
+            w = min(RP_CHUNK, RP_DOCS - c0)
+            sc = (-rng.standard_exponential((self.m, w), dtype=np.float32)
+                  / self.theta[c0:c0 + w])
+            if self.sample is not None:
+                self.kept.append(sc[self.sample])
+            ids = np.broadcast_to(np.arange(c0, c0 + w, dtype=np.int32),
+                                  (self.m, w))
+            chunk = [(sc, ids)]
+            self.gen_s += time.perf_counter() - t0
+            yield chunk
+
+    def trace(self, j):
+        """Sampled row j's scores over the window, as float64."""
+        return np.concatenate([c[j] for c in self.kept]).astype(np.float64)
+
+    def sample_chunks(self):
+        """The kept rows' chunks, as the card's run got them."""
+        return [[(c, np.broadcast_to(
+            np.arange(i * RP_CHUNK, i * RP_CHUNK + c.shape[1],
+                      dtype=np.int32), c.shape))]
+                for i, c in enumerate(self.kept)]
+
+
+def timed_replans(eng):
+    """Wrap the engine's re-plan hook and solver: one record per chunk
+    that flagged streams, (chunk, rows, solve s, whole re-plan s, solve
+    plan_solve launches)."""
+    from repro_torch.kernels.plan_solve import ops as ps
+    records, inner = [], {}
+    hook, solve = eng._maybe_replan, eng._replanner.replan
+    chunk = [0]
+
+    def timed_solve(rows, *a, **kw):
+        p0, t0 = ps.launches, time.perf_counter()
+        out = solve(rows, *a, **kw)
+        inner.update(rows=len(rows), s=time.perf_counter() - t0,
+                     ps=ps.launches - p0)
+        return out
+
+    def timed_hook():
+        inner.clear()
+        t0 = time.perf_counter()
+        hook()
+        if inner:
+            records.append((chunk[0], inner["rows"], inner["s"],
+                            time.perf_counter() - t0, inner["ps"]))
+        chunk[0] += 1
+
+    eng._maybe_replan, eng._replanner.replan = timed_hook, timed_solve
+    return records
+
+
+def rp_specs(models):
+    from repro_torch.streams import StreamSpec
+    return [StreamSpec(stream_id=i, k=RP_K, cost_model=cm)
+            for i, cm in enumerate(models)]
+
+
+def rp_config():
+    from repro_torch.online import DriftConfig, ReplanConfig
+    return ReplanConfig(drift=DriftConfig(alpha=RP_ALPHA))
+
+
+def replanning_run(label, models, four, seed, rng):
+    """One engine with replan= on the card over the drifted window:
+    launches, events, re-plan timings, finalize_tiers, constraints."""
+    from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.plan_solve import ops as ps
+    from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.streams import StreamEngine
+    m = len(models)
+    sample = np.sort(rng.choice(m, RP_SAMPLE, replace=False))
+    chunks = RpChunks(seed, m, sample)
+    # the counted run: counters to 0, plan, drive, finalize, read
+    btk.launches = ta.launches = ps.launches = 0
+    t0 = time.perf_counter()
+    eng = StreamEngine(rp_specs(models), constraints=rp_constraints(four),
+                       replan=rp_config())
+    plan_s, plan_ps = time.perf_counter() - t0, ps.launches
+    planned = (eng.meter.boundaries.copy(), eng.meter.migrate.copy())
+    records = timed_replans(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_chunks = eng.ingest_chunks(chunks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiers = eng.finalize_tiers()
+    fin_s = time.perf_counter() - t0
+    launches = {"batched_topk": btk.launches, "tier_assign": ta.launches,
+                "plan_solve": ps.launches}
+    replan_ps = ps.launches - plan_ps
+    evs = eng.replan_events
+    docs = m * RP_DOCS
+    log(f"re-planning [{label}]: {m} tenants, K={RP_K}, {RP_DOCS} docs "
+        f"each in {n_chunks} chunks of {RP_CHUNK} ({docs} docs), "
+        f"{RP_MULT:g}x burst at doc {RP_DRIFT_AT}; plan {plan_s:.3f}s; "
+        f"launches {launches} (plan_solve: {plan_ps} in the plan, "
+        f"{replan_ps} in the re-plans)")
+    applied = sum(e.applied for e in evs)
+    feasible = sum(e.feasible for e in evs)
+    fired = len({e.stream_id for e in evs})
+    log(f"re-planning [{label}]: {len(evs)} replan events over {fired} "
+        f"tenants, {applied} applied, {feasible} feasible, "
+        f"{len(eng.admission_events)} admission events; "
+        f"{int(eng.meter.relocations.sum())} residents relocated")
+    rows = np.array([r[1] for r in records] or [0])
+    solve_s = sum(r[2] for r in records)
+    hook_s = sum(r[3] for r in records)
+    top = max(records, key=lambda r: r[1]) if records else None
+    log(f"re-planning [{label}]: {len(records)} chunks re-planned, "
+        f"{int(rows.sum())} flagged rows in all (most {int(rows.max())} "
+        f"in one chunk); host seconds in the re-plan hook {hook_s:.3f} "
+        f"(solve incl. the device re-solve {solve_s:.3f}, events and "
+        f"meter {hook_s - solve_s:.3f}); chunk {top[0] if top else '-'} "
+        f"re-planned {top[1] if top else 0} rows in "
+        f"{top[3] * 1e3 if top else 0:.3f} ms (solve "
+        f"{top[2] * 1e3 if top else 0:.3f} ms, {top[4] if top else 0} "
+        f"plan_solve launches)")
+    rate = docs / (wall - chunks.gen_s)
+    log(f"re-planning [{label}]: ingest {wall:.3f}s, {chunks.gen_s:.3f}s "
+        f"of it making chunks on the host: {rate:.6g} docs/s with replan= "
+        f"(meter on; host clock around ingest_chunks and a sync, chunk "
+        f"making left out); finalize_tiers {fin_s:.3f}s")
+    # chunks at least K wide take the bar scan (the last one is narrower)
+    wide = sum(min(RP_CHUNK, RP_DOCS - c0) >= RP_K
+               for c0 in range(0, RP_DOCS, RP_CHUNK))
+    if launches["batched_topk"] != wide or launches["tier_assign"] < 1:
+        raise AssertionError(f"re-planning [{label}] missed a kernel: "
+                             f"{launches}, {wide} wide chunks")
+    if four and replan_ps < 1:
+        raise AssertionError("no plan_solve launch inside 13b's re-plans")
+    if not applied:
+        raise AssertionError(f"re-planning [{label}]: no re-plan applied")
+    counts = np.stack([tiers[i]["counts"] for i in range(m)])
+    if int(counts.sum()) != m * RP_K:
+        raise AssertionError("finalize_tiers counts do not sum to M*K")
+    report = eng.check_constraints()
+    kinds = sorted({(v["tier"], v["kind"]) for v in report["violations"]})
+    log(f"re-planning [{label}]: check_constraints ok={report['ok']} "
+        f"({len(report['violations'])} violations, (tier, kind) {kinds})")
+    # 13a is tests/test_online.py:387's acceptance fleet, whose generous
+    # hot tier the re-plans must keep; 13b's K/2 caps on tiers 1 and 3
+    # are meant to bind under the burst: its infeasible re-solves hand
+    # their tenants to admission control, and the report says where
+    if not four and not report["ok"]:
+        raise AssertionError(f"re-planning [{label}]: constraint "
+                             f"violations")
+    return eng, chunks, launches, {"rate": rate, "records": records,
+                                   "tiers": tiers, "planned": planned}
+
+
+def rp_cpu_parity(label, eng, models, four, chunks, tiers, planned):
+    """The sampled streams through the port's own CPU run of the same
+    chunks, the CPU pinned to the card's re-solve (backend "device":
+    plan_solve's plain version) and started from the card's planned
+    boundaries and cascade flags, given explicitly beside each cost
+    model. Detection and re-solve are per stream, so the sub-fleet sees
+    the card's decisions."""
+    from repro_torch.online import drift
+    from repro_torch.streams import StreamEngine, StreamSpec
+    sample = chunks.sample
+    bounds, mig = planned
+    rows = [eng.stream_row(int(i)) for i in sample]
+    specs = [StreamSpec(stream_id=int(i), k=RP_K, cost_model=models[i],
+                        migrate=bool(mig[r]), boundaries=tuple(bounds[r]))
+             for i, r in zip(sample, rows)]
+    cpu = StreamEngine(specs, constraints=rp_constraints(four),
+                       replan=rp_config(), device="cpu")
+    cpu._replanner.backend = "device"  # the card's re-solve, plain plan_solve
+    t0 = time.perf_counter()
+    cpu.ingest_chunks(chunks.sample_chunks())
+    cpu_s = time.perf_counter() - t0
+    want = set(int(i) for i in sample)
+
+    def by_stream(evs):
+        out = {}
+        for e in evs:
+            if e.stream_id in want:
+                out.setdefault(e.stream_id, []).append(e)
+        return out
+
+    got, ref = by_stream(eng.replan_events), by_stream(cpu.replan_events)
+    if got.keys() != ref.keys():
+        raise AssertionError(f"re-planning [{label}]: the card re-planned "
+                             f"other sampled streams than the CPU")
+    n_ev, worst = 0, 0.0
+    for sid in ref:
+        if len(got[sid]) != len(ref[sid]):
+            raise AssertionError(f"stream {sid}: {len(got[sid])} events on "
+                                 f"the card, {len(ref[sid])} on the CPU")
+        for a, b in zip(got[sid], ref[sid]):
+            n_ev += 1
+            if (a.position, a.rho, a.old_bounds, a.new_bounds, a.applied,
+                    a.feasible, a.moved_docs) != (
+                    b.position, b.rho, b.old_bounds, b.new_bounds,
+                    b.applied, b.feasible, b.moved_docs):
+                raise AssertionError(f"stream {sid}: card event {a} != CPU "
+                                     f"event {b}")
+            for x, y in ((a.suffix_cost_old, b.suffix_cost_old),
+                         (a.suffix_cost_new, b.suffix_cost_new),
+                         (a.move_bill, b.move_bill)):
+                if x == y or (np.isnan(x) and np.isnan(y)):
+                    continue
+                rel = abs(x - y) / abs(y)
+                worst = max(worst, rel)
+                if not rel <= 1e-11:
+                    raise AssertionError(f"stream {sid}: suffix cost {x} "
+                                         f"on the card, {y} on the CPU")
+    adm = lambda evs: sorted(  # noqa: E731
+        (e.stream_id, e.position, e.decision.admitted, e.decision.negotiated,
+         e.decision.k, e.decision.n_docs) for e in evs if e.stream_id in want)
+    if adm(eng.admission_events) != adm(cpu.admission_events):
+        raise AssertionError(f"re-planning [{label}]: admission events "
+                             f"differ")
+    ds_g = drift.state_to_numpy(eng._drift_states[0])
+    ds_c = drift.state_to_numpy(cpu._drift_states[0])
+    for f in ds_g:
+        if not np.array_equal(ds_g[f][rows].view(np.uint8),
+                              ds_c[f].view(np.uint8)):
+            raise AssertionError(f"drift leaf {f} differs on the card")
+    if not np.array_equal(eng.meter.boundaries[rows], cpu.meter.boundaries):
+        raise AssertionError("boundaries differ from the CPU run")
+    ct = cpu.finalize_tiers()
+    for i in sample:
+        for key in ("ids", "tiers", "counts"):
+            if not np.array_equal(tiers[int(i)][key], ct[int(i)][key]):
+                raise AssertionError(f"stream {i}: {key} differ from the "
+                                     f"CPU run")
+    log(f"re-planning [{label}]: {len(sample)} sampled streams through the "
+        f"port's CPU run of the same chunks in {cpu_s:.3f}s: {n_ev} replan "
+        f"events identical (positions, rho, applied, feasible, old and new "
+        f"bounds bit for bit; suffix costs and bills max rel diff "
+        f"{worst:.3g} <= 1e-11), admission events, drift leaves, "
+        f"boundaries, survivors and tiers equal")
+    return cpu
+
+
+def rp_oracle(eng, models, chunks):
+    """tests/test_online.py:387's acceptance on RP_ORACLE sampled two-tier
+    streams: realized re-planned cost below the static plan's and within
+    10% of the process oracle's (core.simulator replays)."""
+    from repro_torch.online import evaluate
+    sched = evaluate.schedules_from_events(eng)
+    static = replanned = oracle = 0.0
+    t0 = time.perf_counter()
+    for j, sid in enumerate(chunks.sample[:RP_ORACLE]):
+        sid = int(sid)
+        trace = chunks.trace(j)
+        row = eng.stream_row(sid)
+        base = tuple(b for b in eng.meter.boundaries[row] if np.isfinite(b))
+        for ev in eng.replan_events:
+            if ev.stream_id == sid:
+                base = ev.old_bounds
+                break
+        cm = models[sid]
+        static += evaluate.realized(trace, RP_K, cm, base).cost_total
+        replanned += evaluate.realized(trace, RP_K, cm, base,
+                                       schedule=sched.get(sid)).cost_total
+        oracle += evaluate.process_oracle(
+            trace, RP_K, cm, base, RP_DRIFT_AT, [(RP_DRIFT_AT, RP_MULT)],
+            np.random.default_rng(sid), grid=10, probes=3)[0]
+    log(f"re-planning [13a oracle]: {RP_ORACLE} sampled streams, realized "
+        f"cost static {static:.6g}, re-planned {replanned:.6g} "
+        f"({replanned / static:.4f} of static), process oracle "
+        f"{oracle:.6g} (re-planned {replanned / oracle:.4f} of it; "
+        f"simulator replays, {time.perf_counter() - t0:.1f}s)")
+    if not (replanned < static and replanned <= 1.10 * oracle):
+        raise AssertionError("re-planned fleet missed static or the 10% "
+                             "oracle band")
+
+
+def rp_static_rate(models, seed):
+    """13a's fleet without replan=, meter on, over the same chunks."""
+    from repro_torch.streams import StreamEngine
+    eng = StreamEngine(rp_specs(models), constraints=rp_constraints(False))
+    chunks = RpChunks(seed, len(models))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.ingest_chunks(chunks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return len(models) * RP_DOCS / (wall - chunks.gen_s)
+
+
+def rp_chunk_profile(models, seed, records, smi):
+    """A re-planning chunk of 13b under torch.profiler: a fresh engine
+    takes the chunks before the one whose re-plan flagged the most
+    streams (the run is deterministic), then that chunk is profiled: wall,
+    device busy, host share, its plan_solve launches; each launch is then
+    timed alone (median of WINDOWS windows) beside its plain version and
+    its bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.plan_solve import ops as ps
+    from repro_torch.streams import StreamEngine
+    target = max((r for r in records if r[4] > 0), key=lambda r: r[1])[0]
+    eng = StreamEngine(rp_specs(models), constraints=rp_constraints(True),
+                       replan=rp_config())
+    it = iter(RpChunks(seed, len(models)))
+    eng.ingest_chunks(next(it) for _ in range(target))
+    chunk = next(it)
+    n_before = len(eng.replan_events)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        seen = capture_plan_solve(lambda: eng.ingest_dense(chunk))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = union_ms(dev)
+    ps_ms = union_ms([e for e in dev if "plan_solve" in e.name])
+    n_ev = len(eng.replan_events) - n_before
+    log(f"re-planning profile [13b, chunk {target}]: {n_ev} streams "
+        f"re-planned; wall {wall_ms:.3f} ms (profiler on), device busy "
+        f"{busy:.3f} ms ({busy / wall_ms:.3f} of wall), host the rest "
+        f"{wall_ms - busy:.3f} ms; {len(dev)} device operations; "
+        f"plan_solve {ps_ms:.4f} ms in {len(seen)} launches; {smi}")
+    if not seen or ps_ms <= 0:
+        raise AssertionError("the profiled re-planning chunk shows no "
+                             "plan_solve launch")
+    out = []
+    for args in seen:
+        nbytes, flops = ps_work(args)
+        kernel, how = ps_kernel(args)
+        med, lo, hi, _ = device_ms_windows(lambda: ps.plan_solve(*args), 20,
+                                           kernel, WINDOWS)
+        plain = cuda_ms(lambda: ps.reference(*args), 3)
+        b_ms, o_ms = (nbytes / HBM_BYTES_PER_S * 1e3,
+                      flops / PEAK_FLOPS[args[0].dtype] * 1e3)
+        log(f"timing plan_solve [13b re-solve: {ps_shape(args)}; {how}]: "
+            f"kernel {med:.4f} ms on the device (median of {WINDOWS} "
+            f"windows of 20 calls; min {lo:.4f}, max {hi:.4f}); plain "
+            f"{plain:.4f} ms; bound {max(b_ms, o_ms):.4f} ms (bytes "
+            f"{b_ms:.4f}, operations {o_ms:.4f})")
+        out.append(med)
+    return out
+
+
+def replanning(smi):
+    """Phase 13: drift-aware re-planning at fleet scale. Returns the
+    launches of both engines' counted runs."""
+    rng = np.random.default_rng(13)
+    two = two_tier_fleet(rng, RP_TWO)
+    four = four_tier_fleet(rng, RP_FOUR)
+    launches = {}
+    eng, chunks, la, a = replanning_run("13a two-tier", two, False, 131, rng)
+    rp_cpu_parity("13a two-tier", eng, two, False, chunks, a["tiers"],
+                  a["planned"])
+    rp_oracle(eng, two, chunks)
+    del eng, chunks
+    eng, chunks, lb, b = replanning_run("13b four-tier", four, True, 132, rng)
+    rp_cpu_parity("13b four-tier", eng, four, True, chunks, b["tiers"],
+                  b["planned"])
+    del eng, chunks
+    for key in la:
+        launches[key] = la[key] + lb[key]
+    static = rp_static_rate(two, 131)
+    log(f"re-planning [13a two-tier]: {a['rate']:.6g} docs/s with "
+        f"replan= beside {static:.6g} docs/s without it, the same fleet "
+        f"and chunks, meter on ({a['rate'] / static:.4f} of it); 13b: "
+        f"{b['rate']:.6g} docs/s with replan=")
+    rp_chunk_profile(four, 132, b["records"], smi)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2163,6 +2686,9 @@ def main():
         launches.update(score_producer(smi))
     with phase_clock(f"{SC_ARCH} at full width (phase 12)"):
         for key, n in starcoder_serve(smi).items():
+            launches[key] += n
+    with phase_clock("drift-aware re-planning at fleet scale (phase 13)"):
+        for key, n in replanning(smi).items():
             launches[key] += n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",

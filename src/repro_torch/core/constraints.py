@@ -15,7 +15,8 @@ module makes bounded resources first-class:
   must not exceed a bound, with per-tier latencies from ``TierSpec``.
 * ``ConstraintSet`` — an ordered bundle the planning stack consumes: the
   constrained planner (``shp.plan_ntier_arrays`` with ``cap/lat/slo``),
-  the fleet planner's shared-capacity water-filling pass, and reconciliation-time violation checks
+  the brute-force feasible-grid verifier, the fleet planner's shared-
+  capacity water-filling pass, and reconciliation-time violation checks
   (``core.simulator`` / ``streams.metering``) all speak this vocabulary.
 
 Any object implementing the ``Constraint`` protocol (``feasible(cm,
@@ -42,7 +43,7 @@ import numpy as np
 
 
 # ---------------------------------------------------------------------------
-# Analytic occupancy / latency laws (shared by planner and meters)
+# Analytic occupancy / latency laws (shared by planner, verifier, meters)
 # ---------------------------------------------------------------------------
 
 def peak_occupancy(bounds, n: float, k: float, migrate: bool) -> np.ndarray:
@@ -81,6 +82,54 @@ def peak_occupancy_arrays(bounds: np.ndarray, n: np.ndarray, k: np.ndarray,
         occ_static = np.minimum(hi, kcol) * (1.0 - lo / hi)
     occ_static = np.where(hi > 0, occ_static, 0.0)
     return np.where(np.asarray(migrate, bool)[:, None], occ_mig, occ_static)
+
+
+def peak_occupancy_suffix(bounds, n, k, observed_hwm) -> np.ndarray:
+    """(M, T) expected occupancy high-water mark over the *rest* of the
+    window, conditioned on the observed prefix.
+
+    The high-water mark is monotone non-decreasing, so the suffix peak is
+    the elementwise max of the analytic static law at the (possibly
+    re-planned) boundary vector and the occupancy already witnessed by the
+    meter — a re-plan can stop a tier from growing further but can never
+    un-ring the bell on a peak that already happened. Used by the online
+    re-planner and the mid-window admission negotiation
+    (``repro_torch.online``). ``bounds`` (M, T-1), ``observed_hwm`` (M, T).
+    """
+    bounds = np.atleast_2d(np.asarray(bounds, np.float64))
+    m = bounds.shape[0]
+    analytic = peak_occupancy_arrays(bounds, np.broadcast_to(n, (m,)),
+                                     np.broadcast_to(k, (m,)),
+                                     np.zeros(m, bool))
+    return np.maximum(analytic, np.asarray(observed_hwm, np.float64))
+
+
+def evacuation_boundaries(bounds, tier: int, n=None) -> np.ndarray:
+    """Collapse ``tier`` to zero width in a boundary vector — the
+    tier-outage fallback for streams without a cost model (no analytic
+    suffix re-solve is possible, but residents still have to leave).
+
+    Tier ``t`` spans ``[b[t-1], b[t])`` with ``b[-1]=0`` and an implicit
+    ``+inf`` above the last boundary. An interior (or first) failed tier
+    is merged into the next *colder* tier (``b[tier] ← b[tier-1]``) —
+    demotion is the capacity-rich direction. The last tier has no colder
+    neighbour: its boundary is pushed past the window end (``n``, or
+    ``+inf`` when the stream length is unknown), promoting everything
+    into the hotter neighbour. Monotonicity of the vector is preserved
+    in both cases."""
+    b = np.asarray(bounds, np.float64).copy()
+    depth = b.shape[0]
+    if tier < 0 or tier > depth:
+        raise ValueError(f"tier {tier} out of range for a "
+                         f"{depth + 1}-tier placement")
+    if depth == 0:
+        raise ValueError("single-tier placement has no surviving tier "
+                         "to evacuate into")
+    if tier < depth:
+        b[tier] = 0.0 if tier == 0 else b[tier - 1]
+    else:
+        b[depth - 1] = np.inf if n is None else float(n)
+    return b
 
 
 def waterfill_grants(desired, budget: float) -> np.ndarray:
@@ -127,7 +176,8 @@ class Constraint(Protocol):
     """A pluggable feasibility predicate over a candidate plan.
 
     ``feasible(cm, bounds, migrate)`` is the generic surface every
-    constraint must implement (used by reconciliation); the planner additionally recognizes the concrete
+    constraint must implement (used by the brute-force verifier and by
+    reconciliation); the planner additionally recognizes the concrete
     ``TierCapacity`` / ``ReadLatencySLO`` types and compiles them into
     exact vectorized masks and budget levels.
     """
@@ -259,7 +309,7 @@ class ConstraintSet:
                 np.asarray(cm.read_latency, np.float64),
                 self.max_read_latency)
 
-    # ---- generic feasibility (reconciliation) ---------------------------
+    # ---- generic feasibility (verifier / reconciliation) ----------------
 
     def feasible(self, cm, bounds, migrate: bool) -> bool:
         return all(c.feasible(cm, bounds, migrate) for c in self.constraints)
@@ -287,3 +337,6 @@ def trivial(cap, slo) -> bool:
     cap_trivial = cap is None or not np.any(np.isfinite(np.asarray(cap)))
     slo_trivial = slo is None or not np.any(np.isfinite(np.asarray(slo)))
     return cap_trivial and slo_trivial
+
+
+EMPTY = ConstraintSet()

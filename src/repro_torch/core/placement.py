@@ -17,6 +17,7 @@ from bisect import bisect_right
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+from .compat import TIER_A, TIER_B  # noqa: F401  (canonical home: compat)
 from .costs import NTierCostModel, TwoTierCostModel
 from . import compat, shp
 
@@ -62,6 +63,12 @@ class Policy:
         if not self.migrate_at_r:
             return ()
         return tuple(int(math.ceil(b)) for b in self.boundaries)
+
+    def migration_index(self) -> Optional[int]:
+        """First migration trigger (the T=2 shim; see migration_indices)."""
+        compat.deprecated("Policy.migration_index",
+                          "Policy.migration_indices")
+        return int(math.ceil(self.boundaries[0])) if self.migrate_at_r else None
 
 
 def all_tier_a(n: int) -> Policy:

@@ -25,15 +25,41 @@ import torch
 
 from . import constraints as constraints_mod
 from . import shp_device
-from .constraints import ConstraintSet, ReadLatencySLO
+from .constraints import ConstraintSet, ReadLatencySLO, TierCapacity
 from .costs import NTierCostModel, TwoTierCostModel
 
 EULER_GAMMA = 0.5772156649015329
 
 
 # ---------------------------------------------------------------------------
+# §V — classic SHP (Algorithm A)
+# ---------------------------------------------------------------------------
+
+def classic_r_optimal(n: int) -> float:
+    """Eq. 2: observe the first N/e candidates, then take the next best."""
+    return n / math.e
+
+
+def classic_p_best() -> float:
+    """Eq. 3."""
+    return 1.0 / math.e
+
+
+def classic_expected_writes() -> float:
+    """Eq. 4: hire (write) exactly once."""
+    return 1.0
+
+
+# ---------------------------------------------------------------------------
 # §§VI–VII — write/read probabilities under simple overwrite (Algorithms B/C)
 # ---------------------------------------------------------------------------
+
+def p_write(i, k: int = 1):
+    """Eqs. 5, 9, 10: P(doc at 0-based index ``i`` is in the top-K of the
+    first i+1 docs) = min(1, K/(i+1)). Vectorized over ``i``."""
+    i = np.asarray(i, dtype=np.float64)
+    return np.minimum(1.0, k / (i + 1.0))
+
 
 def harmonic(n) -> np.ndarray:
     """H_n for integer n >= 0 (H_0 = 0), exact via cumsum for small n,
@@ -63,6 +89,13 @@ def expected_cum_writes(i, k: int = 1) -> np.ndarray:
     head = np.minimum(n_seen, float(k))
     tail = k * np.maximum(harmonic(n_seen) - harmonic(float(k)), 0.0)
     return head + tail
+
+
+def expected_cum_writes_approx(i, k: int = 1) -> np.ndarray:
+    """Eq. 12 as printed: K + K·ln((i+1)/K)  (for i+1 >= K); eq. 7 for K=1."""
+    i = np.asarray(i, dtype=np.float64)
+    n_seen = i + 1.0
+    return np.where(n_seen <= k, n_seen, k + k * np.log(n_seen / k))
 
 
 def expected_cum_writes_batched(i, k: int, batch: int) -> np.ndarray:
@@ -288,6 +321,7 @@ def plan_placement(cm, exact: bool = False,
 # tiers in between (the N-tier form of eq. 22's validity gate). Hence the
 # finite candidate set {0, K, N} ∪ {crossover(s, t) for all tier pairs}
 # contains an exact optimum, found by a tiny monotone DP per stream.
+# ``brute_force_plan_ntier`` verifies this against grid search.
 
 MAX_TIERS = 8  # 2^T candidate subsets — plenty for real hierarchies
 
@@ -688,6 +722,28 @@ def _solve_resource_dp(obj: BoundaryObjective, fs, c):
     return interior, bounds
 
 
+def solve_separable_terms(obj: BoundaryObjective, fs, c):
+    """Minimize a *custom* separable objective over the monotone boundary
+    grid, under ``obj``'s compiled constraint structure.
+
+    ``fs`` is a list of per-boundary term matrices (M, C) on candidate grid
+    ``c`` (M, C) — any separable cost, not necessarily the planner's
+    ``Δcw·W + Δlin·b`` form. ``obj`` supplies the feasibility side only:
+    pairwise middle-tier capacity bounds, the quantized/exact latency
+    budget, and the enum-vs-DP dispatch. This is the entry point the
+    online re-planner (``repro_torch.online.replan``) uses to re-run the
+    constrained boundary solve over a window *suffix*, where the cost
+    terms gain drift-conditioned write laws and relocation billing that
+    the a-priori objective doesn't have.
+
+    Returns (interior_val (M,), bounds (M, Ts-1)); +inf where no feasible
+    monotone vector exists.
+    """
+    if obj.constrained and not obj.interior:
+        return _solve_resource_dp(obj, fs, c)
+    return _solve_unconstrained(fs, c)
+
+
 def _solve_boundaries(cw_s, lin_s, n, k, interior=False, *, cap_s=None,
                       lat_s=None, slo=None):
     """Minimize the separable boundary objective for one strategy family.
@@ -753,6 +809,13 @@ def _cascade_fee(cr, cw, used_cols):
 # (``core.shp_device`` + the ``kernels.plan_solve`` reduction) and keeps
 # small or deep problems, and CPU callers, on the NumPy oracle below —
 # the reference the device path is tested against.
+#
+# The reference's module-wide ``set_planner_backend`` is not ported: the
+# port's ``plan_ntier_arrays`` takes ``backend=`` and ``device=`` on each
+# call instead. A process-wide switch would change what "auto" means for
+# every caller at once (the engine, the fleet planner, the re-planner),
+# and the reference's tests use it only to pin one backend per
+# comparison, which the port's tests do per call.
 _DEVICE_MIN_M = 64
 
 
@@ -917,6 +980,13 @@ class NTierStrategyCost:
             "reads": self.reads, "storage": self.storage,
             "migration": self.migration,
         }
+
+
+def single_tier_bounds(cm: NTierCostModel, tier: int) -> tuple:
+    """Boundary vector placing every doc in ``tier``: boundaries at or
+    below it sit at 0, those above at N."""
+    n = float(cm.workload.n_docs)
+    return tuple(0.0 if j < tier else n for j in range(cm.t - 1))
 
 
 def _edges(cm: NTierCostModel, bounds) -> np.ndarray:
@@ -1100,3 +1170,107 @@ def plan_ntier_batch(models: Sequence[NTierCostModel], constraints=None, *,
                                             bool(out["migrate"][i])))
                   for i in range(len(models))]
     return out["total"], out["bounds"], out["migrate"], strategies
+
+
+def brute_force_plan_ntier(cm: NTierCostModel, grid: int = 48,
+                           constraints: Optional[ConstraintSet] = None):
+    """Ground-truth verifier: grid search over monotone boundary vectors
+    for both strategy families (same objectives as the closed form).
+    With ``constraints`` the grid becomes a *feasible* grid: expected
+    occupancy high-water marks and read latency are evaluated per combo
+    and infeasible vectors are masked to +inf (generic constraint types
+    fall back to their ``feasible`` predicate row by row).
+    Returns (total, bounds tuple, migrate); total is +inf when no grid
+    point is feasible."""
+    wl = cm.workload
+    n, k, t = float(wl.n_docs), float(wl.k), cm.t
+    cset = constraints if constraints is not None else ConstraintSet()
+    # topology-declared capacities are enforced exactly like the planner's
+    # resolve pass, so the verifier's ground truth stays comparable
+    cap_r, lat_r, slo_r, _ = resolve_constraints(cm, constraints)
+    active = (not cset.empty or np.any(np.isfinite(cap_r))
+              or np.isfinite(slo_r))
+    cap = lat = None
+    slo = np.inf
+    extra_vals = []
+    if active:
+        cap, lat, slo = cap_r, lat_r, slo_r
+        for c_t in cap[np.isfinite(cap)]:
+            extra_vals += [c_t, n * (1.0 - c_t / k)]
+        if np.isfinite(slo):
+            for s, u in itertools.combinations(range(t), 2):
+                if lat[s] != lat[u]:
+                    extra_vals.append(n * (slo - lat[u]) / (lat[s] - lat[u]))
+    vals = np.unique(np.clip(np.concatenate([
+        [0.0, min(k, n), np.nextafter(n, 0.0), n],
+        np.geomspace(1.0, n, grid),
+        np.asarray(extra_vals, np.float64)]), 0.0, n))
+    combos = np.array(list(
+        itertools.combinations_with_replacement(vals, t - 1)))
+    edges = np.concatenate([np.zeros((combos.shape[0], 1)), combos,
+                            np.full((combos.shape[0], 1), n)], axis=1)
+    w_seg = np.diff(_w_approx(edges, k), axis=1)
+    frac = np.diff(edges, axis=1) / n
+    writes = w_seg @ cm.cw
+    # no-migration family
+    reads = wl.reads_per_window * k * (frac @ cm.cr)
+    cs_used = np.max(np.where(frac > 0, cm.cs[None, :], -np.inf), axis=1)
+    tot_nm = writes + reads + k * cs_used
+    # migration family: zero-width tiers are skipped (saving their eq. 19
+    # hop); every crossing between consecutive *used* tiers is gated to
+    # [K, N) (eq. 22), and at least one crossing must happen
+    g = combos.shape[0]
+    kmin = min(k, n)
+    used = np.concatenate([frac[:, :-1] > 0, np.ones((g, 1), bool)], axis=1)
+    seen_before = np.logical_or.accumulate(used, axis=1)[:, :-1]
+    crossing = used[:, 1:] & seen_before  # (G, T-1)
+    gated = (combos >= kmin) & (combos < n)
+    valid = np.all(~crossing | gated, axis=1) & crossing.any(axis=1)
+    fee = np.zeros(g)
+    prev = np.zeros(g, np.int64)
+    for t_i in range(1, t):
+        hop = crossing[:, t_i - 1]
+        fee = fee + np.where(hop, cm.cr[prev] + cm.cw[t_i], 0.0)
+        prev = np.where(used[:, t_i], t_i, prev)
+    tot_mg = np.where(valid, writes + k * (frac @ cm.cs) + k * fee, np.inf)
+    if cap is not None:
+        tol = 1.0 + 1e-9
+        gn = np.full(g, n)
+        gk = np.full(g, k)
+        occ_nm = constraints_mod.peak_occupancy_arrays(
+            combos, gn, gk, np.zeros(g, bool))
+        occ_mg = constraints_mod.peak_occupancy_arrays(
+            combos, gn, gk, np.ones(g, bool))
+        tot_nm = np.where(np.all(occ_nm <= cap[None, :] * tol, axis=1),
+                          tot_nm, np.inf)
+        tot_mg = np.where(np.all(occ_mg <= cap[None, :] * tol, axis=1),
+                          tot_mg, np.inf)
+        if np.isfinite(slo):
+            tot_nm = np.where(frac @ lat <= slo * tol, tot_nm, np.inf)
+            tot_mg = np.where(lat[-1] <= slo * tol, tot_mg, np.inf)
+        generic = [c for c in cset
+                   if not isinstance(c, (TierCapacity, ReadLatencySLO))]
+        for con in generic:
+            for i in range(g):
+                if np.isfinite(tot_nm[i]) and \
+                        not con.feasible(cm, combos[i], False):
+                    tot_nm[i] = np.inf
+                if np.isfinite(tot_mg[i]) and \
+                        not con.feasible(cm, combos[i], True):
+                    tot_mg[i] = np.inf
+    i_nm, i_mg = int(np.argmin(tot_nm)), int(np.argmin(tot_mg))
+    if not np.isfinite(tot_nm[i_nm]) and not np.isfinite(tot_mg[i_mg]):
+        return float("inf"), tuple(np.zeros(t - 1)), False
+    if tot_nm[i_nm] <= tot_mg[i_mg]:
+        return float(tot_nm[i_nm]), tuple(combos[i_nm]), False
+    return float(tot_mg[i_mg]), tuple(combos[i_mg]), True
+
+
+def cost_curve(cm: TwoTierCostModel, migrate: bool, num: int = 512) -> np.ndarray:
+    """Expected total cost for r swept over (K, N) — Figures 4 & 5.
+    Returns array (num, 2) of [r/N, cost]."""
+    wl = cm.workload
+    rs = np.linspace(max(wl.k + 1, 1), wl.n_docs - 1, num)
+    fn = cost_with_migration if migrate else cost_no_migration
+    out = np.array([[r / wl.n_docs, fn(cm, float(r)).total] for r in rs])
+    return out

@@ -21,6 +21,7 @@ from typing import Optional, Union
 
 import numpy as np
 
+from .compat import TIER_A, TIER_B  # noqa: F401  (canonical home: compat)
 from .costs import NTierCostModel, TwoTierCostModel
 from .placement import Policy
 
@@ -245,3 +246,54 @@ def random_rank_trace(n: int, rng: np.random.Generator) -> np.ndarray:
     """A trace satisfying the paper's assumption exactly: ranks are a uniform
     random permutation (scores i.u.d.)."""
     return rng.permutation(n).astype(np.float64)
+
+
+def drift_weights(n: int, multipliers) -> np.ndarray:
+    """(n,) per-index record-rate weights from a piecewise schedule of
+    ``(start_index, multiplier)`` change points (implicit ``(0, 1.0)``
+    head). Weight ``θ_i`` is the multiplier active at index i."""
+    w = np.ones(n, np.float64)
+    for start, mult in sorted(multipliers):
+        if mult <= 0:
+            raise ValueError("rate multipliers must be positive")
+        w[int(start):] = float(mult)
+    return w
+
+
+def drifted_rank_trace(n: int, rng: np.random.Generator,
+                       multipliers) -> np.ndarray:
+    """A trace violating the i.u.d. assumption with *known*, piecewise
+    drift: scores follow the weighted-record model (Yang 1975) — doc i
+    draws ``score_i = −E_i/θ_i`` with ``E_i ~ Exp(1)``, so the probability
+    that doc i beats all earlier docs is exactly ``θ_i / Σ_{j<=i} θ_j``
+    and the reservoir-entry rate is ``≈ min(1, K·θ_i/Σ_{j<=i} θ_j)``
+    instead of the null ``K/(i+1)`` law. ``multipliers`` is a schedule of
+    ``(start_index, multiplier)`` pairs (``drift_weights``); constant
+    weight 1 recovers ``random_rank_trace`` in distribution. Ground truth
+    for validating ``repro_torch.online``'s drift detection and re-planning.
+    """
+    theta = drift_weights(n, multipliers)
+    return -rng.exponential(size=n) / theta
+
+
+def grn_entropy_trace(n: int, rng: np.random.Generator,
+                      interesting_frac: float = 0.15) -> np.ndarray:
+    """Synthetic stand-in for the paper's §VIII gene-regulatory-network
+    label-entropy trace (Fig. 7): a shuffled mixture of confident
+    (low-entropy) and boundary (high-entropy) classifier outputs."""
+    n_hi = int(n * interesting_frac)
+    p_hi = rng.beta(8, 9, size=n_hi)  # near decision boundary
+    p_lo = rng.beta(0.35, 4.5, size=n - n_hi)  # confident
+    p = np.clip(np.concatenate([p_hi, p_lo]), 1e-9, 1 - 1e-9)
+    ent = -(p * np.log2(p) + (1 - p) * np.log2(1 - p))
+    rng.shuffle(ent)
+    # entropy ties are common at saturation; jitter breaks them so the trace
+    # has a strict ranking (matches the paper's continuous entropies).
+    return ent + rng.uniform(0, 1e-9, size=n)
+
+
+def sorted_adversarial_trace(n: int, ascending: bool = True) -> np.ndarray:
+    """Worst/best-case ordered trace — violates the random-order assumption;
+    used to document where the analytic model breaks (DESIGN.md §9)."""
+    t = np.arange(n, dtype=np.float64)
+    return t if ascending else t[::-1].copy()

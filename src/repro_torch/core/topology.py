@@ -92,6 +92,73 @@ class TierTopology:
 # Presets
 # ---------------------------------------------------------------------------
 
+def aws_s3_tiering(glacier_retrieval_per_gb: float = 0.03,
+                   ia_retrieval_per_gb: float = 0.01) -> TierTopology:
+    """S3 Standard → Standard-IA → Glacier Instant Retrieval (us-east-1
+    list prices): PUT/GET per-request fees rise and storage rental falls
+    down the hierarchy, so the migration variant's eq. 21-style crossovers
+    are interior while the no-migration reads get *worse* with depth (the
+    eq. 22 gate trips and that family falls back to fewer tiers)."""
+    from .costs import TierCosts
+    std = TierCosts("s3-standard", put_per_doc=0.005 / 1000,
+                    get_per_doc=0.0004 / 1000, storage_per_gb_month=0.023)
+    ia = TierCosts("s3-standard-ia", put_per_doc=0.01 / 1000,
+                   get_per_doc=0.001 / 1000, storage_per_gb_month=0.0125)
+    gir = TierCosts("s3-glacier-ir", put_per_doc=0.02 / 1000,
+                    get_per_doc=0.01 / 1000, storage_per_gb_month=0.004)
+    return TierTopology(tiers=(
+        TierSpec(std, read_latency_s=0.02),
+        TierSpec(ia, xfer_out_per_gb=ia_retrieval_per_gb,
+                 read_latency_s=0.03),
+        TierSpec(gir, xfer_out_per_gb=glacier_retrieval_per_gb,
+                 read_latency_s=0.08),
+    ), name="aws-s3-tiering")
+
+
+def aws_efs_s3_glacier(glacier_retrieval_per_gb: float = 0.03) -> TierTopology:
+    """Case study 2 extended one tier down: EFS (free transactions, pricey
+    rental) → S3 Standard → Glacier Instant Retrieval. Because EFS's touch
+    cost is zero and the rental drops ~75x across the hierarchy, all three
+    tiers genuinely engage under long-window workloads — the flagship
+    3-boundary migration cascade (``benchmarks/paper_tables.table_3tier``).
+    """
+    from .costs import TierCosts
+    efs = TierCosts("aws-efs", put_per_doc=0.0, get_per_doc=0.0,
+                    storage_per_gb_month=0.30)
+    s3 = TierCosts("aws-s3", put_per_doc=0.000005, get_per_doc=0.000005,
+                   storage_per_gb_month=0.023)
+    gir = TierCosts("s3-glacier-ir", put_per_doc=0.02 / 1000,
+                    get_per_doc=0.01 / 1000, storage_per_gb_month=0.004)
+    return TierTopology(tiers=(
+        TierSpec(efs, read_latency_s=0.003),
+        TierSpec(s3, read_latency_s=0.02),
+        TierSpec(gir, xfer_out_per_gb=glacier_retrieval_per_gb,
+                 read_latency_s=0.08),
+    ), name="aws-efs-s3-glacier")
+
+
+def aws_archive_tiering(flexible_retrieval_per_gb: float = 0.01,
+                        flexible_latency_s: float = 4.0 * 3600,
+                        min_storage: bool = False) -> TierTopology:
+    """S3 Standard → Glacier Flexible Retrieval (us-east-1 list prices):
+    the archive tier rents ~6x cheaper than Standard but serves standard
+    retrievals in hours, not milliseconds — the hierarchy where a
+    read-path SLO (``constraints.ReadLatencySLO``) genuinely bites and
+    forces the planner off the cheapest tier. ``min_storage=True`` adds
+    Glacier's 90-day minimum-storage-duration billing."""
+    from .costs import TierCosts
+    std = TierCosts("s3-standard", put_per_doc=0.005 / 1000,
+                    get_per_doc=0.0004 / 1000, storage_per_gb_month=0.023)
+    gfr = TierCosts("s3-glacier-flexible", put_per_doc=0.03 / 1000,
+                    get_per_doc=0.0004 / 1000, storage_per_gb_month=0.0036,
+                    min_storage_days=90.0 if min_storage else 0.0)
+    return TierTopology(tiers=(
+        TierSpec(std, read_latency_s=0.02),
+        TierSpec(gfr, xfer_out_per_gb=flexible_retrieval_per_gb,
+                 read_latency_s=flexible_latency_s),
+    ), name="aws-archive-tiering")
+
+
 def hbm_dram_disk_preset(n_docs: int, k: int, doc_gb: float,
                          window_seconds: float,
                          hbm_bw_gbps: float = 819.0,

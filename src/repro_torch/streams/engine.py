@@ -19,10 +19,17 @@ tenants can take the O(log K) ``engine="logmem"`` threshold tracker
 (``streams.logmem``, admission scan ``kernels.logmem_update``) per
 ``StreamSpec``; both backends mix in one fleet step.
 
+Online re-planning (``replan=`` a ``online.ReplanConfig``): each step
+also advances every bucket's drift detector (``online.drift``) from the
+chunk's write counts on the device; between chunks the streams whose
+detector fired are re-solved over the rest of their window
+(``online.replan``; on the card through ``online.replan_device`` and the
+``plan_solve`` kernel) and the new boundaries are applied to the meter.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: online re-planning ``replan=`` (queue 1 item 6),
-observability ``obs=`` (item 7) and fleet-axis sharding ``mesh=`` (item
-9).
+ROADMAP item: observability ``obs=`` (queue 1 item 7) and fleet-axis
+sharding ``mesh=`` (item 9). Tier outage (``tier_outage`` /
+``tier_recover``) is item 8, so re-plans exclude no tier.
 """
 from __future__ import annotations
 
@@ -165,11 +172,18 @@ def evicted_ids(old: BatchedReservoirState,
     return torch.where(topk.evicted(old, new), old.ids, PAD_ID)
 
 
-def step(states: Sequence, batches, buckets: Sequence[router.Bucket]):
+def step(states: Sequence, batches, buckets: Sequence[router.Bucket],
+         dstates: Sequence = (), drift_cfg=None):
     """One fleet step over all buckets: ``batches`` holds one (scores,
     ids) (M_b, W) pair per bucket, ``buckets`` the router's buckets (K
-    and backend). Returns (new_states, wrotes, evicted) lists, one entry
-    per bucket.
+    and backend). Returns (new_states, wrotes, evicted, new_dstates)
+    lists, one entry per bucket (``new_dstates`` empty without
+    ``drift_cfg``).
+
+    With ``drift_cfg`` (online re-planning) the step also advances each
+    bucket's drift-detector state ``dstates[b]`` from the chunk's write
+    counts, after the bucket's merge; logmem buckets test their evidence
+    with the backend's ``law_slack`` folded into the thresholds.
 
     Non-finite scores are quarantined before any compare sees them (NaN
     fails every comparison, ±inf corrupts the entry bar): they become
@@ -178,8 +192,10 @@ def step(states: Sequence, batches, buckets: Sequence[router.Bucket]):
     buckets with wide batches (W >= K) take ``filtered_update``, narrow
     ones the fused sort-merge ``update``, whose one sort is then
     cheaper."""
-    new_states, wrotes, evs = [], [], []
-    for st, (s, i), b in zip(states, batches, buckets):
+    if drift_cfg is not None:
+        from repro_torch.online import drift as drift_mod
+    new_states, wrotes, evs, new_dstates = [], [], [], []
+    for bi, (st, (s, i), b) in enumerate(zip(states, batches, buckets)):
         bad = (i >= 0) & ~torch.isfinite(s)
         s = torch.where(bad, float("-inf"), s)
         i = torch.where(bad, PAD_ID, i)
@@ -187,21 +203,58 @@ def step(states: Sequence, batches, buckets: Sequence[router.Bucket]):
             new, wrote = logmem.update(st, s, i, b.k)
             ev = torch.full((s.shape[0], 0), PAD_ID, dtype=torch.int32,
                             device=s.device)
+            slack = logmem.law_slack(b.k)
         else:
             if s.shape[1] >= st.scores.shape[1]:
                 new, wrote = filtered_update(st, s, i)
             else:
                 new, wrote = update(st, s, i)
             ev = evicted_ids(st, new)
+            slack = 0.0
         new_states.append(new)
         wrotes.append(wrote)
         evs.append(ev)
-    return new_states, wrotes, evs
+        if drift_cfg is not None:
+            new_dstates.append(drift_mod.update(
+                dstates[bi], wrote.sum(dim=1), new.seen, float(b.k),
+                drift_cfg, slack=slack))
+    return new_states, wrotes, evs, new_dstates
 
 
 # ---------------------------------------------------------------------------
 # Fleet orchestration
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ReplanEvent:
+    """One online re-planning decision (``StreamEngine.replan_events``)."""
+
+    stream_id: int
+    row: int
+    position: int  # docs the stream had observed at decision time
+    rho: float  # detector's rate-multiplier estimate
+    old_bounds: Tuple[float, ...]
+    new_bounds: Tuple[float, ...]
+    applied: bool
+    feasible: bool  # constrained suffix re-solve found a feasible plan
+    suffix_cost_old: float
+    suffix_cost_new: float
+    move_bill: float  # expected relocation cost priced into the decision
+    moved_docs: int  # residents actually re-tiered by the meter
+
+
+@dataclass(frozen=True)
+class AdmissionEvent:
+    """Advisory terms for a stream whose constrained suffix re-solve was
+    infeasible (``StreamEngine.admission_events``): the negotiated K /
+    window apply at the tenant's next window — a live reservoir row
+    cannot be resized mid-window."""
+
+    stream_id: int
+    row: int
+    position: int
+    decision: object  # online.admission.AdmissionDecision
+
 
 @dataclass(frozen=True)
 class StreamSpec:
@@ -318,12 +371,16 @@ class StreamEngine:
 
     ``device`` defaults to the CUDA card and is required without one
     (``device="cpu"`` runs the plain PyTorch versions of the kernels).
+
+    ``replan`` (an ``online.ReplanConfig``) turns on online re-planning;
+    its suffix solver is ``online.Replanner``'s "auto" on the engine's
+    device: ``online.replan_device`` on a CUDA device, the NumPy loop on
+    the CPU.
     """
 
     def __init__(self, specs: Sequence[StreamSpec], *, constraints=None,
                  device=None, replan=None, obs=None, mesh=None):
-        for name, value, item in (("replan", replan, 6), ("obs", obs, 7),
-                                   ("mesh", mesh, 9)):
+        for name, value, item in (("obs", obs, 7), ("mesh", mesh, 9)):
             if value is not None:
                 raise NotImplementedError(
                     f"{name}= is not ported yet (ROADMAP queue 1 item "
@@ -404,14 +461,39 @@ class StreamEngine:
         self._states: List = [
             (logmem.init(b.m, device=self.device) if b.engine == "logmem"
              else init(b.m, b.k, device=self.device)) for b in self.buckets]
-        # the planned boundaries are fixed for the window (re-planning is
-        # not ported): quantize them for tier_assign and move them to the
-        # device once; logmem buckets have no survivors to assign
+        # quantize the planned boundaries for tier_assign and move them to
+        # the device once; a re-plan marks its buckets stale and
+        # assign_tiers re-quantizes those; logmem buckets have no
+        # survivors to assign
         self._bounds_int = [
             None if b.engine == "logmem" else
             torch.tensor(ta_ops.quantize_boundaries(
                 self.meter.boundaries[rows]), device=self.device)
             for b, rows in zip(self.buckets, self._global_rows)]
+        self._bounds_stale = set()
+        # online re-planning: drift detector inside the step, boundary
+        # deltas applied between chunks (repro_torch.online)
+        self.replan_config = replan
+        self.replan_events: List[ReplanEvent] = []
+        self.admission_events: List[AdmissionEvent] = []
+        self._drift_states = None
+        self._replanner = None
+        if replan is not None:
+            from repro_torch.online import drift as drift_mod
+            from repro_torch.online.replan import Replanner
+            cset_arg = constraints
+            if isinstance(constraints, (list, tuple)):
+                # per-spec constraint lists align with the specs sequence;
+                # the replanner indexes by global row
+                by_sid = {s.stream_id: c
+                          for s, c in zip(specs, constraints)}
+                cset_arg = [by_sid[self._sid_of_row[row]]
+                            for row in range(self.m)]
+            self._replanner = Replanner(
+                [self._model_of_row.get(row) for row in range(self.m)],
+                constraints=cset_arg, config=replan, device=self.device)
+            self._drift_states = [drift_mod.init(b.m, device=self.device)
+                                  for b in self.buckets]
 
     @property
     def m(self) -> int:
@@ -438,15 +520,22 @@ class StreamEngine:
 
     def _dispatch(self, batches):
         """Run one fleet step on device batches and swap in the new
-        states. The old state tensors return to PyTorch's caching
-        allocator, which hands them to the next step: the counterpart of
-        the reference's buffer donation."""
-        new_states, wrotes, evs = step(self._states, batches, self.buckets)
+        states (and drift states). The old state tensors return to
+        PyTorch's caching allocator, which hands them to the next step:
+        the counterpart of the reference's buffer donation."""
+        drift_cfg = (self.replan_config.drift
+                     if self._drift_states is not None else None)
+        new_states, wrotes, evs, new_dstates = step(
+            self._states, batches, self.buckets,
+            self._drift_states or (), drift_cfg)
         self._states = new_states
+        if self._drift_states is not None:
+            self._drift_states = new_dstates
         return wrotes, evs, new_states
 
     def _consume(self, dense, wrotes, evs, new_states, meter: bool) -> None:
-        """Host side of one step: meter the transactions."""
+        """Host side of one step: meter the transactions, maybe re-plan.
+        ``meter=False`` skips both."""
         if not meter:
             return
         for bi, b in enumerate(self.buckets):
@@ -464,6 +553,8 @@ class StreamEngine:
             self.meter.record_update(
                 self._global_rows[bi], dense_ids, wrotes[bi].cpu().numpy(),
                 evs[bi].cpu().numpy(), st_ids)
+        if self._drift_states is not None:
+            self._maybe_replan()
 
     def _run_chunk(self, dense, *, meter: bool = True) -> None:
         wrotes, evs, new_states = self._dispatch(self._to_device(dense))
@@ -488,8 +579,9 @@ class StreamEngine:
         with ``self.buckets``, rows ordered by doc id and padded with
         ``(-inf, -1)`` — the layout ``router.route`` would produce.
 
-        ``meter=False`` skips the per-stream host ledgers for this chunk
-        (pure-throughput mode; the device states still advance)."""
+        ``meter=False`` skips the per-stream host ledgers *and* the
+        online re-plan hook for this chunk (pure-throughput mode; the
+        device states and drift detectors still advance)."""
         self._run_chunk(self._checked(dense), meter=meter)
 
     def ingest_chunks(self, chunks, *, meter: bool = True) -> int:
@@ -525,6 +617,121 @@ class StreamEngine:
             self._consume(dense, wrotes, evs, new_states, meter)
             count += 1
         return count
+
+    def _maybe_replan(self) -> None:
+        """Between chunks: re-plan the streams whose drift detector fired,
+        apply the boundary deltas to the meter (re-tiering residents,
+        with the relocation bill already priced into the decision), and
+        reset the consumed detector evidence."""
+        from repro_torch.online import drift as drift_mod
+        fired_rows, rhos = [], []
+        bucket_of, row_in_bucket = [], []
+        for bi in range(len(self.buckets)):
+            ds = self._drift_states[bi]
+            flag = ds.fired.cpu().numpy()
+            if not flag.any():
+                continue
+            rows_b = self._global_rows[bi]
+            rho_b = drift_mod.rho_hat(ds, self.replan_config.drift
+                                      ).cpu().numpy()
+            for j in np.flatnonzero(flag):
+                fired_rows.append(int(rows_b[j]))
+                rhos.append(float(rho_b[j]))
+                bucket_of.append(bi)
+                row_in_bucket.append(int(j))
+        if not fired_rows:
+            return
+        rows = np.asarray(fired_rows, np.int64)
+        bounds = []
+        for row in rows:
+            cm = self._model_of_row.get(row)
+            b = self.meter.boundaries[row]
+            depth = (cm.t - 1 if hasattr(cm, "t")
+                     else int(np.isfinite(b).sum()))
+            bounds.append(tuple(b[:depth]))
+        # tier outage (ROADMAP queue 1 item 8) is not ported: no tier is
+        # excluded from the re-solve
+        dec = self._replanner.replan(rows, self.meter.observed[rows],
+                                     np.asarray(rhos), bounds,
+                                     self.meter.migrate[rows],
+                                     hwm=self.meter.occupancy_hwm[rows],
+                                     exclude_tiers=frozenset())
+        touched_buckets = set()
+        host_ids: Dict[int, np.ndarray] = {}  # one device copy a bucket
+        for j, row in enumerate(rows):
+            if not dec.considered[j]:
+                continue  # no model / cascade / window over: nothing to log
+            moved = 0
+            if not dec.feasible[j]:
+                self._negotiate_admission(int(row), int(dec.n_seen[j]))
+            if dec.applied[j]:
+                bi, jb = bucket_of[j], row_in_bucket[j]
+                ids_arg = None
+                if self.buckets[bi].engine != "logmem":
+                    if bi not in host_ids:
+                        host_ids[bi] = self._states[bi].ids.cpu().numpy()
+                    ids_arg = host_ids[bi][jb]
+                moved = self.meter.apply_boundaries(
+                    int(row), dec.new_bounds[j], ids_arg)
+                touched_buckets.add(bi)
+            self.replan_events.append(ReplanEvent(
+                stream_id=self._sid_of_row[int(row)], row=int(row),
+                position=int(dec.n_seen[j]), rho=float(dec.rho[j]),
+                old_bounds=dec.old_bounds[j], new_bounds=dec.new_bounds[j],
+                applied=bool(dec.applied[j]), feasible=bool(dec.feasible[j]),
+                suffix_cost_old=float(dec.suffix_cost_old[j]),
+                suffix_cost_new=float(dec.suffix_cost_new[j]),
+                move_bill=float(dec.move_bill[j]), moved_docs=moved))
+        # boundary deltas are placement metadata: the reservoirs themselves
+        # must be untouched — every affected bucket keeps the sorted-desc
+        # score invariant the merge relies on
+        for bi in touched_buckets:
+            if self.buckets[bi].engine == "logmem":
+                continue  # no reservoir rows to corrupt
+            self._bounds_stale.add(bi)
+            scores = self._states[bi].scores.cpu().numpy()
+            # note -inf pads diff to NaN on unfull rows — only a strictly
+            # positive diff is a genuine order violation
+            assert not np.any(np.diff(scores, axis=1) > 0), \
+                "re-plan corrupted reservoir score order"
+        for bi in set(bucket_of):
+            mask = np.zeros(self.buckets[bi].m, bool)
+            mask[[row_in_bucket[j] for j in range(len(rows))
+                  if bucket_of[j] == bi]] = True
+            self._drift_states[bi] = drift_mod.reset_where(
+                self._drift_states[bi], torch.from_numpy(mask))
+
+    def _negotiate_admission(self, row: int, position: int) -> None:
+        """A constrained suffix re-solve found no feasible plan (or the
+        observed occupancy already violates a capacity): negotiate
+        next-window terms for the tenant instead of silently dropping the
+        event."""
+        from repro_torch.online.admission import AdmissionController
+        cm = self._model_of_row.get(row)
+        if cm is None:
+            return
+        cset = self._replanner.csets[row]
+        decision = AdmissionController(cset).admit(
+            cm.as_ntier() if isinstance(cm, TwoTierCostModel) else cm)
+        self.admission_events.append(AdmissionEvent(
+            stream_id=self._sid_of_row[row], row=row, position=position,
+            decision=decision))
+
+    def drift_scores(self) -> Dict[int, float]:
+        """{stream_id: normalized change score} (>= 1 fires; online mode
+        only)."""
+        from repro_torch.online import drift as drift_mod
+        if self._drift_states is None:
+            raise ValueError("engine built without replan=")
+        out = {}
+        for bi, b in enumerate(self.buckets):
+            sl = logmem.law_slack(b.k) if b.engine == "logmem" else 0.0
+            sc = drift_mod.scores(self._drift_states[bi],
+                                  self.replan_config.drift,
+                                  slack=sl).cpu().numpy()
+            out.update({sid: float(sc[j])
+                        for j, sid in enumerate(b.stream_ids)})
+        return out
 
     def states(self) -> List:
         """Per-bucket states: ``BatchedReservoirState`` for exact buckets,
@@ -582,6 +789,12 @@ class StreamEngine:
             if b.engine == "logmem":
                 out.append(None)
                 continue
+            if bi in self._bounds_stale:
+                self._bounds_int[bi] = torch.tensor(
+                    ta_ops.quantize_boundaries(
+                        self.meter.boundaries[self._global_rows[bi]]),
+                    device=self.device)
+                self._bounds_stale.discard(bi)
             # the cascade floor moves as migrating streams cross their
             # boundaries, so it is read from the meter on every call
             floor = torch.tensor(

@@ -20,6 +20,16 @@ from repro_torch.core import compat, shp
 from repro_torch.core.tiers import Ledger
 
 
+def __getattr__(name: str):
+    # the two-tier constants now live in core.compat — keep the legacy
+    # module attributes importable through the single deprecation pathway
+    if name in ("TIER_A", "TIER_B"):
+        compat.deprecated(f"streams.metering.{name}",
+                          f"repro_torch.core.compat.{name}")
+        return getattr(compat, name)
+    raise AttributeError(name)
+
+
 def _pad_boundaries(boundaries: Sequence[Sequence[float]]) -> np.ndarray:
     """(M, B_max) float64, each row non-decreasing, padded with +inf so
     shallower streams simply never reach the deeper tiers."""

@@ -17,7 +17,11 @@ tests/test_torch_plan_solve.py).
 
 Tolerance: exact — integer outputs, maxima that are input elements, and
 plan_solve's minima, which both versions reach by the same adds in the
-same order. The planner on the card is held to the oracle with the
+same order (also at the online re-solve's four-tier inputs, whose terms
+carry +inf). The re-solve and the re-planning engine on the card are
+held to the CPU with bounds, drift leaves and decisions equal and
+suffix costs within 1e-11 relative (a float64 log may round differently
+on the two devices). The planner on the card is held to the oracle with the
 reference's own tolerances (float64: 1e-11 relative on totals).
 flash_attention and entropy_nll sum in another order than their plain
 versions: 2e-5 in float32 and 2e-2 in bfloat16 (the reference's
@@ -27,12 +31,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import constraints as t_cons
 from repro_torch.core import costs as t_costs
 from repro_torch.core import placement as t_place
 from repro_torch.core import shp as t_shp
 from repro_torch.core import shp_device as t_dev
 from repro_torch.core import simulator as t_sim
 from repro_torch.core import topk as t_topk
+from repro_torch.core import topology as t_topo
 from repro_torch import configs as t_configs
 from repro_torch.kernels.batched_topk import ops as t_btk
 from repro_torch.kernels.entropy_scores import ops as t_ent
@@ -43,6 +49,9 @@ from repro_torch.kernels.tier_assign import ops as t_ta
 from repro_torch.kernels.topk_filter import ops as t_tf
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import lm as t_lm
+from repro_torch.online import drift as t_drift
+from repro_torch.online import replan as t_replan
+from repro_torch.online import replan_device as t_rd
 from repro_torch.streams import engine as t_eng
 
 METER_FIELDS = ("observed", "writes", "reads", "deletes", "migrations",
@@ -1128,3 +1137,178 @@ def test_flash_attention_copies_an_unaligned_view(cuda_device):
     k = torch.randn((1, 64, 2, 64), device=cuda_device)
     torch.testing.assert_close(t_fa.flash_attention(q, k, k),
                                t_fa.reference(q, k, k), rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# online re-planning: the four-tier re-solve through plan_solve
+# ---------------------------------------------------------------------------
+
+def four_tier_models(rng, r, n=None, k=None):
+    """r random four-tier tenants (write-cheap hot tiers, costs jittered)
+    capped on the first, second and last tiers: the re-solve's four-tier
+    subset then takes plan_solve's masked route (a pair cap on a middle
+    tier) and its terms carry +inf (the last tier's folded mask)."""
+    models, csets = [], []
+    for _ in range(r):
+        tiers = []
+        put, get, rent = 1e-6, 3e-4, 0.05
+        for _ in range(4):
+            tiers.append(t_topo.TierSpec(t_costs.TierCosts(
+                "t", put_per_doc=put * rng.uniform(0.8, 1.2),
+                get_per_doc=get * rng.uniform(0.8, 1.2),
+                storage_per_gb_month=rent),
+                read_latency_s=float(10.0 ** rng.uniform(-3, 1))))
+            put *= 40.0
+            get /= 40.0
+            rent /= 3.0
+        nd = n if n is not None else int(rng.integers(5_000, 50_000))
+        kk = k if k is not None else int(rng.integers(8, 128))
+        wl = t_costs.WorkloadSpec(n_docs=nd, k=kk, doc_gb=1e-4,
+                                  window_months=0.5)
+        models.append(t_topo.TierTopology(tiers=tuple(tiers)).cost_model(wl))
+        csets.append(t_cons.ConstraintSet(
+            t_cons.TierCapacity(0, kk * rng.uniform(1.0, 2.0)),
+            t_cons.TierCapacity(1, kk * rng.uniform(0.3, 0.9)),
+            t_cons.TierCapacity(3, kk * rng.uniform(0.3, 0.9))))
+    return models, csets
+
+
+def resolve_group(seed, r=64):
+    """A drift-flagged group's stacked arrays, as
+    ``Replanner._solve_group`` hands them to ``replan_device``."""
+    rng = np.random.default_rng(seed)
+    models, csets = four_tier_models(rng, r)
+    st = t_replan.Replanner(models, constraints=csets)._stacks[4]
+    n = st["n"]
+    n0 = np.floor(rng.uniform(0.1, 0.9, r) * n)
+    b0 = np.sort(rng.uniform(0, 1, (r, 3)) * n[:, None], axis=1)
+    return ([st[key] for key in ("cw", "cr", "cs", "n", "k", "rpw", "cap",
+                                 "lat", "slo")]
+            + [n0, rng.uniform(0.3, 8.0, r), b0])
+
+
+def captured_resolve_solve(args, monkeypatch):
+    """The ``ops.enum_solve`` call of a CPU re-solve: (fs, consts, kw)."""
+    seen = []
+    real = t_ps.enum_solve
+
+    def spy(fs, consts, **kw):
+        seen.append((fs, consts, kw))
+        return real(fs, consts, **kw)
+
+    monkeypatch.setattr(t_ps, "enum_solve", spy)
+    t_rd.solve_group(*args, device="cpu")
+    monkeypatch.setattr(t_ps, "enum_solve", real)
+    assert len(seen) == 1
+    return seen[0]
+
+
+def with_blocked_first_subset(fs, consts, kw):
+    """S = 2: an all-+inf copy of the subset ahead of the subset itself."""
+    fs2 = torch.cat([torch.full_like(fs, torch.inf), fs], dim=1)
+    consts2 = tuple(torch.cat([c, c], dim=1) for c in consts)
+    kw2 = {}
+    for key, v in kw.items():
+        if key == "kf":
+            kw2[key] = v
+        elif key == "pair_caps":
+            kw2[key] = [None if c is None else torch.cat([c, c], dim=1)
+                        for c in v]
+        else:
+            kw2[key] = torch.cat([v, v], dim=1)
+    return fs2, consts2, kw2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["as-is", "blocked-stream",
+                                     "blocked-subset"])
+def test_resolve_plan_solve_with_inf_terms_equals_plain(variant, cuda_device,
+                                                        monkeypatch):
+    fs, consts, kw = captured_resolve_solve(resolve_group(5), monkeypatch)
+    assert torch.isinf(fs).any() and kw.get("pair_caps") is not None
+    if variant == "blocked-stream":  # every tuple of stream 0 infeasible
+        fs = fs.clone()
+        fs[0] = torch.inf
+    if variant == "blocked-subset":
+        fs, consts, kw = with_blocked_first_subset(fs, consts, kw)
+    inputs = t_ps.solve_inputs(fs, consts, **kw)
+    ref = t_ps.reference(*inputs)
+    dev = [x.to(cuda_device) if x is not None else None for x in inputs[:3]]
+    grids = tuple(x.to(cuda_device) for x in inputs[3])
+    before = t_ps.launches
+    out = t_ps.plan_solve(*dev, grids)
+    torch.cuda.synchronize()
+    assert t_ps.launches == before + 1
+    out = [x.cpu() for x in out]
+    same_exactly(out, ref)
+    if variant == "blocked-stream":
+        assert torch.isinf(out[0][0]) and int(out[1][0]) == 0
+    if variant == "blocked-subset":
+        g = inputs[2].shape[0]
+        fin = torch.isfinite(ref[0])
+        assert bool((ref[1][fin] >= g).all())
+
+
+@pytest.mark.cuda
+def test_resolve_on_card_equals_cpu(cuda_device):
+    args = resolve_group(9, r=256)
+    before = t_ps.launches
+    total, bounds, old = t_rd.solve_group(*args, device=cuda_device)
+    assert t_ps.launches == before + 1
+    ref_total, ref_bounds, ref_old = t_rd.solve_group(*args, device="cpu")
+    fin = np.isfinite(ref_total)
+    np.testing.assert_array_equal(np.isfinite(total), fin)
+    np.testing.assert_array_equal(bounds[fin], ref_bounds[fin])
+    np.testing.assert_allclose(total[fin], ref_total[fin], rtol=1e-11,
+                               atol=0)
+    np.testing.assert_allclose(old, ref_old, rtol=1e-11, atol=0)
+
+
+@pytest.mark.cuda
+def test_replanning_engine_on_card_equals_cpu(cuda_device):
+    """A drifted constrained four-tier fleet with replan= on the card and on
+    the CPU (the CPU pinned to the same re-solve, backend="device"), both
+    from the same planned boundaries: drift leaves, events, boundaries,
+    survivors and tiers."""
+    rng = np.random.default_rng(4)
+    m, n, k = 24, 3072, 16
+    models, csets = four_tier_models(rng, m, n=n, k=k)
+    cfg = t_replan.ReplanConfig(drift=t_drift.DriftConfig(alpha=0.05))
+    specs = [t_eng.StreamSpec(stream_id=i, k=k, cost_model=cm)
+             for i, cm in enumerate(models)]
+    gpu = t_eng.StreamEngine(specs, constraints=csets, replan=cfg,
+                             device=cuda_device)
+    # the CPU run starts from the card's planned boundaries
+    fixed = [t_eng.StreamSpec(
+        stream_id=i, k=k, cost_model=cm, migrate=bool(gpu.meter.migrate[i]),
+        boundaries=tuple(gpu.meter.boundaries[i][:3])) for i, cm in
+        enumerate(models)]
+    cpu = t_eng.StreamEngine(fixed, constraints=csets, replan=cfg,
+                             device="cpu")
+    cpu._replanner.backend = "device"  # the card's re-solve, plain plan_solve
+    traces = np.stack([t_sim.drifted_rank_trace(n, rng, [(800, 8.0)])
+                       for _ in range(m)]).astype(np.float32)
+    chunks = [[(traces[:, c0:c0 + 64],
+                np.tile(np.arange(c0, c0 + 64, dtype=np.int32), (m, 1)))]
+              for c0 in range(0, n, 64)]
+    p0 = t_ps.launches
+    gpu.ingest_chunks(chunks)
+    assert t_ps.launches > p0
+    cpu.ingest_chunks(chunks)
+    assert len(gpu.replan_events) == len(cpu.replan_events) > 0
+    for a, b in zip(gpu.replan_events, cpu.replan_events):
+        assert (a.stream_id, a.position, a.rho, a.old_bounds, a.new_bounds,
+                a.applied, a.feasible, a.moved_docs) == (
+            b.stream_id, b.position, b.rho, b.old_bounds, b.new_bounds,
+            b.applied, b.feasible, b.moved_docs)
+        for x, y in ((a.suffix_cost_old, b.suffix_cost_old),
+                     (a.suffix_cost_new, b.suffix_cost_new)):
+            assert x == y or abs(x - y) <= 1e-11 * abs(y)
+    for ds_g, ds_c in zip(gpu._drift_states, cpu._drift_states):
+        for f in t_drift.DriftState._fields:
+            assert torch.equal(getattr(ds_g, f).cpu(), getattr(ds_c, f)), f
+    np.testing.assert_array_equal(gpu.meter.boundaries, cpu.meter.boundaries)
+    gt, ct = gpu.finalize_tiers(), cpu.finalize_tiers()
+    for sid in ct:
+        for key in ("ids", "tiers", "counts"):
+            np.testing.assert_array_equal(gt[sid][key], ct[sid][key])

@@ -263,8 +263,7 @@ def test_ingest_chunks_equals_reference_ingest_chunks():
 
 def test_not_ported_parts_raise():
     spec = [t_eng.StreamSpec(stream_id=0, k=4, r=10.0)]
-    for kw, item in (({"replan": object()}, "item 6"),
-                     ({"obs": object()}, "item 7"),
+    for kw, item in (({"obs": object()}, "item 7"),
                      ({"mesh": object()}, "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             t_eng.StreamEngine(spec, device="cpu", **kw)

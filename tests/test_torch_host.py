@@ -167,7 +167,11 @@ def test_import_guard_no_jax_no_reference_package():
         " 'repro_torch.launch.serve', 'repro_torch.data.curation',"
         " 'repro_torch.configs.llama3_2_1b', 'repro_torch.core.interestingness',"
         " 'repro_torch.kernels.flash_attention.ops',"
-        " 'repro_torch.kernels.entropy_scores.ops']\n"
+        " 'repro_torch.kernels.entropy_scores.ops',"
+        " 'repro_torch.kernels.plan_solve.ref', 'repro_torch.obs.timers',"
+        " 'repro_torch.online.drift', 'repro_torch.online.replan',"
+        " 'repro_torch.online.replan_device', 'repro_torch.online.admission',"
+        " 'repro_torch.online.evaluate']\n"
         "assert all(n in sys.modules for n in need), need\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
