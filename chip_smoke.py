@@ -121,7 +121,35 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    check_constraints; docs/s with replan= beside the same fleet without
    it; a torch.profiler window of 13b's largest re-planning chunk (host
    and device ms) and its plan_solve launches timed alone (median of 5
-   windows) beside their plain version and bound.
+   windows) beside their plain version and bound;
+14. fleet observability (repro_torch.obs) on the card. 14a: phase 5's
+   1,000,000 streams (its plan, 16 chunks of 16, meter off) with
+   Observability(ObsConfig(costs=True)) beside the same engine without
+   obs over the same chunks: survivors and tiers bit-equal, the
+   synchronizing CUDA operations of the 16 steps equal with obs on and
+   off (torch.cuda.set_sync_debug_mode("warn")), metrics.snapshot one
+   drain; DOCS = 2.56e8, ADMITS - EVICTIONS = the live reservoir slots,
+   each stream's ledger writes = its write-mask total; 256 sampled
+   streams' ledger rows and reservoir rows against the port's CPU run
+   and their packed counters on the card against the CPU; docs/s with
+   and without obs beside phase 5's, and the step's device time with
+   and without obs (torch.profiler). 14b: examples/cost_attribution.py's
+   setting (K=64, windows of 12,000 docs, the first half of the tenants
+   with an 8x burst at doc 3,000, chunks of 64, TierCapacity(0, 4K),
+   ObsConfig(costs=True, cost_trigger=True, cost_alpha=0.01,
+   budget_factor=1.2), DriftConfig(alpha=1e-9)) at 65,536 tenants,
+   meter on, chunks made one at a time from a seeded generator: the
+   chain (cost or burn alerts on drifted tenants, cost-triggered
+   re-plans applied, the drifted tenants' realized-cost slope lower
+   after their median first re-plan), two chunks through ingest() under
+   torch.profiler with profiler_annotations (the "ingest" and "replan"
+   ranges), /metrics on 127.0.0.1 scraped before and after them (typed
+   counters that do not fall), Observability.write's three artifacts,
+   512 sampled tenants against the port's CPU run and a card engine of
+   the same tenants (events in order, alerts, re-plan events, ledger
+   rows and cost_summary bit for bit, drift_score_max within 1 ulp);
+   docs/s beside the same fleet without obs=, the monitors' host ms a
+   chunk, and the events per kind.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -2268,13 +2296,15 @@ class RpChunks:
     """The drifted window as ingest_dense-shaped chunks, made chunk by
     chunk from one seeded generator: doc i scores -E/θ_i in float32 with
     E ~ Exp(1) and θ = 1 before RP_DRIFT_AT, RP_MULT from it on (the law
-    of ``core.simulator.drifted_rank_trace``). The sampled rows' scores
-    are kept; the seconds spent making chunks are counted so a rate can
-    leave them out."""
+    of ``core.simulator.drifted_rank_trace``) — on every row, or on the
+    rows of ``drifted`` alone (the others keep θ = 1, the law of an
+    undrifted trace). The sampled rows' scores are kept; the seconds
+    spent making chunks are counted so a rate can leave them out."""
 
-    def __init__(self, seed, m, sample=None):
+    def __init__(self, seed, m, sample=None, drifted=None):
         from repro_torch.core import simulator
         self.seed, self.m, self.sample = seed, m, sample
+        self.drifted = drifted
         self.theta = simulator.drift_weights(
             RP_DOCS, [(RP_DRIFT_AT, RP_MULT)]).astype(np.float32)
         self.kept, self.gen_s = [], 0.0
@@ -2284,8 +2314,12 @@ class RpChunks:
         for c0 in range(0, RP_DOCS, RP_CHUNK):
             t0 = time.perf_counter()
             w = min(RP_CHUNK, RP_DOCS - c0)
+            theta = self.theta[c0:c0 + w]
+            if self.drifted is not None:
+                theta = np.where(self.drifted[:, None], theta,
+                                 np.float32(1.0))
             sc = (-rng.standard_exponential((self.m, w), dtype=np.float32)
-                  / self.theta[c0:c0 + w])
+                  / theta)
             if self.sample is not None:
                 self.kept.append(sc[self.sample])
             ids = np.broadcast_to(np.arange(c0, c0 + w, dtype=np.int32),
@@ -2322,10 +2356,10 @@ def timed_replans(eng):
                      ps=ps.launches - p0)
         return out
 
-    def timed_hook():
+    def timed_hook(*args):
         inner.clear()
         t0 = time.perf_counter()
-        hook()
+        hook(*args)
         if inner:
             records.append((chunk[0], inner["rows"], inner["s"],
                             time.perf_counter() - t0, inner["ps"]))
@@ -2650,6 +2684,552 @@ def replanning(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: fleet observability on the card
+# ---------------------------------------------------------------------------
+
+OB_SAMPLE = 256  # 14a streams held to the port's CPU run
+CB_TENANTS = 65_536  # 14b: examples/cost_attribution.py's fleet at scale
+CB_PROFILE_AT = 60  # 14b's first chunk fed through ingest() under the
+CB_PROFILED = 2  # profiler, and the number of such chunks
+CB_MAX_EVENTS = 4_000_000  # the tracer's bound at 65,536 tenants
+
+
+def count_syncs(fn):
+    """``fn()``'s result and the number of synchronizing CUDA operations
+    it issued (``torch.cuda.set_sync_debug_mode("warn")`` warns once for
+    each)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def scrape_counters(url):
+    """The typed counters of one /metrics scrape: {sample: value}."""
+    import urllib.request
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    counters = {line.split()[2] for line in text.splitlines()
+                if line.startswith("# TYPE") and line.endswith(" counter")}
+    out = {}
+    for line in text.splitlines():
+        if not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            if name.split("{")[0] in counters:
+                out[name] = float(value)
+    return out
+
+
+def fixed_engine(bounds, mig, rows, obs, device=None):
+    """An engine over ``rows`` of phase 5's planned fleet (explicit
+    boundaries and cascade flags, K=8)."""
+    from repro_torch.streams import StreamEngine, StreamSpec
+    rows = np.asarray(rows)
+    return StreamEngine([StreamSpec(stream_id=int(i), k=K, boundaries=tuple(b),
+                                    migrate=bool(g))
+                         for i, b, g in zip(rows.tolist(),
+                                            bounds[rows].tolist(),
+                                            mig[rows].tolist())],
+                        obs=obs, device=device)
+
+
+def busy_ms_per_step(eng, chunks):
+    """Compute-engine busy ms a step of ``eng.ingest_chunks(chunks)``
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.ingest_chunks(chunks, meter=False)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and "Memcpy" not in e.name]
+    return union_ms(dev) / len(chunks), len(dev) / len(chunks)
+
+
+def obs_main_path(bounds, mig, rate5):
+    """14a: phase 5's main path with Observability(ObsConfig(costs=True))
+    beside the same engine without obs, over the same chunks."""
+    from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.obs import Observability, ObsConfig
+    from repro_torch.obs import costs as costs_mod
+    from repro_torch.obs import metrics as metrics_mod
+    rng = np.random.default_rng(14)
+    first, second = window_chunks(rng, 0), window_chunks(rng, 1)
+    prof_chunks = window_chunks(rng, 2, 4)
+    sample = np.sort(rng.choice(M, OB_SAMPLE, replace=False))
+    # the process's first counted call sees one synchronizing operation
+    # whatever it drives (on the H100, of six counted calls on a small
+    # fleet the first, obs off, saw one and every later one, obs on or
+    # off, none): a throwaway engine takes it
+    spare = fixed_engine(bounds, mig, sample, None)
+    _, first_syncs = count_syncs(lambda: spare.ingest_chunks(
+        [[(ch[0][0][sample], ch[0][1][sample])] for ch in first[:2]],
+        meter=False))
+    del spare
+    runs = {}
+    for label in ("off", "on"):
+        obs = Observability(ObsConfig(costs=True)) if label == "on" else None
+        eng = fixed_engine(bounds, mig, np.arange(M), obs)
+        writes = torch.zeros(M, dtype=torch.int32, device=eng.device)
+        if obs is None:  # the write-mask totals, from the obs-off run
+            dispatch = eng._dispatch
+
+            def counted(batches, dispatch=dispatch, writes=writes):
+                wrotes, evs, states = dispatch(batches)
+                writes.add_(wrotes[0].sum(1, dtype=torch.int32))
+                return wrotes, evs, states
+
+            eng._dispatch = counted
+        # the counted run: counters to 0, drive, read
+        btk.launches = ta.launches = 0
+        _, syncs = count_syncs(lambda: eng.ingest_chunks(first, meter=False))
+        tiers = eng.assign_tiers()
+        torch.cuda.synchronize()
+        launches = {"batched_topk": btk.launches, "tier_assign": ta.launches}
+        if launches["batched_topk"] != len(first) or launches[
+                "tier_assign"] < 1:
+            raise AssertionError(f"obs [14a {label}] missed a kernel: "
+                                 f"{launches}")
+        runs[label] = dict(eng=eng, syncs=syncs, launches=launches,
+                           tiers=tiers, writes=writes)
+    off, on = runs["off"], runs["on"]
+    eng = on["eng"]
+    log(f"obs [14a]: {M} streams, 16 chunks of {M} x {CHUNK}, meter off; "
+        f"launches with obs on {on['launches']}; synchronizing CUDA "
+        f"operations over the 16 steps (set_sync_debug_mode('warn')): obs "
+        f"off {off['syncs']}, obs on {on['syncs']} (the process's first "
+        f"counted call, 2 steps of a spare engine: {first_syncs})")
+    if on["syncs"] != off["syncs"]:
+        raise AssertionError("obs added device-to-host syncs to the step")
+    snap, drains = count_syncs(lambda: metrics_mod.snapshot(
+        eng._metrics_state))
+    log(f"obs [14a]: metrics.snapshot: {drains} synchronizing operation "
+        f"(one copy of the packed counters); counters {snap}")
+    if drains != 1:
+        raise AssertionError(f"snapshot drained in {drains} syncs, not 1")
+    # survivors and tiers bit-equal to the obs-off run
+    for a, b in zip(off["eng"].states()[0], eng.states()[0]):
+        if not torch.equal(a, b):
+            raise AssertionError("obs changed the reservoir state")
+    for (ta_off, c_off), (ta_on, c_on) in zip(off["tiers"], on["tiers"]):
+        if not (torch.equal(ta_off, ta_on) and torch.equal(c_off, c_on)):
+            raise AssertionError("obs changed the survivors' tiers")
+    # the counter identities
+    st = eng.states()[0]
+    live = int((st.ids >= 0).sum())
+    cs = eng._cost_states[0]
+    ledger_writes = cs.writes.sum(1, dtype=torch.int32)
+    checks = {
+        "DOCS = M x 256": snap["docs"] == M * DOCS,
+        "ADMITS - EVICTIONS = live slots":
+            snap["admits"] - snap["evictions"] == live,
+        "ledger writes = write-mask totals, per stream":
+            bool(torch.equal(ledger_writes, off["writes"])),
+        "ledger writes = ADMITS": int(cs.writes.sum()) == snap["admits"],
+        "ledger deletes = EVICTIONS":
+            int(cs.deletes.sum()) == snap["evictions"],
+        "BAR_CANDIDATES = DOCS": snap["bar_candidates"] == snap["docs"],
+        "CHUNKS = 16": snap["chunks"] == len(first),
+    }
+    log(f"obs [14a]: survivors and tiers equal the obs-off run bit for "
+        f"bit; {live} live slots; identities "
+        + ", ".join(f"{k}: {v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError("a counter identity failed")
+    # the sampled streams through the port's CPU run and a card engine of
+    # the same streams: ledger rows and ids against the fleet, counters
+    # against each other
+    sub_chunks = [[(ch[0][0][sample], ch[0][1][sample])] for ch in first]
+    cpu = fixed_engine(bounds, mig, sample,
+                       Observability(ObsConfig(costs=True)), device="cpu")
+    sub = fixed_engine(bounds, mig, sample,
+                       Observability(ObsConfig(costs=True)))
+    cpu.ingest_chunks(sub_chunks, meter=False)
+    sub.ingest_chunks(sub_chunks, meter=False)
+    idx = torch.as_tensor(sample, device=eng.device)
+    for name in ("writes", "deletes", "resident_steps"):
+        rows = getattr(cs, name)[idx].cpu()
+        if not (torch.equal(rows, getattr(cpu._cost_states[0], name))
+                and torch.equal(rows, getattr(sub._cost_states[0],
+                                              name).cpu())):
+            raise AssertionError(f"ledger {name} rows differ from the CPU "
+                                 f"run")
+    for a, b in zip(st, cpu.states()[0]):
+        if not torch.equal(a[idx].cpu(), b):
+            raise AssertionError("sampled reservoir rows differ from the "
+                                 "CPU run")
+    c_cpu, s_cpu = metrics_mod.to_canonical(cpu._metrics_state)
+    c_sub, s_sub = metrics_mod.to_canonical(sub._metrics_state)
+    if not (np.array_equal(c_cpu, c_sub)
+            and s_cpu.view(np.int32) == s_sub.view(np.int32)):
+        raise AssertionError("the sampled streams' counters differ on the "
+                             "card and the CPU")
+    log(f"obs [14a]: {OB_SAMPLE} sampled streams: ledger rows and reservoir "
+        f"rows equal the port's CPU run bit for bit; packed counters of "
+        f"the same streams on the card and the CPU equal "
+        f"({c_cpu.tolist()})")
+    del cpu, sub
+    # docs/s over the next window, obs on and off
+    rates = {}
+    for label in ("off", "on"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label]["eng"].ingest_chunks(second, meter=False)
+        torch.cuda.synchronize()
+        rates[label] = M * CHUNK * len(second) / (time.perf_counter() - t0)
+    for a, b in zip(off["eng"].states()[0], eng.states()[0]):
+        if not torch.equal(a, b):
+            raise AssertionError("obs changed the reservoir state")
+    busy = {label: busy_ms_per_step(runs[label]["eng"], prof_chunks)
+            for label in ("off", "on")}
+    log(f"obs [14a]: ingest of the second window: {rates['on']:.6g} docs/s "
+        f"with obs (costs on), {rates['off']:.6g} without "
+        f"({rates['on'] / rates['off']:.4f} of it); phase 5: "
+        f"{rate5['median']:.6g} (host clock around ingest_chunks and a "
+        f"sync, host-made chunks)")
+    log(f"obs [14a]: step device time (torch.profiler, 4 steps, compute "
+        f"engine busy): obs off {busy['off'][0]:.4f} ms/step in "
+        f"{busy['off'][1]:.0f} operations, obs on {busy['on'][0]:.4f} "
+        f"ms/step in {busy['on'][1]:.0f}: the counters and the ledger add "
+        f"{busy['on'][0] - busy['off'][0]:.4f} ms a step")
+    launches = on["launches"]
+    del runs, off, on, eng
+    return launches
+
+
+def cost_fleet(m):
+    """examples/cost_attribution.py's ``make_fleet`` at the phase's scale:
+    every tenant the example's model (a write-cheap hot tier, a
+    write-expensive cold one), the first half drifted."""
+    from repro_torch.core import costs
+    wl = costs.WorkloadSpec(n_docs=RP_DOCS, k=RP_K, doc_gb=1e-4,
+                            window_months=0.5)
+    cm = costs.TwoTierCostModel(
+        tier_a=costs.TierCosts("hot", put_per_doc=1e-6, get_per_doc=2.7e-4,
+                               storage_per_gb_month=0.05),
+        tier_b=costs.TierCosts("cold", put_per_doc=8e-5, get_per_doc=1e-6,
+                               storage_per_gb_month=0.02),
+        workload=wl)
+    return [cm] * m, np.arange(m) < m // 2
+
+
+def cb_obs(annotations=False):
+    """The example's ObsConfig (and the tracer's bound at fleet scale)."""
+    from repro_torch.obs import Observability, ObsConfig
+    return Observability(ObsConfig(
+        costs=True, cost_trigger=True, cost_alpha=0.01, budget_factor=1.2,
+        profiler_annotations=annotations, max_events=CB_MAX_EVENTS))
+
+
+def cb_replan():
+    """The example's nearly blind detector: re-plans come from the cost
+    channel."""
+    from repro_torch.online import DriftConfig, ReplanConfig
+    return ReplanConfig(drift=DriftConfig(alpha=1e-9))
+
+
+def stream_events(obs, keep=None):
+    """The tracer's point events as (name, attrs without the row), in
+    order, for the stream ids in ``keep`` (all when None)."""
+    out = []
+    for e in obs.tracer.events:
+        a = e["attrs"]
+        if e["kind"] != "event" or (keep is not None
+                                    and a.get("stream_id") not in keep):
+            continue
+        out.append((e["name"], {k: v for k, v in a.items() if k != "row"}))
+    return out
+
+
+def cost_triggered_run(models, drifted, seed, rng, smi):
+    """14b's engine on the card: chunks 0..CB_PROFILE_AT-1 and the rest
+    through ingest_chunks (timed), CB_PROFILED chunks between them through
+    ingest() under torch.profiler, /metrics scraped before and after
+    those."""
+    import itertools
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.plan_solve import ops as ps
+    from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.obs import http as obs_http
+    from repro_torch.streams import StreamEngine
+    m = len(models)
+    sample = np.sort(rng.choice(m, RP_SAMPLE, replace=False))
+    chunks = RpChunks(seed, m, sample, drifted)
+    obs = cb_obs(annotations=True)
+    # the counted run: counters to 0, plan, drive, finalize, read
+    btk.launches = ta.launches = ps.launches = 0
+    eng = StreamEngine(rp_specs(models), constraints=rp_constraints(False),
+                       replan=cb_replan(), obs=obs)
+    planned = (eng.meter.boundaries.copy(), eng.meter.migrate.copy())
+    mon_s, curve = [0.0], []
+    for mon in (eng._residuals, eng._cost_monitor):
+        def timed(*a, _update=mon.update, _cost=mon is eng._cost_monitor):
+            t0 = time.perf_counter()
+            out = _update(*a)
+            mon_s[0] += time.perf_counter() - t0
+            if _cost:
+                curve.append(eng._cost_monitor.realized_total[drifted].sum())
+            return out
+        mon.update = timed
+    server = obs_http.serve(obs, port=0)
+    try:
+        it = iter(chunks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.ingest_chunks(itertools.islice(it, CB_PROFILE_AT))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gen_a = chunks.gen_s
+        scrapes = [scrape_counters(server.url)]
+        profiled = [next(it) for _ in range(CB_PROFILED)]
+        gen_b = chunks.gen_s
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for ch in profiled:
+                sc, ids = ch[0]
+                eng.ingest(np.repeat(np.arange(m), sc.shape[1]),
+                           sc.reshape(-1), ids.reshape(-1))
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        scrapes.append(scrape_counters(server.url))
+        t0 = time.perf_counter()
+        eng.ingest_chunks(it)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        gen_s = gen_a + chunks.gen_s - gen_b
+    finally:
+        server.stop()
+    eng.finalize()
+    tiers = eng.finalize_tiers()
+    launches = {"batched_topk": btk.launches, "tier_assign": ta.launches,
+                "plan_solve": ps.launches}
+    n_chunks = len(curve)
+    docs = m * (RP_DOCS - sum(ch[0][0].shape[1] for ch in profiled))
+    rate = docs / (wall - gen_s)
+    log(f"obs [14b]: {m} tenants ({int(drifted.sum())} drifted), K={RP_K}, "
+        f"{RP_DOCS} docs each in {n_chunks} chunks of {RP_CHUNK}, meter on, "
+        f"cost trigger; launches {launches}; ingest {rate:.6g} docs/s "
+        f"({wall:.3f}s for {docs} docs, {gen_s:.3f}s of it making chunks, "
+        f"left out; the {CB_PROFILED} profiled chunks left out); the "
+        f"residual and cost monitors' host time {mon_s[0]:.3f}s, "
+        f"{mon_s[0] / n_chunks * 1e3:.3f} ms a chunk")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"obs [14b] missed a kernel: {launches}")
+    # the profiled window: the tracer's ranges beside the device's work
+    names = [e.name for e in prof.events()]
+    n_ingest, n_replan = names.count("ingest"), names.count("replan")
+    log(f"obs [14b]: torch.profiler window of {CB_PROFILED} chunks through "
+        f"ingest() (chunks {CB_PROFILE_AT}-{CB_PROFILE_AT + CB_PROFILED - 1},"
+        f" profiler_annotations on): wall {prof_ms:.3f} ms; "
+        f"record_function ranges 'ingest' x{n_ingest}, 'replan' x{n_replan}"
+        f"; {smi}")
+    if n_ingest < CB_PROFILED or n_replan < 1:
+        raise AssertionError("the profiler window lacks the ingest or "
+                             "replan ranges")
+    # the live endpoint
+    # drift_fired is the number of detectors latched now: the reference
+    # types it a counter, but a re-plan's reset lowers it, so it is logged
+    # and not held to never decrease
+    first, second = scrapes
+    fired = [(first[k], second.get(k)) for k in first
+             if k.endswith("_drift_fired")]
+    grew = [k for k in first if second.get(k, -1.0) > first[k]]
+    fell = [k for k in first if second.get(k, -1.0) < first[k]
+            and not k.endswith("_drift_fired")]
+    log(f"obs [14b]: /metrics on 127.0.0.1 scraped after chunk "
+        f"{CB_PROFILE_AT - 1} and after chunk "
+        f"{CB_PROFILE_AT + CB_PROFILED - 1}: {len(first)} typed counters, "
+        f"{len(grew)} grew, {len(fell)} fell (drift_fired, latched "
+        f"detectors: {fired})")
+    if fell or not first or not any(k.endswith("engine_docs") for k in grew):
+        raise AssertionError(f"/metrics counters fell or did not grow: "
+                             f"{fell[:4]}")
+    return eng, obs, chunks, launches, dict(
+        rate=rate, curve=np.asarray(curve), tiers=tiers, planned=planned,
+        mon_ms=mon_s[0] / n_chunks * 1e3)
+
+
+def cost_chain(eng, obs, drifted, curve):
+    """examples/cost_attribution.py's chain on the fleet: a burn or cost
+    alert on drifted tenants, cost-triggered re-plans, and the drifted
+    tenants' realized-cost slope lower after them."""
+    from collections import Counter
+    evs = list(obs.tracer.events)
+    kinds = Counter(e["name"] for e in evs)
+    log(f"obs [14b]: events per kind {dict(sorted(kinds.items()))}; "
+        f"dropped {obs.tracer.dropped}")
+    if obs.tracer.dropped:
+        raise AssertionError("the tracer dropped events")
+    fired = [e["attrs"] for e in evs
+             if e["name"] in ("cost_alert", "budget_burn")]
+    on_drifted = sum(bool(drifted[a["row"]]) for a in fired)
+    applied = [e["attrs"] for e in evs if e["name"] == "replan_decision"
+               and e["attrs"]["cost_triggered"] and e["attrs"]["applied"]]
+    first_at = {}
+    for a in applied:
+        if drifted[a["row"]]:
+            first_at.setdefault(a["row"], a["position"])
+    if not on_drifted or not first_at:
+        raise AssertionError("no cost/burn alert on a drifted tenant, or no "
+                             "cost-triggered re-plan applied to one")
+    # the drifted tenants' curve bends at the median first re-plan
+    rc = min(int(np.median(list(first_at.values()))) // RP_CHUNK,
+             len(curve) - 3)
+    dc = RP_DRIFT_AT // RP_CHUNK
+    pre = (curve[rc] - curve[dc]) / max(rc - dc, 1)
+    post = (curve[-1] - curve[rc + 1]) / max(len(curve) - rc - 2, 1)
+    log(f"obs [14b]: {len(fired)} cost/burn alerts ({on_drifted} on drifted "
+        f"tenants); {len(applied)} cost-triggered re-plans applied, "
+        f"{len(first_at)} of {int(drifted.sum())} drifted tenants re-planned "
+        f"(median first at doc {rc * RP_CHUNK}); the drifted tenants' "
+        f"realized-cost slope per chunk {pre:.6g} from the burst to it, "
+        f"{post:.6g} after it ({post / pre:.4f})")
+    if not post < pre:
+        raise AssertionError("the cost-triggered re-plans did not bend the "
+                             "drifted tenants' cost curve")
+
+
+def cost_cpu_parity(eng, obs, models, chunks, planned):
+    """The sampled tenants through the port's CPU run and a card engine of
+    the same tenants (both from the card's planned boundaries, the CPU
+    pinned to the device re-solve): per stream against the fleet,
+    alerts, burn events, re-plan events, ledger rows and cost_summary;
+    the sub-fleets' snapshots and events against each other, the drift
+    score within 1 ulp."""
+    import json as json_mod
+    from repro_torch.obs import costs as costs_mod
+    from repro_torch.streams import StreamEngine, StreamSpec
+    sample = chunks.sample
+    bounds, mig = planned
+    rows = np.array([eng.stream_row(int(i)) for i in sample])
+    specs = [StreamSpec(stream_id=int(i), k=RP_K, cost_model=models[i],
+                        migrate=bool(mig[r]), boundaries=tuple(bounds[r]))
+             for i, r in zip(sample, rows)]
+    subs, obses = [], []
+    for device in ("cpu", None):
+        o = cb_obs()
+        e = StreamEngine(specs, constraints=rp_constraints(False),
+                         replan=cb_replan(), obs=o, device=device)
+        e._replanner.backend = "device"
+        t0 = time.perf_counter()
+        e.ingest_chunks(chunks.sample_chunks())
+        e.finalize()
+        subs.append((e, time.perf_counter() - t0))
+        obses.append(o)
+    (cpu, cpu_s), (card, _) = subs
+    keep = {int(i) for i in sample}
+    want = stream_events(obses[0])
+    if stream_events(obs, keep) != want or stream_events(obses[1]) != want:
+        raise AssertionError("the sampled tenants' events differ from the "
+                             "CPU run")
+    alerts = eng.cost_alerts()
+    if {s: a for s, a in alerts.items() if s in keep} != cpu.cost_alerts():
+        raise AssertionError("cost alerts differ from the CPU run")
+    res = eng.residual_alerts()
+    if {s: a for s, a in res.items() if s in keep} != cpu.residual_alerts():
+        raise AssertionError("residual alerts differ from the CPU run")
+    ev = lambda e: (e.stream_id, e.position, e.rho, e.old_bounds,  # noqa: E731
+                    e.new_bounds, e.applied, e.feasible, e.suffix_cost_old,
+                    e.suffix_cost_new, e.move_bill, e.moved_docs)
+    if [ev(e) for e in eng.replan_events if e.stream_id in keep] != \
+            [ev(e) for e in cpu.replan_events]:
+        raise AssertionError("re-plan events differ from the CPU run")
+    full, part = eng.cost_summary(), cpu.cost_summary()
+    for key in ("writes", "reads", "storage", "migration", "total",
+                "planned", "regret"):
+        if not np.array_equal(full[key][rows], part[key]):
+            raise AssertionError(f"cost_summary {key} differs")
+    for key in full["device"]:
+        if not np.array_equal(full["device"][key][rows],
+                              part["device"][key]):
+            raise AssertionError(f"ledger {key} rows differ")
+    a, b = cpu.obs_snapshot(), card.obs_snapshot()
+    sa, sb = a["engine"].pop("drift_score_max"), \
+        b["engine"].pop("drift_score_max")
+    ulps = abs(int(np.float32(sa).view(np.int32))
+               - int(np.float32(sb).view(np.int32)))
+    if json_mod.dumps(a, sort_keys=True) != json_mod.dumps(b, sort_keys=True) \
+            or ulps > 1:
+        raise AssertionError("the sampled sub-fleet's snapshot differs on "
+                             "the card and the CPU")
+    if costs_mod.snapshot(cpu) != costs_mod.snapshot(card):
+        raise AssertionError("cost snapshots differ")
+    n_ev = len(want)
+    log(f"obs [14b]: {len(sample)} sampled tenants through the port's CPU "
+        f"run of the same chunks ({cpu_s:.3f}s) and a card engine of the "
+        f"same tenants: {n_ev} events (residual and cost alerts, budget "
+        f"burns, re-plan decisions, admissions) equal the fleet's in order, "
+        f"cost and residual alerts, re-plan events, ledger rows and "
+        f"cost_summary bit for bit; snapshots equal, drift_score_max "
+        f"{sa!r} on the CPU, {sb!r} on the card ({ulps} ulp)")
+
+
+def cost_triggered(smi):
+    """14b: examples/cost_attribution.py's setting at 65,536 tenants."""
+    from collections import Counter
+    rng = np.random.default_rng(141)
+    models, drifted = cost_fleet(CB_TENANTS)
+    eng, obs, chunks, launches, r = cost_triggered_run(models, drifted, 142,
+                                                       rng, smi)
+    cost_chain(eng, obs, drifted, r["curve"])
+    counts = np.stack([r["tiers"][i]["counts"] for i in range(CB_TENANTS)])
+    if int(counts.sum()) != CB_TENANTS * RP_K:
+        raise AssertionError("finalize_tiers counts do not sum to M*K")
+    out_dir = ROOT / "build" / "obs14b"
+    paths = obs.write(str(out_dir))
+    sizes = {k: Path(v).stat().st_size for k, v in paths.items()}
+    log(f"obs [14b]: Observability.write: {sizes} bytes under "
+        f"{out_dir.relative_to(ROOT)}")
+    if sorted(sizes) != ["events", "metrics", "prometheus"] or \
+            min(sizes.values()) == 0:
+        raise AssertionError("Observability.write missed an artifact")
+    cost_cpu_parity(eng, obs, models, chunks, r["planned"])
+    snap = eng.obs_snapshot()
+    log(f"obs [14b]: fleet snapshot: engine {snap['engine']}; costs "
+        f"realized {snap['costs']['realized']['total']:.6g}, planned "
+        f"{snap['costs']['planned_total']:.6g}, alerts "
+        f"{snap['costs']['alerts']}")
+    del eng, obs, chunks
+    # the same fleet and chunks without obs=
+    from repro_torch.streams import StreamEngine
+    plain = StreamEngine(rp_specs(models), constraints=rp_constraints(False),
+                         replan=cb_replan())
+    chunks = RpChunks(142, CB_TENANTS, None, drifted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.ingest_chunks(chunks)
+    torch.cuda.synchronize()
+    rate = CB_TENANTS * RP_DOCS / (time.perf_counter() - t0 - chunks.gen_s)
+    log(f"obs [14b]: {r['rate']:.6g} docs/s with obs (costs, cost trigger) "
+        f"beside {rate:.6g} docs/s without obs= ({r['rate'] / rate:.4f} of "
+        f"it; the same fleet and chunks, replan= and meter on both); "
+        f"{len(plain.replan_events)} replan events without obs "
+        f"({dict(Counter(e.applied for e in plain.replan_events))} applied)")
+    return launches
+
+
+def observability(bounds, mig, rate5, smi):
+    """Phase 14. Returns the launches of both counted runs."""
+    launches = obs_main_path(bounds, mig, rate5)
+    for key, n in cost_triggered(smi).items():
+        launches[key] = launches.get(key, 0) + n
+    return launches
+
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2689,6 +3269,9 @@ def main():
             launches[key] += n
     with phase_clock("drift-aware re-planning at fleet scale (phase 13)"):
         for key, n in replanning(smi).items():
+            launches[key] += n
+    with phase_clock("fleet observability (phase 14)"):
+        for key, n in observability(bounds, mig, rate5, smi).items():
             launches[key] += n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",

@@ -7,6 +7,12 @@ and loads it with ``ctypes``. The library's file name carries a hash of
 the source and the flags, so an edited source is never served a stale
 build. Nothing here runs on import: the CPU tests import every module on
 a machine without ``nvcc``.
+
+The build reports to the compile-cache probe ``"kernels.build"``
+(``obs.jits``), keyed by kernel name: a kernel compiled by ``nvcc`` is a
+miss (``compile_s``: the seconds until its ``nvcc`` exits), a library
+found up to date by ``build`` or loaded from ``build/kernels/`` by
+``library`` is a hit.
 """
 from __future__ import annotations
 
@@ -16,8 +22,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Sequence
+
+from repro_torch.obs import jits
 
 KERNELS = ("batched_topk", "tier_assign", "logmem_update", "topk_filter",
            "plan_solve", "entropy_scores", "flash_attention")
@@ -40,6 +49,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _cached() -> int:
+    """Libraries in the build cache."""
+    return sum(1 for _ in BUILD_DIR.glob("lib*.so"))
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -58,10 +72,13 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
     {name: ptxas report} for the kernels compiled now (empty for those
     already built). Raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    probe = jits.probe("kernels.build")
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         target = _target(name)
         if target.exists():
+            probe.record(False, 0.0, key=name, cache_size=_cached())
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -77,6 +94,8 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
             failed.append(f"{name}:\n{out}")
             continue
         os.replace(tmp, target)  # atomic: a reader never sees a partial .so
+        probe.record(True, time.perf_counter() - t0, key=name,
+                     cache_size=_cached())
         reports[name] = out
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -88,7 +107,10 @@ def library(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         target = _target(name)
-        if not target.exists():
+        if target.exists():
+            jits.probe("kernels.build").record(False, 0.0, key=name,
+                                               cache_size=_cached())
+        else:
             build([name])
         lib = ctypes.CDLL(str(target))
         _loaded[name] = lib

@@ -15,6 +15,14 @@ multi-tenant ``streams.StreamEngine``: requests are interleaved across the
 tenants, each with its own K, cost model and tier topology (every third
 tenant places across HBM → DRAM → disk).
 
+With ``--obs-out`` / ``--obs-port`` the tenant engine runs with the
+telemetry layer (``repro_torch.obs``): ``--obs-out DIR`` writes
+``metrics.json``, ``metrics.prom`` (Prometheus text) and
+``events.jsonl``; ``--obs-port PORT`` serves live ``/metrics`` and
+``/snapshot`` on 127.0.0.1 (0 = an ephemeral port, printed at startup)
+with cost attribution on; ``--obs-hold SEC`` stretches the loop over at
+least SEC seconds so a scraper can watch the counters advance.
+
 Matrix products run in full float32: ``serve`` turns TF32 off for CUDA
 matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set to False).
@@ -40,7 +48,7 @@ from repro_torch.models import lm
 
 
 def make_tenant_engine(tenants: int, requests: int, topk: int, doc_gb: float,
-                       device=None):
+                       device=None, obs=None):
     """Heterogeneous per-tenant retention: K alternates, cost models jitter
     the HBM presets, every third tenant gets a 3-tier HBM → DRAM → disk
     topology, and the fleet planner picks each tenant's boundary vector."""
@@ -63,7 +71,7 @@ def make_tenant_engine(tenants: int, requests: int, topk: int, doc_gb: float,
             cm = costs.hbm_host_preset(n_docs=n_per, k=k, doc_gb=doc_gb,
                                        window_seconds=window)
         specs.append(StreamSpec(stream_id=t, k=k, cost_model=cm))
-    return StreamEngine(specs, device=device), specs
+    return StreamEngine(specs, device=device, obs=obs), specs
 
 
 @dataclass
@@ -148,12 +156,15 @@ class ServeResult:
 
 def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
           gen_len: int, topk: int, tenants: int = 1, device=None,
-          seed: int = 0) -> ServeResult:
+          seed: int = 0, obs=None, hold_s: float = 0.0) -> ServeResult:
     """Serve ``requests`` requests in batches of ``batch`` (random prompts
     of ``prompt_len`` tokens from ``np.random.default_rng(seed)``, as the
     reference's example draws them), generate ``gen_len`` tokens each,
     score them and retain the top ``topk`` across tiers. ``params`` live
-    on ``device`` (the CUDA card unless given)."""
+    on ``device`` (the CUDA card unless given). ``obs`` (a
+    ``repro_torch.obs.Observability``) observes the tenant engine;
+    ``hold_s`` stretches the loop over at least that many seconds (a
+    sleep after each batch)."""
     dev = device_mod.resolve(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -162,7 +173,7 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
     specs: list = []
     if tenants > 1:
         engine, specs = make_tenant_engine(tenants, requests, topk, doc_gb,
-                                           device=dev)
+                                           device=dev, obs=obs)
     else:
         # proactive placement for the request-log stream
         cm = costs.hbm_host_preset(n_docs=requests, k=topk, doc_gb=doc_gb,
@@ -174,6 +185,7 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
             tiers.ColdTier())
         curator = TopKCurator(topk, store, policy=pol)
     rng = np.random.default_rng(seed)
+    n_batches = -(-requests // batch)
     scores, tokens, pre_s, dec_s = [], [], [], []
     served = 0
     t0 = time.perf_counter()
@@ -196,6 +208,8 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
         pre_s.append(out.prefill_s)
         dec_s.append(out.decode_s)
         served += b
+        if hold_s > 0:
+            time.sleep(hold_s / n_batches)
     dt = time.perf_counter() - t0
     res = ServeResult(scores=np.concatenate(scores),
                       tokens=np.concatenate(tokens), retained=None,
@@ -230,11 +244,18 @@ def main(argv=None):
                          "(heterogeneous per-tenant K, cost model and tier "
                          "depth); requires --requests >= 2*tenants")
     ap.add_argument("--obs-out", default=None, metavar="DIR",
-                    help="not ported yet (ROADMAP queue 1 item 7)")
+                    help="enable the repro_torch.obs telemetry layer and "
+                         "write metrics.json / metrics.prom (Prometheus "
+                         "text exposition) / events.jsonl to DIR")
     ap.add_argument("--obs-port", type=int, default=None, metavar="PORT",
-                    help="not ported yet (ROADMAP queue 1 item 7)")
+                    help="serve live /metrics (Prometheus) and /snapshot "
+                         "(JSON) from the running engine on 127.0.0.1 at "
+                         "this port (0 = ephemeral); implies the obs layer "
+                         "with cost attribution on")
     ap.add_argument("--obs-hold", type=float, default=0.0, metavar="SEC",
-                    help="not ported yet (ROADMAP queue 1 item 7)")
+                    help="stretch the serving loop over at least SEC "
+                         "seconds so a scraper can observe the live "
+                         "counters advancing")
     ap.add_argument("--mesh", type=int, default=1,
                     help="not ported yet (ROADMAP queue 1 item 9)")
     ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
@@ -243,21 +264,38 @@ def main(argv=None):
                     help="not ported yet (ROADMAP queue 1 item 8)")
     args = ap.parse_args(argv)
     for flag, on, item in (("--mesh", args.mesh > 1, 9),
-                           ("--obs-out", args.obs_out is not None, 7),
-                           ("--obs-port", args.obs_port is not None, 7),
-                           ("--obs-hold", args.obs_hold > 0, 7),
                            ("--ckpt-dir", args.ckpt_dir is not None, 8)):
         if on:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP "
                                       f"queue 1 item {item})")
     dev = device_mod.resolve(args.device)
+    obs = obs_server = None
+    if args.obs_out is not None or args.obs_port is not None:
+        from repro_torch.obs import Observability, ObsConfig
+        # the live dashboard prices the fleet as it serves — cost
+        # attribution rides along whenever the endpoint is requested
+        obs = Observability(ObsConfig(costs=args.obs_port is not None))
+    if args.obs_port is not None:
+        from repro_torch.obs import http as obs_http
+        obs_server = obs_http.serve(obs, port=args.obs_port)
+        print(f"obs endpoint: {obs_server.url}/metrics "
+              f"{obs_server.url}/snapshot", flush=True)
+    try:
+        _serve_and_report(args, dev, obs)
+    finally:
+        if obs_server is not None:
+            obs_server.stop()
+
+
+def _serve_and_report(args, dev, obs) -> None:
     cfg = configs.get_config(args.arch, reduced=not args.full)
     params = lm.init_params(cfg, seed=0, device=dev)
     print(f"serving {'full' if args.full else 'reduced'} {args.arch} on "
           f"{dev}: vocab={cfg.vocab_size}, {lm.param_count(cfg)} parameters")
     res = serve(cfg, params, requests=args.requests, batch=args.batch,
                 prompt_len=args.prompt_len, gen_len=args.gen_len,
-                topk=args.topk, tenants=args.tenants, device=dev)
+                topk=args.topk, tenants=args.tenants, device=dev, obs=obs,
+                hold_s=args.obs_hold)
     print(f"served {args.requests} requests in {res.seconds:.1f}s "
           f"({res.tokens_per_s:.0f} tok/s)")
     if res.engine is not None:
@@ -268,6 +306,11 @@ def main(argv=None):
         hist = res.engine.plan.strategy_histogram()
         print("per-stream strategies: "
               + ", ".join(f"{s}={c}" for s, c in sorted(hist.items())))
+        if obs is not None and obs.config.costs:
+            summ = res.engine.cost_summary()
+            print(f"cost attribution: realized={summ['total'].sum():.3e} "
+                  f"planned={summ['planned'].sum():.3e} "
+                  f"regret={summ['regret'].sum():+.3e}")
         for t in sorted(res.retained)[:4]:
             reqs = (np.asarray(res.retained[t]) * args.tenants + t).tolist()
             print(f"tenant {t}: top-{res.specs[t].k} retained requests "
@@ -280,6 +323,14 @@ def main(argv=None):
         retained = res.curator.finalize()
         print(f"top-{args.topk} most-uncertain requests retained for review: "
               f"{sorted(retained)}")
+    if obs is not None and args.obs_out is not None:
+        paths = obs.write(args.obs_out)
+        probes = obs.snapshot().get("jit", {})
+        print("obs: " + ", ".join(
+            f"{name} calls={p['calls']} misses={p['misses']}"
+            for name, p in sorted(probes.items())) if probes else
+            "obs: no compile-cache probe fired")
+        print("obs artifacts: " + ", ".join(sorted(paths.values())))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
-"""The shared timing API (a copy of the reference's ``obs.timers``
-without ``time_jax``, whose torch counterpart waits for the port of
-``repro.obs``, ROADMAP queue 1 item 7).
+"""The shared timing API (the port of the reference's ``obs.timers``):
 
+* ``time_torch`` — device timing, the counterpart of the reference's
+  ``time_jax``: one warm-up call, then ``reps`` back-to-back calls
+  between two ``torch.cuda.synchronize`` (on a CUDA device; the CPU runs
+  synchronously). Returns microseconds per call.
 * ``time_best`` — host-call timing: best of ``repeats`` full wall-clock
   runs. Returns seconds.
 * ``span`` — a ``perf_counter`` interval usable bare (returns an object
-  whose ``.dur_s`` is set on exit) or recorded into a tracer.
+  whose ``.dur_s`` is set on exit) or recorded into a ``trace.Tracer``.
 
 ``online.evaluate`` measures through this module.
 """
@@ -13,6 +15,23 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
+import torch
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def time_torch(fn, *args, reps: int = 20, **kwargs) -> float:
+    """Steady-state microseconds per call of a torch callable."""
+    fn(*args, **kwargs)  # warm-up: kernel builds, allocator
+    _sync()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn(*args, **kwargs)
+    _sync()
+    return (time.perf_counter_ns() - t0) / 1000.0 / reps
 
 
 def time_best(fn, repeats: int = 3) -> float:
@@ -50,3 +69,4 @@ def span(name: str, tracer=None, **attrs):
     t0 = time.perf_counter()
     yield sp
     sp.dur_s = time.perf_counter() - t0
+

@@ -20,10 +20,8 @@ process oracle means the closed loop recovers most of what perfect drift
 knowledge would.
 
 A copy of the reference's ``online.evaluate``: ``run_fleet`` and
-``evaluate_fleet`` take ``device=`` and run the engine on the CUDA card
-unless the caller passes another device. The obs threading (``obs=``)
-waits for the port of ``repro.obs`` (ROADMAP queue 1 item 7), and with it
-``regret_table``, which reads the engine's cost ledger."""
+``evaluate_fleet`` also take ``device=`` and run the engine on the CUDA
+card unless the caller passes another device."""
 from __future__ import annotations
 
 import itertools
@@ -41,16 +39,21 @@ from repro_torch.streams.engine import StreamEngine, StreamSpec
 def run_fleet(traces: np.ndarray, specs: Sequence[StreamSpec], *,
               replan=None, chunk: int = 64, constraints=None,
               rng: Optional[np.random.Generator] = None,
-              device=None) -> StreamEngine:
+              obs=None, device=None) -> StreamEngine:
     """Feed per-stream traces (M, N) through a fresh ``StreamEngine`` on
     ``device`` (the CUDA card unless given) in width-``chunk`` steps
     (batches shuffled across tenants when ``rng`` is given) and finalize.
-    Returns the engine (events, meter, survivors)."""
+    Returns the engine (events, meter, survivors). ``obs`` (a
+    ``repro_torch.obs.Observability``) threads the telemetry layer
+    through the engine — device metric counters, residual alert channel,
+    span timeline."""
     m, n = traces.shape
     engine = StreamEngine(specs, replan=replan, constraints=constraints,
-                          device=device)
+                          obs=obs, device=device)
     sids = np.array([s.stream_id for s in specs])
-    with timers.span("online.run_fleet"):
+    tracer = obs.tracer if obs is not None else None
+    with timers.span("online.run_fleet", tracer=tracer, m=m, n=n,
+                     chunk=chunk):
         for t0 in range(0, n, chunk):
             w = min(chunk, n - t0)
             mixed_sids = np.repeat(sids, w)
@@ -170,23 +173,26 @@ def evaluate_fleet(traces: np.ndarray, specs: Sequence[StreamSpec], *,
                    constraints=None, oracle_grid: int = 16,
                    drift_schedule=None, oracle_probes: int = 3,
                    rng: Optional[np.random.Generator] = None,
-                   device=None) -> FleetEvaluation:
+                   obs=None, device=None) -> FleetEvaluation:
     """Run the closed loop over the fleet, then score static vs replanned
     realized costs per stream. With ``drift_at`` the oracle column is
     filled too: the process oracle when ``drift_schedule`` (the true
     multiplier schedule) is given, else the per-trace hindsight bound.
     ``specs`` must carry cost models. The engine runs on ``device`` (the
-    CUDA card unless given); the phase wall times land in
-    ``FleetEvaluation.timings``."""
-    with timers.span("online.evaluate.engine") as sp_run:
+    CUDA card unless given); ``obs`` threads the telemetry layer through
+    the run; the phase wall times land in ``FleetEvaluation.timings``
+    (and, with ``obs``, on the span timeline)."""
+    tracer = obs.tracer if obs is not None else None
+    with timers.span("online.evaluate.engine", tracer=tracer) as sp_run:
         engine = run_fleet(traces, specs, replan=replan, chunk=chunk,
-                           constraints=constraints, rng=rng, device=device)
+                           constraints=constraints, rng=rng, obs=obs,
+                           device=device)
     m = traces.shape[0]
     schedules = schedules_from_events(engine)
     static_cost = np.zeros(m)
     replanned_cost = np.zeros(m)
     oracle_cost = np.full(m, np.nan)
-    with timers.span("online.evaluate.score") as sp_score:
+    with timers.span("online.evaluate.score", tracer=tracer) as sp_score:
         for i, spec in enumerate(specs):
             row = engine.stream_row(spec.stream_id)
             base = tuple(b for b in engine.meter.boundaries[row]
@@ -228,9 +234,53 @@ def evaluate_fleet(traces: np.ndarray, specs: Sequence[StreamSpec], *,
 def regret_table(engine: StreamEngine, traces=None, *,
                  drift_at: Optional[int] = None,
                  grid: int = 8) -> List[Dict]:
-    """Per-tenant regret rows from a live engine's cost attribution — it
-    reads the engine's cost ledger (``cost_summary``), which is part of
-    the port of ``repro.obs`` and not ported yet."""
-    raise NotImplementedError(
-        "regret_table needs the engine's cost ledger (cost_summary), which "
-        "is not ported yet (ROADMAP queue 1 item 7)")
+    """Per-tenant regret rows from a live engine's cost attribution
+    (requires ``ObsConfig(costs=True)``): realized spend from the device
+    ledger, the planner's closed-form expected spend, their difference
+    (regret vs plan), and — when ``traces`` and ``drift_at`` are given —
+    regret vs the per-trace hindsight oracle (``hindsight_oracle``), the
+    strongest baseline the paper admits. Cascade streams skip the oracle
+    column (the oracle sweeps static re-plans)."""
+    summ = engine.cost_summary()
+    rows: List[Dict] = []
+    for row in range(engine.m):
+        sid = engine._sid_of_row[row]
+        entry = {"stream_id": sid, "row": row,
+                 "realized": float(summ["total"][row]),
+                 "planned": float(summ["planned"][row]),
+                 "regret": float(summ["regret"][row]),
+                 "oracle": float("nan"), "oracle_regret": float("nan")}
+        cm = engine._model_of_row.get(row)
+        if (traces is not None and drift_at is not None and cm is not None
+                and not engine.meter.migrate[row]):
+            base = tuple(b for b in engine.meter.boundaries[row]
+                         if np.isfinite(b))
+            for ev in engine.replan_events:
+                if ev.stream_id == sid:
+                    base = ev.old_bounds
+                    break
+            oc, _ = hindsight_oracle(np.asarray(traces[row]),
+                                     int(engine.meter.ks[row]), cm, base,
+                                     drift_at, grid=grid)
+            entry["oracle"] = float(oc)
+            entry["oracle_regret"] = entry["realized"] - float(oc)
+        rows.append(entry)
+    return rows
+
+
+def format_regret_table(rows: Sequence[Dict]) -> str:
+    """Fixed-width text rendering of ``regret_table`` rows (the README /
+    example excerpt)."""
+    header = (f"{'stream':>6} {'realized':>12} {'planned':>12} "
+              f"{'regret':>12} {'vs oracle':>12}")
+    lines = [header, "-" * len(header)]
+    for r in rows:
+        vs = ("-" if np.isnan(r["oracle_regret"])
+              else f"{r['oracle_regret']:>12.4e}")
+        lines.append(f"{r['stream_id']:>6} {r['realized']:>12.4e} "
+                     f"{r['planned']:>12.4e} {r['regret']:>12.4e} {vs:>12}")
+    tot_real = sum(r["realized"] for r in rows)
+    tot_plan = sum(r["planned"] for r in rows)
+    lines.append(f"{'fleet':>6} {tot_real:>12.4e} {tot_plan:>12.4e} "
+                 f"{tot_real - tot_plan:>12.4e} {'':>12}")
+    return "\n".join(lines)

@@ -26,13 +26,22 @@ detector fired are re-solved over the rest of their window
 (``online.replan``; on the card through ``online.replan_device`` and the
 ``plan_solve`` kernel) and the new boundaries are applied to the meter.
 
+Observability (``obs=`` a ``obs.Observability``): the step also folds
+the device counters (``obs.metrics``) and, with ``ObsConfig(costs=True)``,
+each bucket's cost ledger (``obs.costs``) — tensor reductions on the
+engine's device with no read back to the host; between chunks the host
+monitors (``obs.residuals.ResidualMonitor``, ``obs.costs.CostMonitor``)
+test the meter's drain and may add their alerted streams to the
+re-planner's; spans and events land on the tracer.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: observability ``obs=`` (queue 1 item 7) and fleet-axis
-sharding ``mesh=`` (item 9). Tier outage (``tier_outage`` /
-``tier_recover``) is item 8, so re-plans exclude no tier.
+ROADMAP item: fleet-axis sharding ``mesh=`` (queue 1 item 9). Tier outage
+(``tier_outage`` / ``tier_recover``) is item 8, so re-plans exclude no
+tier and ``obs_snapshot`` reports no failed tier.
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -173,44 +182,67 @@ def evicted_ids(old: BatchedReservoirState,
 
 
 def step(states: Sequence, batches, buckets: Sequence[router.Bucket],
-         dstates: Sequence = (), drift_cfg=None):
+         dstates: Sequence = (), drift_cfg=None, mstate=None,
+         cstates: Optional[Sequence] = None):
     """One fleet step over all buckets: ``batches`` holds one (scores,
     ids) (M_b, W) pair per bucket, ``buckets`` the router's buckets (K
-    and backend). Returns (new_states, wrotes, evicted, new_dstates)
-    lists, one entry per bucket (``new_dstates`` empty without
-    ``drift_cfg``).
+    and backend). Returns (new_states, wrotes, evicted, new_dstates,
+    mstate, new_cstates): lists with one entry per bucket
+    (``new_dstates`` empty without ``drift_cfg``, ``new_cstates`` without
+    ``cstates``) and the new metrics state (None without ``mstate``).
 
     With ``drift_cfg`` (online re-planning) the step also advances each
     bucket's drift-detector state ``dstates[b]`` from the chunk's write
     counts, after the bucket's merge; logmem buckets test their evidence
     with the backend's ``law_slack`` folded into the thresholds.
 
+    With ``mstate`` (an ``obs.metrics.MetricsState``) the step folds the
+    fleet counters, and with ``cstates`` (one ``obs.costs.CostState`` a
+    bucket) the cost ledgers: reductions over tensors the step already
+    has, none read back to the host. Without them the step runs exactly
+    the operations it runs without obs.
+
     Non-finite scores are quarantined before any compare sees them (NaN
     fails every comparison, ±inf corrupts the entry bar): they become
     inert (-inf, -1) pad slots. Logmem buckets advance through
-    ``logmem.update`` and evict nothing ((M_b, 0) evictions). Exact
-    buckets with wide batches (W >= K) take ``filtered_update``, narrow
-    ones the fused sort-merge ``update``, whose one sort is then
-    cheaper."""
+    ``logmem.update`` and evict nothing ((M_b, 0) evictions); their
+    metrics bar is the active threshold ``tau``. Exact buckets with wide
+    batches (W >= K) take ``filtered_update``, narrow ones the fused
+    sort-merge ``update``, whose one sort is then cheaper."""
     if drift_cfg is not None:
         from repro_torch.online import drift as drift_mod
-    new_states, wrotes, evs, new_dstates = [], [], [], []
+    if mstate is not None:
+        from repro_torch.obs import metrics as metrics_mod
+    if cstates is not None:
+        from repro_torch.obs import costs as costs_mod
+    new_states, wrotes, evs, new_dstates, new_cstates = [], [], [], [], []
     for bi, (st, (s, i), b) in enumerate(zip(states, batches, buckets)):
         bad = (i >= 0) & ~torch.isfinite(s)
         s = torch.where(bad, float("-inf"), s)
         i = torch.where(bad, PAD_ID, i)
+        if mstate is not None:
+            mstate = metrics_mod.accumulate_quarantine(
+                mstate, bad.sum(dtype=torch.int32))
         if b.engine == "logmem":
             new, wrote = logmem.update(st, s, i, b.k)
             ev = torch.full((s.shape[0], 0), PAD_ID, dtype=torch.int32,
                             device=s.device)
+            bar = st.tau
             slack = logmem.law_slack(b.k)
+            if cstates is not None:
+                new_cstates.append(costs_mod.accumulate_logmem(
+                    cstates[bi], i, wrote))
         else:
             if s.shape[1] >= st.scores.shape[1]:
                 new, wrote = filtered_update(st, s, i)
             else:
                 new, wrote = update(st, s, i)
             ev = evicted_ids(st, new)
+            bar = st.scores[:, -1]
             slack = 0.0
+            if cstates is not None:
+                new_cstates.append(costs_mod.accumulate_exact(
+                    cstates[bi], i, wrote, ev, new.ids))
         new_states.append(new)
         wrotes.append(wrote)
         evs.append(ev)
@@ -218,7 +250,22 @@ def step(states: Sequence, batches, buckets: Sequence[router.Bucket],
             new_dstates.append(drift_mod.update(
                 dstates[bi], wrote.sum(dim=1), new.seen, float(b.k),
                 drift_cfg, slack=slack))
-    return new_states, wrotes, evs, new_dstates
+        if mstate is not None:
+            mstate = metrics_mod.accumulate_bucket(mstate, s, i, bar, wrote,
+                                                   ev)
+    if mstate is not None:
+        if drift_cfg is not None:
+            dev = mstate.counts.device
+            score_max = torch.zeros((), dtype=torch.float32, device=dev)
+            fired = torch.zeros((), dtype=torch.int32, device=dev)
+            for ds, b in zip(new_dstates, buckets):
+                sl = logmem.law_slack(b.k) if b.engine == "logmem" else 0.0
+                score_max = torch.maximum(
+                    score_max, drift_mod.scores(ds, drift_cfg, slack=sl).max())
+                fired = fired + ds.fired.sum(dtype=torch.int32)
+            mstate = metrics_mod.accumulate_drift(mstate, score_max, fired)
+        mstate = metrics_mod.bump_chunk(mstate)
+    return new_states, wrotes, evs, new_dstates, mstate, new_cstates
 
 
 # ---------------------------------------------------------------------------
@@ -376,15 +423,20 @@ class StreamEngine:
     its suffix solver is ``online.Replanner``'s "auto" on the engine's
     device: ``online.replan_device`` on a CUDA device, the NumPy loop on
     the CPU.
+
+    ``obs`` (an ``obs.Observability``) turns on the telemetry layer: the
+    device counters and cost ledgers in the step, the residual and cost
+    monitors between chunks (whose alerts join the re-plan trigger under
+    ``ObsConfig.residual_trigger`` / ``cost_trigger``), and the span and
+    event timeline; ``obs_snapshot``, ``cost_summary``, ``cost_alerts``
+    and ``residual_alerts`` read them.
     """
 
     def __init__(self, specs: Sequence[StreamSpec], *, constraints=None,
                  device=None, replan=None, obs=None, mesh=None):
-        for name, value, item in (("obs", obs, 7), ("mesh", mesh, 9)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet (ROADMAP queue 1 item "
-                    f"{item})")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= is not ported yet (ROADMAP queue 1 item 9)")
         if not specs:
             raise ValueError("need at least one stream")
         by_id = {s.stream_id: s for s in specs}
@@ -405,15 +457,23 @@ class StreamEngine:
             {s.stream_id: s.engine for s in specs})
         self.router = router.StreamRouter(self.buckets)
         self.constraints = constraints
+        # observability (repro_torch.obs): device counters in the step,
+        # residual and cost alert channels off the meter drain, the
+        # span/event timeline
+        self._obs = obs
+        self._tracer = obs.tracer if obs is not None else None
+        if obs is not None:
+            obs.attach(self)
         # fleet plan for streams that carry a cost model (2- and N-tier mix)
         planned = [s for s in specs if s.explicit_boundaries() is None]
         if planned:
             if any(s.cost_model is None for s in planned):
                 raise ValueError(
                     "each stream needs r, boundaries, or a cost_model")
-            plan = planner.plan_fleet_mixed(
-                [s.cost_model for s in planned], constraints=constraints,
-                device=self.device)
+            with self._span("plan", streams=len(planned)):
+                plan = planner.plan_fleet_mixed(
+                    [s.cost_model for s in planned],
+                    constraints=constraints, device=self.device)
             bad = [s.stream_id for i, s in enumerate(planned)
                    if not plan.feasible(i)]
             if bad:
@@ -494,6 +554,52 @@ class StreamEngine:
                 constraints=cset_arg, config=replan, device=self.device)
             self._drift_states = [drift_mod.init(b.m, device=self.device)
                                   for b in self.buckets]
+        self._metrics_state = None
+        self._residuals = None
+        self._cost_states = None
+        self._cost_monitor = None
+        self._pricing = None
+        if obs is not None:
+            slack_rows = np.where(
+                self.meter.logmem,
+                np.array([logmem.law_slack(int(k)) for k in self.meter.ks]),
+                0.0)
+            if obs.config.metrics:
+                from repro_torch.obs import metrics as metrics_mod
+                self._metrics_state = metrics_mod.init(device=self.device)
+            if obs.config.residuals:
+                from repro_torch.obs.residuals import ResidualMonitor
+                self._residuals = ResidualMonitor(
+                    self.meter.ks, alpha=obs.config.residual_alpha,
+                    max_checks=obs.config.residual_max_checks,
+                    law_slack=slack_rows)
+            if obs.config.costs:
+                # live cost attribution (obs.costs): the device ledger in
+                # the step, the host CostMonitor (cost residuals and
+                # budget burn rate) off the meter drain
+                from repro_torch.obs import costs as costs_mod
+                self._cost_states = [
+                    costs_mod.init_bucket(b.m, self.meter.boundaries[rows],
+                                          self.meter.n_tiers,
+                                          device=self.device)
+                    for b, rows in zip(self.buckets, self._global_rows)]
+                self._pricing = costs_mod.stream_pricing(self)
+                self._cost_monitor = costs_mod.CostMonitor(
+                    self.meter.ks, self.meter.boundaries,
+                    self._pricing["cw"], self._pricing["step_rate"],
+                    alpha=obs.config.cost_alpha,
+                    max_checks=obs.config.cost_max_checks,
+                    law_slack=slack_rows, logmem=self.meter.logmem,
+                    budget_factor=obs.config.budget_factor,
+                    burn_windows=obs.config.burn_windows)
+        # the ingest cursor: chunk boundaries consumed
+        self.chunks_ingested = 0
+
+    def _span(self, name: str, **attrs):
+        """The tracer's span when obs is on, else a no-op context."""
+        if self._tracer is None:
+            return contextlib.nullcontext()
+        return self._tracer.span(name, **attrs)
 
     @property
     def m(self) -> int:
@@ -511,8 +617,12 @@ class StreamEngine:
         A doc id may appear at most once per stream per batch (they are
         stream positions); the router rejects within-batch duplicates.
         Re-observations across batches are deduped by the merge itself."""
-        self._run_chunk(self.router.route(stream_ids, scores, doc_ids,
-                                          pad_to=pad_to))
+        span = (self._span("ingest", docs=int(len(stream_ids)))
+                if self._obs is not None and self._obs.config.trace_ingest
+                else contextlib.nullcontext())
+        with span:
+            self._run_chunk(self.router.route(stream_ids, scores, doc_ids,
+                                              pad_to=pad_to))
 
     def _to_device(self, dense) -> list:
         return [(torch.tensor(s, device=self.device),
@@ -520,22 +630,27 @@ class StreamEngine:
 
     def _dispatch(self, batches):
         """Run one fleet step on device batches and swap in the new
-        states (and drift states). The old state tensors return to
-        PyTorch's caching allocator, which hands them to the next step:
-        the counterpart of the reference's buffer donation."""
+        states (and drift, metrics and cost states). The old state
+        tensors return to PyTorch's caching allocator, which hands them
+        to the next step: the counterpart of the reference's buffer
+        donation."""
         drift_cfg = (self.replan_config.drift
                      if self._drift_states is not None else None)
-        new_states, wrotes, evs, new_dstates = step(
+        new_states, wrotes, evs, new_dstates, mstate, new_cstates = step(
             self._states, batches, self.buckets,
-            self._drift_states or (), drift_cfg)
+            self._drift_states or (), drift_cfg, self._metrics_state,
+            self._cost_states)
         self._states = new_states
         if self._drift_states is not None:
             self._drift_states = new_dstates
+        self._metrics_state = mstate
+        if self._cost_states is not None:
+            self._cost_states = new_cstates
         return wrotes, evs, new_states
 
     def _consume(self, dense, wrotes, evs, new_states, meter: bool) -> None:
-        """Host side of one step: meter the transactions, maybe re-plan.
-        ``meter=False`` skips both."""
+        """Host side of one step: meter the transactions, update the obs
+        monitors, maybe re-plan. ``meter=False`` skips all three."""
         if not meter:
             return
         for bi, b in enumerate(self.buckets):
@@ -553,12 +668,59 @@ class StreamEngine:
             self.meter.record_update(
                 self._global_rows[bi], dense_ids, wrotes[bi].cpu().numpy(),
                 evs[bi].cpu().numpy(), st_ids)
+        residual_rows = ()
+        if self._residuals is not None:
+            # chunk-boundary drain: the alert channel tests the meter's
+            # cumulative write residual against its concentration bound
+            newly = self._residuals.update(self.meter.observed,
+                                           self.meter.writes.sum(1))
+            if newly.any() and self._tracer is not None:
+                sc = self._residuals.scores()
+                for row in np.flatnonzero(newly):
+                    self._tracer.emit(
+                        "residual_alert", stream_id=self._sid_of_row[row],
+                        row=int(row), position=int(self.meter.observed[row]),
+                        score=float(sc[row]),
+                        step=int(self._residuals.steps))
+            if (self._obs.config.residual_trigger
+                    and self._drift_states is not None):
+                residual_rows = tuple(
+                    int(r) for r in np.flatnonzero(self._residuals.alerted))
+        cost_rows = ()
+        if self._cost_monitor is not None:
+            # the cost channel runs off the same meter drain: realized
+            # spend vs the closed-form expected-cost trajectory
+            mon = self._cost_monitor
+            newly_cost, newly_burn = mon.update(
+                self.meter.observed, self.meter.writes, self.meter.doc_steps)
+            if self._tracer is not None and newly_cost.any():
+                sc = mon.scores()
+                for row in np.flatnonzero(newly_cost):
+                    self._tracer.emit(
+                        "cost_alert", stream_id=self._sid_of_row[row],
+                        row=int(row), position=int(self.meter.observed[row]),
+                        score=float(sc[row]), step=int(mon.steps))
+            if self._tracer is not None and newly_burn.any():
+                br = mon.burn_ratio()
+                for row in np.flatnonzero(newly_burn):
+                    self._tracer.emit(
+                        "budget_burn", stream_id=self._sid_of_row[row],
+                        row=int(row), position=int(self.meter.observed[row]),
+                        burn_ratio=float(br[row]),
+                        realized=float(mon.realized_total[row]),
+                        planned=float(mon.planned_total[row]),
+                        step=int(mon.steps))
+            if (self._obs.config.cost_trigger
+                    and self._drift_states is not None):
+                cost_rows = tuple(int(r) for r in np.flatnonzero(
+                    mon.alerted | mon.burn_alerted))
         if self._drift_states is not None:
-            self._maybe_replan()
+            self._maybe_replan(residual_rows, cost_rows)
 
     def _run_chunk(self, dense, *, meter: bool = True) -> None:
         wrotes, evs, new_states = self._dispatch(self._to_device(dense))
         self._consume(dense, wrotes, evs, new_states, meter)
+        self.chunks_ingested += 1
 
     def _checked(self, dense) -> list:
         if len(dense) != len(self.buckets):
@@ -615,23 +777,31 @@ class StreamEngine:
                 staged = stager.stage(slot, nxt)
             # host consumption blocks on chunk t's outputs last
             self._consume(dense, wrotes, evs, new_states, meter)
+            self.chunks_ingested += 1
             count += 1
         return count
 
-    def _maybe_replan(self) -> None:
-        """Between chunks: re-plan the streams whose drift detector fired,
-        apply the boundary deltas to the meter (re-tiering residents,
-        with the relocation bill already priced into the decision), and
-        reset the consumed detector evidence."""
+    def _maybe_replan(self, residual_rows: Sequence[int] = (),
+                      cost_rows: Sequence[int] = ()) -> None:
+        """Between chunks: re-plan the streams whose drift detector fired
+        — unioned with the obs residual-alert channel under
+        ``ObsConfig.residual_trigger`` and with the cost/budget-burn
+        channel under ``ObsConfig.cost_trigger`` — apply the boundary
+        deltas to the meter (re-tiering residents, with the relocation
+        bill already priced into the decision) and to the cost ledger,
+        and reset the consumed detector (and residual/cost) evidence."""
         from repro_torch.online import drift as drift_mod
         fired_rows, rhos = [], []
         bucket_of, row_in_bucket = [], []
+        extra = set(residual_rows) | set(cost_rows)
         for bi in range(len(self.buckets)):
             ds = self._drift_states[bi]
             flag = ds.fired.cpu().numpy()
+            rows_b = self._global_rows[bi]
+            if extra:
+                flag = flag | np.isin(rows_b, list(extra))
             if not flag.any():
                 continue
-            rows_b = self._global_rows[bi]
             rho_b = drift_mod.rho_hat(ds, self.replan_config.drift
                                       ).cpu().numpy()
             for j in np.flatnonzero(flag):
@@ -651,11 +821,13 @@ class StreamEngine:
             bounds.append(tuple(b[:depth]))
         # tier outage (ROADMAP queue 1 item 8) is not ported: no tier is
         # excluded from the re-solve
-        dec = self._replanner.replan(rows, self.meter.observed[rows],
-                                     np.asarray(rhos), bounds,
-                                     self.meter.migrate[rows],
-                                     hwm=self.meter.occupancy_hwm[rows],
-                                     exclude_tiers=frozenset())
+        with self._span("replan", flagged=len(fired_rows)):
+            dec = self._replanner.replan(rows, self.meter.observed[rows],
+                                         np.asarray(rhos), bounds,
+                                         self.meter.migrate[rows],
+                                         hwm=self.meter.occupancy_hwm[rows],
+                                         exclude_tiers=frozenset())
+        residual_set, cost_set = set(residual_rows), set(cost_rows)
         touched_buckets = set()
         host_ids: Dict[int, np.ndarray] = {}  # one device copy a bucket
         for j, row in enumerate(rows):
@@ -674,6 +846,15 @@ class StreamEngine:
                 moved = self.meter.apply_boundaries(
                     int(row), dec.new_bounds[j], ids_arg)
                 touched_buckets.add(bi)
+                if self._cost_states is not None:
+                    # swap the device ledger's boundary row and the
+                    # monitor's planned trajectory
+                    from repro_torch.obs import costs as costs_mod
+                    self._cost_states[bi] = costs_mod.set_bucket_bounds(
+                        self._cost_states[bi], jb,
+                        self.meter.boundaries[int(row)])
+                    self._cost_monitor.set_bounds(
+                        int(row), self.meter.boundaries[int(row)])
             self.replan_events.append(ReplanEvent(
                 stream_id=self._sid_of_row[int(row)], row=int(row),
                 position=int(dec.n_seen[j]), rho=float(dec.rho[j]),
@@ -682,6 +863,14 @@ class StreamEngine:
                 suffix_cost_old=float(dec.suffix_cost_old[j]),
                 suffix_cost_new=float(dec.suffix_cost_new[j]),
                 move_bill=float(dec.move_bill[j]), moved_docs=moved))
+            if self._tracer is not None:
+                self._tracer.emit(
+                    "replan_decision", stream_id=self._sid_of_row[int(row)],
+                    row=int(row), position=int(dec.n_seen[j]),
+                    rho=float(dec.rho[j]), applied=bool(dec.applied[j]),
+                    feasible=bool(dec.feasible[j]), moved_docs=moved,
+                    residual_triggered=int(row) in residual_set,
+                    cost_triggered=int(row) in cost_set)
         # boundary deltas are placement metadata: the reservoirs themselves
         # must be untouched — every affected bucket keeps the sorted-desc
         # score invariant the merge relies on
@@ -700,6 +889,14 @@ class StreamEngine:
                   if bucket_of[j] == bi]] = True
             self._drift_states[bi] = drift_mod.reset_where(
                 self._drift_states[bi], torch.from_numpy(mask))
+        # the re-plan consumed this evidence: restart the residual and
+        # cost channels for the processed rows, like the detector
+        mask = np.zeros(self.m, bool)
+        mask[rows] = True
+        if self._residuals is not None:
+            self._residuals.reset_where(mask)
+        if self._cost_monitor is not None:
+            self._cost_monitor.reset_where(mask)
 
     def _negotiate_admission(self, row: int, position: int) -> None:
         """A constrained suffix re-solve found no feasible plan (or the
@@ -716,6 +913,11 @@ class StreamEngine:
         self.admission_events.append(AdmissionEvent(
             stream_id=self._sid_of_row[row], row=row, position=position,
             decision=decision))
+        if self._tracer is not None:
+            self._tracer.emit("admission", stream_id=self._sid_of_row[row],
+                              row=row, position=position,
+                              admitted=bool(getattr(decision, "admitted",
+                                                    False)))
 
     def drift_scores(self) -> Dict[int, float]:
         """{stream_id: normalized change score} (>= 1 fires; online mode
@@ -765,16 +967,116 @@ class StreamEngine:
                 out[sid] = np.sort(v[v >= 0]).astype(np.int64)
         return out
 
+    def residual_alerts(self) -> Dict[int, int]:
+        """{stream_id: docs observed at first alert} of the obs residual
+        channel — directly comparable to ``replan_events[i].position``
+        (streams that never alerted are absent; obs mode only)."""
+        if self._residuals is None:
+            raise ValueError("engine built without obs= (or residuals off)")
+        out = {}
+        for row in np.flatnonzero(self._residuals.first_alert_seen >= 0):
+            out[self._sid_of_row[int(row)]] = int(
+                self._residuals.first_alert_seen[row])
+        return out
+
+    def obs_snapshot(self) -> Dict:
+        """Everything the obs layer exports for this engine: drained
+        device counters, meter ledger aggregates (per-tier occupancy
+        high-water marks, relocations), and the model-referenced
+        residual metrics (realized / expected / z for the write law;
+        realized / expected for the occupancy law). The resilience block
+        reports the ingest cursor; tier outage is not ported (ROADMAP
+        queue 1 item 8), so no tier has failed."""
+        from repro_torch.obs import residuals as res_mod
+        out: Dict = {"fleet": {"m": self.m, "buckets": len(self.buckets),
+                               "logmem_streams":
+                                   int(self.meter.logmem.sum())}}
+        if self._metrics_state is not None:
+            from repro_torch.obs import metrics as metrics_mod
+            out["engine"] = metrics_mod.snapshot(self._metrics_state)
+        out["meter"] = {
+            "observed": int(self.meter.observed.sum()),
+            "writes": int(self.meter.writes.sum()),
+            "reads": int(self.meter.reads.sum()),
+            "deletes": int(self.meter.deletes.sum()),
+            "migrations": int(self.meter.migrations.sum()),
+            "relocations": int(self.meter.relocations.sum()),
+            "occupancy_hwm": [int(x)
+                              for x in self.meter.occupancy_hwm.sum(0)],
+        }
+        # the monitor's totals evaluate the write law at the actual
+        # ingest chunking; without it fall back to the per-doc law
+        wr = (self._residuals.write_z() if self._residuals is not None
+              else res_mod.write_residuals(self.meter))
+        occ = res_mod.occupancy_residuals(self.meter)
+        out["residuals"] = {
+            "writes": {
+                "fleet_realized": float(wr["realized"].sum()),
+                "fleet_expected": float(wr["expected"].sum()),
+                "max_abs_z": float(np.abs(wr["z"]).max()) if self.m else 0.0,
+                "mean_z": float(wr["z"].mean()) if self.m else 0.0,
+            },
+            "occupancy": {
+                "fleet_realized": float(np.nansum(occ["realized"])),
+                "fleet_expected": float(np.nansum(occ["expected"])),
+                # all-NaN before any metered chunk (pure-throughput mode)
+                "max_normalized": float(np.nanmax(np.abs(occ["normalized"])))
+                if self.m and not np.isnan(occ["normalized"]).all() else 0.0,
+            },
+        }
+        if self._residuals is not None:
+            out["residuals"]["alerts"] = self._residuals.snapshot()
+        if self._cost_states is not None:
+            from repro_torch.obs import costs as costs_mod
+            out["costs"] = costs_mod.snapshot(self)
+        out["resilience"] = {
+            "chunks_ingested": int(self.chunks_ingested),
+            "failed_tiers": [],
+            "recovering_tiers": [],
+            "tier_outages": 0,
+        }
+        return out
+
+    def cost_summary(self) -> Dict:
+        """Per-stream realized / planned / regret cost arrays from the
+        device ledger + host monitor (``obs.costs.cost_summary``)."""
+        if self._cost_states is None:
+            raise ValueError("engine built without obs= (or costs off)")
+        from repro_torch.obs import costs as costs_mod
+        return costs_mod.cost_summary(self)
+
+    def cost_alerts(self) -> Dict[int, Dict]:
+        """{stream_id: {"position", "kind"}} of the cost channel's first
+        alert per stream — ``kind`` is "residual" or "burn" (whichever
+        fired first; streams that never alerted are absent)."""
+        if self._cost_monitor is None:
+            raise ValueError("engine built without obs= (or costs off)")
+        mon = self._cost_monitor
+        out: Dict[int, Dict] = {}
+        for row in range(self.m):
+            res_at = int(mon.first_alert_seen[row])
+            burn_at = int(mon.first_burn_seen[row])
+            if res_at < 0 and burn_at < 0:
+                continue
+            if burn_at < 0 or (0 <= res_at <= burn_at):
+                out[self._sid_of_row[row]] = {"position": res_at,
+                                              "kind": "residual"}
+            else:
+                out[self._sid_of_row[row]] = {"position": burn_at,
+                                              "kind": "burn"}
+        return out
+
     def finalize(self) -> Dict[int, np.ndarray]:
         """End-of-window: meter the final top-K read per stream (tiered by
         each stream's boundaries) and return the survivors. Logmem streams
         meter no reads (no ids on the device) and return empty sets."""
-        for bi, b in enumerate(self.buckets):
-            if b.engine == "logmem":
-                continue
-            self.meter.record_reads(self._global_rows[bi],
-                                    self._states[bi].ids.cpu().numpy())
-        return self.survivors()
+        with self._span("finalize"):
+            for bi, b in enumerate(self.buckets):
+                if b.engine == "logmem":
+                    continue
+                self.meter.record_reads(self._global_rows[bi],
+                                        self._states[bi].ids.cpu().numpy())
+            return self.survivors()
 
     def assign_tiers(self
                      ) -> List[Optional[Tuple[torch.Tensor, torch.Tensor]]]:
@@ -828,7 +1130,12 @@ class StreamEngine:
         an explicit) ``ConstraintSet``: metered occupancy high-water marks
         vs capacities, realized read latency vs the SLO (see
         ``FleetMeter.check_constraints``). Streams planned from cost
-        models are checked against the ``effective_capacity`` merge."""
+        models are checked against the ``effective_capacity`` merge.
+
+        The report's ``"violations"`` key is the structured per-stream
+        list ({stream_id, row, tier, kind, measured, limit, margin});
+        with ``obs=`` every entry is also emitted on the obs event log as
+        a ``constraint_violation`` event."""
         from repro_torch.core.constraints import effective_capacity
         cset = constraints if constraints is not None else self.constraints
         if cset is None:
@@ -863,4 +1170,6 @@ class StreamEngine:
         for v in report["violations"]:
             if v["row"] is not None:
                 v["stream_id"] = self._sid_of_row[v["row"]]
+            if self._tracer is not None:
+                self._tracer.emit("constraint_violation", **v)
         return report

@@ -27,6 +27,10 @@ flash_attention and entropy_nll sum in another order than their plain
 versions: 2e-5 in float32 and 2e-2 in bfloat16 (the reference's
 tolerances for its kernels), and serve's scores within 2e-5.
 """
+import dataclasses
+import json
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -879,12 +883,12 @@ def mixed_dense_chunks(n_chunks, seed):
                                       dtype=np.int32), (4, 1)))]
 
 
-def mixed_engine(device):
+def mixed_engine(device, obs=None):
     specs = [t_eng.StreamSpec(stream_id=i, k=8, boundaries=(30.0, 70.0),
                               migrate=i % 2 == 1) for i in range(16)]
     specs += [t_eng.StreamSpec(stream_id=100 + i, k=256, r=1024.0,
                                engine="logmem") for i in range(4)]
-    return t_eng.StreamEngine(specs, device=device)
+    return t_eng.StreamEngine(specs, device=device, obs=obs)
 
 
 @pytest.mark.cuda
@@ -1312,3 +1316,145 @@ def test_replanning_engine_on_card_equals_cpu(cuda_device):
     for sid in ct:
         for key in ("ids", "tiers", "counts"):
             np.testing.assert_array_equal(gt[sid][key], ct[sid][key])
+
+
+# ---------------------------------------------------------------------------
+# fleet observability (repro_torch.obs) on the card
+# ---------------------------------------------------------------------------
+
+def count_syncs(fn):
+    """``fn()``'s result and the synchronizing CUDA operations it issued
+    (``torch.cuda.set_sync_debug_mode("warn")`` warns once for each)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def observed_mixed_engine(device):
+    from repro_torch.obs import Observability, ObsConfig
+    return mixed_engine(device, Observability(ObsConfig(costs=True)))
+
+
+@pytest.mark.cuda
+def test_obs_counters_and_ledgers_on_card_equal_cpu(cuda_device):
+    """The mixed fleet (exact and logmem buckets, NaN and Inf scores in
+    the second chunk) observed with costs on: the packed counters, the
+    drift score's bits, every bucket's cost ledger, the snapshot and the
+    cost summary equal the port's CPU run."""
+    from repro_torch.obs import costs as costs_mod
+    cpu, gpu = (observed_mixed_engine(d) for d in ("cpu", cuda_device))
+    cpu.ingest_chunks(mixed_dense_chunks(12, 4))
+    gpu.ingest_chunks(mixed_dense_chunks(12, 4))
+    assert torch.equal(gpu._metrics_state.counts.cpu(),
+                       cpu._metrics_state.counts)
+    assert torch.equal(gpu._metrics_state.drift_score_max.cpu().view(
+        torch.int32), cpu._metrics_state.drift_score_max.view(torch.int32))
+    for cs, gs in zip(cpu._cost_states, gpu._cost_states):
+        for a, b in zip(cs, gs):
+            assert torch.equal(a, b.cpu())
+    snap = gpu.obs_snapshot()
+    assert snap["engine"]["scores_quarantined"] == 2
+    assert json.dumps(snap, sort_keys=True) == json.dumps(
+        cpu.obs_snapshot(), sort_keys=True)
+    a, b = costs_mod.cost_summary(cpu), costs_mod.cost_summary(gpu)
+    for key in ("writes", "reads", "storage", "migration", "total",
+                "planned", "regret"):
+        np.testing.assert_array_equal(a[key], b[key])
+
+
+@pytest.mark.cuda
+def test_obs_adds_no_sync_on_card(cuda_device):
+    """The same chunks through the mixed fleet with obs off and on (costs
+    on), meter off: the steps issue the same number of synchronizing
+    operations, and ``metrics.snapshot`` drains with one."""
+    from repro_torch.obs import metrics as metrics_mod
+    off = mixed_engine(cuda_device)
+    on = observed_mixed_engine(cuda_device)
+    # warm-up; a process's first counted call sees one synchronizing
+    # operation whatever it drives, so the warm-up is counted too
+    count_syncs(lambda: off.ingest_chunks(mixed_dense_chunks(2, 5),
+                                          meter=False))
+    on.ingest_chunks(mixed_dense_chunks(2, 5), meter=False)
+    _, n_off = count_syncs(lambda: off.ingest_chunks(
+        mixed_dense_chunks(8, 6), meter=False))
+    _, n_on = count_syncs(lambda: on.ingest_chunks(
+        mixed_dense_chunks(8, 6), meter=False))
+    assert n_on == n_off
+    snap, drains = count_syncs(lambda: metrics_mod.snapshot(
+        on._metrics_state))
+    assert drains == 1 and snap["chunks"] == 10
+    for a, b in zip(off.states(), on.states()):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cost_triggered_replanning_on_card_equals_cpu(cuda_device):
+    """examples/cost_attribution.py's fleet (K=64, windows of 12,000,
+    half the tenants with an 8x burst at doc 3000, cost trigger) on the
+    card and on the CPU, from the card's planned boundaries, the CPU
+    pinned to the card's re-solve: events in order (clock fields aside),
+    replan events, cost alerts, cost summary and snapshots; the drift
+    score within 1 ulp."""
+    from repro_torch.obs import Observability, ObsConfig
+    m, n, k = 8, 12000, 64
+    wl = t_costs.WorkloadSpec(n_docs=n, k=k, doc_gb=1e-4, window_months=0.5)
+    cm = t_costs.TwoTierCostModel(
+        tier_a=t_costs.TierCosts("hot", put_per_doc=1e-6,
+                                 get_per_doc=2.7e-4,
+                                 storage_per_gb_month=0.05),
+        tier_b=t_costs.TierCosts("cold", put_per_doc=8e-5,
+                                 get_per_doc=1e-6,
+                                 storage_per_gb_month=0.02),
+        workload=wl)
+    rng = np.random.default_rng(7)
+    traces = np.stack([
+        t_sim.drifted_rank_trace(n, rng, [(3000, 8.0)]) if i < m // 2
+        else t_sim.random_rank_trace(n, rng)
+        for i in range(m)]).astype(np.float32)
+    chunks = [[(traces[:, c0:c0 + 64], np.tile(np.arange(
+        c0, min(c0 + 64, n), dtype=np.int32), (m, 1)))]
+        for c0 in range(0, n, 64)]
+    cset = t_cons.ConstraintSet(t_cons.TierCapacity(0, 4 * k))
+    cfg = t_replan.ReplanConfig(drift=t_drift.DriftConfig(alpha=1e-9))
+    plan = t_eng.StreamEngine([t_eng.StreamSpec(stream_id=i, k=k,
+                                                cost_model=cm)
+                               for i in range(m)], constraints=cset,
+                              device=cuda_device)
+    specs = [t_eng.StreamSpec(stream_id=i, k=k, cost_model=cm,
+                              boundaries=(float(plan.meter.boundaries[i, 0]),),
+                              migrate=bool(plan.meter.migrate[i]))
+             for i in range(m)]
+    out = []
+    for device in (cuda_device, "cpu"):
+        obs = Observability(ObsConfig(costs=True, cost_trigger=True,
+                                      cost_alpha=0.01))
+        eng = t_eng.StreamEngine(specs, constraints=cset, replan=cfg,
+                                 obs=obs, device=device)
+        eng._replanner.backend = "device"
+        eng.ingest_chunks(chunks)
+        eng.finalize()
+        out.append((eng, obs))
+    (g, go), (c, co) = out
+    assert [(e["kind"], e["name"], e["attrs"]) for e in go.tracer.events] \
+        == [(e["kind"], e["name"], e["attrs"]) for e in co.tracer.events]
+    assert any(e["name"] == "budget_burn" or e["name"] == "cost_alert"
+               for e in go.tracer.events)
+    assert [dataclasses.astuple(e) for e in g.replan_events] == \
+        [dataclasses.astuple(e) for e in c.replan_events]
+    assert g.cost_alerts() == c.cost_alerts()
+    gs, cs = g.cost_summary(), c.cost_summary()
+    for key in ("total", "planned", "regret"):
+        np.testing.assert_array_equal(gs[key], cs[key])
+    a, b = g.obs_snapshot(), c.obs_snapshot()
+    np.testing.assert_array_max_ulp(
+        np.float32(a["engine"].pop("drift_score_max")),
+        np.float32(b["engine"].pop("drift_score_max")), maxulp=1)
+    assert json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+

@@ -15,6 +15,12 @@ write. Each retention test asserts that no such near-tie exists in its
 scores before it compares ledgers and retained ids.
 """
 import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+import urllib.request
 from pathlib import Path
 
 import jax
@@ -224,12 +230,84 @@ def test_kernel_route_equals_plain_route_on_cpu(model):
 
 
 def test_cli_flags_not_ported_raise():
-    for argv in (["--mesh", "2"], ["--obs-out", "x"], ["--obs-port", "0"],
-                 ["--ckpt-dir", "x"]):
-        item = {"--mesh": 9, "--ckpt-dir": 8}.get(argv[0], 7)
+    for argv, item in ((["--mesh", "2"], 9), (["--ckpt-dir", "x"], 8)):
         with pytest.raises(NotImplementedError,
                            match=f"queue 1 item {item}"):
             t_serve.main(argv + ["--device", "cpu"])
+
+
+SERVE_ARGV = ["--device", "cpu", "--requests", "12", "--batch", "4",
+              "--gen-len", "3", "--prompt-len", "4", "--tenants", "2"]
+
+
+def test_cli_obs_out_writes_artifacts(tmp_path, capsys):
+    """``--obs-out`` (reduced llama3.2-1b, two tenants) writes
+    metrics.json, metrics.prom and events.jsonl: the engine's counters
+    cover every served request, one ingest span a batch."""
+    t_serve.main(SERVE_ARGV + ["--obs-out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "obs artifacts:" in out
+    assert sorted(os.listdir(tmp_path)) == ["events.jsonl", "metrics.json",
+                                            "metrics.prom"]
+    snap = json.load(open(tmp_path / "metrics.json"))
+    eng = snap["engines"]["engine0"]
+    assert eng["engine"]["docs"] == eng["meter"]["observed"] == 12
+    assert eng["engine"]["chunks"] == 3
+    names = [json.loads(line)["name"]
+             for line in open(tmp_path / "events.jsonl")]
+    assert names == ["plan"] + ["ingest"] * 3 + ["finalize"]
+    prom = open(tmp_path / "metrics.prom").read()
+    assert "# TYPE repro_obs_engines_engine0_engine_docs counter" in prom
+
+
+def _scrape(url):
+    with urllib.request.urlopen(url, timeout=10) as r:
+        text = r.read().decode()
+    counters = {line.split()[2] for line in text.splitlines()
+                if line.startswith("# TYPE") and line.endswith(" counter")}
+    values = {}
+    for line in text.splitlines():
+        if not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            if name.split("{")[0] in counters:
+                values[name] = float(value)
+    return values
+
+
+def test_cli_obs_port_serves_monotone_counters():
+    """``--obs-port 0`` serves /metrics on 127.0.0.1 from the running
+    launcher (cost attribution on); two scrapes a second apart while
+    ``--obs-hold`` stretches the loop give typed counters that never
+    decrease."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *SERVE_ARGV,
+         "--requests", "24", "--obs-port", "0", "--obs-hold", "12"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")})
+    try:
+        url = None
+        for line in proc.stdout:
+            if line.startswith("obs endpoint:"):
+                url = line.split()[2]
+                break
+        assert url is not None and url.startswith("http://127.0.0.1:")
+        scrapes = []
+        while len(scrapes) < 2:
+            values = _scrape(url)
+            if any(k.endswith("engine_docs") for k in values):
+                scrapes.append(values)
+            time.sleep(1.0)
+        rest = proc.communicate(timeout=120)[0]
+    finally:
+        proc.kill()
+        proc.wait()
+    assert proc.returncode == 0, rest
+    assert "cost attribution: realized=" in rest
+    first, second = scrapes
+    assert first.keys() <= second.keys()
+    assert all(second[k] >= first[k] for k in first)
+    assert any(k.endswith("costs_device_resident_steps") for k in first)
 
 
 def test_cli_serves_on_cpu(capsys):
