@@ -102,13 +102,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 13. drift-aware re-planning at fleet scale: examples/online_replanning.py's
    setting (K=64, windows of 12,000 docs, an 8x record-rate burst at doc
    3,000, chunks of 64, DriftConfig(alpha=0.05)) through
-   StreamEngine(replan=) on the card, meter on: 13a 65,536 two-tier
+   StreamEngine(replan=) on the card, meter on: 13a 32,768 two-tier
    tenants of the example's make_fleet shape (costs jittered, hot tier
    of 4K docs), 13b 4,096 four-tier tenants drawn as
    tests/test_constraints.py draws its N-tier models, with K/2 caps on
    tiers 1 and 3 (the re-solve's four-tier subsets take plan_solve's
    masked route with +inf terms); chunks made one at a time from a
-   seeded generator (7.9e8 + 4.9e7 docs), then finalize_tiers. Logged
+   seeded generator (3.9e8 + 4.9e7 docs), then finalize_tiers. Logged
    and checked: launches of batched_topk, tier_assign and plan_solve
    (plan_solve > 0 inside 13b's re-plans), replan / applied / feasible /
    admission counts, the re-plan hook's host seconds; 512 sampled
@@ -137,7 +137,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    setting (K=64, windows of 12,000 docs, the first half of the tenants
    with an 8x burst at doc 3,000, chunks of 64, TierCapacity(0, 4K),
    ObsConfig(costs=True, cost_trigger=True, cost_alpha=0.01,
-   budget_factor=1.2), DriftConfig(alpha=1e-9)) at 65,536 tenants,
+   budget_factor=1.2), DriftConfig(alpha=1e-9)) at 32,768 tenants,
    meter on, chunks made one at a time from a seeded generator: the
    chain (cost or burn alerts on drifted tenants, cost-triggered
    re-plans applied, the drifted tenants' realized-cost slope lower
@@ -149,7 +149,37 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    the same tenants (events in order, alerts, re-plan events, ledger
    rows and cost_summary bit for bit, drift_score_max within 1 ulp);
    docs/s beside the same fleet without obs=, the monitors' host ms a
-   chunk, and the events per kind.
+   chunk, and the events per kind;
+15. resilience (repro_torch.resilience) on the card. 15a: phase 8's
+   mixed fleet (phase 5's plan for 1,000,000 exact streams plus 64
+   logmem tenants at K=65,536), 16 chunks, meter on, through
+   ingest_with_faults over a FaultyChunkSource (transients, duplicates,
+   reordering, NaN lacing; no sleeps), beside run_with_recovery over the
+   same source with a device loss at chunk 9 and FleetCheckpointer(every=
+   4) (async), the engine rebuilt on the card: every state leaf,
+   assign_tiers' tiers and counts and every meter ledger bit-equal;
+   restarts and the harness's stats, the checkpoint's bytes, each save's
+   host ms, the write + sha256 ms on the worker, the restore ms; a torn
+   .tmp save ignored and a flipped byte refused; docs/s of ingest_chunks
+   (meter off) with every=4 beside no checkpointer, in turns. 15b:
+   examples/chaos_recovery.py at 4,096 tenants (three tiers, half planned
+   on the card and half pinned to (32, 0.8 N), K=8, W=32, 12 + 6 chunks,
+   re-planning and cost attribution on): a child process (this script
+   with --chaos-child) checkpoints every 2 chunks and SIGKILLs itself
+   after chunk 7; the parent restores onto a fresh card engine, replays,
+   and the sha256 of the survivors and every ledger equals the
+   uninterrupted run's; then TierOutage(tier=1, burn_grace=8,
+   hysteresis=2) under load: rows evacuated, skipped and infeasible,
+   moved docs, the bill, the evacuation's host seconds, the outage
+   events, zero budget-burn false fires, regret_table; 512 sampled
+   tenants against the port's CPU run of the same chunks and outage
+   (evacuated rows, moved docs, bills, re-plan events, ledger rows bit
+   for bit). 15c: python -m repro_torch.launch.serve --device cuda
+   --tenants 8 --requests 64 --batch 8 --ckpt-dir --ckpt-every 1
+   --obs-out --obs-hold 60 (reduced llama3.2-1b) as a subprocess, SIGTERM
+   after its first checkpoint: exit 0, both shutdown lines, metrics.json,
+   and the final checkpoint restores with the printed cursor. The
+   checkpoints are written under build/ and removed.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -208,7 +238,9 @@ TF_WINDOW_BATCHES = 12  # filter_then_merge batches in a phase 10 window
 # phase 13: examples/online_replanning.py's setting at fleet scale
 RP_DOCS, RP_K, RP_CHUNK = 12_000, 64, 64  # window, K, docs a chunk
 RP_DRIFT_AT, RP_MULT, RP_ALPHA = 3_000, 8.0, 0.05  # burst, DriftConfig
-RP_TWO, RP_FOUR = 65_536, 4_096  # tenants of 13a and 13b
+# tenants of 13a and 13b; 13a's count (like 14b's) is cut so that the
+# script stays near half of its time limit
+RP_TWO, RP_FOUR = 32_768, 4_096
 RP_SAMPLE = 512  # streams of each engine held to the port's CPU run
 RP_ORACLE = 16  # 13a streams scored against the process oracle
 
@@ -2689,10 +2721,10 @@ def replanning(smi):
 # ---------------------------------------------------------------------------
 
 OB_SAMPLE = 256  # 14a streams held to the port's CPU run
-CB_TENANTS = 65_536  # 14b: examples/cost_attribution.py's fleet at scale
+CB_TENANTS = 32_768  # 14b: examples/cost_attribution.py's fleet at scale
 CB_PROFILE_AT = 60  # 14b's first chunk fed through ingest() under the
 CB_PROFILED = 2  # profiler, and the number of such chunks
-CB_MAX_EVENTS = 4_000_000  # the tracer's bound at 65,536 tenants
+CB_MAX_EVENTS = 4_000_000  # the tracer's bound at 14b's fleet
 
 
 def count_syncs(fn):
@@ -3101,6 +3133,14 @@ def cost_chain(eng, obs, drifted, curve):
                              "drifted tenants' cost curve")
 
 
+def replan_key(e):
+    """A re-plan event's fields but its row (a fleet's row and a sampled
+    sub-fleet's differ)."""
+    return (e.stream_id, e.position, e.rho, e.old_bounds, e.new_bounds,
+            e.applied, e.feasible, e.suffix_cost_old, e.suffix_cost_new,
+            e.move_bill, e.moved_docs)
+
+
 def cost_cpu_parity(eng, obs, models, chunks, planned):
     """The sampled tenants through the port's CPU run and a card engine of
     the same tenants (both from the card's planned boundaries, the CPU
@@ -3140,11 +3180,8 @@ def cost_cpu_parity(eng, obs, models, chunks, planned):
     res = eng.residual_alerts()
     if {s: a for s, a in res.items() if s in keep} != cpu.residual_alerts():
         raise AssertionError("residual alerts differ from the CPU run")
-    ev = lambda e: (e.stream_id, e.position, e.rho, e.old_bounds,  # noqa: E731
-                    e.new_bounds, e.applied, e.feasible, e.suffix_cost_old,
-                    e.suffix_cost_new, e.move_bill, e.moved_docs)
-    if [ev(e) for e in eng.replan_events if e.stream_id in keep] != \
-            [ev(e) for e in cpu.replan_events]:
+    if [replan_key(e) for e in eng.replan_events if e.stream_id in keep] \
+            != [replan_key(e) for e in cpu.replan_events]:
         raise AssertionError("re-plan events differ from the CPU run")
     full, part = eng.cost_summary(), cpu.cost_summary()
     for key in ("writes", "reads", "storage", "migration", "total",
@@ -3177,7 +3214,7 @@ def cost_cpu_parity(eng, obs, models, chunks, planned):
 
 
 def cost_triggered(smi):
-    """14b: examples/cost_attribution.py's setting at 65,536 tenants."""
+    """14b: examples/cost_attribution.py's setting at CB_TENANTS."""
     from collections import Counter
     rng = np.random.default_rng(141)
     models, drifted = cost_fleet(CB_TENANTS)
@@ -3228,6 +3265,498 @@ def observability(bounds, mig, rate5, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: crash recovery, the chaos drill and graceful drain on the card
+# ---------------------------------------------------------------------------
+
+RS_CHUNKS, RS_EVERY, RS_LOSS_AT = 16, 4, 9  # 15a: chunks, cadence, loss
+# seed 14 draws every fault kind in 16 chunks: 4 failed deliveries, 4
+# duplicates, reorderings, and NaN lacing of chunks 8 and 11 (one on each
+# side of the loss)
+RS_FAULTS = dict(seed=14, transient_rate=0.1, duplicate_rate=0.1,
+                 reorder_rate=0.1, nan_rate=0.05)
+CH_TENANTS, CH_K, CH_W = 4_096, 8, 32  # 15b: examples/chaos_recovery.py
+CH_CHUNKS, CH_EXTRA, CH_EVERY, CH_KILL_AT = 12, 6, 2, 7
+CH_SAMPLE = 512  # 15b tenants held to the port's CPU run
+DRAIN_ARGV = ["--device", "cuda", "--tenants", "8", "--requests", "64",
+              "--batch", "8", "--ckpt-every", "1", "--obs-hold", "60"]
+
+
+def timed_checkpointer(directory, every):
+    """A ``FleetCheckpointer`` that keeps the seconds of each save's
+    caller-side part (the snapshot's device→host copies and the hand-off
+    to the writer thread) and of each restore."""
+    from repro_torch.resilience import FleetCheckpointer
+
+    class Timed(FleetCheckpointer):
+        def save(self, engine, blocking=False):
+            t0 = time.perf_counter()
+            gen = super().save(engine, blocking=blocking)
+            self.save_s.append(time.perf_counter() - t0)
+            return gen
+
+        def restore(self, engine, step=None, verify=True):
+            t0 = time.perf_counter()
+            gen = super().restore(engine, step=step, verify=verify)
+            self.restore_s.append(time.perf_counter() - t0)
+            return gen
+
+    ck = Timed(directory, every=every)
+    ck.save_s, ck.restore_s = [], []
+    return ck
+
+
+def ckpt_bytes(ck):
+    """Bytes of the latest committed checkpoint's files."""
+    _, path = ck.manager._lookup(None)
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def recovery_state(eng):
+    """What 15a holds bit for bit: every bucket's state leaves, the
+    tiers and per-tier counts assign_tiers gives, every meter ledger."""
+    out = {f"state{bi}.{i}": t.cpu().numpy()
+           for bi, st in enumerate(eng.states()) for i, t in enumerate(st)}
+    for bi, pair in enumerate(eng.assign_tiers()):
+        if pair is not None:
+            out[f"tiers{bi}"], out[f"counts{bi}"] = (pair[0].cpu().numpy(),
+                                                     pair[1].cpu().numpy())
+    out.update({f"meter.{k}": v for k, v in eng.meter.state_dict().items()})
+    return out
+
+
+def crash_recovery(bounds, mig):
+    """15a: the mixed fleet of phase 8 under the fault harness, meter on:
+    an uninterrupted run beside run_with_recovery with a device loss;
+    then docs/s of ingest_chunks with and without a checkpointer."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointCorruptError
+    from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.logmem_update import ops as lm_ops
+    from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.resilience import (FaultyChunkSource, FleetCheckpointer,
+                                        ingest_with_faults, run_with_recovery)
+    from repro_torch.streams import StreamEngine, StreamSpec
+    specs = [StreamSpec(stream_id=i, k=K, boundaries=tuple(b),
+                        migrate=bool(g))
+             for i, (b, g) in enumerate(zip(bounds.tolist(), mig.tolist()))]
+    specs += [StreamSpec(stream_id=M + j, k=LM_K, r=float(4 * LM_K),
+                         engine="logmem") for j in range(LM_STREAMS)]
+    chunks = mixed_window_chunks(np.random.default_rng(15), 0, RS_CHUNKS)
+    make_chunk = chunks.__getitem__  # a pure function of the index
+    t0 = time.perf_counter()
+    ref = StreamEngine(specs)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_src = FaultyChunkSource(make_chunk, RS_CHUNKS, **RS_FAULTS)
+    ref_stats = ingest_with_faults(ref, ref_src, sleep_scale=0.0)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    want = recovery_state(ref)
+    directory = ROOT / "build" / "ckpt15a"
+    shutil.rmtree(directory, ignore_errors=True)
+    ck = timed_checkpointer(str(directory), RS_EVERY)
+    src = FaultyChunkSource(make_chunk, RS_CHUNKS, device_loss_at=RS_LOSS_AT,
+                            **RS_FAULTS)
+    # the counted run: counters to 0, drive, read
+    btk.launches = ta.launches = lm_ops.launches = 0
+    t0 = time.perf_counter()
+    eng, stats = run_with_recovery(lambda: StreamEngine(specs), src, ck,
+                                   sleep_scale=0.0)
+    ck.wait()
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    got = recovery_state(eng)
+    launches = {"batched_topk": btk.launches, "tier_assign": ta.launches,
+                "logmem_update": lm_ops.launches}
+    log(f"resilience [15a]: launches {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"15a missed a kernel: {launches}")
+    bad = [k for k in want if not np.array_equal(want[k], got[k])]
+    log(f"resilience [15a]: {M} exact streams + {LM_STREAMS} logmem tenants "
+        f"at K={LM_K}, {RS_CHUNKS} chunks, meter on: uninterrupted run "
+        f"{ref_s:.3f}s ({ref_stats}; the source injected "
+        f"{ref_src.failures_injected} failures, "
+        f"{ref_src.duplicates_injected} duplicates, {ref_src.nan_injected} "
+        f"NaN/Inf scores; engine built in {build_s:.3f}s); "
+        f"run_with_recovery with a device loss at chunk {RS_LOSS_AT} "
+        f"{rec_s:.3f}s (two engine builds, saves and the restore "
+        f"included): {stats}; {len(want) - len(bad)}/{len(want)} leaves "
+        f"(states, assign_tiers, meter) equal bit for bit")
+    if bad or stats["restarts"] != 1 or eng.chunks_ingested != RS_CHUNKS:
+        raise AssertionError(f"15a recovery differs: {bad[:8]}, {stats}")
+    nbytes = ckpt_bytes(ck)
+    reservoir = sum(t.numel() * t.element_size() for t in eng.states()[0])
+    log(f"resilience [15a]: checkpoint {nbytes} bytes ({reservoir} of them "
+        f"the exact reservoirs), generation {ck.manager.generation()}; "
+        f"saves' host copies and hand-off "
+        f"{[round(s * 1e3, 3) for s in ck.save_s]} ms; the last write + "
+        f"sha256 on the worker {ck.manager.last_write_s * 1e3:.3f} ms; "
+        f"restore {[round(s * 1e3, 3) for s in ck.restore_s]} ms")
+    # a torn save is ignored; a corrupted leaf is refused
+    latest = ck.manager.latest_step()
+    torn = directory / "ckpt_00000099.tmp"
+    torn.mkdir()
+    (torn / "leaf_00000.npy").write_bytes(b"torn")
+    if ck.manager.latest_step() != latest:
+        raise AssertionError("a torn .tmp save was listed")
+    _, path = ck.manager._lookup(None)
+    leaf = Path(path) / "leaf_00000.npy"
+    raw = bytearray(leaf.read_bytes())
+    raw[-1] ^= 0xFF
+    leaf.write_bytes(bytes(raw))
+    try:
+        ck.restore(ref)
+    except CheckpointCorruptError as e:
+        log(f"resilience [15a]: torn .tmp save ignored (latest step "
+            f"{latest}); a flipped byte refused: {str(e)[-60:]}")
+    else:
+        raise AssertionError("a corrupted leaf restored")
+    # docs/s with and without a checkpointer: the next two windows of
+    # the same chunks' scores (ids continued), meter off, in turns
+    del chunks
+    rng = np.random.default_rng(151)
+    windows = [mixed_window_chunks(rng, w, RS_CHUNKS) for w in (1, 2)]
+    ref.attach_checkpointer(FleetCheckpointer(str(directory / "b"),
+                                              every=RS_EVERY))
+    rates = {"off": [], "on": []}
+    docs = (M * CHUNK + LM_STREAMS * LM_CHUNK) * RS_CHUNKS
+    for name, e, w in (("off", eng, 0), ("on", ref, 0), ("on", ref, 1),
+                       ("off", eng, 1)):
+        if name == "off":
+            e._checkpoint = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.ingest_chunks(windows[w], meter=False)
+        if e._checkpoint is not None:
+            e._checkpoint.wait()
+        torch.cuda.synchronize()
+        rates[name].append(docs / (time.perf_counter() - t0))
+    on, off = statistics.mean(rates["on"]), statistics.mean(rates["off"])
+    log(f"resilience [15a]: ingest_chunks, meter off, {RS_CHUNKS} chunks a "
+        f"window: {rates['off'][0]:.6g} and {rates['off'][1]:.6g} docs/s "
+        f"without a checkpointer, {rates['on'][0]:.6g} and "
+        f"{rates['on'][1]:.6g} with every={RS_EVERY} ({on / off:.4f} of "
+        f"it; host clock around ingest_chunks, the last write and a sync)")
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
+def chaos_engine(device=None, obs=None, tenants=None, rows=None,
+                 planned=None):
+    """examples/chaos_recovery.py's fleet at ``CH_TENANTS``: three-tier
+    tenants, half planned and half pinned to (32, 0.8 N), re-planning and
+    cost attribution on. With ``rows`` the engine holds those tenants
+    alone, at ``planned`` (the full fleet's boundaries and cascade
+    flags by stream id) for the planned ones."""
+    from repro_torch.core import topology
+    from repro_torch.obs import Observability, ObsConfig
+    from repro_torch.online import DriftConfig, ReplanConfig
+    from repro_torch.streams import StreamEngine, StreamSpec
+    n = (CH_CHUNKS + CH_EXTRA) * CH_W
+    specs = []
+    for t in (range(CH_TENANTS) if rows is None else rows):
+        t = int(t)
+        cm = topology.hbm_dram_disk_preset(
+            n_docs=n, k=CH_K, doc_gb=1e-4, window_seconds=30.0 * (1 + t % 3))
+        if t % 2:
+            kw = dict(boundaries=(32.0, n * 0.8))
+        elif planned is not None:
+            kw = dict(boundaries=planned[t][0], migrate=planned[t][1])
+        else:
+            kw = {}
+        specs.append(StreamSpec(stream_id=t, k=CH_K, cost_model=cm, **kw))
+    obs = obs if obs is not None else Observability(ObsConfig(
+        costs=True, max_events=CB_MAX_EVENTS))
+    return StreamEngine(specs, obs=obs, device=device,
+                        replan=ReplanConfig(drift=DriftConfig(alpha=0.05)))
+
+
+def chaos_chunk(i, rows=None):
+    """Chunk ``i`` as a pure function of its index (the example's
+    ``make_chunk``: the first half of the rows heats up from chunk 4);
+    with ``rows``, those rows of it."""
+    r = np.random.default_rng(150 + i)
+    s = r.random((CH_TENANTS, CH_W)).astype(np.float32)
+    if i >= 4:
+        s[: CH_TENANTS // 2] += 0.5
+    ids = np.tile(np.arange(i * CH_W, (i + 1) * CH_W, dtype=np.int32),
+                  (CH_TENANTS, 1))
+    if rows is not None:
+        s, ids = s[rows], ids[rows]
+    return [(s, ids)]
+
+
+def chaos_digest(eng) -> str:
+    """sha256 over the survivors and every host ledger (meter and cost
+    monitor), the example's ``digest`` without its final read."""
+    import hashlib
+    h = hashlib.sha256()
+    surv = eng.survivors()
+    for sid in sorted(surv):
+        h.update(np.ascontiguousarray(surv[sid]))
+    for _, arr in sorted(eng.meter.state_dict().items()):
+        h.update(np.ascontiguousarray(arr))
+    for _, arr in sorted(eng._cost_monitor.state_dict().items()):
+        h.update(np.ascontiguousarray(np.asarray(arr)))
+    return h.hexdigest()
+
+
+def chaos_child(directory):
+    """The drill's child process: ingest with checkpoints every
+    ``CH_EVERY`` chunks (async), then SIGKILL itself after chunk
+    ``CH_KILL_AT`` — no flush, a save possibly in flight."""
+    import os
+    import signal
+    from repro_torch.resilience import FleetCheckpointer
+    eng = chaos_engine()
+    eng.attach_checkpointer(FleetCheckpointer(directory, every=CH_EVERY))
+    for i in range(CH_CHUNKS):
+        eng.ingest_dense(chaos_chunk(i))
+        if i == CH_KILL_AT:
+            os.kill(os.getpid(), signal.SIGKILL)
+    return 3  # the child was supposed to die
+
+
+def evac_bills(eng, rr0, rw0):
+    """Per-row relocation bills since the (reloc_reads, reloc_writes)
+    snapshot, priced as ``_evacuate_tier`` prices them."""
+    d_rr = (eng.meter.reloc_reads - rr0).astype(np.float64)
+    d_rw = (eng.meter.reloc_writes - rw0).astype(np.float64)
+    return (d_rr * eng._pricing["cr"]).sum(1) \
+        + (d_rw * eng._pricing["cw"]).sum(1)
+
+
+def outage_drill(eng, rows=None):
+    """The drill's second half on ``eng``: tier 1 fails after chunk
+    ``CH_CHUNKS``, half the extra chunks ingest through the outage, the
+    tier recovers (hysteresis 2), the rest ingest. Returns the
+    evacuation summary, per-row bills, the evacuation's host seconds and
+    the tier-1 occupancy at the end of the outage."""
+    from repro_torch.resilience import TierOutage
+    mid = CH_CHUNKS + CH_EXTRA // 2
+    rr0, rw0 = eng.meter.reloc_reads.copy(), eng.meter.reloc_writes.copy()
+    t0 = time.perf_counter()
+    with TierOutage(eng, tier=1, burn_grace=8, hysteresis=2) as drill:
+        evac_s = time.perf_counter() - t0
+        bills = evac_bills(eng, rr0, rw0)
+        for i in range(CH_CHUNKS, mid):
+            eng.ingest_dense(chaos_chunk(i, rows))
+        occupied = int(eng.meter.occupancy[:, 1].sum())
+    for i in range(mid, CH_CHUNKS + CH_EXTRA):
+        eng.ingest_dense(chaos_chunk(i, rows))
+    return drill.summary, bills, evac_s, occupied
+
+
+def chaos_drill():
+    """15b: examples/chaos_recovery.py at ``CH_TENANTS`` tenants on the
+    card — kill -9 of a child mid-window, restore and replay bit for bit;
+    then a tier-1 outage under load, and 512 sampled tenants against the
+    port's CPU run of the same chunks and the same outage."""
+    import shutil
+    import subprocess
+    from collections import Counter
+    from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.plan_solve import ops as ps
+    from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.online import evaluate
+    from repro_torch.resilience import FleetCheckpointer
+    ref = chaos_engine()
+    for i in range(CH_CHUNKS):
+        ref.ingest_dense(chaos_chunk(i))
+    want = chaos_digest(ref)
+    del ref
+    directory = ROOT / "build" / "ckpt15b"
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--chaos-child",
+         str(directory)], capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if child.returncode != -9:
+        raise AssertionError(f"the child did not die by SIGKILL (rc "
+                             f"{child.returncode}):\n{child.stdout[-2000:]}"
+                             f"\n{child.stderr[-2000:]}")
+    # the counted run: counters to 0, drive (plan, restore, replay, the
+    # outage, finalize_tiers), read
+    btk.launches = ta.launches = ps.launches = 0
+    eng = chaos_engine()
+    b, g = eng.meter.boundaries, eng.meter.migrate
+    planned = {sid: (tuple(b[row].tolist()), bool(g[row]))
+               for sid, row in eng._row_of.items()}
+    ck = FleetCheckpointer(str(directory), every=CH_EVERY)
+    t0 = time.perf_counter()
+    gen = ck.restore(eng)
+    restore_s = time.perf_counter() - t0
+    cursor = eng.chunks_ingested
+    eng.attach_checkpointer(ck)
+    for i in range(cursor, CH_CHUNKS):
+        eng.ingest_dense(chaos_chunk(i))
+    got = chaos_digest(eng)
+    log(f"resilience [15b]: {CH_TENANTS} tenants, K={CH_K}, W={CH_W}: the "
+        f"child SIGKILLed itself after chunk {CH_KILL_AT} (rc "
+        f"{child.returncode}, {child_s:.3f}s with its start-up); restored "
+        f"generation {gen} at chunk {cursor} in {restore_s * 1e3:.3f} ms, "
+        f"replayed {CH_CHUNKS - cursor} chunks; digest {got[:16]} vs the "
+        f"uninterrupted run's {want[:16]}")
+    if got != want or not CH_KILL_AT - CH_EVERY < cursor <= CH_KILL_AT + 1:
+        raise AssertionError("the drill's recovery is not bit for bit")
+    summary, bills, evac_s, occupied = outage_drill(eng)
+    mon = eng._cost_monitor
+    evac = np.zeros(eng.m, bool)
+    evac[summary["rows"]] = True
+    false_fires = int(mon.burn_alerted[evac].sum())
+    tiers = eng.finalize_tiers()
+    launches = {"batched_topk": btk.launches, "tier_assign": ta.launches,
+                "plan_solve": ps.launches}
+    kinds = Counter(e["name"] for e in eng._obs.tracer.events)
+    n_ev = summary["rows_evacuated"]
+    log(f"resilience [15b]: tier 1 outage at chunk {CH_CHUNKS}: "
+        f"{n_ev} rows evacuated, {len(summary['skipped_rows'])} skipped, "
+        f"{len(summary['infeasible_rows'])} infeasible, "
+        f"{summary['moved_docs']} docs moved, bill {summary['bill']!r}; "
+        f"evacuation {evac_s:.3f}s of host time "
+        f"({evac_s * 1e3 / max(n_ev, 1):.3f} ms a row); tier-1 occupancy at "
+        f"the end of the outage {occupied}; budget-burn false fires "
+        f"{false_fires}; events tier_outage {kinds['tier_outage']}, "
+        f"tier_evacuation {kinds['tier_evacuation']}, tier_recovered "
+        f"{kinds['tier_recovered']}, checkpoint {kinds['checkpoint']}; "
+        f"dropped {eng._obs.tracer.dropped}; launches {launches}")
+    if (not n_ev or occupied or false_fires or kinds["tier_outage"] != 1
+            or kinds["tier_recovered"] != 1
+            or kinds["tier_evacuation"] != n_ev or eng._obs.tracer.dropped
+            or launches["batched_topk"] < 1 or launches["tier_assign"] < 1):
+        raise AssertionError("the tier outage drill failed")
+    counts = sum(int(t["counts"].sum()) for t in tiers.values())
+    eng.finalize()
+    table = evaluate.regret_table(eng)
+    regret = [r["regret"] for r in table]
+    log(f"resilience [15b]: regret_table over {len(table)} tenants: "
+        f"realized {sum(r['realized'] for r in table)!r}, planned "
+        f"{sum(r['planned'] for r in table)!r}, regret sum {sum(regret)!r}, "
+        f"max {max(regret)!r}, min {min(regret)!r}; finalize_tiers counts "
+        f"{counts}; the first rows:\n"
+        + evaluate.format_regret_table(table[:4]))
+    chaos_cpu_parity(eng, summary, bills, planned)
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
+def chaos_cpu_parity(eng, summary, bills, planned):
+    """512 sampled tenants through the port's CPU run of the same chunks
+    and the same outage, from the card's planned boundaries (the CPU's
+    re-solve pinned to the device route, as the card's): the evacuation's
+    rows, moved docs and bills, the re-plan events and the ledger rows
+    bit for bit."""
+    rng = np.random.default_rng(152)
+    sample = np.sort(rng.choice(CH_TENANTS, CH_SAMPLE, replace=False))
+    rows = np.array([eng.stream_row(int(s)) for s in sample])
+    cpu = chaos_engine(device="cpu", rows=sample, planned=planned)
+    cpu._replanner.backend = "device"
+    t0 = time.perf_counter()
+    for i in range(CH_CHUNKS):
+        cpu.ingest_dense(chaos_chunk(i, rows))
+    c_summary, c_bills, _, _ = outage_drill(cpu, rows)
+    cpu.finalize()
+    cpu_s = time.perf_counter() - t0
+    keep = {int(s) for s in sample}
+    sid = eng._sid_of_row
+    evac_card = [sid[r] for r in summary["rows"] if sid[r] in keep]
+    evac_cpu = [cpu._sid_of_row[r] for r in c_summary["rows"]]
+    moved = lambda e, k: [(a["stream_id"], a["moved_docs"],  # noqa: E731
+                           a["replanned"], a["position"])
+                          for a in (x["attrs"] for x in e._obs.tracer.events
+                                    if x["name"] == "tier_evacuation")
+                          if a["stream_id"] in k]
+    checks = {
+        "evacuated rows": evac_card == evac_cpu,
+        "moved docs": moved(eng, keep) == moved(cpu, keep),
+        "bills": np.array_equal(bills[rows], c_bills),
+        "replan events": [replan_key(e) for e in eng.replan_events
+                          if e.stream_id in keep]
+        == [replan_key(e) for e in cpu.replan_events],
+    }
+    full, part = eng.meter.state_dict(), cpu.meter.state_dict()
+    checks["meter rows"] = all(np.array_equal(full[k][rows], part[k])
+                               for k in full)
+    cf, cp = eng._cost_monitor.state_dict(), cpu._cost_monitor.state_dict()
+    checks["cost monitor rows"] = all(
+        np.array_equal(cf[k][..., rows] if k == "hist" else cf[k][rows],
+                       cp[k]) for k in cf if k != "steps")
+    sf, sp = eng.cost_summary(), cpu.cost_summary()
+    checks["cost_summary rows"] = all(
+        np.array_equal(sf[k][rows], sp[k])
+        for k in ("writes", "reads", "storage", "migration", "total",
+                  "planned", "regret"))
+    log(f"resilience [15b]: {CH_SAMPLE} sampled tenants through the port's "
+        f"CPU run of the same chunks and outage ({cpu_s:.3f}s): "
+        f"{len(evac_cpu)} evacuated, {len(cpu.replan_events)} re-plan "
+        f"events; equal: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"15b differs from the CPU run: {checks}")
+
+
+def graceful_drain():
+    """15c: the serving launcher on the card with --ckpt-dir, SIGTERM
+    after its first checkpoint: exit 0, both lines, the obs artifacts,
+    and the final checkpoint restores with the printed cursor."""
+    import os
+    import shutil
+    import signal
+    import subprocess
+    from repro_torch.launch import serve
+    from repro_torch.obs import Observability, ObsConfig
+    from repro_torch.resilience import FleetCheckpointer
+    base = ROOT / "build" / "drain15c"
+    shutil.rmtree(base, ignore_errors=True)
+    ckpt, obs = base / "ckpt", base / "obs"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *DRAIN_ARGV,
+         "--ckpt-dir", str(ckpt), "--obs-out", str(obs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    try:
+        while not (ckpt.is_dir() and any(d.startswith("ckpt_")
+                                         for d in os.listdir(ckpt))):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError("the launcher wrote no checkpoint")
+            time.sleep(0.2)
+        first_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("graceful shutdown", "final checkpoint"))]
+    log(f"resilience [15c]: launcher {' '.join(DRAIN_ARGV)}: first "
+        f"checkpoint after {first_s:.3f}s, SIGTERM, exit "
+        f"{proc.returncode} after {time.perf_counter() - t0:.3f}s: "
+        f"{lines}")
+    if proc.returncode != 0 or len(lines) != 2 or \
+            not (obs / "metrics.json").exists():
+        raise AssertionError(f"the graceful drain failed:\n{out[-3000:]}")
+    chunk = int(lines[1].split(" at chunk ")[1].split()[0])
+    eng, _ = serve.make_tenant_engine(8, 64, 8, (16 + 12) * 4 / 1e9,
+                                      obs=Observability(ObsConfig()))
+    gen = FleetCheckpointer(str(ckpt)).restore(eng)
+    log(f"resilience [15c]: the final checkpoint (generation {gen}) "
+        f"restores into a fresh card engine at chunk {eng.chunks_ingested} "
+        f"(printed {chunk})")
+    if eng.chunks_ingested != chunk:
+        raise AssertionError("the final checkpoint's cursor differs")
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def resilience(bounds, mig):
+    """Phase 15. Returns the launches of 15a's and 15b's counted runs."""
+    launches = crash_recovery(bounds, mig)
+    for key, n in chaos_drill().items():
+        launches[key] = launches.get(key, 0) + n
+    graceful_drain()
+    return launches
 
 
 def main():
@@ -3239,6 +3768,8 @@ def main():
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--chaos-child"]:
+        return chaos_child(sys.argv[2])  # phase 15b's child process
     smi = environment()
     with phase_clock("build and log2 rule (phase 2)"):
         build_kernels()
@@ -3272,6 +3803,10 @@ def main():
             launches[key] += n
     with phase_clock("fleet observability (phase 14)"):
         for key, n in observability(bounds, mig, rate5, smi).items():
+            launches[key] += n
+    with phase_clock("crash recovery, chaos drill, graceful drain "
+                     "(phase 15)"):
+        for key, n in resilience(bounds, mig).items():
             launches[key] += n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",

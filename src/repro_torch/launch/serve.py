@@ -23,6 +23,13 @@ telemetry layer (``repro_torch.obs``): ``--obs-out DIR`` writes
 with cost attribution on; ``--obs-hold SEC`` stretches the loop over at
 least SEC seconds so a scraper can watch the counters advance.
 
+With ``--ckpt-dir DIR`` (and ``--tenants > 1``) a
+``repro_torch.resilience.FleetCheckpointer`` writes a crash-consistent
+checkpoint of the tenant engine every ``--ckpt-every`` chunks. SIGTERM and
+SIGINT only request a stop: the batch in flight finishes, a final
+blocking checkpoint is written at the ingest cursor, the obs artifacts
+are flushed and the launcher exits 0.
+
 Matrix products run in full float32: ``serve`` turns TF32 off for CUDA
 matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set to False).
@@ -33,6 +40,7 @@ Run: PYTHONPATH=src python -m repro_torch.launch.serve [--requests 64]
 from __future__ import annotations
 
 import argparse
+import signal
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -152,11 +160,21 @@ class ServeResult:
     seconds: float = 0.0
     tokens_per_s: float = 0.0
     reconcile: Dict = field(default_factory=dict)
+    final_checkpoint: Optional[Dict] = None
+
+
+def _hold(seconds: float, stop) -> None:
+    """Sleep ``seconds``, in short naps that end early once ``stop()``."""
+    until = time.perf_counter() + seconds
+    while time.perf_counter() < until and not (stop is not None and stop()):
+        time.sleep(min(0.1, until - time.perf_counter()))
 
 
 def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
           gen_len: int, topk: int, tenants: int = 1, device=None,
-          seed: int = 0, obs=None, hold_s: float = 0.0) -> ServeResult:
+          seed: int = 0, obs=None, hold_s: float = 0.0,
+          ckpt_dir: Optional[str] = None, ckpt_every: int = 4,
+          stop=None) -> ServeResult:
     """Serve ``requests`` requests in batches of ``batch`` (random prompts
     of ``prompt_len`` tokens from ``np.random.default_rng(seed)``, as the
     reference's example draws them), generate ``gen_len`` tokens each,
@@ -164,7 +182,15 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
     on ``device`` (the CUDA card unless given). ``obs`` (a
     ``repro_torch.obs.Observability``) observes the tenant engine;
     ``hold_s`` stretches the loop over at least that many seconds (a
-    sleep after each batch)."""
+    pause after each batch).
+
+    ``ckpt_dir`` (tenants > 1) attaches a ``resilience.FleetCheckpointer``
+    that checkpoints the tenant engine every ``ckpt_every`` chunks (0:
+    only the final one) and, when the loop ends, writes a final blocking
+    checkpoint before ``finalize`` (``final_checkpoint`` holds its
+    generation and chunk). ``stop`` (a callable) is asked before each
+    batch: once it returns true the loop ends, the batch in flight
+    having finished."""
     dev = device_mod.resolve(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -184,12 +210,19 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
                                dtype=torch.int32, device=dev),
             tiers.ColdTier())
         curator = TopKCurator(topk, store, policy=pol)
+    checkpointer = None
+    if ckpt_dir is not None:
+        if engine is None:
+            raise ValueError("ckpt_dir needs tenants > 1")
+        from repro_torch.resilience import FleetCheckpointer
+        checkpointer = FleetCheckpointer(ckpt_dir, every=ckpt_every)
+        engine.attach_checkpointer(checkpointer)
     rng = np.random.default_rng(seed)
     n_batches = -(-requests // batch)
     scores, tokens, pre_s, dec_s = [], [], [], []
     served = 0
     t0 = time.perf_counter()
-    while served < requests:
+    while served < requests and not (stop is not None and stop()):
         b = min(batch, requests - served)
         prompts = rng.integers(0, cfg.vocab_size, (b, prompt_len))
         out = generate(params, cfg, torch.as_tensor(prompts, device=dev),
@@ -209,14 +242,21 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
         dec_s.append(out.decode_s)
         served += b
         if hold_s > 0:
-            time.sleep(hold_s / n_batches)
+            _hold(hold_s / n_batches, stop)
     dt = time.perf_counter() - t0
-    res = ServeResult(scores=np.concatenate(scores),
-                      tokens=np.concatenate(tokens), retained=None,
+    res = ServeResult(scores=(np.concatenate(scores) if scores
+                              else np.empty(0, np.float32)),
+                      tokens=(np.concatenate(tokens) if tokens
+                              else np.empty((0, gen_len), np.int64)),
+                      retained=None,
                       curator=curator, store=store, engine=engine,
                       specs=specs, prefill_s=pre_s, decode_s=dec_s,
                       seconds=dt,
                       tokens_per_s=served * (prompt_len + gen_len) / dt)
+    if checkpointer is not None:
+        gen = checkpointer.save(engine, blocking=True)
+        res.final_checkpoint = {"generation": gen,
+                                "chunk": int(engine.chunks_ingested)}
     if engine is not None:
         res.retained = engine.finalize()
         res.reconcile = engine.meter.reconcile(batch=max(1, batch // tenants))
@@ -259,15 +299,20 @@ def main(argv=None):
     ap.add_argument("--mesh", type=int, default=1,
                     help="not ported yet (ROADMAP queue 1 item 9)")
     ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
-                    help="not ported yet (ROADMAP queue 1 item 8)")
+                    help="crash-consistent fleet checkpointing "
+                         "(repro_torch.resilience; requires --tenants > "
+                         "1): write chunk-boundary checkpoints to DIR, "
+                         "plus a final blocking checkpoint on exit and on "
+                         "SIGTERM/SIGINT")
     ap.add_argument("--ckpt-every", type=int, default=4, metavar="N",
-                    help="not ported yet (ROADMAP queue 1 item 8)")
+                    help="checkpoint every N ingested chunks (0 = final "
+                         "checkpoint only)")
     args = ap.parse_args(argv)
-    for flag, on, item in (("--mesh", args.mesh > 1, 9),
-                           ("--ckpt-dir", args.ckpt_dir is not None, 8)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP "
-                                      f"queue 1 item {item})")
+    if args.mesh > 1:
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP "
+                                  "queue 1 item 9)")
+    if args.ckpt_dir is not None and args.tenants <= 1:
+        raise SystemExit("--ckpt-dir requires --tenants > 1")
     dev = device_mod.resolve(args.device)
     obs = obs_server = None
     if args.obs_out is not None or args.obs_port is not None:
@@ -280,24 +325,50 @@ def main(argv=None):
         obs_server = obs_http.serve(obs, port=args.obs_port)
         print(f"obs endpoint: {obs_server.url}/metrics "
               f"{obs_server.url}/snapshot", flush=True)
+    # graceful shutdown: SIGTERM/SIGINT only request a stop — the loop
+    # finishes its in-flight batch, then the normal teardown runs (final
+    # blocking checkpoint, obs artifacts, endpoint drain)
+    stop = {"signal": None}
+
+    def _request_stop(signum, frame):
+        stop["signal"] = signum
+
+    previous = {s: signal.signal(s, _request_stop)
+                for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        _serve_and_report(args, dev, obs)
+        _serve_and_report(args, dev, obs, stop)
     finally:
+        for s, handler in previous.items():
+            signal.signal(s, handler)
         if obs_server is not None:
             obs_server.stop()
 
 
-def _serve_and_report(args, dev, obs) -> None:
+def _serve_and_report(args, dev, obs, stop) -> None:
     cfg = configs.get_config(args.arch, reduced=not args.full)
     params = lm.init_params(cfg, seed=0, device=dev)
     print(f"serving {'full' if args.full else 'reduced'} {args.arch} on "
           f"{dev}: vocab={cfg.vocab_size}, {lm.param_count(cfg)} parameters")
+    if args.ckpt_dir is not None:
+        print(f"checkpointing to {args.ckpt_dir} "
+              f"(every {args.ckpt_every} chunks)", flush=True)
     res = serve(cfg, params, requests=args.requests, batch=args.batch,
                 prompt_len=args.prompt_len, gen_len=args.gen_len,
                 topk=args.topk, tenants=args.tenants, device=dev, obs=obs,
-                hold_s=args.obs_hold)
-    print(f"served {args.requests} requests in {res.seconds:.1f}s "
+                hold_s=args.obs_hold, ckpt_dir=args.ckpt_dir,
+                ckpt_every=args.ckpt_every,
+                stop=lambda: stop["signal"] is not None)
+    served = len(res.scores)
+    if stop["signal"] is not None:
+        print(f"graceful shutdown on {signal.Signals(stop['signal']).name}: "
+              f"served {served}/{args.requests} requests", flush=True)
+    print(f"served {served} requests in {res.seconds:.1f}s "
           f"({res.tokens_per_s:.0f} tok/s)")
+    if res.final_checkpoint is not None:
+        print(f"final checkpoint: generation "
+              f"{res.final_checkpoint['generation']} at chunk "
+              f"{res.final_checkpoint['chunk']} -> {args.ckpt_dir}",
+              flush=True)
     if res.engine is not None:
         rec = res.reconcile
         print(f"fleet ledger: writes actual={rec['fleet_actual']:.0f} "

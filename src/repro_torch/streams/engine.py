@@ -34,10 +34,13 @@ monitors (``obs.residuals.ResidualMonitor``, ``obs.costs.CostMonitor``)
 test the meter's drain and may add their alerted streams to the
 re-planner's; spans and events land on the tracer.
 
+Resilience (``repro_torch.resilience``): ``chunks_ingested`` is the ingest
+cursor, and a checkpointer attached with ``attach_checkpointer`` runs at
+every chunk boundary. ``tier_outage`` / ``tier_recover`` mask a failed
+storage tier out of every re-plan and evacuate the streams that use it.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: fleet-axis sharding ``mesh=`` (queue 1 item 9). Tier outage
-(``tier_outage`` / ``tier_recover``) is item 8, so re-plans exclude no
-tier and ``obs_snapshot`` reports no failed tier.
+ROADMAP item: fleet-axis sharding ``mesh=`` (queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -592,8 +595,18 @@ class StreamEngine:
                     law_slack=slack_rows, logmem=self.meter.logmem,
                     budget_factor=obs.config.budget_factor,
                     burn_windows=obs.config.burn_windows)
-        # the ingest cursor: chunk boundaries consumed
+        # resilience (repro_torch.resilience): the ingest cursor is the
+        # chunk sequence number — checkpoint step, and the idempotent
+        # redelivery guard's high-water mark; a checkpointer attached via
+        # ``attach_checkpointer`` is invoked at every chunk boundary
         self.chunks_ingested = 0
+        self._checkpoint = None
+        # tier-outage bookkeeping: failed tiers are masked out of the
+        # re-planner's feasible set; a recovered tier stays masked for a
+        # hysteresis window (flap damping) before plans may use it again
+        self._failed_tiers: Dict[int, int] = {}
+        self._recovering_tiers: Dict[int, int] = {}
+        self._tier_outages = 0
 
     def _span(self, name: str, **attrs):
         """The tracer's span when obs is on, else a no-op context."""
@@ -720,7 +733,22 @@ class StreamEngine:
     def _run_chunk(self, dense, *, meter: bool = True) -> None:
         wrotes, evs, new_states = self._dispatch(self._to_device(dense))
         self._consume(dense, wrotes, evs, new_states, meter)
+        self._chunk_boundary()
+
+    def _chunk_boundary(self) -> None:
+        """Advance the ingest cursor and fire the chunk-boundary
+        checkpoint hook (the chunk's states are final here and the next
+        chunk has not been dispatched, so a snapshot is consistent)."""
         self.chunks_ingested += 1
+        if self._checkpoint is not None:
+            self._checkpoint.on_chunk(self)
+
+    def attach_checkpointer(self, checkpointer) -> None:
+        """Install a chunk-boundary checkpoint hook (an object with
+        ``on_chunk(engine)`` — see ``resilience.FleetCheckpointer``)."""
+        if not hasattr(checkpointer, "on_chunk"):
+            raise TypeError("checkpointer needs an on_chunk(engine) hook")
+        self._checkpoint = checkpointer
 
     def _checked(self, dense) -> list:
         if len(dense) != len(self.buckets):
@@ -777,7 +805,15 @@ class StreamEngine:
                 staged = stager.stage(slot, nxt)
             # host consumption blocks on chunk t's outputs last
             self._consume(dense, wrotes, evs, new_states, meter)
-            self.chunks_ingested += 1
+            # chunk-boundary checkpoint: chunk t+1 is only staged (its
+            # copy on the side stream writes the other slot's buffers),
+            # not dispatched, so the snapshot's device→host copies on the
+            # compute stream read chunk t's finished states. The
+            # reference fires here because its next dispatch donates
+            # those states; the port's step donates nothing (it writes
+            # every output to new tensors), and the copies complete
+            # before the hook returns
+            self._chunk_boundary()
             count += 1
         return count
 
@@ -819,14 +855,13 @@ class StreamEngine:
             depth = (cm.t - 1 if hasattr(cm, "t")
                      else int(np.isfinite(b).sum()))
             bounds.append(tuple(b[:depth]))
-        # tier outage (ROADMAP queue 1 item 8) is not ported: no tier is
-        # excluded from the re-solve
+        exclude = self._excluded_tier_set()
         with self._span("replan", flagged=len(fired_rows)):
             dec = self._replanner.replan(rows, self.meter.observed[rows],
                                          np.asarray(rhos), bounds,
                                          self.meter.migrate[rows],
                                          hwm=self.meter.occupancy_hwm[rows],
-                                         exclude_tiers=frozenset())
+                                         exclude_tiers=exclude)
         residual_set, cost_set = set(residual_rows), set(cost_rows)
         touched_buckets = set()
         host_ids: Dict[int, np.ndarray] = {}  # one device copy a bucket
@@ -919,6 +954,225 @@ class StreamEngine:
                               admitted=bool(getattr(decision, "admitted",
                                                     False)))
 
+    # ---- tier-outage graceful degradation -------------------------------
+
+    def _bucket_of(self, row: int) -> Tuple[int, int]:
+        """(bucket index, row within bucket) of a global meter row."""
+        for bi, rows in enumerate(self._global_rows):
+            if rows.size and rows[0] <= row <= rows[-1]:
+                return bi, int(row - rows[0])
+        raise KeyError(row)
+
+    def _apply_row_bounds(self, row: int, new_bounds,
+                          host_ids: Dict[int, np.ndarray]) -> int:
+        """Apply a new boundary vector to one stream everywhere it
+        lives: host meter (re-tiering residents), the bucket's quantized
+        tier_assign bounds (marked stale), device cost ledger, and the
+        cost monitor's planned trajectory. ``host_ids`` caches each exact
+        bucket's resident ids on the host (one device copy a bucket).
+        Returns the number of relocated residents."""
+        bi, jb = self._bucket_of(row)
+        ids_arg = None
+        if self.buckets[bi].engine != "logmem":
+            if bi not in host_ids:
+                host_ids[bi] = self._states[bi].ids.cpu().numpy()
+            ids_arg = host_ids[bi][jb]
+            self._bounds_stale.add(bi)
+        moved = self.meter.apply_boundaries(row, new_bounds, ids_arg)
+        if self._cost_states is not None:
+            from repro_torch.obs import costs as costs_mod
+            self._cost_states[bi] = costs_mod.set_bucket_bounds(
+                self._cost_states[bi], jb, self.meter.boundaries[row])
+            self._cost_monitor.set_bounds(row, self.meter.boundaries[row])
+        return moved
+
+    def _excluded_tier_set(self) -> frozenset:
+        """Tiers no plan may place onto right now: failed tiers, plus
+        recovered tiers still inside their hysteresis window (expired
+        entries are purged — flap damping)."""
+        expired = [t for t, until in self._recovering_tiers.items()
+                   if self.chunks_ingested >= until]
+        for t in expired:
+            del self._recovering_tiers[t]
+        return frozenset(self._failed_tiers) | frozenset(
+            self._recovering_tiers)
+
+    def tier_outage(self, tier: int, *, burn_grace: int = 8) -> Dict:
+        """Declare a storage tier failed: mask it out of every future
+        re-plan's feasible set and evacuate affected streams onto the
+        surviving tiers now — a forced constrained suffix re-solve for
+        streams with a cost model (relocation hop-priced, applied on
+        feasibility rather than savings), a geometric boundary merge
+        (``core.constraints.evacuation_boundaries``) for the rest.
+
+        The relocation spend spike is operator-induced, so the cost
+        channel is kept honest rather than silenced wholesale: the
+        evacuation bill is credited to each stream's planned trajectory
+        (``CostMonitor.add_planned`` — regret does not blame the
+        placement) and budget-burn alerts are suppressed for
+        ``burn_grace`` chunks on the evacuated rows only.
+
+        Returns a summary dict; emits ``tier_outage`` (and per-stream
+        ``tier_evacuation``) on the obs event log. Idempotent: a tier
+        already failed returns ``{"already_failed": True}`` without
+        re-evacuating (flap protection on the failure side)."""
+        nt = self.meter.n_tiers
+        if not 0 <= tier < nt:
+            raise ValueError(f"tier {tier} out of range (fleet has {nt} "
+                             "tiers)")
+        if tier in self._failed_tiers:
+            return {"tier": tier, "already_failed": True,
+                    "rows_evacuated": 0, "rows": [], "moved_docs": 0,
+                    "bill": 0.0, "skipped_rows": [],
+                    "infeasible_rows": []}
+        # a re-failure during recovery hysteresis folds into the outage
+        self._recovering_tiers.pop(tier, None)
+        self._failed_tiers[tier] = self.chunks_ingested
+        self._tier_outages += 1
+        summary = self._evacuate_tier(tier, burn_grace=burn_grace)
+        if self._tracer is not None:
+            self._tracer.emit(
+                "tier_outage", tier=tier, chunk=self.chunks_ingested,
+                rows_evacuated=summary["rows_evacuated"],
+                moved_docs=summary["moved_docs"], bill=summary["bill"],
+                skipped=len(summary["skipped_rows"]),
+                infeasible=len(summary["infeasible_rows"]))
+        return summary
+
+    def tier_recover(self, tier: int, *, hysteresis: int = 2) -> None:
+        """Clear a tier's outage. The tier stays masked from re-plans
+        for ``hysteresis`` more chunks (flap damping) before placements
+        may use it again; evacuated streams migrate back only through
+        the ordinary re-plan channel — there is no forced
+        un-evacuation."""
+        if tier not in self._failed_tiers:
+            raise ValueError(f"tier {tier} is not failed")
+        del self._failed_tiers[tier]
+        self._recovering_tiers[tier] = self.chunks_ingested + int(hysteresis)
+        if self._tracer is not None:
+            self._tracer.emit(
+                "tier_recovered", tier=tier, chunk=self.chunks_ingested,
+                masked_until_chunk=int(self._recovering_tiers[tier]))
+
+    def _evacuate_tier(self, tier: int, *, burn_grace: int) -> Dict:
+        """Move every affected stream off a failed tier. Affected =
+        the tier exists in the stream's placement AND (residents live
+        there now, or future arrivals would land there). Cascade
+        (migrating) streams cannot re-tier residents and are skipped,
+        as are single-tier streams (no surviving tier to move into) —
+        both are reported, not silently dropped.
+
+        The device is read once per touched bucket, not once per row:
+        the detector's rho estimate and the resident ids are copied to
+        the host on a bucket's first evacuated row and reused."""
+        from repro_torch.core import constraints as cons_mod
+        meter = self.meter
+        b = meter.boundaries
+        m = self.m
+        observed = meter.observed.astype(np.float64)
+        lo = b[:, tier - 1] if tier > 0 else np.zeros(m)
+        hi = (b[:, tier] if tier < b.shape[1] else np.full(m, np.inf))
+        exists = np.isfinite(lo) if tier > 0 else np.ones(m, bool)
+        resident = ((meter.occupancy[:, tier] > 0)
+                    if tier < meter.n_tiers else np.zeros(m, bool))
+        future = (hi > lo) & (hi > observed)
+        affected = exists & (resident | future)
+        rr0 = meter.reloc_reads.copy()
+        rw0 = meter.reloc_writes.copy()
+        evacuated: List[int] = []
+        skipped: List[int] = []
+        infeasible: List[int] = []
+        touched: set = set()
+        moved_total = 0
+        exclude = self._excluded_tier_set()
+        host_ids: Dict[int, np.ndarray] = {}
+        rho_of: Dict[int, np.ndarray] = {}
+        for row in np.flatnonzero(affected):
+            row = int(row)
+            if meter.migrate[row]:
+                skipped.append(row)
+                continue
+            depth = int(np.isfinite(b[row]).sum())
+            if depth == 0:
+                skipped.append(row)  # single-tier: nowhere to go
+                continue
+            old = tuple(float(x) for x in b[row, :depth])
+            moved = 0
+            applied = False
+            if (self._model_of_row.get(row) is not None
+                    and self._replanner is not None):
+                rho = 1.0
+                if self._drift_states is not None:
+                    from repro_torch.online import drift as drift_mod
+                    bi, jb = self._bucket_of(row)
+                    if bi not in rho_of:
+                        rho_of[bi] = drift_mod.rho_hat(
+                            self._drift_states[bi],
+                            self.replan_config.drift).cpu().numpy()
+                    rho = float(rho_of[bi][jb])
+                dec = self._replanner.replan(
+                    np.asarray([row], np.int64), meter.observed[[row]],
+                    np.asarray([rho]), [old], meter.migrate[[row]],
+                    hwm=meter.occupancy_hwm[[row]],
+                    exclude_tiers=exclude, force=True)
+                if not dec.feasible[0]:
+                    # the surviving tiers cannot honor the constraints:
+                    # negotiate next-window terms, but still evacuate —
+                    # data cannot stay on a dead tier
+                    infeasible.append(row)
+                    self._negotiate_admission(row,
+                                              int(meter.observed[row]))
+                if dec.applied[0]:
+                    moved = self._apply_row_bounds(row, dec.new_bounds[0],
+                                                   host_ids)
+                    applied = True
+            if not applied:
+                newb = cons_mod.evacuation_boundaries(old, tier)
+                moved = self._apply_row_bounds(row, tuple(newb), host_ids)
+            evacuated.append(row)
+            touched.add(self._bucket_of(row)[0])
+            moved_total += moved
+            if self._tracer is not None:
+                self._tracer.emit(
+                    "tier_evacuation", stream_id=self._sid_of_row[row],
+                    row=row, tier=tier, moved_docs=moved,
+                    replanned=applied,
+                    position=int(meter.observed[row]))
+        bill = 0.0
+        bills = np.zeros(m, np.float64)
+        if self._pricing is not None:
+            d_rr = (meter.reloc_reads - rr0).astype(np.float64)
+            d_rw = (meter.reloc_writes - rw0).astype(np.float64)
+            bills = (d_rr * self._pricing["cr"]).sum(1) \
+                + (d_rw * self._pricing["cw"]).sum(1)
+            bill = float(bills.sum())
+        if evacuated:
+            emask = np.zeros(m, bool)
+            emask[evacuated] = True
+            # the evacuation consumed whatever evidence the monitors had
+            # anchored to the old placement — restart it, like a re-plan
+            if self._drift_states is not None:
+                from repro_torch.online import drift as drift_mod
+                for bi in sorted(touched):
+                    rows_b = self._global_rows[bi]
+                    bmask = np.zeros(self.buckets[bi].m, bool)
+                    bmask[[r - int(rows_b[0]) for r in evacuated
+                           if rows_b[0] <= r <= rows_b[-1]]] = True
+                    self._drift_states[bi] = drift_mod.reset_where(
+                        self._drift_states[bi], torch.from_numpy(bmask))
+            if self._residuals is not None:
+                self._residuals.reset_where(emask)
+            if self._cost_monitor is not None:
+                self._cost_monitor.reset_where(emask)
+                self._cost_monitor.suppress_burn(emask, burn_grace)
+                for row in evacuated:
+                    self._cost_monitor.add_planned(row, float(bills[row]))
+        return {"tier": tier, "already_failed": False,
+                "rows_evacuated": len(evacuated),
+                "rows": [int(r) for r in evacuated],
+                "moved_docs": int(moved_total), "bill": bill,
+                "skipped_rows": skipped, "infeasible_rows": infeasible}
+
     def drift_scores(self) -> Dict[int, float]:
         """{stream_id: normalized change score} (>= 1 fires; online mode
         only)."""
@@ -984,9 +1238,9 @@ class StreamEngine:
         device counters, meter ledger aggregates (per-tier occupancy
         high-water marks, relocations), and the model-referenced
         residual metrics (realized / expected / z for the write law;
-        realized / expected for the occupancy law). The resilience block
-        reports the ingest cursor; tier outage is not ported (ROADMAP
-        queue 1 item 8), so no tier has failed."""
+        realized / expected for the occupancy law), and the resilience
+        block: the ingest cursor, the tier outages and the attached
+        checkpointer's counters."""
         from repro_torch.obs import residuals as res_mod
         out: Dict = {"fleet": {"m": self.m, "buckets": len(self.buckets),
                                "logmem_streams":
@@ -1031,10 +1285,13 @@ class StreamEngine:
             out["costs"] = costs_mod.snapshot(self)
         out["resilience"] = {
             "chunks_ingested": int(self.chunks_ingested),
-            "failed_tiers": [],
-            "recovering_tiers": [],
-            "tier_outages": 0,
+            "failed_tiers": sorted(self._failed_tiers),
+            "recovering_tiers": sorted(self._recovering_tiers),
+            "tier_outages": int(self._tier_outages),
         }
+        if (self._checkpoint is not None
+                and hasattr(self._checkpoint, "snapshot")):
+            out["resilience"]["checkpoint"] = self._checkpoint.snapshot()
         return out
 
     def cost_summary(self) -> Dict:

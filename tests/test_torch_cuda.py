@@ -1458,3 +1458,123 @@ def test_cost_triggered_replanning_on_card_equals_cpu(cuda_device):
         np.float32(b["engine"].pop("drift_score_max")), maxulp=1)
     assert json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
 
+
+
+# ---------------------------------------------------------------------------
+# resilience on the card: snapshot/restore, the checkpoint hook, outage
+# ---------------------------------------------------------------------------
+
+def card_state(eng):
+    """Every state leaf on the host, the meter's ledgers, assign_tiers."""
+    out = [t.cpu() for st in eng.states() for t in st]
+    out += [torch.from_numpy(v) for _, v in sorted(
+        eng.meter.state_dict().items())]
+    out += [t.cpu() for pair in eng.assign_tiers() if pair is not None
+            for t in pair]
+    return out
+
+
+def assert_card_states_equal(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_snapshot_restore_resume_on_card_equals_cpu(cuda_device):
+    """The observed mixed fleet snapshotted on the card after 6 chunks,
+    restored into a fresh card engine and resumed for 6 more: every
+    state leaf, ledger and assign_tiers equal the CPU engine's
+    uninterrupted run."""
+    from repro_torch.resilience import fleet_restore, fleet_snapshot
+    chunks = list(mixed_dense_chunks(12, 7))
+    cpu = observed_mixed_engine("cpu")
+    cpu.ingest_chunks(chunks)
+    gpu = observed_mixed_engine(cuda_device)
+    gpu.ingest_chunks(chunks[:6])
+    tree, meta = fleet_snapshot(gpu)
+    gpu2 = observed_mixed_engine(cuda_device)
+    fleet_restore(gpu2, tree, meta)
+    assert gpu2.chunks_ingested == 6
+    gpu2.ingest_chunks(chunks[6:])
+    assert_card_states_equal(card_state(cpu), card_state(gpu2))
+    assert json.dumps(cpu.obs_snapshot(), sort_keys=True) == json.dumps(
+        gpu2.obs_snapshot(), sort_keys=True)
+
+
+@pytest.mark.cuda
+def test_ingest_chunks_with_checkpointer_on_card(cuda_device, tmp_path):
+    """The double-buffered ingest with an async checkpointer at every
+    second chunk boundary gives the finals it gives without one, and
+    the last checkpoint restores into a card engine equal to both."""
+    from repro_torch.resilience import FleetCheckpointer
+    chunks = list(mixed_dense_chunks(10, 8))
+    plain, ckd = mixed_engine(cuda_device), mixed_engine(cuda_device)
+    plain.ingest_chunks(chunks)
+    ck = FleetCheckpointer(str(tmp_path), every=2)
+    ckd.attach_checkpointer(ck)
+    ckd.ingest_chunks(chunks)
+    ck.wait()
+    assert ck.written == 5 and ck.manager.latest_step() == 10
+    want = card_state(plain)
+    assert_card_states_equal(want, card_state(ckd))
+    back = mixed_engine(cuda_device)
+    ck.restore(back)
+    assert_card_states_equal(want, card_state(back))
+
+
+@pytest.mark.cuda
+def test_tier_outage_on_card_equals_cpu(cuda_device):
+    """examples/chaos_recovery.py's fleet (three tiers, half planned on
+    the CPU's plan and half pinned, re-planning and costs on) through a
+    tier-1 outage on the card and on the CPU: summaries, events, re-plan
+    events, ledgers and assign_tiers equal."""
+    from repro_torch.obs import Observability, ObsConfig
+    from repro_torch.resilience import TierOutage
+    n, m, w = 18 * 32, 64, 32
+    models = [t_topo.hbm_dram_disk_preset(n_docs=n, k=8, doc_gb=1e-4,
+                                          window_seconds=30.0 * (1 + t % 3))
+              for t in range(m)]
+    plan = t_eng.StreamEngine([t_eng.StreamSpec(stream_id=t, k=8,
+                                                cost_model=cm)
+                               for t, cm in enumerate(models)],
+                              device="cpu")
+    specs = [t_eng.StreamSpec(
+        stream_id=t, k=8, cost_model=cm,
+        boundaries=((32.0, n * 0.8) if t % 2
+                    else tuple(plan.meter.boundaries[t].tolist())),
+        migrate=bool(plan.meter.migrate[t]) and t % 2 == 0)
+        for t, cm in enumerate(models)]
+
+    def chunk(i):
+        r = np.random.default_rng(i)
+        s = r.random((m, w)).astype(np.float32)
+        if i >= 4:
+            s[: m // 2] += 0.5
+        return [(s, np.tile(np.arange(i * w, (i + 1) * w, dtype=np.int32),
+                            (m, 1)))]
+
+    out = []
+    for device in (cuda_device, "cpu"):
+        obs = Observability(ObsConfig(costs=True))
+        eng = t_eng.StreamEngine(
+            specs, obs=obs, device=device,
+            replan=t_replan.ReplanConfig(drift=t_drift.DriftConfig(
+                alpha=0.05)))
+        eng._replanner.backend = "device"
+        eng.ingest_chunks([chunk(i) for i in range(12)])
+        with TierOutage(eng, tier=1, hysteresis=2) as drill:
+            eng.ingest_chunks([chunk(i) for i in range(12, 15)])
+            assert eng.meter.occupancy[:, 1].sum() == 0
+        eng.ingest_chunks([chunk(i) for i in range(15, 18)])
+        out.append((eng, obs, drill.summary))
+    (g, go, gsum), (c, co, csum) = out
+    assert gsum == csum and gsum["rows_evacuated"] > 0
+    assert [(e["kind"], e["name"], e["attrs"]) for e in go.tracer.events] \
+        == [(e["kind"], e["name"], e["attrs"]) for e in co.tracer.events]
+    assert [dataclasses.astuple(e) for e in g.replan_events] == \
+        [dataclasses.astuple(e) for e in c.replan_events]
+    assert_card_states_equal(card_state(g), card_state(c))
+    gs, cs = g.cost_summary(), c.cost_summary()
+    for key in ("total", "planned", "regret"):
+        np.testing.assert_array_equal(gs[key], cs[key])

@@ -17,6 +17,7 @@ scores before it compares ledgers and retained ids.
 import importlib.util
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -230,10 +231,68 @@ def test_kernel_route_equals_plain_route_on_cpu(model):
 
 
 def test_cli_flags_not_ported_raise():
-    for argv, item in ((["--mesh", "2"], 9), (["--ckpt-dir", "x"], 8)):
+    for argv, item in ((["--mesh", "2"], 9),):
         with pytest.raises(NotImplementedError,
                            match=f"queue 1 item {item}"):
             t_serve.main(argv + ["--device", "cpu"])
+
+
+def test_cli_ckpt_dir_needs_tenants(tmp_path):
+    """``--ckpt-dir`` with one tenant exits with the reference's message
+    (examples/serve_topk.py), before anything is built or written."""
+    with pytest.raises(SystemExit, match=r"--ckpt-dir requires --tenants > 1"):
+        t_serve.main(["--device", "cpu", "--tenants", "1", "--ckpt-dir",
+                      str(tmp_path / "ckpt")])
+    assert not (tmp_path / "ckpt").exists()
+
+
+def test_cli_sigterm_drains_and_checkpoints(tmp_path):
+    """tests/test_shutdown.py against the port's launcher: SIGTERM after
+    the first checkpoint finishes the batch in flight, writes a final
+    blocking checkpoint at the ingest cursor, flushes the obs artifacts
+    and exits 0; the final checkpoint restores into a fresh tenant engine
+    with the printed cursor."""
+    from repro_torch.obs import Observability, ObsConfig
+    from repro_torch.resilience import FleetCheckpointer
+    ckpt, obs = tmp_path / "ckpt", tmp_path / "obs"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--tenants", "2", "--requests", "32", "--batch", "4",
+         "--ckpt-dir", str(ckpt), "--ckpt-every", "1", "--obs-out", str(obs),
+         "--obs-hold", "120"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    try:
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            if ckpt.is_dir() and any(d.startswith("ckpt_")
+                                     for d in os.listdir(ckpt)):
+                break
+            if proc.poll() is not None:
+                pytest.fail("server exited early:\n"
+                            + proc.communicate()[0][-2000:])
+            time.sleep(0.2)
+        else:
+            pytest.fail("no checkpoint appeared before the deadline")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=40)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, out[-2000:]
+    assert "graceful shutdown on SIGTERM" in out
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("final checkpoint: generation"))
+    chunk = int(line.split(" at chunk ")[1].split()[0])
+    assert 1 <= chunk < 8  # stopped early: 8 batches of 4 requests
+    assert (obs / "metrics.json").exists(), out[-2000:]
+    # the launcher's tenant engine: --obs-out turns obs on (no costs)
+    eng, _ = t_serve.make_tenant_engine(2, 32, 8, (16 + 12) * 4 / 1e9,
+                                        device="cpu",
+                                        obs=Observability(ObsConfig()))
+    FleetCheckpointer(str(ckpt)).restore(eng)
+    assert eng.chunks_ingested == chunk
 
 
 SERVE_ARGV = ["--device", "cpu", "--requests", "12", "--batch", "4",
