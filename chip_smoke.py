@@ -179,7 +179,29 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    --obs-out --obs-hold 60 (reduced llama3.2-1b) as a subprocess, SIGTERM
    after its first checkpoint: exit 0, both shutdown lines, metrics.json,
    and the final checkpoint restores with the printed cursor. The
-   checkpoints are written under build/ and removed.
+   checkpoints are written under build/ and removed;
+16. fleet-axis sharding (repro_torch.parallel.fleet) at full width on a
+   FleetMesh of 8 shards on cuda:0 (examples/million_streams.py's
+   --devices 8; one card, so the shards share it). 16a: phase 5's plan
+   with the mesh active (plan_solve launched per shard: 8x phase 5's
+   launches), totals, bounds and migrate flags bit-equal to phase 5's;
+   planner.waterfill(mesh=) (waterfill_sharded: a float64 bisection,
+   per-shard sums added on shard 0) within 1e-7 of
+   constraints.waterfill_grants and never over the budget; the re-solve
+   of phase 5's binding streams under their grants bit-equal to phase
+   5's. 16b: phase 8's mixed fleet (1,000,000 exact streams and 64
+   logmem tenants at K=65,536) with obs on through ingest_chunks (8
+   chunks of 16 a window, the example's 16 cut for time; meter off) and finalize_tiers on the mesh beside an unsharded
+   engine over the same chunks: every state leaf, assign_tiers' tiers
+   and counts and the metrics snapshot bit-equal; 64 batched_topk, 64
+   logmem_update and 8 tier_assign launches; a checkpoint written at 8
+   shards restored onto 1 shard, then a second window on both, bit-equal;
+   docs/s sharded beside unsharded, and a profile of 4 steps of each
+   (as phase 7's). 16c: python -m
+   repro_torch.launch.serve --device cuda --tenants 8 --requests 64
+   --batch 8 with --mesh 2 and without, retained and ledger lines equal;
+   serve() in this process with a 2-shard mesh, every tenant's retained
+   set and meter ledgers equal.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -1490,7 +1512,11 @@ def plan_fleet(rng, hot_frac=0.6):
     check_f32_plan("plan", args, host, plan)
     check_f64_plan("re-solve", sub, host_re, re)
     plan_profile(args)
-    return bounds, mig, launches
+    # what phase 16's sharded plan is held to, bit for bit
+    plan5 = {"args": args, "plan": plan, "re": re, "idx": idx, "cap": cap,
+             "budget": budget, "n_solve": n_solve,
+             "n_resolve": launches - n_solve}
+    return bounds, mig, launches, plan5
 
 
 def plan_profile(args):
@@ -1559,7 +1585,7 @@ def main_path():
     from repro_torch.kernels.tier_assign import ops as ta
     from repro_torch.streams import StreamEngine, StreamSpec
     rng = np.random.default_rng(0)
-    bounds, mig, ps_launches = plan_fleet(rng)
+    bounds, mig, ps_launches, plan5 = plan_fleet(rng)
     t0 = time.perf_counter()
     eng = StreamEngine([StreamSpec(stream_id=i, k=K, boundaries=tuple(b),
                                    migrate=bool(g))
@@ -1624,7 +1650,7 @@ def main_path():
         f"host-made chunks; host clock around ingest_chunks and a sync)")
     check_sample(eng, sample, trace, bounds, mig)
     rate = {"first": docs / t_first, "median": statistics.median(rates)}
-    return eng, launches, rng, (bounds, mig, rate)
+    return eng, launches, rng, (bounds, mig, rate, plan5)
 
 
 # ---------------------------------------------------------------------------
@@ -3759,6 +3785,306 @@ def resilience(bounds, mig):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: fleet-axis sharding, 8 shards on one card
+# ---------------------------------------------------------------------------
+
+SHARDS = 8  # examples/million_streams.py's --devices default
+SH_CHUNKS = 8  # chunks a phase 16 window (the example's 16, cut for time)
+MESH_ARGV = ["--device", "cuda", "--tenants", "8", "--requests", "64",
+             "--batch", "8"]  # phase 15c's reduced launcher settings
+
+
+def same_plan(a, b):
+    return all(np.array_equal(a[key], b[key])
+               for key in ("total", "bounds", "migrate"))
+
+
+def sharded_plan(mesh, plan5):
+    """16a: phase 5's plan, water-filling and re-solve with the mesh
+    active: plan_solve launched once a shard for each of phase 5's
+    launches, the plans bit-equal to phase 5's, the sharded
+    water-filling held to the host law. Returns the merged (bounds,
+    migrate) and the plan_solve launches."""
+    from repro_torch.core import constraints as cons
+    from repro_torch.core import shp
+    from repro_torch.kernels.plan_solve import ops as ps
+    from repro_torch.parallel import fleet
+    from repro_torch.streams import planner
+    args = plan5["args"]
+    cw, cr, cs, n, kv, rpw = args
+    # the counted run: counter to 0, plan, read
+    ps.launches = 0
+    t0 = time.perf_counter()
+    with fleet.use_fleet_mesh(mesh):
+        plan = shp.plan_ntier_arrays(*args)
+    t_solve = time.perf_counter() - t0
+    n_solve = ps.launches
+    bounds, mig = plan["bounds"].copy(), plan["migrate"].copy()
+    desired = cons.peak_occupancy_arrays(bounds, n, kv, mig)[:, 0]
+    budget = float(desired.sum()) * 0.6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grants = planner.waterfill(desired, budget, mesh=mesh)
+    t_wf = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = cons.waterfill_grants(desired, budget)
+    t_host = time.perf_counter() - t0
+    idx, cap = plan5["idx"], plan5["cap"]
+    binding = np.flatnonzero(grants < desired - 1e-9)
+    sub = tuple(a[idx] for a in args)
+    t0 = time.perf_counter()
+    with fleet.use_fleet_mesh(mesh):
+        re = shp.plan_ntier_arrays(*sub, cap=cap)
+    t_resolve = time.perf_counter() - t0
+    n_resolve = ps.launches - n_solve
+    err = float(np.abs(grants - host).max())
+    over = float(grants.sum()) / budget - 1.0
+    same_set = "the same set as" if np.array_equal(binding, idx) else \
+        "not the same set as"
+    log(f"sharded [16a]: plan of {M} streams on {SHARDS} shards "
+        f"{t_solve:.3f}s ({n_solve} plan_solve launches; phase 5 "
+        f"{plan5['n_solve']}), waterfill_sharded {t_wf * 1e3:.3f} ms (96 "
+        f"float64 bisection steps, per-shard sums added on shard 0; host "
+        f"waterfill_grants {t_host * 1e3:.3f} ms): max |grant - host| "
+        f"{err:.3e}, sum/budget - 1 = {over:.3e}, {binding.size} binding "
+        f"streams ({same_set} phase 5's {idx.size}); re-solve of phase "
+        f"5's {idx.size} binding streams under their grants "
+        f"{t_resolve:.3f}s ({n_resolve} launches; phase 5 "
+        f"{plan5['n_resolve']})")
+    if not (same_plan(plan, plan5["plan"]) and same_plan(re, plan5["re"])):
+        raise AssertionError("the sharded plan differs from phase 5's")
+    if budget != plan5["budget"]:
+        raise AssertionError("the sharded plan's hot budget differs")
+    if not ((grants <= desired + 1e-9).all()
+            and grants.sum() <= budget * (1 + 1e-12) + 1e-9):
+        raise AssertionError("waterfill_sharded oversubscribed the budget")
+    if not np.allclose(grants, host, rtol=1e-7, atol=1e-7):
+        raise AssertionError("waterfill_sharded is off the host law")
+    if (n_solve, n_resolve) != (SHARDS * plan5["n_solve"],
+                                SHARDS * plan5["n_resolve"]):
+        raise AssertionError(f"the sharded plan missed plan_solve on a "
+                             f"shard: {n_solve}, {n_resolve}")
+    bounds[idx], mig[idx] = re["bounds"], re["migrate"]
+    return bounds, mig, n_solve + n_resolve
+
+
+def sharded_specs(bounds, mig):
+    """Phase 8's mixed fleet: phase 5's plan for the exact streams, the
+    64 logmem tenants."""
+    from repro_torch.streams import StreamSpec
+    specs = [StreamSpec(stream_id=i, k=K, boundaries=tuple(b),
+                        migrate=bool(g))
+             for i, (b, g) in enumerate(zip(bounds.tolist(), mig.tolist()))]
+    return specs + [StreamSpec(stream_id=M + j, k=LM_K, r=float(4 * LM_K),
+                               engine="logmem") for j in range(LM_STREAMS)]
+
+
+def sharded_engine(specs, mesh):
+    """The fleet with obs on, as examples/million_streams.py builds it."""
+    from repro_torch.obs import Observability, ObsConfig
+    from repro_torch.streams import StreamEngine
+    return StreamEngine(specs, obs=Observability(ObsConfig(residuals=False)),
+                        mesh=mesh)
+
+
+def engine_digest(eng):
+    """What phase 16 holds bit for bit: every state leaf (the shards'
+    rows gathered, padding cut), the tiers and per-tier counts
+    assign_tiers gives, and the metrics snapshot."""
+    out = {f"state{bi}.{name}": t.cpu().numpy()
+           for bi, st in enumerate(eng.states())
+           for name, t in zip(st._fields, st)}
+    for bi, pair in enumerate(eng.assign_tiers()):
+        if pair is not None:
+            out[f"tiers{bi}"], out[f"counts{bi}"] = (pair[0].cpu().numpy(),
+                                                     pair[1].cpu().numpy())
+    return out, eng.obs_snapshot()["engine"]
+
+
+def digest_diff(a, b):
+    (da, ea), (db, eb) = a, b
+    bad = [key for key in da if da[key].shape != db[key].shape
+           or da[key].tobytes() != db[key].tobytes()]
+    return bad + (["metrics snapshot"] if ea != eb else [])
+
+
+def sharded_ingest(bounds, mig, mesh):
+    """16b: the mixed fleet through ingest_chunks (meter off, obs on) on
+    the mesh beside an unsharded engine over the same chunks, then a
+    checkpoint at 8 shards restored onto 1 and a second window on both.
+    Returns the scan and tier_assign launches of the counted run."""
+    import shutil
+    from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.logmem_update import ops as lm_ops
+    from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.resilience import FleetCheckpointer
+    rng = np.random.default_rng(16)
+    first = mixed_window_chunks(rng, 0, SH_CHUNKS)
+    n_chunks = len(first)
+    docs = (M * CHUNK + LM_STREAMS * LM_CHUNK) * n_chunks
+    specs = sharded_specs(bounds, mig)
+    t0 = time.perf_counter()
+    plain = sharded_engine(specs, None)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shd = sharded_engine(specs, mesh)
+    t_build_shd = time.perf_counter() - t0
+    log(f"sharded [16b]: {M} exact streams + {LM_STREAMS} logmem tenants "
+        f"at K={LM_K} on {SHARDS} shards of {mesh.devices[0]}: buckets "
+        f"padded to {shd._pad_m} rows, {[p // SHARDS for p in shd._pad_m]} "
+        f"a shard; engines built in {t_build:.3f}s (unsharded) and "
+        f"{t_build_shd:.3f}s (sharded)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.ingest_chunks(first, meter=False)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    # the counted run: counters to 0, drive, read
+    btk.launches = ta.launches = lm_ops.launches = 0
+    t0 = time.perf_counter()
+    done = shd.ingest_chunks(first, meter=False)
+    torch.cuda.synchronize()
+    t_shd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiers = shd.finalize_tiers()
+    t_fin = time.perf_counter() - t0
+    launches = {"batched_topk": btk.launches, "logmem_update":
+                lm_ops.launches, "tier_assign": ta.launches}
+    log(f"sharded [16b]: launches {launches} for {done} chunks (the "
+        f"unsharded engine launches {n_chunks}, {n_chunks} and 1); "
+        f"finalize_tiers {t_fin:.3f}s for {len(tiers)} streams")
+    want = {"batched_topk": SHARDS * n_chunks,
+            "logmem_update": SHARDS * n_chunks, "tier_assign": SHARDS}
+    if launches != want:
+        raise AssertionError(f"sharded launches {launches} != {want}")
+    del first, tiers
+    d_plain, d_shd = engine_digest(plain), engine_digest(shd)
+    bad = digest_diff(d_plain, d_shd)
+    log(f"sharded [16b]: {len(d_shd[0]) - len(bad)}/{len(d_shd[0])} state, "
+        f"tier and count leaves and the metrics snapshot bit-equal to the "
+        f"unsharded engine over the same chunks: {d_shd[1]}")
+    if bad or d_shd[1]["docs"] != docs:
+        raise AssertionError(f"sharded ingest differs from unsharded: {bad}")
+    del plain, d_plain
+    # reshard: a checkpoint written at 8 shards restored onto 1
+    ckdir = ROOT / "build" / "ckpt16"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    FleetCheckpointer(str(ckdir), every=0).save(shd, blocking=True)
+    t_save = time.perf_counter() - t0
+    back = sharded_engine(specs, None)
+    t0 = time.perf_counter()
+    FleetCheckpointer(str(ckdir)).restore(back)
+    t_restore = time.perf_counter() - t0
+    cursor = back.chunks_ingested
+    bad = digest_diff(d_shd, engine_digest(back))
+    if bad or cursor != done:
+        raise AssertionError(f"the 8 -> 1 restore differs: {bad}")
+    second = mixed_window_chunks(rng, 1, SH_CHUNKS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shd.ingest_chunks(second, meter=False)
+    torch.cuda.synchronize()
+    t_shd2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back.ingest_chunks(second, meter=False)
+    torch.cuda.synchronize()
+    t_back2 = time.perf_counter() - t0
+    del second
+    bad = digest_diff(engine_digest(shd), engine_digest(back))
+    log(f"sharded [16b]: checkpoint at {SHARDS} shards (blocking save "
+        f"{t_save:.3f}s) restored onto 1 shard ({t_restore:.3f}s) at chunk "
+        f"{cursor}, then a second window on both: "
+        f"{'DIFFERENT ' + str(bad) if bad else 'bit-equal'}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"the resumed 1-shard engine differs: {bad}")
+    log(f"sharded [16b]: ingest docs/s ({docs} docs a window; host clock "
+        f"around ingest_chunks and a sync): window 1 unsharded "
+        f"{docs / t_plain:.6g}, {SHARDS} shards {docs / t_shd:.6g} (ratio "
+        f"{t_plain / t_shd:.4f}); window 2 {SHARDS} shards "
+        f"{docs / t_shd2:.6g}, unsharded (restored) {docs / t_back2:.6g} "
+        f"(ratio {t_back2 / t_shd2:.4f})")
+    # where a sharded step's time goes, beside the unsharded step's
+    # (the same four chunks through each engine)
+    third = mixed_window_chunks(rng, 2, 4)
+    for eng, label in ((shd, f"{SHARDS} shards"), (back, "unsharded")):
+        step_profile(eng, third, f"the mixed fleet with obs on, {label}")
+    return launches
+
+
+def mesh_launcher():
+    """16c: the serving launcher with --mesh 2 (2 shards on the card: one
+    card is visible) against the same run without it, as subprocesses;
+    then serve() in this process with and without a 2-shard mesh, every
+    tenant's retained set and meter equal."""
+    import os
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel import fleet
+    outs = {}
+    for label, extra in (("mesh", ["--mesh", "2"]), ("plain", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *MESH_ARGV,
+             *extra], capture_output=True, text=True, cwd=ROOT, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        if proc.returncode:
+            raise AssertionError(f"the launcher ({label}) failed:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        outs[label] = (proc.stdout, time.perf_counter() - t0)
+
+    def kept(text):
+        return [ln for ln in text.splitlines()
+                if ln.startswith(("tenant ", "fleet ledger",
+                                  "per-stream strategies"))]
+
+    mesh_line = [ln for ln in outs["mesh"][0].splitlines()
+                 if ln.startswith("fleet mesh")]
+    equal = kept(outs["mesh"][0]) == kept(outs["plain"][0])
+    log(f"sharded [16c]: launcher {' '.join(MESH_ARGV)} --mesh 2: "
+        f"{mesh_line} ({outs['mesh'][1]:.1f}s; without --mesh "
+        f"{outs['plain'][1]:.1f}s); {len(kept(outs['mesh'][0]))} retained "
+        f"and ledger lines {'equal' if equal else 'DIFFERENT'}")
+    if not (mesh_line and kept(outs["plain"][0]) and equal):
+        raise AssertionError("serve --mesh 2 differs from the unsharded run")
+    cfg = configs.get_config("llama3.2-1b", reduced=True)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    res = {}
+    for label, mesh in (("mesh", fleet.fleet_mesh(2, device="cuda:0")),
+                        ("plain", None)):
+        res[label] = serve.serve(cfg, params, requests=64, batch=8,
+                                 prompt_len=16, gen_len=12, topk=8,
+                                 tenants=8, device="cuda", mesh=mesh)
+    a, b = res["mesh"], res["plain"]
+    same = (a.retained.keys() == b.retained.keys()
+            and all(np.array_equal(a.retained[t], b.retained[t])
+                    for t in a.retained)
+            and all(np.array_equal(getattr(a.engine.meter, f),
+                                   getattr(b.engine.meter, f))
+                    for f in ("observed", "writes", "deletes", "reads")))
+    log(f"sharded [16c]: serve() with a 2-shard mesh: all "
+        f"{len(a.retained)} tenants' retained sets and meter ledgers "
+        f"{'equal' if same else 'DIFFERENT'} to the unsharded run")
+    if not same:
+        raise AssertionError("serve(mesh=) differs from the unsharded run")
+
+
+def sharded(bounds, mig, plan5):
+    """Phase 16. Returns its launches."""
+    from repro_torch.parallel import fleet
+    mesh = fleet.fleet_mesh(SHARDS, device="cuda:0")
+    b16, m16, ps_launches = sharded_plan(mesh, plan5)
+    if not (np.array_equal(b16, bounds) and np.array_equal(m16, mig)):
+        raise AssertionError("the sharded plan's boundaries differ")
+    launches = sharded_ingest(bounds, mig, mesh)
+    launches["plan_solve"] = ps_launches
+    mesh_launcher()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3782,7 +4108,7 @@ def main():
         errs.update(score_kernel_parity())
         times.update(score_kernel_timings())
     with phase_clock("main path, self-check, step profile (phases 5-7)"):
-        eng, launches, rng, (bounds, mig, rate5) = main_path()
+        eng, launches, rng, (bounds, mig, rate5, plan5) = main_path()
         self_check()
         step_profile(eng, window_chunks(rng, 1 + TIMED_WINDOWS, 4),
                      f"{M} x {CHUNK}")
@@ -3808,6 +4134,11 @@ def main():
                      "(phase 15)"):
         for key, n in resilience(bounds, mig).items():
             launches[key] += n
+    with phase_clock(f"fleet-axis sharding, {SHARDS} shards on the card "
+                     "(phase 16)"):
+        for key, n in sharded(bounds, mig, plan5).items():
+            launches[key] += n
+        del plan5
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",

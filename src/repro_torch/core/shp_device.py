@@ -43,6 +43,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.kernels.plan_solve import ops as solve_ops
+from repro_torch.parallel import fleet
 
 from . import constraints as constraints_mod
 
@@ -454,8 +455,16 @@ def plan_ntier_arrays_device(cw, cr, cs, n, k, rpw, *, cap=None, lat=None,
     ``precision``: "float64" (default for constrained solves,
     oracle-matching to ~1e-11 relative) or "float32" (default for
     unconstrained ones). Raises ``DeviceSolverUnavailable`` for
-    hierarchies the exact joint enumeration does not cover (T > 4)."""
-    dev = device_mod.resolve(device)
+    hierarchies the exact joint enumeration does not cover (T > 4).
+
+    Under an active fleet mesh (``parallel.fleet.use_fleet_mesh``) the
+    rows split into the shards' contiguous blocks, each solved on its
+    shard's device (``device`` is then not used), and the outputs are
+    concatenated: bit-identical to the unsharded solve. The reference
+    pads each shard's block to a power of two, which only bounds XLA's
+    compile cache; eager torch has none, so the blocks run as they are."""
+    mesh = fleet.get_fleet_mesh()
+    dev = device_mod.resolve(device) if mesh is None else None
     cw = np.asarray(cw, np.float64)
     m, t = cw.shape
     if not 2 <= t <= MAX_DEVICE_TIERS:
@@ -488,13 +497,23 @@ def plan_ntier_arrays_device(cw, cr, cs, n, k, rpw, *, cap=None, lat=None,
                                           slo_h.reshape(m))]
     chunk = _chunk_rows(t, constrained, capfin, slo_any,
                         np.dtype(np_dtype).itemsize)
+    # an active fleet mesh solves each shard's rows on its own device
+    # (the reference's ``shp_jax._plan_sharded``); the gates above stay
+    # fleet-wide, so every shard builds the unsharded run's grids
+    if mesh is None:
+        blocks = [(0, m, dev)]
+    else:
+        blocks = [(lo, hi, d) for (lo, hi), d in zip(
+            fleet.row_blocks(m, fleet.n_shards(mesh)), mesh.devices)]
     outs = []
-    for lo in range(0, m, chunk):
-        part = [torch.from_numpy(np.ascontiguousarray(a[lo:lo + chunk]))
-                .to(dev) for a in args]
-        out = _plan(*part, t=t, constrained=constrained, capfin=capfin,
-                    slo_any=slo_any)
-        outs.append([o.cpu().numpy() for o in out])
+    for b_lo, b_hi, b_dev in blocks:
+        for lo in range(b_lo, b_hi, chunk):
+            hi = min(lo + chunk, b_hi)
+            part = [torch.from_numpy(np.ascontiguousarray(a[lo:hi]))
+                    .to(b_dev) for a in args]
+            out = _plan(*part, t=t, constrained=constrained,
+                        capfin=capfin, slo_any=slo_any)
+            outs.append([o.cpu().numpy() for o in out])
     total, bounds, mig = (np.concatenate([o[i] for o in outs])
                           for i in range(3))
     total = total.astype(np.float64)

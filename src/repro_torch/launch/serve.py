@@ -23,6 +23,11 @@ telemetry layer (``repro_torch.obs``): ``--obs-out DIR`` writes
 with cost attribution on; ``--obs-hold SEC`` stretches the loop over at
 least SEC seconds so a scraper can watch the counters advance.
 
+With ``--mesh N`` (and ``--tenants > 1``) the tenant engine shards its
+fleet axis over a ``parallel.fleet.FleetMesh`` of N shards: N cards when
+N are visible, else N shards on the engine's device (as the reference
+forces N host devices off-hardware); the startup line says which.
+
 With ``--ckpt-dir DIR`` (and ``--tenants > 1``) a
 ``repro_torch.resilience.FleetCheckpointer`` writes a crash-consistent
 checkpoint of the tenant engine every ``--ckpt-every`` chunks. SIGTERM and
@@ -56,7 +61,7 @@ from repro_torch.models import lm
 
 
 def make_tenant_engine(tenants: int, requests: int, topk: int, doc_gb: float,
-                       device=None, obs=None):
+                       device=None, obs=None, mesh=None):
     """Heterogeneous per-tenant retention: K alternates, cost models jitter
     the HBM presets, every third tenant gets a 3-tier HBM → DRAM → disk
     topology, and the fleet planner picks each tenant's boundary vector."""
@@ -79,7 +84,7 @@ def make_tenant_engine(tenants: int, requests: int, topk: int, doc_gb: float,
             cm = costs.hbm_host_preset(n_docs=n_per, k=k, doc_gb=doc_gb,
                                        window_seconds=window)
         specs.append(StreamSpec(stream_id=t, k=k, cost_model=cm))
-    return StreamEngine(specs, device=device, obs=obs), specs
+    return StreamEngine(specs, device=device, obs=obs, mesh=mesh), specs
 
 
 @dataclass
@@ -174,7 +179,7 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
           gen_len: int, topk: int, tenants: int = 1, device=None,
           seed: int = 0, obs=None, hold_s: float = 0.0,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 4,
-          stop=None) -> ServeResult:
+          stop=None, mesh=None) -> ServeResult:
     """Serve ``requests`` requests in batches of ``batch`` (random prompts
     of ``prompt_len`` tokens from ``np.random.default_rng(seed)``, as the
     reference's example draws them), generate ``gen_len`` tokens each,
@@ -190,7 +195,8 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
     checkpoint before ``finalize`` (``final_checkpoint`` holds its
     generation and chunk). ``stop`` (a callable) is asked before each
     batch: once it returns true the loop ends, the batch in flight
-    having finished."""
+    having finished. ``mesh`` (a ``parallel.fleet.FleetMesh``, tenants >
+    1) shards the tenant engine."""
     dev = device_mod.resolve(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -199,7 +205,7 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
     specs: list = []
     if tenants > 1:
         engine, specs = make_tenant_engine(tenants, requests, topk, doc_gb,
-                                           device=dev, obs=obs)
+                                           device=dev, obs=obs, mesh=mesh)
     else:
         # proactive placement for the request-log stream
         cm = costs.hbm_host_preset(n_docs=requests, k=topk, doc_gb=doc_gb,
@@ -297,7 +303,9 @@ def main(argv=None):
                          "seconds so a scraper can observe the live "
                          "counters advancing")
     ap.add_argument("--mesh", type=int, default=1,
-                    help="not ported yet (ROADMAP queue 1 item 9)")
+                    help="shard the tenant fleet axis over N shards: N "
+                         "cards when N are visible, else N shards on the "
+                         "engine's device; requires --tenants > 1")
     ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
                     help="crash-consistent fleet checkpointing "
                          "(repro_torch.resilience; requires --tenants > "
@@ -308,12 +316,23 @@ def main(argv=None):
                     help="checkpoint every N ingested chunks (0 = final "
                          "checkpoint only)")
     args = ap.parse_args(argv)
-    if args.mesh > 1:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP "
-                                  "queue 1 item 9)")
+    if args.mesh > 1 and args.tenants <= 1:
+        raise SystemExit("--mesh requires --tenants > 1")
     if args.ckpt_dir is not None and args.tenants <= 1:
         raise SystemExit("--ckpt-dir requires --tenants > 1")
     dev = device_mod.resolve(args.device)
+    mesh = None
+    if args.mesh > 1:
+        from repro_torch.parallel import fleet
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if cards >= args.mesh:
+            mesh = fleet.fleet_mesh(args.mesh)
+            where = f"{args.mesh} cards"
+        else:
+            mesh = fleet.fleet_mesh(args.mesh, device=dev)
+            where = f"{mesh.devices[0]} ({cards} cards visible)"
+        print(f"fleet mesh: {args.mesh} shards on {where}, tenant axis "
+              "sharded", flush=True)
     obs = obs_server = None
     if args.obs_out is not None or args.obs_port is not None:
         from repro_torch.obs import Observability, ObsConfig
@@ -336,7 +355,7 @@ def main(argv=None):
     previous = {s: signal.signal(s, _request_stop)
                 for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        _serve_and_report(args, dev, obs, stop)
+        _serve_and_report(args, dev, obs, stop, mesh)
     finally:
         for s, handler in previous.items():
             signal.signal(s, handler)
@@ -344,7 +363,7 @@ def main(argv=None):
             obs_server.stop()
 
 
-def _serve_and_report(args, dev, obs, stop) -> None:
+def _serve_and_report(args, dev, obs, stop, mesh) -> None:
     cfg = configs.get_config(args.arch, reduced=not args.full)
     params = lm.init_params(cfg, seed=0, device=dev)
     print(f"serving {'full' if args.full else 'reduced'} {args.arch} on "
@@ -357,7 +376,7 @@ def _serve_and_report(args, dev, obs, stop) -> None:
                 topk=args.topk, tenants=args.tenants, device=dev, obs=obs,
                 hold_s=args.obs_hold, ckpt_dir=args.ckpt_dir,
                 ckpt_every=args.ckpt_every,
-                stop=lambda: stop["signal"] is not None)
+                stop=lambda: stop["signal"] is not None, mesh=mesh)
     served = len(res.scores)
     if stop["signal"] is not None:
         print(f"graceful shutdown on {signal.Signals(stop['signal']).name}: "

@@ -200,14 +200,16 @@ def stream_pricing(engine) -> dict:
 
 def device_counts(engine) -> dict:
     """Drain the per-bucket device ledgers into global (M, T) int64
-    arrays (the only sync point — one transfer per leaf per bucket)."""
+    arrays (the only sync point — one transfer per leaf per bucket, and
+    per shard under a fleet mesh, whose padding rows are cut)."""
     t, m = engine.meter.n_tiers, engine.m
     out = {name: np.zeros((m, t), np.int64)
            for name in ("writes", "deletes", "resident_steps")}
     for bi, cs in enumerate(engine._cost_states):
         rows = engine._global_rows[bi]
         for name in out:
-            out[name][rows] = getattr(cs, name).cpu().numpy()
+            out[name][rows] = engine._host(
+                bi, cs, lambda c, name=name: getattr(c, name))
     return out
 
 

@@ -16,7 +16,8 @@ tallies are keyed by kernel name.
 ``_cache_size`` where the callable has one); ``record`` books a call
 whose outcome the caller already knows, as the kernel build does.
 Probes live in a module-level registry so the build and the export
-layer need no shared plumbing. Counters are lock-protected.
+layer need no shared plumbing. Counters are lock-protected. ``mesh_key``
+gives a fleet mesh's shape component for keys, as the reference's.
 """
 from __future__ import annotations
 
@@ -99,6 +100,15 @@ class JitProbe:
             self.calls = self.hits = self.misses = 0
             self.compile_s = 0.0
             self.by_key.clear()
+
+
+def mesh_key(mesh) -> tuple:
+    """Canonical mesh-shape component for probe keys: ``((axis, size),
+    ...)`` — ``(("fleet", D),)`` for a ``parallel.fleet.FleetMesh`` of D
+    shards — or ``()`` without a mesh, as the reference's."""
+    if mesh is None:
+        return ()
+    return tuple((str(a), int(mesh.shape[a])) for a in mesh.axis_names)
 
 
 def probe(name: str) -> JitProbe:

@@ -13,8 +13,14 @@ operations it runs without obs, so obs-off output is bit-identical.
 The integer counters are packed into ONE ``(8,)`` int32 tensor, in the
 reference's slot order, plus a float32 scalar for the drift score. Drain
 and rebase into the host-side accumulator before a window approaches
-2^31 docs. The sharded ``(D, 8)`` layout of the reference's fleet mesh
-is not ported (ROADMAP queue 1 item 9).
+2^31 docs.
+
+Under a fleet mesh (``StreamEngine(mesh=...)``) the reference's sharded
+layout applies: counts ``(D, 8)`` and score ``(D,)``, one block a shard.
+Each shard accumulates its own block in the flat layout
+(``shard_local``; ``shard_pack`` re-adds the shard axis), so the step
+stays free of cross-shard work; ``snapshot`` and ``to_canonical``
+aggregate across shards on the device before their one transfer.
 """
 from __future__ import annotations
 
@@ -32,18 +38,39 @@ N_SLOTS = 8
 
 
 class MetricsState(NamedTuple):
-    """Fleet-level counters, accumulated on the device."""
+    """Fleet-level counters, accumulated on the device: flat, or with a
+    leading shard axis under a fleet mesh (counts ``(D, 8)``, score
+    ``(D,)``), aggregated by ``snapshot``."""
 
-    counts: torch.Tensor  # (8,) int32 — see the slots above
-    drift_score_max: torch.Tensor  # () float32
+    counts: torch.Tensor  # (8,) int32 — or (D, 8); see the slots above
+    drift_score_max: torch.Tensor  # () float32 — or (D,)
+
+    @property
+    def sharded(self) -> bool:
+        return self.counts.dim() == 2
 
 
-def init(device=None) -> MetricsState:
-    """Zeroed counters on ``device`` (the CUDA card unless given)."""
+def init(device=None, shards: int = 0) -> MetricsState:
+    """Zeroed counters on ``device`` (the CUDA card unless given);
+    ``shards > 0`` builds the sharded layout (one block a shard)."""
     dev = device_mod.resolve(device)
+    lead = (shards,) if shards else ()
     return MetricsState(
-        counts=torch.zeros((N_SLOTS,), dtype=torch.int32, device=dev),
-        drift_score_max=torch.zeros((), dtype=torch.float32, device=dev))
+        counts=torch.zeros(lead + (N_SLOTS,), dtype=torch.int32, device=dev),
+        drift_score_max=torch.zeros(lead, dtype=torch.float32, device=dev))
+
+
+def shard_local(ms: MetricsState) -> MetricsState:
+    """A shard's (1, 8) / (1,) block in the flat layout that every
+    accumulate law takes."""
+    return MetricsState(counts=ms.counts[0],
+                        drift_score_max=ms.drift_score_max[0])
+
+
+def shard_pack(ms: MetricsState) -> MetricsState:
+    """Inverse of ``shard_local``: re-add the leading shard axis."""
+    return MetricsState(counts=ms.counts[None],
+                        drift_score_max=ms.drift_score_max[None])
 
 
 def _at(counts: torch.Tensor, slot: int, value) -> torch.Tensor:
@@ -97,16 +124,31 @@ def bump_chunk(ms: MetricsState) -> MetricsState:
     return ms._replace(counts=ms.counts + _at(ms.counts, CHUNKS, 1))
 
 
+def _collapse(ms: MetricsState) -> MetricsState:
+    """A sharded state's fleet-global counters, on the device: counts sum
+    across shards (exact), CHUNKS and the drift high-water mark take the
+    cross-shard max (every shard bumps CHUNKS once a chunk)."""
+    if not ms.sharded:
+        return ms
+    onehot = torch.arange(N_SLOTS, device=ms.counts.device) == CHUNKS
+    counts = torch.where(onehot, ms.counts.amax(dim=0),
+                         ms.counts.sum(dim=0, dtype=torch.int32))
+    return MetricsState(counts=counts,
+                        drift_score_max=ms.drift_score_max.amax())
+
+
 def _drain(ms: MetricsState) -> Tuple[np.ndarray, np.float32]:
-    """The counters and the drift score through one device→host copy:
-    the score's bits ride as a ninth int32."""
+    """The fleet-global counters and the drift score through one
+    device→host copy: the score's bits ride as a ninth int32."""
+    ms = _collapse(ms)
     host = torch.cat([ms.counts, ms.drift_score_max.reshape(1).view(
         torch.int32)]).cpu().numpy()
     return host[:N_SLOTS].copy(), host[N_SLOTS:].view(np.float32)[0]
 
 
 def snapshot(ms: MetricsState) -> dict:
-    """Drain the device counters to host scalars (the only sync point)."""
+    """Drain the device counters to host scalars (the only sync point);
+    a sharded state reports fleet-global numbers, never one shard's."""
     c, score = _drain(ms)
     cand, passes = int(c[BAR_CANDIDATES]), int(c[BAR_PASSES])
     return {
@@ -124,15 +166,26 @@ def snapshot(ms: MetricsState) -> dict:
 
 
 def to_canonical(ms: MetricsState) -> Tuple[np.ndarray, np.float32]:
-    """The host form ``(counts (8,) int32, score float32)`` used by
-    checkpoints (the reference's, for an unsharded state)."""
+    """The mesh-independent host form ``(counts (8,) int32, score
+    float32)`` used by checkpoints: ``snapshot``'s aggregation."""
     return _drain(ms)
 
 
-def from_canonical(counts, score, device=None) -> MetricsState:
-    """Rebuild a device state from the canonical form."""
+def from_canonical(counts, score, device=None,
+                   shards: int = 0) -> MetricsState:
+    """Rebuild a device state from the canonical form, flat or onto
+    ``shards`` blocks: the aggregate lands in shard 0's block with the
+    rest zeroed, so later accumulation and the sum/max aggregation give
+    the uninterrupted run's numbers at any shard count."""
     dev = device_mod.resolve(device)
+    counts = np.asarray(counts, np.int32).reshape(N_SLOTS)
+    if shards:
+        c = np.zeros((shards, N_SLOTS), np.int32)
+        c[0] = counts
+        s = np.zeros((shards,), np.float32)
+        s[0] = score
+        return MetricsState(counts=torch.tensor(c, device=dev),
+                            drift_score_max=torch.tensor(s, device=dev))
     return MetricsState(
-        counts=torch.tensor(np.asarray(counts, np.int32).reshape(N_SLOTS),
-                            device=dev),
+        counts=torch.tensor(counts, device=dev),
         drift_score_max=torch.tensor(np.float32(score), device=dev))

@@ -23,11 +23,14 @@ folds (ties between equal-cost tuples may resolve to a different,
 equal-cost boundary than the NumPy loop). Always float64: re-plan
 decisions feed hysteresis and billing comparisons.
 
-Not ported: the reference pads R to a power of two and has a route that
-shards R over a device mesh. The padding only bounds XLA's compile cache
-(one program per padded R) and the sharded route only exists to run on
-a mesh; eager torch compiles nothing, so R runs as it is, and the mesh
-waits for fleet-axis sharding (ROADMAP queue 1 item 9).
+Under an active fleet mesh (``parallel.fleet``) the R flagged rows split
+into the shards' contiguous blocks, each re-solved on its shard's device
+(the four-tier subsets through ``plan_solve`` per shard), as the
+reference's ``_solve_sharded_fn`` does; the outputs are bit-identical to
+the unsharded re-solve. Not ported: the reference pads R (or each
+shard's block) to a power of two, which only bounds XLA's compile cache
+(one program per padded R); eager torch compiles nothing, so R runs as
+it is.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from repro_torch.core import constraints as constraints_mod
 from repro_torch.core import shp, shp_device
 from repro_torch.kernels.plan_solve import ops as solve_ops
 from repro_torch.kernels.plan_solve import ref as solve_ref
+from repro_torch.parallel import fleet
 
 _MOVE_TOL = 1e-6  # == replan._MOVE_TOL
 _TOL = shp_device._TOL
@@ -289,23 +293,37 @@ def solve_group(cw, cr, cs, n, k, rpw, cap, lat, slo, n0, rho, b0, *,
                 allow_moves=True, device=None):
     """Device re-solve of one uniform-tier-count drift-flagged group.
     Inputs mirror ``Replanner._solve_group``'s stacked numpy arrays;
-    ``device`` is where it runs (the CUDA card unless given). Returns
-    numpy (total (R,), bounds (R, t-1), cost_old (R,)) with +inf totals
-    where no feasible plan exists."""
+    ``device`` is where it runs (the CUDA card unless given; under an
+    active fleet mesh, the shards' devices). Returns numpy (total (R,),
+    bounds (R, t-1), cost_old (R,)) with +inf totals where no feasible
+    plan exists."""
     r, t = np.shape(cw)
     if not available(t):
         raise ValueError(f"device suffix re-solve covers 2 <= t <= "
                          f"{shp_device.MAX_DEVICE_TIERS}, got t={t}")
-    dev = device_mod.resolve(device)
+    mesh = fleet.get_fleet_mesh()
+    if mesh is None:
+        blocks = [(0, r, device_mod.resolve(device))]
+    else:
+        blocks = [(lo, hi, d) for (lo, hi), d in zip(
+            fleet.row_blocks(r, fleet.n_shards(mesh)), mesh.devices)
+            if hi > lo] or [(0, r, mesh.devices[0])]
     cap_h = np.asarray(cap, np.float64)
     slo_h = np.asarray(slo, np.float64)
+    # the data gates stay R-wide, so each shard solves the unsharded
+    # run's grids
     constrained = not constraints_mod.trivial(cap_h, slo_h)
     capfin = tuple(bool(np.any(np.isfinite(cap_h[:, j]))) for j in range(t))
     slo_any = bool(np.any(np.isfinite(slo_h)))
-    args = [torch.as_tensor(np.asarray(x, np.float64), device=dev)
+    host = [np.asarray(x, np.float64)
             for x in (cw, cr, cs, n, k, rpw, cap, lat, slo, n0, rho, b0)]
-    total, bounds, cost_old = _solve_impl(
-        *args, t=t, constrained=constrained, capfin=capfin,
-        slo_any=slo_any, allow_moves=bool(allow_moves))
-    return (total.cpu().numpy(), bounds.cpu().numpy(),
-            cost_old.cpu().numpy())
+    outs = []
+    for lo, hi, dev in blocks:
+        args = [torch.as_tensor(x[lo:hi], device=dev) for x in host]
+        out = _solve_impl(*args, t=t, constrained=constrained,
+                          capfin=capfin, slo_any=slo_any,
+                          allow_moves=bool(allow_moves))
+        outs.append([o.cpu().numpy() for o in out])
+    if len(outs) == 1:
+        return tuple(outs[0])
+    return tuple(np.concatenate([o[i] for o in outs]) for i in range(3))

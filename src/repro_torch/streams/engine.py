@@ -39,8 +39,14 @@ cursor, and a checkpointer attached with ``attach_checkpointer`` runs at
 every chunk boundary. ``tier_outage`` / ``tier_recover`` mask a failed
 storage tier out of every re-plan and evacuate the streams that use it.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: fleet-axis sharding ``mesh=`` (queue 1 item 9).
+Fleet-axis sharding (``mesh=`` a ``parallel.fleet.FleetMesh`` of D >= 2
+shards): every bucket pads its rows to a multiple of D with inert rows
+and keeps each shard's contiguous block in its own tensors on the
+shard's device — reservoir or logmem state, drift state, cost ledger —
+and each shard's metrics block. A step runs ``step`` once a shard over
+its rows, so every kernel launches once a shard and bucket; the plan and
+the re-solves run per shard under the mesh; host reads cut the padding.
+Outputs are bit-identical to the unsharded engine's.
 """
 from __future__ import annotations
 
@@ -57,6 +63,7 @@ from repro_torch.core import topk
 from repro_torch.core.costs import NTierCostModel, TwoTierCostModel
 from repro_torch.kernels.batched_topk import ops as btk_ops
 from repro_torch.kernels.tier_assign import ops as ta_ops
+from repro_torch.parallel import fleet
 
 from . import logmem, metering, planner, router
 
@@ -332,6 +339,10 @@ class StreamSpec:
         return (float(self.r),) if self.r is not None else None
 
 
+def _ids(state) -> torch.Tensor:
+    return state.ids
+
+
 def _readonly_view(a: np.ndarray) -> torch.Tensor:
     """A CPU tensor on ``a``'s memory, used only as a copy source (so a
     read-only array, e.g. a broadcast view, is fine)."""
@@ -341,8 +352,9 @@ def _readonly_view(a: np.ndarray) -> torch.Tensor:
 
 
 class _ChunkStager:
-    """Double buffer for ``StreamEngine.ingest_chunks`` on the card: two
-    slots, each a set of pinned host buffers and device buffers. A chunk
+    """Double buffer for ``StreamEngine.ingest_chunks`` on one card (one
+    stager a card; shards that share a card share it): two slots, each a
+    set of pinned host buffers and device buffers. A chunk
     is copied into a slot's pinned buffers on the host, then to its
     device buffers by an asynchronous copy on a side stream, while the
     compute stream runs the previous chunk's step. Events order the
@@ -395,15 +407,16 @@ class _ChunkStager:
         sl["copied"].record(self.copy_stream)
         return sl["dev"]
 
-    def run(self, slot: int, fn):
-        """Run ``fn`` (the step reading the slot) on the compute stream
-        once the slot's copy has landed; mark the slot read after it."""
-        sl = self.slots[slot]
-        compute = torch.cuda.current_stream(self.device)
-        compute.wait_event(sl["copied"])
-        out = fn()
-        sl["consumed"].record(compute)
-        return out
+    def wait(self, slot: int) -> None:
+        """The compute stream waits for the slot's copy to land."""
+        torch.cuda.current_stream(self.device).wait_event(
+            self.slots[slot]["copied"])
+
+    def done(self, slot: int) -> None:
+        """Mark the slot read once the compute stream's queued work (the
+        step reading it) has run."""
+        self.slots[slot]["consumed"].record(
+            torch.cuda.current_stream(self.device))
 
 
 class StreamEngine:
@@ -433,13 +446,29 @@ class StreamEngine:
     ``ObsConfig.residual_trigger`` / ``cost_trigger``), and the span and
     event timeline; ``obs_snapshot``, ``cost_summary``, ``cost_alerts``
     and ``residual_alerts`` read them.
+
+    ``mesh`` (a ``parallel.fleet.FleetMesh``) shards the fleet axis: the
+    shards' devices come from the mesh (``device``, when given, must be
+    of the same type), ``device`` is shard 0's, and a 1-shard mesh is
+    the unsharded engine.
     """
 
     def __init__(self, specs: Sequence[StreamSpec], *, constraints=None,
                  device=None, replan=None, obs=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet (ROADMAP queue 1 item 9)")
+        if mesh is not None and fleet.n_shards(mesh) < 2:
+            mesh = None
+        self.mesh = mesh
+        self._shards = fleet.n_shards(mesh)
+        if mesh is None:
+            self.device = device_mod.resolve(device)
+            self._devices = (self.device,)
+        else:
+            self._devices = tuple(mesh.devices)
+            self.device = self._devices[0]
+            if device is not None and \
+                    torch.device(device).type != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{self.device.type} devices")
         if not specs:
             raise ValueError("need at least one stream")
         by_id = {s.stream_id: s for s in specs}
@@ -454,7 +483,6 @@ class StreamEngine:
                     f"stream {s.stream_id}: engine='logmem' stores no "
                     "resident ids — the migration cascade needs the exact "
                     "backend")
-        self.device = device_mod.resolve(device)
         self.buckets = router.bucket_streams(
             {s.stream_id: s.k for s in specs},
             {s.stream_id: s.engine for s in specs})
@@ -476,7 +504,7 @@ class StreamEngine:
             with self._span("plan", streams=len(planned)):
                 plan = planner.plan_fleet_mixed(
                     [s.cost_model for s in planned],
-                    constraints=constraints, device=self.device)
+                    constraints=constraints, mesh=mesh, device=self.device)
             bad = [s.stream_id for i, s in enumerate(planned)
                    if not plan.feasible(i)]
             if bad:
@@ -521,18 +549,24 @@ class StreamEngine:
         self._sid_of_row = {row: sid for sid, row in self._row_of.items()}
         self.meter = metering.FleetMeter(ks, migrate=migs, boundaries=bounds,
                                          logmem=logmems)
-        self._states: List = [
-            (logmem.init(b.m, device=self.device) if b.engine == "logmem"
-             else init(b.m, b.k, device=self.device)) for b in self.buckets]
+        # sharded buckets pad their rows to a multiple of the shard count
+        # (pad rows are inert under every law; host reads cut them) and
+        # hold each shard's contiguous block in its own tensors: every
+        # per-bucket device state below is then a list of one state a
+        # shard, and the unsharded engine's is the state itself
+        self._pad_m = [fleet.pad_rows(b.m, self._shards) if mesh else b.m
+                       for b in self.buckets]
+        self._blocks = [fleet.row_blocks(b.m, self._shards)
+                        for b in self.buckets]
+        self._states: List = [self._new_rows(bi, self._make_state)
+                              for bi in range(len(self.buckets))]
         # quantize the planned boundaries for tier_assign and move them to
         # the device once; a re-plan marks its buckets stale and
         # assign_tiers re-quantizes those; logmem buckets have no
         # survivors to assign
         self._bounds_int = [
-            None if b.engine == "logmem" else
-            torch.tensor(ta_ops.quantize_boundaries(
-                self.meter.boundaries[rows]), device=self.device)
-            for b, rows in zip(self.buckets, self._global_rows)]
+            None if b.engine == "logmem" else self._quantized_bounds(bi)
+            for bi, b in enumerate(self.buckets)]
         self._bounds_stale = set()
         # online re-planning: drift detector inside the step, boundary
         # deltas applied between chunks (repro_torch.online)
@@ -555,8 +589,8 @@ class StreamEngine:
             self._replanner = Replanner(
                 [self._model_of_row.get(row) for row in range(self.m)],
                 constraints=cset_arg, config=replan, device=self.device)
-            self._drift_states = [drift_mod.init(b.m, device=self.device)
-                                  for b in self.buckets]
+            self._drift_states = [self._new_rows(bi, self._make_drift)
+                                  for bi in range(len(self.buckets))]
         self._metrics_state = None
         self._residuals = None
         self._cost_states = None
@@ -569,7 +603,13 @@ class StreamEngine:
                 0.0)
             if obs.config.metrics:
                 from repro_torch.obs import metrics as metrics_mod
-                self._metrics_state = metrics_mod.init(device=self.device)
+                if mesh is None:
+                    self._metrics_state = metrics_mod.init(
+                        device=self.device)
+                else:
+                    # one counter block a shard, on its device
+                    self._set_metrics(metrics_mod.init(
+                        device="cpu", shards=self._shards))
             if obs.config.residuals:
                 from repro_torch.obs.residuals import ResidualMonitor
                 self._residuals = ResidualMonitor(
@@ -581,11 +621,8 @@ class StreamEngine:
                 # the step, the host CostMonitor (cost residuals and
                 # budget burn rate) off the meter drain
                 from repro_torch.obs import costs as costs_mod
-                self._cost_states = [
-                    costs_mod.init_bucket(b.m, self.meter.boundaries[rows],
-                                          self.meter.n_tiers,
-                                          device=self.device)
-                    for b, rows in zip(self.buckets, self._global_rows)]
+                self._cost_states = [self._new_rows(bi, self._make_costs)
+                                     for bi in range(len(self.buckets))]
                 self._pricing = costs_mod.stream_pricing(self)
                 self._cost_monitor = costs_mod.CostMonitor(
                     self.meter.ks, self.meter.boundaries,
@@ -618,6 +655,147 @@ class StreamEngine:
     def m(self) -> int:
         return sum(b.m for b in self.buckets)
 
+    # ---- the shard layout ------------------------------------------------
+
+    def _make_state(self, bi: int, rows: int, device) -> object:
+        b = self.buckets[bi]
+        return (logmem.init(rows, device=device) if b.engine == "logmem"
+                else init(rows, b.k, device=device))
+
+    def _make_drift(self, bi: int, rows: int, device) -> object:
+        from repro_torch.online import drift as drift_mod
+        return drift_mod.init(rows, device=device)
+
+    def _make_costs(self, bi: int, rows: int, device) -> object:
+        from repro_torch.obs import costs as costs_mod
+        return costs_mod.init_bucket(
+            rows, self.meter.boundaries[self._global_rows[bi]],
+            self.meter.n_tiers, device=device)
+
+    def _new_rows(self, bi: int, make):
+        """A bucket's fresh per-row state from ``make(bi, rows, device)``:
+        on the engine's device, or built at the padded row count on the
+        host and split over the shards."""
+        if self.mesh is None:
+            return make(bi, self.buckets[bi].m, self.device)
+        return self._place(make(bi, self._pad_m[bi], torch.device("cpu")))
+
+    def _place(self, tree):
+        """A host tree of a bucket's (padded) rows in the engine's
+        layout: on the device, or one copy of each shard's block on the
+        shard's device."""
+        if self.mesh is None:
+            return type(tree)(*(leaf.to(self.device) for leaf in tree))
+        return fleet.shard_rows(self.mesh, tree)
+
+    def _parts(self, x) -> list:
+        """The shards' parts of a per-bucket state or tensor (the
+        unsharded engine's one part is the state itself)."""
+        return list(x) if self.mesh is not None else [x]
+
+    def _wrap(self, parts: list):
+        """Inverse of ``_parts``."""
+        return parts if self.mesh is not None else parts[0]
+
+    def _host(self, bi: int, x, fn=None) -> np.ndarray:
+        """Bucket ``bi``'s rows of ``x`` (a state or tensor, per shard
+        under a mesh) on the host, shard padding cut; ``fn`` maps a part
+        to the tensor to read. One device read a shard."""
+        parts = [p if fn is None else fn(p) for p in self._parts(x)]
+        arr = (parts[0].cpu().numpy() if len(parts) == 1 else
+               np.concatenate([p.cpu().numpy() for p in parts]))
+        return arr[:self.buckets[bi].m]
+
+    def _to_rows(self, bi: int, arr: np.ndarray):
+        """A host (m_b, ...) array of bucket ``bi``'s rows as a tensor in
+        the engine's layout (pad rows zero: they hold no ids)."""
+        if self.mesh is None:
+            return torch.tensor(arr, device=self.device)
+        out = np.zeros((self._pad_m[bi],) + arr.shape[1:], arr.dtype)
+        out[:arr.shape[0]] = arr
+        return fleet.shard_rows(self.mesh, torch.from_numpy(out))
+
+    def _locate(self, bi: int, jb: int) -> Tuple[int, int]:
+        """(shard, row in the shard) of row ``jb`` of bucket ``bi``."""
+        per = self._pad_m[bi] // self._shards
+        return jb // per, jb % per
+
+    def _row_reads(self, pick):
+        """``read(bi, jb)``: row ``jb`` of bucket ``bi`` of the tensor
+        ``pick(bi, shard)``, copied to the host on a (bucket, shard)'s
+        first use — one device read per touched shard of a bucket, not
+        one per row."""
+        cache: Dict[Tuple[int, int], np.ndarray] = {}
+
+        def read(bi: int, jb: int) -> np.ndarray:
+            d, r = self._locate(bi, jb)
+            if (bi, d) not in cache:
+                cache[(bi, d)] = pick(bi, d).cpu().numpy()
+            return cache[(bi, d)][r]
+
+        return read
+
+    def _quantized_bounds(self, bi: int):
+        return self._to_rows(bi, ta_ops.quantize_boundaries(
+            self.meter.boundaries[self._global_rows[bi]]))
+
+    def _metrics_view(self):
+        """The metrics state in the reference's layout: flat, or the
+        shards' (1, 8) blocks gathered as (D, 8) on shard 0's device."""
+        ms = self._metrics_state
+        if ms is None or self.mesh is None:
+            return ms
+        from repro_torch.obs import metrics as metrics_mod
+        return fleet.gather_rows([metrics_mod.shard_pack(p) for p in ms])
+
+    def _set_metrics(self, ms) -> None:
+        """Install a metrics state in the engine's layout (a sharded
+        (D, 8) state splits into one block a shard)."""
+        if self.mesh is None:
+            self._metrics_state = ms
+            return
+        from repro_torch.obs import metrics as metrics_mod
+        self._metrics_state = [metrics_mod.shard_local(p)
+                               for p in fleet.shard_rows(self.mesh, ms)]
+
+    def _set_cost_bounds(self, bi: int, jb: int, bounds_row) -> None:
+        """Swap one stream's boundary row in its shard's cost ledger."""
+        from repro_torch.obs import costs as costs_mod
+        d, r = self._locate(bi, jb)
+        parts = self._parts(self._cost_states[bi])
+        parts[d] = costs_mod.set_bucket_bounds(parts[d], r, bounds_row)
+        self._cost_states[bi] = self._wrap(parts)
+
+    def _reset_drift(self, bi: int, mask: np.ndarray) -> None:
+        """Restart the detectors of bucket ``bi``'s rows under ``mask``
+        (padded rows), in the shards the mask touches."""
+        from repro_torch.online import drift as drift_mod
+        parts = self._parts(self._drift_states[bi])
+        per = self._pad_m[bi] // self._shards
+        for d in range(self._shards):
+            md = mask[d * per:(d + 1) * per]
+            if md.any():
+                parts[d] = drift_mod.reset_where(parts[d],
+                                                 torch.from_numpy(md))
+        self._drift_states[bi] = self._wrap(parts)
+
+    def _shard_dense(self, dense) -> List[list]:
+        """One list of per-bucket host batches a shard: each bucket's
+        rows in the shards' blocks, a short last block filled with
+        all-pad rows (``router.blank_dense``)."""
+        if self.mesh is None:
+            return [dense]
+        out: List[list] = [[] for _ in range(self._shards)]
+        for bi, (s, i) in enumerate(dense):
+            per = self._pad_m[bi] // self._shards
+            for d, (lo, hi) in enumerate(self._blocks[bi]):
+                bs, bd = s[lo:hi], i[lo:hi]
+                if hi - lo < per:
+                    ps, pi = router.blank_dense(per - (hi - lo), s.shape[1])
+                    bs, bd = np.concatenate([bs, ps]), np.concatenate([bd, pi])
+                out[d].append((bs, bd))
+        return out
+
     def stream_row(self, stream_id: int) -> int:
         """Global (meter) row of a stream."""
         return self._row_of[stream_id]
@@ -638,27 +816,45 @@ class StreamEngine:
                                               pad_to=pad_to))
 
     def _to_device(self, dense) -> list:
-        return [(torch.tensor(s, device=self.device),
-                 torch.tensor(i, device=self.device)) for s, i in dense]
+        """Host per-bucket batches as device batches: one list of
+        per-bucket (scores, ids) pairs a shard."""
+        return [[(torch.tensor(s, device=dev), torch.tensor(i, device=dev))
+                 for s, i in part]
+                for part, dev in zip(self._shard_dense(dense), self._devices)]
 
     def _dispatch(self, batches):
-        """Run one fleet step on device batches and swap in the new
-        states (and drift, metrics and cost states). The old state
-        tensors return to PyTorch's caching allocator, which hands them
-        to the next step: the counterpart of the reference's buffer
-        donation."""
+        """Run one fleet step on device batches (one per-bucket list a
+        shard) and swap in the new states (and drift, metrics and cost
+        states): ``step`` once a shard over its rows, on its device. The
+        old state tensors return to PyTorch's caching allocator, which
+        hands them to the next step: the counterpart of the reference's
+        buffer donation."""
         drift_cfg = (self.replan_config.drift
                      if self._drift_states is not None else None)
-        new_states, wrotes, evs, new_dstates, mstate, new_cstates = step(
-            self._states, batches, self.buckets,
-            self._drift_states or (), drift_cfg, self._metrics_state,
-            self._cost_states)
+        outs = []
+        for d in range(self._shards):
+            def shard(seq, d=d):
+                return None if seq is None else [self._parts(x)[d]
+                                                 for x in seq]
+            mstate = (None if self._metrics_state is None
+                      else self._parts(self._metrics_state)[d])
+            outs.append(step(
+                shard(self._states), batches[d], self.buckets,
+                shard(self._drift_states) or (), drift_cfg, mstate,
+                shard(self._cost_states)))
+
+        def per_bucket(i):
+            return [self._wrap([o[i][bi] for o in outs])
+                    for bi in range(len(self.buckets))]
+
+        new_states, wrotes, evs = per_bucket(0), per_bucket(1), per_bucket(2)
         self._states = new_states
         if self._drift_states is not None:
-            self._drift_states = new_dstates
-        self._metrics_state = mstate
+            self._drift_states = per_bucket(3)
+        if self._metrics_state is not None:
+            self._metrics_state = self._wrap([o[4] for o in outs])
         if self._cost_states is not None:
-            self._cost_states = new_cstates
+            self._cost_states = per_bucket(5)
         return wrotes, evs, new_states
 
     def _consume(self, dense, wrotes, evs, new_states, meter: bool) -> None:
@@ -675,12 +871,13 @@ class StreamEngine:
                 dense_ids = np.where(np.isfinite(dense_scores), dense_ids,
                                      router.PAD_ID)
             # logmem buckets have no resident ids: no cascade check, and
-            # their (M_b, 0) eviction set scatters nothing
+            # their (M_b, 0) eviction set scatters nothing; shard padding
+            # is cut before the meter sees a row
             st_ids = (None if b.engine == "logmem"
-                      else new_states[bi].ids.cpu().numpy())
+                      else self._host(bi, new_states[bi], _ids))
             self.meter.record_update(
-                self._global_rows[bi], dense_ids, wrotes[bi].cpu().numpy(),
-                evs[bi].cpu().numpy(), st_ids)
+                self._global_rows[bi], dense_ids, self._host(bi, wrotes[bi]),
+                self._host(bi, evs[bi]), st_ids)
         residual_rows = ()
         if self._residuals is not None:
             # chunk-boundary drain: the alert channel tests the meter's
@@ -786,23 +983,43 @@ class StreamEngine:
                 self.ingest_dense(dense, meter=meter)
                 count += 1
             return count
-        stager = _ChunkStager(self.device)
+        # one stager a card: shards that share a card share its slots
+        stagers = {dev: _ChunkStager(dev) for dev in self._devices}
+        nb = len(self.buckets)
+
+        def stage(slot, dense):
+            shards = self._shard_dense(dense)
+            staged = [None] * self._shards
+            for dev, stager in stagers.items():
+                ds = [d for d, x in enumerate(self._devices) if x == dev]
+                flat = stager.stage(slot, [p for d in ds for p in shards[d]])
+                for n, d in enumerate(ds):
+                    staged[d] = flat[n * nb:(n + 1) * nb]
+            return staged
+
+        def run(slot, batches):
+            for stager in stagers.values():
+                stager.wait(slot)
+            out = self._dispatch(batches)
+            for stager in stagers.values():
+                stager.done(slot)
+            return out
+
         it = iter(chunks)
         nxt = next(it, None)
         slot = 0
         if nxt is not None:
             nxt = self._checked(nxt)
-            staged = stager.stage(slot, nxt)
+            staged = stage(slot, nxt)
         count = 0
         while nxt is not None:
-            dense, batches = nxt, staged
-            wrotes, evs, new_states = stager.run(
-                slot, lambda: self._dispatch(batches))
+            dense = nxt
+            wrotes, evs, new_states = run(slot, staged)
             nxt = next(it, None)
             slot ^= 1
             if nxt is not None:
                 nxt = self._checked(nxt)
-                staged = stager.stage(slot, nxt)
+                staged = stage(slot, nxt)
             # host consumption blocks on chunk t's outputs last
             self._consume(dense, wrotes, evs, new_states, meter)
             # chunk-boundary checkpoint: chunk t+1 is only staged (its
@@ -831,20 +1048,23 @@ class StreamEngine:
         bucket_of, row_in_bucket = [], []
         extra = set(residual_rows) | set(cost_rows)
         for bi in range(len(self.buckets)):
-            ds = self._drift_states[bi]
-            flag = ds.fired.cpu().numpy()
             rows_b = self._global_rows[bi]
-            if extra:
-                flag = flag | np.isin(rows_b, list(extra))
-            if not flag.any():
-                continue
-            rho_b = drift_mod.rho_hat(ds, self.replan_config.drift
-                                      ).cpu().numpy()
-            for j in np.flatnonzero(flag):
-                fired_rows.append(int(rows_b[j]))
-                rhos.append(float(rho_b[j]))
-                bucket_of.append(bi)
-                row_in_bucket.append(int(j))
+            for (lo, hi), ds in zip(self._blocks[bi],
+                                    self._parts(self._drift_states[bi])):
+                if hi <= lo:
+                    continue
+                flag = ds.fired.cpu().numpy()[:hi - lo]
+                if extra:
+                    flag = flag | np.isin(rows_b[lo:hi], list(extra))
+                if not flag.any():
+                    continue
+                rho_d = drift_mod.rho_hat(ds, self.replan_config.drift
+                                          ).cpu().numpy()
+                for j in np.flatnonzero(flag):
+                    fired_rows.append(int(rows_b[lo + j]))
+                    rhos.append(float(rho_d[j]))
+                    bucket_of.append(bi)
+                    row_in_bucket.append(int(lo + j))
         if not fired_rows:
             return
         rows = np.asarray(fired_rows, np.int64)
@@ -856,15 +1076,18 @@ class StreamEngine:
                      else int(np.isfinite(b).sum()))
             bounds.append(tuple(b[:depth]))
         exclude = self._excluded_tier_set()
-        with self._span("replan", flagged=len(fired_rows)):
+        # the re-solve follows the engine's layout: under its mesh the
+        # flagged rows are solved per shard
+        with self._span("replan", flagged=len(fired_rows)), \
+                fleet.use_fleet_mesh(self.mesh):
             dec = self._replanner.replan(rows, self.meter.observed[rows],
                                          np.asarray(rhos), bounds,
                                          self.meter.migrate[rows],
                                          hwm=self.meter.occupancy_hwm[rows],
                                          exclude_tiers=exclude)
         residual_set, cost_set = set(residual_rows), set(cost_rows)
-        touched_buckets = set()
-        host_ids: Dict[int, np.ndarray] = {}  # one device copy a bucket
+        touched = set()  # (bucket, shard) pairs whose rows moved
+        host_ids = self._resident_ids()
         for j, row in enumerate(rows):
             if not dec.considered[j]:
                 continue  # no model / cascade / window over: nothing to log
@@ -873,23 +1096,9 @@ class StreamEngine:
                 self._negotiate_admission(int(row), int(dec.n_seen[j]))
             if dec.applied[j]:
                 bi, jb = bucket_of[j], row_in_bucket[j]
-                ids_arg = None
-                if self.buckets[bi].engine != "logmem":
-                    if bi not in host_ids:
-                        host_ids[bi] = self._states[bi].ids.cpu().numpy()
-                    ids_arg = host_ids[bi][jb]
-                moved = self.meter.apply_boundaries(
-                    int(row), dec.new_bounds[j], ids_arg)
-                touched_buckets.add(bi)
-                if self._cost_states is not None:
-                    # swap the device ledger's boundary row and the
-                    # monitor's planned trajectory
-                    from repro_torch.obs import costs as costs_mod
-                    self._cost_states[bi] = costs_mod.set_bucket_bounds(
-                        self._cost_states[bi], jb,
-                        self.meter.boundaries[int(row)])
-                    self._cost_monitor.set_bounds(
-                        int(row), self.meter.boundaries[int(row)])
+                moved = self._apply_row_bounds(int(row), dec.new_bounds[j],
+                                               host_ids)
+                touched.add((bi, self._locate(bi, jb)[0]))
             self.replan_events.append(ReplanEvent(
                 stream_id=self._sid_of_row[int(row)], row=int(row),
                 position=int(dec.n_seen[j]), rho=float(dec.rho[j]),
@@ -907,23 +1116,21 @@ class StreamEngine:
                     residual_triggered=int(row) in residual_set,
                     cost_triggered=int(row) in cost_set)
         # boundary deltas are placement metadata: the reservoirs themselves
-        # must be untouched — every affected bucket keeps the sorted-desc
+        # must be untouched — every affected shard keeps the sorted-desc
         # score invariant the merge relies on
-        for bi in touched_buckets:
+        for bi, d in touched:
             if self.buckets[bi].engine == "logmem":
                 continue  # no reservoir rows to corrupt
-            self._bounds_stale.add(bi)
-            scores = self._states[bi].scores.cpu().numpy()
+            scores = self._parts(self._states[bi])[d].scores.cpu().numpy()
             # note -inf pads diff to NaN on unfull rows — only a strictly
             # positive diff is a genuine order violation
             assert not np.any(np.diff(scores, axis=1) > 0), \
                 "re-plan corrupted reservoir score order"
         for bi in set(bucket_of):
-            mask = np.zeros(self.buckets[bi].m, bool)
+            mask = np.zeros(self._pad_m[bi], bool)
             mask[[row_in_bucket[j] for j in range(len(rows))
                   if bucket_of[j] == bi]] = True
-            self._drift_states[bi] = drift_mod.reset_where(
-                self._drift_states[bi], torch.from_numpy(mask))
+            self._reset_drift(bi, mask)
         # the re-plan consumed this evidence: restart the residual and
         # cost channels for the processed rows, like the detector
         mask = np.zeros(self.m, bool)
@@ -963,26 +1170,29 @@ class StreamEngine:
                 return bi, int(row - rows[0])
         raise KeyError(row)
 
-    def _apply_row_bounds(self, row: int, new_bounds,
-                          host_ids: Dict[int, np.ndarray]) -> int:
+    def _resident_ids(self):
+        """``read(bi, jb)``: a stream's resident ids on the host, one
+        device copy per touched shard of a bucket."""
+        return self._row_reads(
+            lambda bi, d: self._parts(self._states[bi])[d].ids)
+
+    def _apply_row_bounds(self, row: int, new_bounds, host_ids) -> int:
         """Apply a new boundary vector to one stream everywhere it
         lives: host meter (re-tiering residents), the bucket's quantized
         tier_assign bounds (marked stale), device cost ledger, and the
-        cost monitor's planned trajectory. ``host_ids`` caches each exact
-        bucket's resident ids on the host (one device copy a bucket).
-        Returns the number of relocated residents."""
+        cost monitor's planned trajectory. ``host_ids`` is a
+        ``_resident_ids`` reader. Returns the number of relocated
+        residents."""
         bi, jb = self._bucket_of(row)
         ids_arg = None
         if self.buckets[bi].engine != "logmem":
-            if bi not in host_ids:
-                host_ids[bi] = self._states[bi].ids.cpu().numpy()
-            ids_arg = host_ids[bi][jb]
+            ids_arg = host_ids(bi, jb)
             self._bounds_stale.add(bi)
         moved = self.meter.apply_boundaries(row, new_bounds, ids_arg)
         if self._cost_states is not None:
-            from repro_torch.obs import costs as costs_mod
-            self._cost_states[bi] = costs_mod.set_bucket_bounds(
-                self._cost_states[bi], jb, self.meter.boundaries[row])
+            # swap the device ledger's boundary row and the monitor's
+            # planned trajectory
+            self._set_cost_bounds(bi, jb, self.meter.boundaries[row])
             self._cost_monitor.set_bounds(row, self.meter.boundaries[row])
         return moved
 
@@ -1062,9 +1272,10 @@ class StreamEngine:
         as are single-tier streams (no surviving tier to move into) —
         both are reported, not silently dropped.
 
-        The device is read once per touched bucket, not once per row:
-        the detector's rho estimate and the resident ids are copied to
-        the host on a bucket's first evacuated row and reused."""
+        The device is read once per touched shard of a bucket, not once
+        per row: the detector's rho estimate and the resident ids are
+        copied to the host on the shard's first evacuated row and
+        reused."""
         from repro_torch.core import constraints as cons_mod
         meter = self.meter
         b = meter.boundaries
@@ -1085,8 +1296,12 @@ class StreamEngine:
         touched: set = set()
         moved_total = 0
         exclude = self._excluded_tier_set()
-        host_ids: Dict[int, np.ndarray] = {}
-        rho_of: Dict[int, np.ndarray] = {}
+        host_ids = self._resident_ids()
+        if self._drift_states is not None:
+            from repro_torch.online import drift as drift_mod
+            rho_of = self._row_reads(lambda bi, d: drift_mod.rho_hat(
+                self._parts(self._drift_states[bi])[d],
+                self.replan_config.drift))
         for row in np.flatnonzero(affected):
             row = int(row)
             if meter.migrate[row]:
@@ -1103,18 +1318,13 @@ class StreamEngine:
                     and self._replanner is not None):
                 rho = 1.0
                 if self._drift_states is not None:
-                    from repro_torch.online import drift as drift_mod
-                    bi, jb = self._bucket_of(row)
-                    if bi not in rho_of:
-                        rho_of[bi] = drift_mod.rho_hat(
-                            self._drift_states[bi],
-                            self.replan_config.drift).cpu().numpy()
-                    rho = float(rho_of[bi][jb])
-                dec = self._replanner.replan(
-                    np.asarray([row], np.int64), meter.observed[[row]],
-                    np.asarray([rho]), [old], meter.migrate[[row]],
-                    hwm=meter.occupancy_hwm[[row]],
-                    exclude_tiers=exclude, force=True)
+                    rho = float(rho_of(*self._bucket_of(row)))
+                with fleet.use_fleet_mesh(self.mesh):
+                    dec = self._replanner.replan(
+                        np.asarray([row], np.int64), meter.observed[[row]],
+                        np.asarray([rho]), [old], meter.migrate[[row]],
+                        hwm=meter.occupancy_hwm[[row]],
+                        exclude_tiers=exclude, force=True)
                 if not dec.feasible[0]:
                     # the surviving tiers cannot honor the constraints:
                     # negotiate next-window terms, but still evacuate —
@@ -1152,14 +1362,12 @@ class StreamEngine:
             # the evacuation consumed whatever evidence the monitors had
             # anchored to the old placement — restart it, like a re-plan
             if self._drift_states is not None:
-                from repro_torch.online import drift as drift_mod
                 for bi in sorted(touched):
                     rows_b = self._global_rows[bi]
-                    bmask = np.zeros(self.buckets[bi].m, bool)
+                    bmask = np.zeros(self._pad_m[bi], bool)
                     bmask[[r - int(rows_b[0]) for r in evacuated
                            if rows_b[0] <= r <= rows_b[-1]]] = True
-                    self._drift_states[bi] = drift_mod.reset_where(
-                        self._drift_states[bi], torch.from_numpy(bmask))
+                    self._reset_drift(bi, bmask)
             if self._residuals is not None:
                 self._residuals.reset_where(emask)
             if self._cost_monitor is not None:
@@ -1182,17 +1390,21 @@ class StreamEngine:
         out = {}
         for bi, b in enumerate(self.buckets):
             sl = logmem.law_slack(b.k) if b.engine == "logmem" else 0.0
-            sc = drift_mod.scores(self._drift_states[bi],
-                                  self.replan_config.drift,
-                                  slack=sl).cpu().numpy()
+            sc = self._host(bi, self._drift_states[bi],
+                            lambda ds, sl=sl: drift_mod.scores(
+                                ds, self.replan_config.drift, slack=sl))
             out.update({sid: float(sc[j])
                         for j, sid in enumerate(b.stream_ids)})
         return out
 
     def states(self) -> List:
         """Per-bucket states: ``BatchedReservoirState`` for exact buckets,
-        ``logmem.LogmemState`` for logmem ones."""
-        return list(self._states)
+        ``logmem.LogmemState`` for logmem ones. A sharded engine's are
+        the shards' rows gathered on shard 0's device, padding cut."""
+        if self.mesh is None:
+            return list(self._states)
+        return [fleet.gather_rows(st, b.m)
+                for st, b in zip(self._states, self.buckets)]
 
     def thresholds(self) -> Dict[int, float]:
         """{stream_id: entry bar} — the K-th score of exact streams, the
@@ -1201,7 +1413,7 @@ class StreamEngine:
         for bi, b in enumerate(self.buckets):
             bar_fn = (logmem.thresholds if b.engine == "logmem"
                       else thresholds)
-            bars = bar_fn(self._states[bi]).cpu().numpy()
+            bars = self._host(bi, self._states[bi], bar_fn)
             out.update({sid: float(bars[j])
                         for j, sid in enumerate(b.stream_ids)})
         return out
@@ -1215,7 +1427,7 @@ class StreamEngine:
                 out.update({sid: np.empty(0, np.int64)
                             for sid in b.stream_ids})
                 continue
-            ids = self._states[bi].ids.cpu().numpy()
+            ids = self._host(bi, self._states[bi], _ids)
             for j, sid in enumerate(b.stream_ids):
                 v = ids[j]
                 out[sid] = np.sort(v[v >= 0]).astype(np.int64)
@@ -1247,7 +1459,7 @@ class StreamEngine:
                                    int(self.meter.logmem.sum())}}
         if self._metrics_state is not None:
             from repro_torch.obs import metrics as metrics_mod
-            out["engine"] = metrics_mod.snapshot(self._metrics_state)
+            out["engine"] = metrics_mod.snapshot(self._metrics_view())
         out["meter"] = {
             "observed": int(self.meter.observed.sum()),
             "writes": int(self.meter.writes.sum()),
@@ -1332,7 +1544,7 @@ class StreamEngine:
                 if b.engine == "logmem":
                     continue
                 self.meter.record_reads(self._global_rows[bi],
-                                        self._states[bi].ids.cpu().numpy())
+                                        self._host(bi, self._states[bi], _ids))
             return self.survivors()
 
     def assign_tiers(self
@@ -1342,26 +1554,31 @@ class StreamEngine:
         id against its stream's boundary vector (and cascade floor) to the
         tier its final read must hit, plus the per-tier survivor counts.
         Returns one (tier (M_b, K) int32, counts (M_b, T) int32) pair of
-        device tensors per bucket, None for logmem buckets (no ids)."""
+        device tensors per bucket, None for logmem buckets (no ids). A
+        sharded engine launches the kernel once a shard and gathers the
+        rows on shard 0's device, padding cut."""
         out = []
         for bi, b in enumerate(self.buckets):
             if b.engine == "logmem":
                 out.append(None)
                 continue
             if bi in self._bounds_stale:
-                self._bounds_int[bi] = torch.tensor(
-                    ta_ops.quantize_boundaries(
-                        self.meter.boundaries[self._global_rows[bi]]),
-                    device=self.device)
+                self._bounds_int[bi] = self._quantized_bounds(bi)
                 self._bounds_stale.discard(bi)
             # the cascade floor moves as migrating streams cross their
             # boundaries, so it is read from the meter on every call
-            floor = torch.tensor(
-                self.meter.floor[self._global_rows[bi]].astype(np.int32),
-                device=self.device)
-            out.append(ta_ops.tier_assign(
-                self._states[bi].ids, self._bounds_int[bi], floor,
-                n_tiers=self.meter.n_tiers))
+            floor = self._to_rows(
+                bi, self.meter.floor[self._global_rows[bi]].astype(np.int32))
+            pairs = [ta_ops.tier_assign(st.ids, q, f,
+                                        n_tiers=self.meter.n_tiers)
+                     for st, q, f in zip(self._parts(self._states[bi]),
+                                         self._parts(self._bounds_int[bi]),
+                                         self._parts(floor))]
+            if self.mesh is None:
+                out.append(pairs[0])
+            else:
+                out.append(tuple(fleet.gather_rows(col, b.m)
+                                 for col in zip(*pairs)))
         return out
 
     def finalize_tiers(self) -> Dict[int, Dict]:
@@ -1375,7 +1592,7 @@ class StreamEngine:
             tier, counts = pair
             tier = tier.cpu().numpy()
             counts = counts.cpu().numpy()
-            ids = self._states[bi].ids.cpu().numpy()
+            ids = self._host(bi, self._states[bi], _ids)
             for j, sid in enumerate(self.buckets[bi].stream_ids):
                 out[sid] = {"ids": ids[j], "tiers": tier[j],
                             "counts": counts[j]}

@@ -247,12 +247,14 @@ def waterfill(desired: np.ndarray, budget: float, *,
     Returns the (M,) per-stream caps.
 
     The exact host law lives in ``core.constraints.waterfill_grants``
-    (sort + prefix scan — one host view of the whole fleet). The sharded
-    bisection under a fleet mesh is not ported yet (ROADMAP queue 1
-    item 9): ``mesh`` raises."""
+    (sort + prefix scan — one host view of the whole fleet). Under a
+    fleet mesh of more than one shard the desires stay sharded and λ is
+    found on the devices by a bisection whose partial sums are added on
+    shard 0 (``parallel.fleet.waterfill_sharded``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "fleet-axis sharding is not ported yet (ROADMAP queue 1 item 9)")
+        from repro_torch.parallel import fleet
+        if fleet.n_shards(mesh) > 1:
+            return fleet.waterfill_sharded(desired, budget, mesh)
     return constraints_mod.waterfill_grants(desired, budget)
 
 
@@ -353,12 +355,16 @@ def plan_fleet_mixed(models: Sequence[TwoTierCostModel | NTierCostModel],
 
     ``device`` goes to ``shp.plan_ntier_arrays`` for every N-tier pass
     (the CUDA device plans fleets on the card; see its "auto" rule).
-    ``mesh`` (sharded planning across devices) is not ported yet
-    (ROADMAP queue 1 item 9) and raises.
+    ``mesh`` (a ``parallel.fleet.FleetMesh``) makes it the active fleet
+    mesh for the call, so the device solves run per shard on the shards'
+    devices, and the shared-capacity water-filling runs sharded.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "fleet-axis sharding is not ported yet (ROADMAP queue 1 item 9)")
+        from repro_torch.parallel import fleet
+        if fleet.get_fleet_mesh() is not mesh:
+            with fleet.use_fleet_mesh(mesh):
+                return plan_fleet_mixed(models, constraints, mesh=mesh,
+                                        device=device)
     m = len(models)
     boundaries: List[Tuple[float, ...]] = [()] * m
     migrate = np.zeros(m, bool)

@@ -883,12 +883,12 @@ def mixed_dense_chunks(n_chunks, seed):
                                       dtype=np.int32), (4, 1)))]
 
 
-def mixed_engine(device, obs=None):
+def mixed_engine(device, obs=None, mesh=None):
     specs = [t_eng.StreamSpec(stream_id=i, k=8, boundaries=(30.0, 70.0),
                               migrate=i % 2 == 1) for i in range(16)]
     specs += [t_eng.StreamSpec(stream_id=100 + i, k=256, r=1024.0,
                                engine="logmem") for i in range(4)]
-    return t_eng.StreamEngine(specs, device=device, obs=obs)
+    return t_eng.StreamEngine(specs, device=device, obs=obs, mesh=mesh)
 
 
 @pytest.mark.cuda
@@ -1336,9 +1336,9 @@ def count_syncs(fn):
     return out, sum("synchronizing" in str(w.message) for w in caught)
 
 
-def observed_mixed_engine(device):
+def observed_mixed_engine(device, mesh=None):
     from repro_torch.obs import Observability, ObsConfig
-    return mixed_engine(device, Observability(ObsConfig(costs=True)))
+    return mixed_engine(device, Observability(ObsConfig(costs=True)), mesh)
 
 
 @pytest.mark.cuda
@@ -1578,3 +1578,166 @@ def test_tier_outage_on_card_equals_cpu(cuda_device):
     gs, cs = g.cost_summary(), c.cost_summary()
     for key in ("total", "planned", "regret"):
         np.testing.assert_array_equal(gs[key], cs[key])
+
+
+# ---------------------------------------------------------------------------
+# fleet-axis sharding on the card: 8 shards on one card
+# ---------------------------------------------------------------------------
+
+def card_mesh(device, shards=8):
+    from repro_torch.parallel import fleet
+    return fleet.fleet_mesh(shards, device=device)
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_card_equals_unsharded(cuda_device):
+    """The observed mixed fleet with 8 shards on the card (2 exact rows a
+    shard; the 4 logmem tenants padded to 8 rows) against the unsharded
+    card engine over the same double-buffered chunks: every state leaf,
+    ledger, assign_tiers, the snapshot, bit for bit; each scan kernel
+    launched once a shard and chunk, tier_assign once a shard."""
+    plain = observed_mixed_engine(cuda_device)
+    shd = observed_mixed_engine(cuda_device, card_mesh(cuda_device))
+    assert shd._shards == 8
+    plain.ingest_chunks(mixed_dense_chunks(12, 4))
+    b0, l0 = t_btk.launches, t_lm_ops.launches
+    assert shd.ingest_chunks(mixed_dense_chunks(12, 4)) == 12
+    assert (t_btk.launches - b0, t_lm_ops.launches - l0) == (96, 96)
+    want = card_state(plain)
+    a0 = t_ta.launches
+    got = card_state(shd)
+    assert t_ta.launches - a0 == 8
+    assert_card_states_equal(want, got)
+    assert json.dumps(plain.obs_snapshot(), sort_keys=True) == json.dumps(
+        shd.obs_snapshot(), sort_keys=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("constrained", [False, True])
+def test_sharded_plan_on_card_equals_unsharded(constrained, cuda_device):
+    """A 3-tier fleet of 4,099 streams planned on the card with 8 shards
+    (plan_solve launched per shard) equals the unsharded device plan bit
+    for bit."""
+    from repro_torch.parallel import fleet
+    rng = np.random.default_rng(25)
+    m = 4099
+    args = (rng.uniform(0.5, 2.0, (m, 3)), rng.uniform(0.1, 1.0, (m, 3)),
+            rng.uniform(0.01, 0.2, (m, 3)),
+            rng.integers(50, 400, m).astype(np.float64),
+            rng.integers(2, 16, m).astype(np.float64),
+            rng.uniform(0.5, 4.0, m))
+    kw = {}
+    if constrained:
+        cap = np.full((m, 3), np.inf)
+        cap[:, 0] = rng.uniform(20, 80, m)
+        kw = dict(cap=cap, lat=rng.uniform(0.1, 1.0, (m, 3)),
+                  slo=np.where(rng.random(m) < 0.3,
+                               rng.uniform(0.5, 2.0, m), np.inf))
+    p0 = t_ps.launches
+    ref = t_shp.plan_ntier_arrays(*args, backend="device",
+                                  device=cuda_device, **kw)
+    n_plain = t_ps.launches - p0
+    with fleet.use_fleet_mesh(card_mesh(cuda_device)):
+        out = t_shp.plan_ntier_arrays(*args, backend="device", **kw)
+    assert t_ps.launches - p0 - n_plain == 8 * n_plain > 0
+    for key in ("total", "bounds", "migrate"):
+        np.testing.assert_array_equal(ref[key], out[key], err_msg=key)
+
+
+@pytest.mark.cuda
+def test_sharded_resolve_and_waterfill_on_card(cuda_device):
+    """The device re-solve with its rows split over 8 shards on the card
+    equals the unsharded re-solve; the sharded water-filling on the card
+    meets the host law within the reference's tolerances and never
+    oversubscribes."""
+    from repro_torch.core import constraints as cons
+    from repro_torch.parallel import fleet
+    rng = np.random.default_rng(2)
+    r = 203
+    cw, cr, cs = (rng.uniform(lo, hi, (r, 3))
+                  for lo, hi in ((0.5, 2.0), (0.1, 1.0), (0.01, 0.2)))
+    n = rng.integers(50, 400, r).astype(np.float64)
+    k = rng.integers(2, 16, r).astype(np.float64)
+    cap = np.full((r, 3), np.inf)
+    cap[:, 0] = rng.uniform(20, 80, r)
+    args = (cw, cr, cs, n, k, rng.uniform(0.5, 4.0, r), cap,
+            rng.uniform(0.1, 1.0, (r, 3)), np.full(r, np.inf),
+            np.minimum(n * 0.5, n - 1), rng.uniform(0.5, 1.5, r),
+            np.sort(rng.uniform(0, 1, (r, 2)), axis=1) * n[:, None])
+    ref = t_rd.solve_group(*args, device=cuda_device)
+    mesh = card_mesh(cuda_device)
+    with fleet.use_fleet_mesh(mesh):
+        out = t_rd.solve_group(*args)
+    for a, b in zip(ref, out):
+        np.testing.assert_array_equal(a, b)
+    desired = rng.uniform(0.0, 50.0, 1001)
+    desired[rng.random(1001) < 0.2] = 0.0
+    for frac in (0.3, 0.9, 1.2):
+        budget = float(desired.sum() * frac)
+        grants = fleet.waterfill_sharded(desired, budget, mesh)
+        assert (grants <= desired + 1e-9).all()
+        assert grants.sum() <= budget * (1 + 1e-12) + 1e-9
+        np.testing.assert_allclose(grants,
+                                   cons.waterfill_grants(desired, budget),
+                                   rtol=1e-7, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_sharded_engine_across_cards_equals_unsharded(cuda_device):
+    """With two or more cards visible, ``fleet_mesh()`` puts one shard on
+    each: the observed mixed fleet, the plan and the water-filling across
+    the cards equal the unsharded run on one card, and ``serve --mesh N``
+    shards the tenant engine over the N cards with the unsharded run's
+    retained sets."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.core import constraints as cons
+    from repro_torch.parallel import fleet
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA cards")
+    mesh = fleet.fleet_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(cards))
+    plain = observed_mixed_engine(cuda_device)
+    shd = observed_mixed_engine(cuda_device, mesh)
+    assert [p.ids.device for p in shd._states[0]] == list(mesh.devices)
+    plain.ingest_chunks(mixed_dense_chunks(12, 4))
+    shd.ingest_chunks(mixed_dense_chunks(12, 4))
+    assert_card_states_equal(card_state(plain), card_state(shd))
+    assert json.dumps(plain.obs_snapshot(), sort_keys=True) == json.dumps(
+        shd.obs_snapshot(), sort_keys=True)
+    rng = np.random.default_rng(5)
+    m = 1001
+    args = (rng.uniform(0.5, 2.0, (m, 3)), rng.uniform(0.1, 1.0, (m, 3)),
+            rng.uniform(0.01, 0.2, (m, 3)),
+            rng.integers(50, 400, m).astype(np.float64),
+            rng.integers(2, 16, m).astype(np.float64),
+            rng.uniform(0.5, 4.0, m))
+    ref = t_shp.plan_ntier_arrays(*args, backend="device", device=cuda_device)
+    with fleet.use_fleet_mesh(mesh):
+        out = t_shp.plan_ntier_arrays(*args, backend="device")
+    for key in ("total", "bounds", "migrate"):
+        np.testing.assert_array_equal(ref[key], out[key], err_msg=key)
+    desired = rng.uniform(0.0, 50.0, m)
+    budget = float(desired.sum() * 0.5)
+    grants = fleet.waterfill_sharded(desired, budget, mesh)
+    assert grants.sum() <= budget * (1 + 1e-12) + 1e-9
+    np.testing.assert_allclose(grants, cons.waterfill_grants(desired, budget),
+                               rtol=1e-7, atol=1e-7)
+    env = {**os.environ, "PYTHONPATH": "src"}
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+            "cuda", "--tenants", "8", "--requests", "64", "--batch", "8"]
+    runs = [subprocess.run(argv + extra, capture_output=True, text=True,
+                           env=env, timeout=600)
+            for extra in (["--mesh", str(cards)], [])]
+    for run in runs:
+        assert run.returncode == 0, run.stderr[-3000:]
+    assert f"fleet mesh: {cards} shards on {cards} cards" in runs[0].stdout
+
+    def kept(text):
+        return [ln for ln in text.splitlines()
+                if ln.startswith(("tenant ", "fleet ledger"))]
+
+    assert kept(runs[0].stdout) == kept(runs[1].stdout) != []

@@ -263,8 +263,12 @@ def test_ingest_chunks_equals_reference_ingest_chunks():
 
 def test_not_ported_parts_raise():
     spec = [t_eng.StreamSpec(stream_id=0, k=4, r=10.0)]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_eng.StreamEngine(spec, device="cpu", mesh=object())
+    # mesh= is ported (tests/test_torch_parallel.py); a device= of another
+    # type than the mesh's shards is refused
+    from repro_torch.parallel import fleet
+    with pytest.raises(ValueError, match="is not the mesh's"):
+        t_eng.StreamEngine(spec, device="cuda",
+                           mesh=fleet.fleet_mesh(2, device="cpu"))
     with pytest.raises(ValueError, match="migration cascade"):
         t_eng.StreamEngine([t_eng.StreamSpec(stream_id=0, k=4, r=10.0,
                                              engine="logmem", migrate=True)],

@@ -143,15 +143,22 @@ def test_simulator_bit_equal(migrate):
     assert same(ref, got)
 
 
-def test_device_planner_and_sharding_raise():
+def test_device_planner_and_sharding_raise(monkeypatch):
     cw = np.ones((2, 3))
     with pytest.raises(ValueError, match="'device'"):
         t_shp.plan_ntier_arrays(cw, cw, cw, np.full(2, 100.0),
                                 np.full(2, 4.0), np.ones(2), backend="jax")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        t_planner.waterfill(np.ones(3), 1.0, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        t_planner.plan_fleet_mixed([t_costs.case_study_1()], mesh=object())
+    # the planner's mesh= runs (tests/test_torch_parallel.py); what raises
+    # is a mesh of more cards than are visible, with no CPU fallback
+    from repro_torch.parallel import fleet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="only 0 CUDA devices"):
+        t_planner.waterfill(np.ones(3), 1.0, mesh=fleet.fleet_mesh(2))
+    mesh = fleet.fleet_mesh(2, device="cpu")
+    plan = t_planner.plan_fleet_mixed([t_costs.case_study_1()], mesh=mesh,
+                                      device="cpu")
+    assert plan.boundaries == t_planner.plan_fleet_mixed(
+        [t_costs.case_study_1()], device="cpu").boundaries
 
 
 def test_import_guard_no_jax_no_reference_package():

@@ -231,10 +231,11 @@ def test_kernel_route_equals_plain_route_on_cpu(model):
 
 
 def test_cli_flags_not_ported_raise():
-    for argv, item in ((["--mesh", "2"], 9),):
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 1 item {item}"):
-            t_serve.main(argv + ["--device", "cpu"])
+    """Every flag is ported; ``--mesh`` with one tenant exits with the
+    reference's message (examples/serve_topk.py) before anything runs
+    (``--mesh 2 --tenants 4`` runs: tests/test_torch_parallel.py)."""
+    with pytest.raises(SystemExit, match=r"--mesh requires --tenants > 1"):
+        t_serve.main(["--mesh", "2", "--device", "cpu"])
 
 
 def test_cli_ckpt_dir_needs_tenants(tmp_path):
