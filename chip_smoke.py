@@ -36,7 +36,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    flash_attention and entropy_scores at both score producers' shapes
    (head dims 64 and 128; vocabularies of 128,256 and 49,152) and edge
    cases, among them a 4096-key sliding window over 4608 keys at head
-   dim 128 (see below);
+   dim 128 (see below); then flash_attention's backward pair (its dQ and
+   dK/dV launches) and the forward's row log-sum-exp against
+   reference_backward and reference_lse at the same cases and at the
+   seams (groups of 1, 4 and 12, head dims 16-128, Sq and Skv off
+   multiples of 64, batch 1, windows, Sq > Skv with rows whose keys are
+   all masked): float32 within 1e-4 of each plain gradient's largest
+   magnitude, bfloat16 within 2e-2;
 4. timings: each kernel, its plain version and its bound (bytes, or
    operations where they take longer), with the PyTorch call that
    computes the same function where there is one; flash_attention and
@@ -48,7 +54,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    windows with its spread; logmem_update at 64 x 8192, topk_filter
    at 2^20 and entropy_scores at 8 x 128,256, whose inputs stay in the
    card's L2 between back-to-back calls, also L2-cold (128 MiB written
-   before each call);
+   before each call); flash_attention's backward at both serve shapes
+   with its 5-product bound and SDPA's backward (forward plus backward
+   less its forward), and the forward with the log-sum-exp written
+   beside without it, in turns (it must cost no more, within the
+   spread);
 5. main path at full width — the defaults of examples/million_streams.py:
    1,000,000 streams, 3 tiers, K=8, planned on the card by the device
    planner (shp.plan_ntier_arrays, plan_solve), the shared hot-tier
@@ -201,7 +211,40 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    repro_torch.launch.serve --device cuda --tenants 8 --requests 64
    --batch 8 with --mesh 2 and without, retained and ledger lines equal;
    serve() in this process with a 2-shard mesh, every tenant's retained
-   set and meter ledgers equal.
+   set and meter ledgers equal;
+17. training with top-K curation (repro_torch.runtime) on the card. 17a:
+   reduced llama3.2-1b, 3 train_steps on the card against the port's CPU
+   run, each step from the same state and batch (the CPU's, copied):
+   loss, per-example NLL and grad_norm within 1e-5 relative, every
+   parameter's gradient non-zero and within 1e-4 of its largest
+   magnitude, the parameters after the step within 1e-5 of each leaf's
+   largest magnitude (where the gradient is within that of zero, AdamW's
+   step lr·m/(sqrt(v) + 1e-8) is not fixed by float32 arithmetic: such
+   elements, fewer than 1 in 1000, may differ by 2·lr), the reservoir's
+   ids equal; flash_attention and its backward launched once a layer a
+   gradient. 17b: llama3.2-1b at full width (16 layers, d_model 2048,
+   32 heads over 8 KV, vocab 128,256, float32, seeded random weights on
+   the card), StreamLoader batches of 8 x 1024, 8 train_steps (lr 3e-4,
+   reservoir_k 16): finite losses falling (the last 2 below the first
+   2), exactly 128 launches of each flash kernel; step ms (median after
+   the first), tokens/s, peak memory, and one profiled step. 17c:
+   examples/train_topk_curation.py's setting (lm-100m: d_model 640, 10
+   layers, vocab 32,768, seq 256, batch 8, reservoir_k 64, lr 3e-3, 300
+   steps) through train_loop.run with the HBM<->host SHP plan,
+   TieredStore and TopKCurator, checkpoints under build/ckpt17c: the
+   loss falls, the curator's writes and survivors equal a core.simulator
+   replay of the NLL stream it saw, the ledger's writes equal its stats,
+   its writes beside eq. 11/12's expectation (logged: a falling loss
+   ranks early examples first, so the in-order stream writes less), and
+   the same NLLs in a random order through a fresh curator within
+   tests/test_train_loop.py's 35% of that expectation; then 8 straight
+   steps against 4 steps plus 4 resumed from the checkpoint, bit for bit
+   under torch.use_deterministic_algorithms(True). 17d: python -m
+   repro_torch.launch.train --arch llama3.2-1b --reduced --steps 40
+   --device cuda --ckpt-dir build/train17d, sent SIGTERM once its first
+   checkpoint is on disk: exit 0, stopped before step 40, and the final
+   checkpoint restores at the step its last line names. Checkpoint
+   directories are removed at the end.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -214,6 +257,7 @@ repository's sources beside it, the script exits non-zero and prints no
 result.
 """
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1379,6 +1423,152 @@ def score_kernel_timings():
                 f"{t['bound_ms']:.4f} ms (L2-warm {med:.4f} ms)")
             del flush
         del logits, labels, lab64
+    return out
+
+
+# flash_attention's backward at the seams beyond FA_CASES (label, B, Sq,
+# Skv, H, KV, hd, causal, window): groups of 1, 4 and 12, head dims 16 to
+# 128, Sq and Skv off multiples of 64, batch 1, windows, and Sq > Skv with
+# rows whose keys are all masked
+FA_BWD_SEAMS = (
+    ("g 1, hd 16, Sq > Skv: rows with no key", 1, 90, 33, 4, 4, 16, True, 0),
+    ("g 4, hd 32, window 7, Sq > Skv", 1, 90, 33, 8, 2, 32, True, 7),
+    ("g 12, hd 16, non-causal, window 9", 1, 77, 77, 12, 1, 16, False, 9),
+    ("g 12, hd 128, ragged", 1, 130, 130, 24, 2, 128, True, 0),
+    ("g 4, hd 128, Sq > Skv: rows with no key", 1, 70, 24, 4, 1, 128, True,
+     0),
+    ("g 1, hd 64, Sq < Skv, window 50, batch 2", 2, 100, 257, 4, 4, 64, True,
+     50),
+    ("g 4, hd 32, non-causal, Sq < Skv", 1, 65, 129, 8, 2, 32, False, 0))
+
+
+def flash_backward_parity():
+    """flash_attention's backward pair and the forward's row log-sum-exp
+    against reference_backward and reference_lse on the card, float32
+    (1e-4 of each plain gradient's largest magnitude; the lse within
+    2e-5 relative and absolute) and bfloat16 (2e-2): the largest absolute
+    difference of a float32 gradient."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    g = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for label, b, sq, skv, h, kvh, hd, causal, window in (FA_CASES
+                                                           + FA_BWD_SEAMS):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            q, k, v = fa_inputs(g, b, sq, skv, h, kvh, hd, dtype)
+            dout = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+            kw = dict(causal=causal, window=window)
+            out, lse = fa.forward_with_lse(q, k, v, **kw)
+            got = fa.backward(q, k, v, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            want = fa.reference_backward(q, k, v, out, lse, dout, **kw)
+            within_tol([lse], [fa.reference_lse(q, k, v, **kw)], 2e-5)
+            rel, diff = [], 0.0
+            for a, r in zip(got, want):
+                if a.shape != r.shape or a.dtype != r.dtype:
+                    raise AssertionError(f"backward shape/dtype {a.shape} "
+                                         f"{a.dtype} vs {r.shape} {r.dtype}")
+                d = float((a.float() - r.float()).abs().max())
+                top = float(r.float().abs().max())
+                rel.append(d / top if top else d)
+                diff = max(diff, d)
+            log(f"parity flash_attention_bwd [{label}] B={b} Sq={sq} "
+                f"Skv={skv} H={h} KV={kvh} hd={hd} causal={causal} "
+                f"window={window} {str(dtype)[6:]}: dq, dk, dv max abs diff "
+                f"over the largest magnitude {rel[0]:.3e}, {rel[1]:.3e}, "
+                f"{rel[2]:.3e} (limit {tol}); max abs diff {diff:.3e}")
+            if max(rel) > tol:
+                raise AssertionError(f"flash_attention's backward differs "
+                                     f"from reference_backward [{label}, "
+                                     f"{dtype}]")
+            if dtype == torch.float32:
+                worst = max(worst, diff)
+            del q, k, v, dout, out, lse, got, want
+    return worst
+
+
+def flash_backward_timings(smi):
+    """flash_attention's backward pair at both serve shapes, causal:
+    device ms of both launches (profiler, median of WINDOWS windows with
+    the spread), wrapper ms, plain ms, the bound of its five products at
+    the 3xTF32 rate, and SDPA's backward (forward plus backward less
+    its forward) as the yardstick; then the forward with the row
+    log-sum-exp written beside without it, windows in turns. The first
+    shape goes into the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for key, (b, s, h, kvh, hd) in (("flash_attention_bwd", FA_PATH),
+                                    ("flash_attention_bwd@hd128", FA_SC)):
+        q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
+        dout = torch.randn(q.shape, device="cuda", generator=g)
+        o, lse = fa.forward_with_lse(q, k, v)
+        call = lambda: fa.backward(q, k, v, o, lse, dout)  # noqa: E731
+        med, lo, hi, parts = device_ms_windows(
+            call, 5, ("flash_bwd_dq", "flash_bwd_dkdv"), WINDOWS)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dt = dout.transpose(1, 2).contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        fwd_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                      dt), 5)
+        fwd = cuda_ms(sdpa, 5)
+        pairs = b * h * s * (s + 1) // 2  # causal: visible (query, key) pairs
+        flops = 5 * 2 * hd * pairs  # S, dP, dV, dQ, dK: a multiply-add each
+        nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                      + lse.numel())  # q, o, dO, dQ; k, dK; v, dV; lse
+        t = {"ms": med, "call_ms": cuda_ms(call, 5),
+             "plain_ms": cuda_ms(
+                 lambda: fa.reference_backward(q, k, v, o, lse, dout), 2),
+             "library_ms": fwd_bwd - fwd,
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             # the card's fastest rate for float32 products at this
+             # accuracy is 3xTF32 (as row 7's bound); the float32 units'
+             # time, which this kernel runs on, is logged beside it
+             "ops_ms": 3 * flops / TF32_FLOPS * 1e3,
+             "f32_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations")
+        out[key] = t
+        each = ", ".join(f"{n} {x:.4f}" for n, x in parts.items())
+        log(f"timing {key} [q ({b}, {s}, {h}, {hd}), k and v ({b}, {s}, "
+            f"{kvh}, {hd}) f32, causal]: kernel pair {med:.4f} ms on the "
+            f"device (profiler, median of {WINDOWS} windows of 5 calls; min "
+            f"{lo:.4f}, max {hi:.4f}; medians {each}); {t['call_ms']:.4f} ms "
+            f"per wrapper call; plain {t['plain_ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {flops:.4g} "
+            f"operations as 3xTF32 at 495/3 TFLOP/s; {t['f32_ms']:.4f} ms "
+            f"at the 67 TFLOP/s of the float32 units, which the kernel runs "
+            f"on; {t['bytes_ms']:.4f} ms of bytes); {med / t['bound_ms']:.2f}"
+            f"x its bound; {flops / med / 1e9:.2f} "
+            f"TFLOP/s; library_ms {t['library_ms']:.4f} = torch.nn."
+            f"functional.scaled_dot_product_attention(is_causal, enable_gqa) "
+            f"forward plus backward {fwd_bwd:.4f} less its forward "
+            f"{fwd:.4f}, never called by the port; {smi}")
+        if key == "flash_attention_bwd":
+            # the forward with the log-sum-exp written against without it,
+            # windows in turns (off, on, on, off, ...)
+            runs = {False: [], True: []}
+            for i in range(2 * WINDOWS):
+                with_lse = (i % 4) in (1, 2)
+                fn = ((lambda: fa.forward_with_lse(q, k, v)) if with_lse
+                      else (lambda: fa.flash_attention(q, k, v)))
+                runs[with_lse].append(device_ms(fn, 10, "flash_fwd"))
+            off, on = (sorted(runs[x]) for x in (False, True))
+            m_off, m_on = statistics.median(off), statistics.median(on)
+            slack = max(off[-1] - off[0], 0.01 * m_off)
+            log(f"timing flash_attention forward with the row log-sum-exp "
+                f"written: {m_on:.4f} ms (min {on[0]:.4f}, max {on[-1]:.4f}) "
+                f"beside {m_off:.4f} ms without (min {off[0]:.4f}, max "
+                f"{off[-1]:.4f}); {WINDOWS} profiled windows of 10 calls "
+                f"each, in turns; limit {m_off + slack:.4f} ms (the spread "
+                f"without, or 1%)")
+            if m_on > m_off + slack:
+                raise AssertionError("writing the log-sum-exp slows the "
+                                     "forward beyond its spread")
+        del q, k, v, dout, o, lse, qt, kt, vt, dt
     return out
 
 
@@ -2747,7 +2937,7 @@ def replanning(smi):
 # ---------------------------------------------------------------------------
 
 OB_SAMPLE = 256  # 14a streams held to the port's CPU run
-CB_TENANTS = 32_768  # 14b: examples/cost_attribution.py's fleet at scale
+CB_TENANTS = 16_384  # 14b: examples/cost_attribution.py's fleet at scale
 CB_PROFILE_AT = 60  # 14b's first chunk fed through ingest() under the
 CB_PROFILED = 2  # profiler, and the number of such chunks
 CB_MAX_EVENTS = 4_000_000  # the tracer's bound at 14b's fleet
@@ -4085,10 +4275,450 @@ def sharded(bounds, mig, plan5):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training with top-K curation on the card
+# ---------------------------------------------------------------------------
+
+TR_LR = 3e-4  # 17a's and 17b's learning rate
+TR_FULL = dict(batch=8, seq=1024, steps=8, reservoir_k=16)  # 17b
+# 17c: examples/train_topk_curation.py's defaults
+E2E = dict(d_model=640, layers=10, vocab=32_768, seq=256, batch=8,
+           reservoir_k=64, lr=3e-3, steps=300)
+TRAIN_ARGV = ["--arch", ARCH, "--reduced", "--steps", "40", "--seq", "512",
+              "--batch", "32", "--device", "cuda"]  # 17d's launcher
+
+
+def state_to(state, device):
+    """A train state's tensors copied to ``device``."""
+    from repro_torch.checkpoint.manager import tree_flatten, tree_unflatten
+    leaves, treedef = tree_flatten(state)
+    return tree_unflatten(treedef, [x.to(device, copy=True) for x in leaves])
+
+
+def check_step_params(got, want, first_moment, lr, label):
+    """17a's parameter tolerance (see the module docstring): the largest
+    fraction of a leaf's elements that took the AdamW exception."""
+    from repro_torch.optim.adamw import tree_leaves
+    worst = 0.0
+    for i, (a, w, m) in enumerate(zip(tree_leaves(got), tree_leaves(want),
+                                      tree_leaves(first_moment))):
+        a, w, m = a.double().cpu(), w.double().cpu(), m.double()
+        err = (a - w).abs()
+        off = err > 1e-5 * float(w.abs().max())
+        free = m.abs() <= 1e-5 * float(m.abs().max())
+        worst = max(worst, float(off.double().mean()))
+        if float(off.double().mean()) >= 1e-3 or not bool(free[off].all()) \
+                or not bool((err[off] <= 2 * lr).all()):
+            raise AssertionError(f"{label}: parameter leaf {i} differs "
+                                 f"from the CPU run (max abs diff "
+                                 f"{float(err.max()):.3e})")
+    return worst
+
+
+def train_card_vs_cpu(smi):
+    """17a: reduced llama3.2-1b, 3 train_steps on the card against the
+    CPU, each from the CPU's state. Returns the flash launches."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import StreamLoader
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import steps
+    cfg = configs.get_config(ARCH, reduced=True)
+    cpu = steps.init_train_state(cfg, seed=0, reservoir_k=16, device="cpu")
+    loader = StreamLoader(cfg, ShapeConfig("17a", seq_len=64, global_batch=8,
+                                           kind="train"), seed=0)
+    fa.launches = fa.bwd_launches = 0
+    grads_taken = 0
+    for step in range(3):
+        card = state_to(cpu, "cuda")
+        host = loader.batch_for_step(step)
+        b_cpu = {k: torch.as_tensor(x) for k, x in host.items()}
+        b_card = {k: torch.as_tensor(x, device="cuda") for k, x in
+                  host.items()}
+        _, _, g_cpu = steps.loss_and_grads(cpu.params, cfg, b_cpu)
+        _, _, g_card = steps.loss_and_grads(card.params, cfg, b_card)
+        grads_taken += 1
+        g_worst = 0.0
+        for i, (a, w) in enumerate(zip(tree_leaves(g_card),
+                                       tree_leaves(g_cpu))):
+            a, top = a.cpu(), float(w.abs().max())
+            err = float((a - w).abs().max())
+            if top == 0.0 or err > 1e-4 * top:
+                raise AssertionError(f"17a step {step}: gradient leaf {i} "
+                                     f"(max {top:.3e}) differs by {err:.3e}")
+            g_worst = max(g_worst, err / top)
+        nxt, m_cpu = steps.train_step(cpu, b_cpu, cfg, lr=TR_LR)
+        card, m_card = steps.train_step(card, b_card, cfg, lr=TR_LR)
+        grads_taken += 1
+        rels = {}
+        for key in ("loss", "per_example_nll", "grad_norm"):
+            a, w = m_card[key].double().cpu(), m_cpu[key].double()
+            rels[key] = float(((a - w).abs() / w.abs()).max())
+            if rels[key] > 1e-5:
+                raise AssertionError(f"17a step {step}: {key} differs from "
+                                     f"the CPU run by {rels[key]:.3e} "
+                                     f"relative")
+        nll = np.sort(m_cpu["per_example_nll"].double().numpy())
+        if not (np.diff(nll) > 1e-5 * np.abs(nll[1:])).all():
+            raise AssertionError("17a: two NLLs of a batch lie within 1e-5")
+        if not torch.equal(card.reservoir.ids.cpu(), nxt.reservoir.ids):
+            raise AssertionError(f"17a step {step}: reservoir ids differ")
+        frac = check_step_params(card.params, nxt.params, nxt.opt.m, TR_LR,
+                                 f"17a step {step}")
+        log(f"train [17a reduced {ARCH}] step {step}: loss "
+            f"{float(m_card['loss']):.6f} (CPU {float(m_cpu['loss']):.6f}); "
+            f"relative diffs loss {rels['loss']:.2e}, per-example NLL "
+            f"{rels['per_example_nll']:.2e}, grad_norm "
+            f"{rels['grad_norm']:.2e} "
+            f"(limit 1e-5); gradients within {g_worst:.2e} of each leaf's "
+            f"largest magnitude (limit 1e-4), every leaf non-zero; params "
+            f"within 1e-5 of each leaf's largest magnitude but {frac:.2e} of "
+            f"a leaf at most (AdamW's undetermined elements, within 2 lr); "
+            f"reservoir ids equal")
+        cpu = nxt
+    want = cfg.n_layers * grads_taken
+    log(f"train [17a] launches: flash_attention {fa.launches}, "
+        f"flash_attention_bwd {fa.bwd_launches} (want {want} each: one a "
+        f"layer a gradient)")
+    if (fa.launches, fa.bwd_launches) != (want, want):
+        raise AssertionError("17a launch counts are not one a layer a "
+                             "gradient")
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches}
+
+
+def train_full_width(smi):
+    """17b: llama3.2-1b at full width, 8 train_steps from StreamLoader
+    batches; then one profiled step. Returns the counted launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import StreamLoader
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import lm
+    from repro_torch.runtime import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(ARCH)
+    b, s, n = TR_FULL["batch"], TR_FULL["seq"], TR_FULL["steps"]
+    t0 = time.perf_counter()
+    state = steps.init_train_state(cfg, seed=0,
+                                   reservoir_k=TR_FULL["reservoir_k"],
+                                   device="cuda")
+    torch.cuda.synchronize()
+    log(f"train [17b {ARCH} full width]: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+        f"head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype}: {lm.param_count(cfg)} parameters drawn on the "
+        f"card with their AdamW moments in {time.perf_counter() - t0:.3f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    loader = StreamLoader(cfg, ShapeConfig("17b", seq_len=s, global_batch=b,
+                                           kind="train"), seed=0)
+    batches = [{k: torch.as_tensor(x, device="cuda")
+                for k, x in loader.batch_for_step(i).items()}
+               for i in range(n + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the counted run: counters to 0, n steps, read
+    fa.launches = fa.bwd_launches = 0
+    losses, ms = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        state, met = steps.train_step(state, batches[i], cfg, lr=TR_LR)
+        losses.append(float(met["loss"]))  # the step's one sync
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counted = {"flash_attention": fa.launches,
+               "flash_attention_bwd": fa.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = cfg.n_layers * n
+    med = statistics.median(ms[1:])
+    log(f"train [17b] launches: {counted} (want {want} each: one a layer a "
+        f"step)")
+    log(f"train [17b] losses {' '.join(f'{x:.6f}' for x in losses)}; step "
+        f"ms {' '.join(f'{x:.3f}' for x in ms)}; median after the first "
+        f"{med:.3f} ms (min {min(ms[1:]):.3f}, max {max(ms[1:]):.3f}); "
+        f"{b * s / med * 1e3:.6g} tokens/s; peak device memory {peak:.3f} "
+        f"GiB (params, grads, moments and activations); grad_norm "
+        f"{float(met['grad_norm']):.4f}; host clock, the loss read syncs; "
+        f"{smi}")
+    if counted != {"flash_attention": want, "flash_attention_bwd": want}:
+        raise AssertionError(f"17b launches {counted} != {want} each")
+    if not all(np.isfinite(losses)) or \
+            not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"17b: losses not finite or not falling: "
+                             f"{losses}")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, met = steps.train_step(state, batches[n], cfg, lr=TR_LR)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    profile_report(prof, f"train [17b {ARCH} step, {b} x {s}]", 1, wall, smi)
+    del state, met, batches, prof
+    torch.cuda.empty_cache()
+    return counted
+
+
+class RecordingCurator:
+    """A TopKCurator that also keeps the (ids, scores) stream it saw."""
+
+    def __init__(self, curator):
+        self.curator, self.ids, self.scores = curator, [], []
+
+    def observe_batch(self, ids, scores, payloads):
+        self.ids.append(np.array(ids))
+        self.scores.append(np.array(scores, np.float64))
+        return self.curator.observe_batch(ids, scores, payloads)
+
+
+def e2e_setup(n_docs, device):
+    """examples/train_topk_curation.py's model config, plan, store and
+    curator."""
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+    from repro_torch.core import costs, placement, shp, tiers
+    from repro_torch.data.curation import TopKCurator
+    cfg = ModelConfig(
+        name="lm-100m", family="dense", d_model=E2E["d_model"],
+        vocab_size=E2E["vocab"],
+        layers=(LayerSpec(count=E2E["layers"], mixer="attn", ffn="dense"),),
+        n_heads=E2E["d_model"] // 64,
+        n_kv_heads=max(E2E["d_model"] // 256, 1), head_dim=64,
+        d_ff=4 * E2E["d_model"], ffn_act="silu_glu", tie_embeddings=True)
+    k = E2E["reservoir_k"]
+    cm = costs.hbm_host_preset(n_docs=n_docs, k=k,
+                               doc_gb=E2E["seq"] * 4 / 1e9,
+                               window_seconds=3600.0)
+    plan = shp.plan_placement(cm)
+    pol = placement.from_plan(plan)
+    store = tiers.TieredStore(
+        pol, tiers.HotTier(k, (E2E["seq"],), dtype=torch.int32,
+                           device=device), tiers.ColdTier())
+    return cfg, plan, pol, store, TopKCurator(k, store, policy=pol)
+
+
+def curated_training(smi):
+    """17c: the example's setting through train_loop.run on the card, then
+    the resume check. Returns the flash launches of both."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import shp, simulator
+    from repro_torch.data.curation import TopKCurator
+    from repro_torch.data.pipeline import StreamLoader
+    from repro_torch.core import tiers
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import lm
+    from repro_torch.runtime import train_loop
+    n_docs, k = E2E["steps"] * E2E["batch"], E2E["reservoir_k"]
+    cfg, plan, pol, store, curator = e2e_setup(n_docs, "cuda")
+    rec = RecordingCurator(curator)
+    shape = ShapeConfig("e2e", seq_len=E2E["seq"], global_batch=E2E["batch"],
+                        kind="train")
+    loader = StreamLoader(cfg, shape, seed=0)
+    root = ROOT / "build" / "ckpt17c"
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = CheckpointManager(str(root), keep_latest=2, keep_best=2)
+    log(f"train [17c lm-100m]: {lm.param_count(cfg)} parameters; SHP plan "
+        f"{plan.strategy} r*/N={plan.best.r_over_n:.3f}; {E2E['steps']} steps "
+        f"of {E2E['batch']} x {E2E['seq']}, lr {E2E['lr']}, reservoir_k {k}")
+    fa.launches = fa.bwd_launches = 0
+    t0 = time.perf_counter()
+    rep = train_loop.run(
+        cfg, loader, loop=train_loop.LoopConfig(
+            total_steps=E2E["steps"], ckpt_every=E2E["steps"] // 4,
+            log_every=E2E["steps"] // 20, lr=E2E["lr"]),
+        ckpt=ckpt, curator=rec, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches}
+    want = cfg.n_layers * E2E["steps"]
+    first, last = np.mean(rep.losses[:10]), np.mean(rep.losses[-10:])
+    times = [x * 1e3 for x in rep.step_times[1:]]
+    log(f"train [17c] {rep.steps_run} steps in {wall:.3f}s (resumed from "
+        f"{rep.resumed_from}, {rep.straggler_steps} straggler steps); loss "
+        f"{rep.losses[0]:.4f} -> {rep.losses[-1]:.4f} (mean of the first 10 "
+        f"{first:.4f}, of the last 10 {last:.4f}); step ms median "
+        f"{statistics.median(times):.3f} (min {min(times):.3f}, max "
+        f"{max(times):.3f}; host clock, the loss read syncs); launches "
+        f"{launches} (want {want} each); checkpoints kept "
+        f"{sorted(p.name for p in root.glob('ckpt_*'))}; {smi}")
+    if rep.resumed_from is not None or rep.steps_run != E2E["steps"]:
+        raise AssertionError("17c did not run its steps from the start")
+    if launches != {"flash_attention": want, "flash_attention_bwd": want}:
+        raise AssertionError(f"17c launches {launches} != {want} each")
+    if not last < first:
+        raise AssertionError("17c: the loss did not fall")
+    # the curator against an exact replay of the stream it saw, and the
+    # law on the same scores in a random order
+    ids, scores = np.concatenate(rec.ids), np.concatenate(rec.scores)
+    order = np.argsort(ids, kind="stable")
+    if not np.array_equal(ids[order], np.arange(n_docs)):
+        raise AssertionError("17c: the curator did not see every example "
+                             "once")
+    trace = scores[order]
+    sim = simulator.simulate(trace, k, pol)
+    stats = curator.stats
+    analytic = float(shp.expected_cum_writes(n_docs - 1, k))
+    survivors = curator.survivor_ids()
+    ledger = int(store.ledger.writes.sum())
+    log(f"train [17c] curation {stats.as_dict()}; ledger writes {ledger}; "
+        f"core.simulator replay of the same NLL stream: writes "
+        f"{int(sim.writes_per_tier.sum())}, survivors equal "
+        f"{np.array_equal(np.sort(survivors), np.sort(sim.survivor_ids))}; "
+        f"eq. 11/12 expects {analytic:.1f} writes for a random order: "
+        f"in-order {stats.writes / analytic:.4f} of it")
+    if stats.writes != ledger or stats.writes != int(
+            sim.writes_per_tier.sum()) or not np.array_equal(
+            np.sort(survivors), np.sort(sim.survivor_ids)):
+        raise AssertionError("17c: the curator's writes or survivors differ "
+                             "from its ledger or the simulator replay")
+    perm = np.random.default_rng(17).permutation(n_docs)
+    shuffled = TopKCurator(k, tiers.TieredStore(
+        pol, tiers.HotTier(k, (E2E["seq"],), dtype=torch.int32,
+                           device="cuda"), tiers.ColdTier()), policy=pol)
+    payload = np.zeros((E2E["batch"], E2E["seq"]), np.int32)
+    for off in range(0, n_docs, E2E["batch"]):
+        shuffled.observe_batch(np.arange(off, off + E2E["batch"]),
+                               trace[perm[off:off + E2E["batch"]]], payload)
+    ratio = abs(shuffled.stats.writes - analytic) / analytic
+    log(f"train [17c] the same {n_docs} NLLs in a random order: "
+        f"{shuffled.stats.writes} writes, {ratio:.4f} off eq. 11/12's "
+        f"{analytic:.1f} (limit 0.35, tests/test_train_loop.py:91); ledger "
+        f"writes {int(shuffled.store.ledger.writes.sum())}")
+    if ratio >= 0.35 or shuffled.stats.writes != int(
+            shuffled.store.ledger.writes.sum()):
+        raise AssertionError("17c: a random-order stream misses the write "
+                             "law")
+    shutil.rmtree(root, ignore_errors=True)
+    for key, n in resume_check(cfg, loader).items():
+        launches[key] += n
+    return launches
+
+
+def resume_check(cfg, loader):
+    """8 straight steps against 4 steps and 4 resumed from the checkpoint,
+    bit for bit, under torch.use_deterministic_algorithms(True)."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+    dirs = [ROOT / "build" / f"ckpt17c_{x}" for x in "ab"]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    def loop(n):
+        return train_loop.LoopConfig(total_steps=n, ckpt_every=4,
+                                     lr=E2E["lr"])
+    fa.launches = fa.bwd_launches = 0
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = train_loop.run(cfg, loader, loop=loop(8), device="cuda",
+                           ckpt=CheckpointManager(str(dirs[0])))
+        mgr = CheckpointManager(str(dirs[1]))
+        b1 = train_loop.run(cfg, loader, loop=loop(4), ckpt=mgr,
+                            device="cuda")
+        b2 = train_loop.run(cfg, loader, loop=loop(8), ckpt=mgr,
+                            device="cuda")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(x, y) for x, y in zip(
+        adamw.tree_leaves(a.final_state.params),
+        adamw.tree_leaves(b2.final_state.params)))
+    same_opt = all(torch.equal(x, y) for x, y in zip(
+        adamw.tree_leaves(a.final_state.opt.v),
+        adamw.tree_leaves(b2.final_state.opt.v)))
+    same_res = torch.equal(a.final_state.reservoir.ids,
+                           b2.final_state.reservoir.ids)
+    log(f"train [17c resume] 8 straight steps vs 4 + 4 resumed (from step "
+        f"{b2.resumed_from}), torch.use_deterministic_algorithms(True): "
+        f"losses of steps 5-8 equal {a.losses[4:] == b2.losses} "
+        f"({' '.join(f'{x:.7f}' for x in b2.losses)}); params bit-equal "
+        f"{same}, second moments {same_opt}, reservoir ids {same_res}")
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    if not (b1.steps_run == 4 and b2.resumed_from == 4
+            and a.losses[4:] == b2.losses and same and same_opt and same_res):
+        raise AssertionError("17c: the resumed run differs from the "
+                             "straight one")
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches}
+
+
+def train_drain():
+    """17d: the training launcher on the card, SIGTERM once its first
+    checkpoint is on disk."""
+    import shutil
+    import signal
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import steps
+    d = ROOT / "build" / "train17d"
+    shutil.rmtree(d, ignore_errors=True)
+    argv = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
+            "--ckpt-dir", str(d)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=str(ROOT))
+    try:
+        first = d / "ckpt_00000020" / "manifest.json"
+        while not first.exists():
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError(f"17d: no first checkpoint "
+                                     f"(exit {proc.poll()})")
+            time.sleep(0.002)
+        seen = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = out.strip().splitlines()
+    log(f"train [17d] {' '.join(argv[1:])}: first checkpoint after "
+        f"{seen:.3f}s, SIGTERM sent; exit {proc.returncode} after "
+        f"{time.perf_counter() - t0:.3f}s; last lines: "
+        f"{' | '.join(lines[-2:])}")
+    if proc.returncode != 0 or not lines or \
+            not lines[-1].startswith("stopped by a signal at step "):
+        raise AssertionError(f"17d: the launcher did not drain: exit "
+                             f"{proc.returncode}\n{out}\n{err[-2000:]}")
+    step = int(lines[-1].split("at step ")[1].split()[0])
+    mgr = CheckpointManager(str(d))
+    cfg = configs.get_config(ARCH, reduced=True)
+    state = mgr.restore(steps.init_train_state(cfg, device="cuda"))
+    newest = mgr.latest_step()
+    log(f"train [17d] stopped at step {step}; newest checkpoint step "
+        f"{newest}, restored state step {int(state.step)}")
+    shutil.rmtree(d, ignore_errors=True)
+    if not (20 <= step < 40 and newest == step and int(state.step) == step):
+        raise AssertionError("17d: the final checkpoint does not restore at "
+                             "the printed step")
+
+
+def training(smi):
+    """Phase 17. Returns the flash launches of its counted runs."""
+    launches = train_card_vs_cpu(smi)
+    for part in (train_full_width(smi), curated_training(smi)):
+        for key, n in part.items():
+            launches[key] += n
+    train_drain()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms
+    # (phase 17c's resume check) only with a fixed workspace, set before
+    # its first call; 8 x 4 MiB is the size PyTorch gives Hopper anyway
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -4106,7 +4736,9 @@ def main():
         times["plan_solve"] = plan_solve_timings(solves)
         del solves
         errs.update(score_kernel_parity())
+        errs["flash_attention_bwd"] = flash_backward_parity()
         times.update(score_kernel_timings())
+        times.update(flash_backward_timings(smi))
     with phase_clock("main path, self-check, step profile (phases 5-7)"):
         eng, launches, rng, (bounds, mig, rate5, plan5) = main_path()
         self_check()
@@ -4139,6 +4771,10 @@ def main():
         for key, n in sharded(bounds, mig, plan5).items():
             launches[key] += n
         del plan5
+    with phase_clock("training with top-K curation (phase 17)"):
+        launches["flash_attention_bwd"] = 0
+        for key, n in training(smi).items():
+            launches[key] += n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",
@@ -4149,13 +4785,17 @@ def main():
         "entropy_scores":
             "src/repro/kernels/entropy_scores/entropy_scores.py:56",
         "flash_attention":
-            "src/repro/kernels/flash_attention/flash_attention.py:64"}
+            "src/repro/kernels/flash_attention/flash_attention.py:64",
+        # no Pallas backward exists: the counterpart of XLA's derivative of
+        # the reference's training attention (grouped_attention)
+        "flash_attention_bwd": "src/repro/models/attention.py:113"}
     kernels = []
     for name in replaces:
         t = times[name]
+        src = name.removesuffix("_bwd")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

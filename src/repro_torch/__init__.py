@@ -6,4 +6,4 @@ find. The package imports ``torch`` and ``numpy``, never ``jax`` and
 nothing of ``repro``; kernels are compiled at first use, never on import.
 Entry points run on the CUDA card unless given ``device="cpu"``.
 """
-from . import configs, core, data, kernels, models, streams  # noqa: F401
+from . import configs, core, data, kernels, models, optim, runtime, streams  # noqa: F401

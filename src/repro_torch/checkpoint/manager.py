@@ -59,41 +59,43 @@ def _is_namedtuple(x) -> bool:
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves, treedef) in the reference's leaf order."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if _is_namedtuple(node):
-            return ("namedtuple", type(node), [walk(c) for c in node])
-        if isinstance(node, (tuple, list)):
-            return (type(node).__name__, None, [walk(c) for c in node])
-        leaves.append(node)
-        return ("leaf",)
 
-    return leaves, walk(tree)
+def _walk(node, leaves: List[Any]):
+    # module-level, not a closure: a self-referencing closure would hold
+    # ``leaves`` in a reference cycle, keeping the tensors alive until the
+    # cyclic collector runs (a whole parameter tree a training step)
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_walk(node[k], leaves) for k in keys])
+    if _is_namedtuple(node):
+        return ("namedtuple", type(node), [_walk(c, leaves) for c in node])
+    if isinstance(node, (tuple, list)):
+        return (type(node).__name__, None, [_walk(c, leaves) for c in node])
+    leaves.append(node)
+    return ("leaf",)
 
 
 def tree_unflatten(treedef, leaves) -> Any:
     """Inverse of ``tree_flatten``."""
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(node):
-        kind = node[0]
-        if kind == "none":
-            return None
-        if kind == "leaf":
-            return next(it)
-        children = [build(c) for c in node[2]]
-        if kind == "dict":
-            return dict(zip(node[1], children))
-        if kind == "namedtuple":
-            return node[1](*children)
-        return tuple(children) if kind == "tuple" else children
 
-    return build(treedef)
+def _build(node, it):
+    kind = node[0]
+    if kind == "none":
+        return None
+    if kind == "leaf":
+        return next(it)
+    children = [_build(c, it) for c in node[2]]
+    if kind == "dict":
+        return dict(zip(node[1], children))
+    if kind == "namedtuple":
+        return node[1](*children)
+    return tuple(children) if kind == "tuple" else children
 
 
 def host_copy(t: torch.Tensor) -> np.ndarray:

@@ -10,8 +10,17 @@ reference's −2e9.
 
 The device of the input decides what runs: a CUDA tensor launches the
 hand-written kernel (``csrc/flash_attention.cu``) or raises, a CPU tensor
-runs the plain PyTorch version ``reference``. There is no switch between
-the two.
+runs the plain PyTorch version ``reference``, which autograd
+differentiates. There is no switch between the two.
+
+The gradient: on a CUDA tensor, with grad enabled and an input that
+requires it, ``flash_attention`` runs ``FlashAttentionFn``. Its forward is
+the same kernel with the row log-sum-exp written beside the output, and
+its backward the hand-written backward pair of the same source (a dQ
+launch, then a dK/dV launch that sums the grouped heads without atomics).
+It is the counterpart of XLA's derivative of the reference's training
+attention; the reference has no Pallas backward. ``reference_lse`` and
+``reference_backward`` are the plain versions the backward is held to.
 """
 from __future__ import annotations
 
@@ -28,8 +37,10 @@ HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
 ROWS = 64  # the fewest query rows a block of the kernel takes
 MAX_GRID = 65535  # the kernel's grid: batch and Sq / ROWS each up to this
 
-# kernel launches made by ``flash_attention`` since the last reset
+# kernel launches made by ``flash_attention`` since the last reset: the
+# forward, and the backward pair (counted once a call)
 launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,6 +61,29 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k and v must share a device")
 
 
+def _visible(sq, skv, causal, window, device):
+    """(Sq, Skv) mask of the (query, key) pairs the masks leave visible."""
+    qpos = torch.arange(sq, device=device) + (skv - sq)
+    kpos = torch.arange(skv, device=device)
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        ok &= kpos[None, :] > qpos[:, None] - window
+    return ok
+
+
+def _logits(q, k, causal, window, scale):
+    """(B, H, Sq, Skv) float32 logits, scaled and masked with −2e9, and
+    the visibility mask; KV heads repeated to the query heads."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    kf = k.to(torch.float32).repeat_interleave(h // k.shape[2], dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * scale
+    ok = _visible(sq, skv, causal, window, q.device)
+    return torch.where(ok[None, None], logits, NEG), ok
+
+
 def reference(q, k, v, *, causal: bool = True, window: int = 0,
               scale: float | None = None):
     """Plain PyTorch version, the reference's ``ref.flash_attention``:
@@ -57,33 +91,179 @@ def reference(q, k, v, *, causal: bool = True, window: int = 0,
     float32 product with v, cast to q's dtype; KV heads mapped to query
     heads by repetition."""
     _check(q, k, v)
-    b, sq, h, hd = q.shape
-    skv = k.shape[1]
-    scale = scale or 1.0 / math.sqrt(hd)
-    g = h // k.shape[2]
-    kf = k.to(torch.float32).repeat_interleave(g, dim=2)
+    scale = scale or 1.0 / math.sqrt(q.shape[3])
+    g = q.shape[2] // k.shape[2]
     vf = v.to(torch.float32).repeat_interleave(g, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * scale
-    qpos = torch.arange(sq, device=q.device) + (skv - sq)
-    kpos = torch.arange(skv, device=q.device)
-    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos[None, :] <= qpos[:, None]
-    if window > 0:
-        ok &= kpos[None, :] > qpos[:, None] - window
-    logits = torch.where(ok[None, None], logits, NEG)
+    logits, _ = _logits(q, k, causal, window, scale)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+
+
+def reference_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                  scale: float | None = None):
+    """Plain version of the forward's second output: (B, H, Sq) float32
+    log-sum-exp of each row's scaled, masked logits."""
+    _check(q, k, v)
+    scale = scale or 1.0 / math.sqrt(q.shape[3])
+    return torch.logsumexp(_logits(q, k, causal, window, scale)[0], dim=-1)
+
+
+def reference_backward(q, k, v, out, lse, dout, *, causal: bool = True,
+                       window: int = 0, scale: float | None = None):
+    """Plain version of the backward: (dq, dk, dv) in the inputs' dtype,
+    from the explicit formulas in float32. P = exp(S·scale − lse),
+    dP = dO Vᵀ, Delta = rowsum(dO ∘ O), dS = P ∘ (dP − Delta) on visible
+    pairs and 0 on masked ones; dQ = dS K · scale, dK = dSᵀ Q · scale
+    and dV = Pᵀ dO, summed over the query heads of each KV head. A row
+    whose keys are all masked is the uniform average of v in the forward,
+    so its P is 1 / Skv and its dS is 0."""
+    _check(q, k, v)
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale or 1.0 / math.sqrt(hd)
+    f32 = lambda x: x.to(torch.float32)  # noqa: E731
+    kf = f32(k).repeat_interleave(g, dim=2)
+    vf = f32(v).repeat_interleave(g, dim=2)
+    qf, of, dof = f32(q), f32(out), f32(dout)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    ok = _visible(sq, skv, causal, window, q.device)
+    dead = ~ok.any(dim=1)  # rows with no visible key
+    p = torch.where(ok, torch.exp(s - f32(lse)[..., None]), 0.0)
+    p = torch.where(dead[:, None], 1.0 / skv, p)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, of)
+    ds = torch.where(ok, p * (dp - delta[..., None]), 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    group = lambda x: x.reshape(b, skv, kvh, g, hd).sum(dim=3)  # noqa: E731
+    return dq.to(q.dtype), group(dk).to(k.dtype), group(dv).to(v.dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.library("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = build.library("flash_attention").flash_attention_backward_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _prepare(q, k, v):
+    """Checks for a kernel launch; returns q, k, v contiguous and 16-byte
+    aligned (the kernel copies 16-byte pieces of rows) and the scale."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check(q, k, v)
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    if hd not in HEAD_DIMS:
+        raise NotImplementedError(f"the flash_attention kernel is built for "
+                                  f"head dims {HEAD_DIMS}, not {hd}")
+    if b > MAX_GRID or -(-max(sq, skv) // ROWS) > MAX_GRID:
+        raise ValueError(f"the flash_attention kernel takes a batch and "
+                         f"Sq / {ROWS} and Skv / {ROWS} up to {MAX_GRID}, "
+                         f"got {b}, {sq} and {skv}")
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    return tuple(x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
+
+
+def _launch_forward(q, k, v, causal, window, scale, with_lse):
+    """The forward kernel on prepared inputs: (out, lse or None)."""
+    global launches
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0 or skv == 0:
+        return out.zero_(), (None if lse is None else lse.fill_(NEG))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                        b, sq, skv, h, kvh, hd, scale, int(causal),
+                        int(window), _DTYPES[q.dtype], stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    launches += 1
+    return out, lse
+
+
+def _launch_backward(q, k, v, out, lse, dout, causal, window, scale):
+    """The backward pair on prepared inputs: (dq, dk, dv)."""
+    global bwd_launches
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    dout = dout.to(q.dtype).contiguous()
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0 or skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                            dv.data_ptr(), b, sq, skv, h, kvh, hd, scale,
+                            int(causal), int(window), _DTYPES[q.dtype],
+                            stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel with its gradient: the forward launch with the row
+    log-sum-exp kept, the backward pair on the saved tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        q, k, v = _prepare(q, k, v)
+        out, lse = _launch_forward(q, k, v, causal, window, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_backward(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def forward_with_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                     scale: float | None = None):
+    """The forward kernel with the row log-sum-exp written: (out, lse)."""
+    q, k, v = _prepare(q, k, v)
+    scale = scale or 1.0 / math.sqrt(q.shape[3])
+    return _launch_forward(q, k, v, causal, window, scale, True)
+
+
+def backward(q, k, v, out, lse, dout, *, causal: bool = True,
+             window: int = 0, scale: float | None = None):
+    """The backward pair on CUDA tensors: (dq, dk, dv), held to
+    ``reference_backward``."""
+    q, k, v = _prepare(q, k, v)
+    scale = scale or 1.0 / math.sqrt(q.shape[3])
+    return _launch_backward(q, k, v, out.contiguous(), lse.contiguous(),
+                            dout, causal, window, scale)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -93,34 +273,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     unset, as in the reference). A row whose keys are all masked averages
     v over all Skv keys, as the reference's plain version does.
 
-    CUDA tensors run the kernel, CPU tensors the plain version."""
-    global launches
+    CUDA tensors run the kernel, CPU tensors the plain version. On a
+    CUDA tensor with grad enabled and an input that requires grad, the
+    call runs ``FlashAttentionFn``, whose backward is the kernel pair."""
     if q.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    _check(q, k, v)
-    b, sq, h, hd = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise NotImplementedError(f"the flash_attention kernel is built for "
-                                  f"head dims {HEAD_DIMS}, not {hd}")
-    if b > MAX_GRID or -(-sq // ROWS) > MAX_GRID:
-        raise ValueError(f"the flash_attention kernel takes a batch and "
-                         f"Sq / {ROWS} up to {MAX_GRID}, got {b} and {sq}")
-    scale = scale or 1.0 / math.sqrt(hd)
-    # the kernel copies 16-byte pieces of rows: contiguous, aligned
-    q, k, v = (x.contiguous() for x in (q, k, v))
-    q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
-    out = torch.empty_like(q)
-    if out.numel() == 0 or skv == 0:
-        return out.zero_()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, sq, skv, h, kvh, hd, scale,
-                        int(causal), int(window), _DTYPES[q.dtype], stream)
-    if err:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    launches += 1
-    return out
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
+    q, k, v = _prepare(q, k, v)
+    return _launch_forward(q, k, v, causal, window, scale, False)[0]

@@ -4,7 +4,8 @@ GQA part of the reference's ``models.attention``.
 Prefill and the cache-less forward attend over keys at the query
 positions themselves; with ``flash=True`` (what ``lm`` passes by default)
 that attention runs on the ``flash_attention`` kernel, which takes the
-place of the reference's dense and chunked pure-JAX paths. Decode (one
+place of the reference's dense and chunked pure-JAX paths; a gradient
+through it (training) runs the kernel's backward pair. Decode (one
 query over a cache with empty slots) stays the plain grouped attention,
 as the reference routes it. MLA, cross-attention and attention logit
 soft-capping are not ported yet (ROADMAP queue 1 item 10).

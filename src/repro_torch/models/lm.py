@@ -5,17 +5,21 @@ dense FFNs (llama3.2-1b, yi-9b, starcoder2-3b, command-r-plus-104b).
 * ``forward(params, cfg, batch)``          — full-sequence logits
 * ``prefill(params, cfg, batch, cache)``   — fill caches, last logits
 * ``decode_step(params, cfg, tok, cache)`` — one token with cache
+* ``lm_loss(params, cfg, batch)``          — the training loss and the
+  per-example NLL that curation scores by
 
 Parameters are a plain dict in the reference's layout, with each group a
 list of per-layer dicts where the reference stacks the layers on a
 leading axis; the layers run in a Python loop where the reference scans.
-Caches are updated in place. ``use_kernel=False`` takes the plain grouped
-attention for prefill and the forward, the reference's own route;
-otherwise they run on the ``flash_attention`` kernel.
+Caches are updated in place; the forward writes into no tensor that
+autograd saved, so ``lm_loss`` differentiates through it.
+``use_kernel=False`` takes the plain grouped attention for prefill and
+the forward, the reference's own route; otherwise they run on the
+``flash_attention`` kernel, and a gradient through the forward on the
+card runs the kernel's backward.
 
 Encoder-decoder models, vision/audio frontends, MoE, SSM, MLA and
-cross-attention raise ``NotImplementedError`` (ROADMAP queue 1 item 10),
-as does training (``lm_loss``).
+cross-attention raise ``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -73,6 +77,22 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as tensors on the ``meta`` device: shapes and
+    dtypes, no storage — the counterpart of the reference's
+    ``jax.eval_shape`` of ``init_params``."""
+    dtype = dtype_of(cfg.param_dtype)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [conv(v) for v in tree]
+        return torch.empty(tree, dtype=dtype, device="meta")
+
+    return conv(param_shapes(cfg))
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -224,3 +244,33 @@ def decode_step(p, cfg: ModelConfig, token, cache):
     x, groups = _run_layers(p, cfg, x, positions, cache["groups"])
     logits = _head(p, cfg, x)[:, 0]
     return logits, {"pos": pos + 1, "groups": groups}
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(p, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01, *,
+            use_kernel: bool = True):
+    """Causal-LM cross-entropy. Returns (loss, metrics): masked
+    log-sum-exp minus the gold logit, averaged over the labelled tokens
+    (labels < 0 are masked), plus ``aux_weight`` times the aux loss (0:
+    no MoE is ported). metrics carries ``per_example_nll`` (B,) — the
+    interestingness hook — and the token count."""
+    logits, aux = forward(p, cfg, batch, use_kernel=use_kernel)
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    labels_safe = torch.clamp(labels, min=0).to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom + aux_weight * aux
+    per_example_nll = nll.sum(-1) / torch.clamp(mask.sum(-1), min=1.0)
+    metrics = {
+        "loss": nll.sum() / denom,
+        "aux_loss": aux,
+        "per_example_nll": per_example_nll,
+        "tokens": mask.sum(),
+    }
+    return loss, metrics

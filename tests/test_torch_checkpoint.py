@@ -227,6 +227,26 @@ def test_tree_flatten_roundtrip():
                                       t_manager.tree_flatten(back)[0]))
 
 
+def test_tree_walk_holds_no_leaf_after_it_returns():
+    """The optimizer walks the parameter tree with these every training
+    step: once the caller drops a tree, its tensors are freed at once,
+    not held by the walk until the cyclic collector runs."""
+    import gc
+    import weakref
+    tree = {"w": torch.zeros(3), "b": [torch.ones(2), None]}
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        leaves, treedef = t_manager.tree_flatten(tree)
+        back = t_manager.tree_unflatten(treedef, leaves)
+        refs = [weakref.ref(x) for x in leaves]
+        del tree, leaves, back
+        assert all(r() is None for r in refs)
+    finally:
+        if was:
+            gc.enable()
+
+
 # ---------------------------------------------------------------------------
 # aliasing: an async save holds host copies, never the engine's memory
 # ---------------------------------------------------------------------------

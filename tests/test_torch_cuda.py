@@ -1741,3 +1741,157 @@ def test_sharded_engine_across_cards_equals_unsharded(cuda_device):
                 if ln.startswith(("tenant ", "fleet ledger"))]
 
     assert kept(runs[0].stdout) == kept(runs[1].stdout) != []
+
+
+# ---------------------------------------------------------------------------
+# training on the card: flash_attention's backward pair, FlashAttentionFn,
+# the train step
+# ---------------------------------------------------------------------------
+
+# FA_CASES and the backward's seams: groups of 1, 4 and 12, head dims 16
+# to 128, Sq and Skv off multiples of 64, batch 1, windows, Sq > Skv with
+# rows whose keys are all masked
+FA_BWD_CASES = FA_CASES + [(1, 90, 33, 4, 4, 16, True, 0),
+                           (1, 90, 33, 8, 2, 32, True, 7),
+                           (1, 77, 77, 12, 1, 16, False, 9),
+                           (1, 130, 130, 24, 2, 128, True, 0),
+                           (1, 70, 24, 4, 1, 128, True, 0),
+                           (2, 100, 257, 4, 4, 64, True, 50)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window", FA_BWD_CASES)
+def test_flash_attention_backward_kernel_equals_plain(b, sq, skv, h, kvh, hd,
+                                                      causal, window, dtype,
+                                                      cuda_device):
+    """The backward pair against reference_backward: float32 within 1e-4
+    of each plain gradient's largest magnitude, bfloat16 within 2e-2; the
+    forward's log-sum-exp within 2e-5 of reference_lse."""
+    rng = np.random.default_rng(sq * 7 + skv)
+    q, k, v = (torch.tensor(x, device=cuda_device).to(dtype)
+               for x in fa_case(b, sq, skv, h, kvh, hd, sq + skv))
+    dout = torch.tensor(rng.standard_normal(q.shape),
+                        device=cuda_device).to(dtype)
+    kw = dict(causal=causal, window=window)
+    out, lse = t_fa.forward_with_lse(q, k, v, **kw)
+    before = t_fa.bwd_launches
+    got = t_fa.backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert t_fa.bwd_launches == before + 1
+    torch.testing.assert_close(lse, t_fa.reference_lse(q, k, v, **kw),
+                               rtol=2e-5, atol=2e-5)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, r in zip(got, t_fa.reference_backward(q, k, v, out, lse, dout,
+                                                 **kw)):
+        assert a.shape == r.shape and a.dtype == r.dtype == dtype
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * float(r.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_is_deterministic(cuda_device):
+    """No atomics: two backward calls agree bit for bit."""
+    q, k, v = (torch.tensor(x, device=cuda_device)
+               for x in fa_case(2, 300, 300, 32, 8, 64, 1))
+    out, lse = t_fa.forward_with_lse(q, k, v)
+    dout = torch.randn_like(q)
+    a = t_fa.backward(q, k, v, out, lse, dout)
+    b = t_fa.backward(q, k, v, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window",
+                         [(2, 96, 96, 8, 2, 64, True, 0),
+                          (1, 70, 40, 4, 1, 32, True, 5),
+                          (1, 65, 65, 12, 1, 128, False, 0)])
+def test_flash_attention_autograd_equals_plain_route(b, sq, skv, h, kvh, hd,
+                                                     causal, window,
+                                                     cuda_device):
+    """flash_attention with inputs that require grad runs
+    FlashAttentionFn (one forward and one backward launch); its output
+    and gradients equal autograd through the plain version within 2e-5
+    and 1e-4 of each gradient's largest magnitude."""
+    kw = dict(causal=causal, window=window)
+    base = [torch.tensor(x, device=cuda_device)
+            for x in fa_case(b, sq, skv, h, kvh, hd, 11)]
+    grads = []
+    for route in (t_fa.flash_attention, t_fa.reference):
+        xs = [x.clone().requires_grad_(True) for x in base]
+        n0, b0 = t_fa.launches, t_fa.bwd_launches
+        out = route(*xs, **kw)
+        (out.square() * 0.5).sum().backward()
+        torch.cuda.synchronize()
+        if route is t_fa.flash_attention:
+            assert out.grad_fn is not None
+            assert (t_fa.launches - n0, t_fa.bwd_launches - b0) == (1, 1)
+            kernel_out = out.detach()
+        else:
+            torch.testing.assert_close(kernel_out, out.detach(), rtol=2e-5,
+                                       atol=2e-5)
+        grads.append([x.grad for x in xs])
+    for a, r in zip(*grads):
+        assert float((a - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_dispatch_without_grad(cuda_device):
+    """No input requiring grad, or grad disabled: the forward launch alone,
+    and the output carries no graph."""
+    q, k, v = (torch.tensor(x, device=cuda_device)
+               for x in fa_case(1, 64, 64, 4, 2, 32, 3))
+    n0, b0 = t_fa.launches, t_fa.bwd_launches
+    out = t_fa.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        out2 = t_fa.flash_attention(qg, k, v)
+    assert out2.grad_fn is None
+    assert (t_fa.launches - n0, t_fa.bwd_launches - b0) == (2, 0)
+    torch.testing.assert_close(out, out2)
+
+
+def _state_to(state, device):
+    from repro_torch.checkpoint.manager import tree_flatten, tree_unflatten
+    leaves, treedef = tree_flatten(state)
+    return tree_unflatten(treedef, [x.to(device, copy=True) for x in leaves])
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_equals_cpu(cuda_device):
+    """The reduced llama3.2-1b train_step on the card (flash_attention and
+    its backward in every layer) against the CPU from the same state and
+    batch: loss, NLL and grad_norm within 1e-5 relative, gradients within
+    1e-4 of each leaf's largest magnitude, the reservoir's ids equal."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import StreamLoader
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = t_configs.get_config("llama3.2-1b", reduced=True)
+    cpu = steps.init_train_state(cfg, seed=0, reservoir_k=16, device="cpu")
+    loader = StreamLoader(cfg, ShapeConfig("t", seq_len=64, global_batch=8,
+                                           kind="train"), seed=0)
+    for step in range(2):
+        card = _state_to(cpu, cuda_device)
+        host = loader.batch_for_step(step)
+        b_cpu = {k: torch.as_tensor(x) for k, x in host.items()}
+        b_card = {k: torch.as_tensor(x, device=cuda_device)
+                  for k, x in host.items()}
+        _, _, g_cpu = steps.loss_and_grads(cpu.params, cfg, b_cpu)
+        n0, b0 = t_fa.launches, t_fa.bwd_launches
+        _, _, g_card = steps.loss_and_grads(card.params, cfg, b_card)
+        assert (t_fa.launches - n0, t_fa.bwd_launches - b0) == \
+            (cfg.n_layers, cfg.n_layers)
+        for a, w in zip(adamw.tree_leaves(g_card), adamw.tree_leaves(g_cpu)):
+            top = float(w.abs().max())
+            assert top > 0
+            assert float((a.cpu() - w).abs().max()) <= 1e-4 * top
+        nxt, m_cpu = steps.train_step(cpu, b_cpu, cfg)
+        card, m_card = steps.train_step(card, b_card, cfg)
+        for key in ("loss", "per_example_nll", "grad_norm"):
+            np.testing.assert_allclose(m_card[key].cpu().numpy(),
+                                       m_cpu[key].numpy(), rtol=1e-5)
+        torch.testing.assert_close(card.reservoir.ids.cpu(),
+                                   nxt.reservoir.ids)
+        cpu = nxt
