@@ -36,13 +36,17 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    flash_attention and entropy_scores at both score producers' shapes
    (head dims 64 and 128; vocabularies of 128,256 and 49,152) and edge
    cases, among them a 4096-key sliding window over 4608 keys at head
-   dim 128 (see below); then flash_attention's backward pair (its dQ and
-   dK/dV launches) and the forward's row log-sum-exp against
-   reference_backward and reference_lse at the same cases and at the
-   seams (groups of 1, 4 and 12, head dims 16-128, Sq and Skv off
-   multiples of 64, batch 1, windows, Sq > Skv with rows whose keys are
-   all masked): float32 within 1e-4 of each plain gradient's largest
-   magnitude, bfloat16 within 2e-2;
+   dim 128 (see below); then flash_attention's backward (its dQ and
+   dK/dV launches and, where ops.backward_plan splits the query-head
+   group over dK/dV blocks, the group sum) and the forward's row
+   log-sum-exp against reference_backward and reference_lse at the same
+   cases and at the seams (groups of 1, 4 and 12, head dims 16-128,
+   Sq and Skv off multiples of 64, batch 1, windows, Sq > Skv with rows
+   whose keys are all masked; groups split whole, in parts and not at
+   all, as the plan says, among them unsplit sums over 8 heads of 4096
+   queries and 6 of 2048): float32 within 1e-4 of each plain gradient's
+   largest magnitude, bfloat16 within 2e-2, and a second call bit-equal
+   to the first;
 4. timings: each kernel, its plain version and its bound (bytes, or
    operations where they take longer), with the PyTorch call that
    computes the same function where there is one; flash_attention and
@@ -54,11 +58,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    windows with its spread; logmem_update at 64 x 8192, topk_filter
    at 2^20 and entropy_scores at 8 x 128,256, whose inputs stay in the
    card's L2 between back-to-back calls, also L2-cold (128 MiB written
-   before each call); flash_attention's backward at both serve shapes
-   with its 5-product bound and SDPA's backward (forward plus backward
-   less its forward), and the forward with the log-sum-exp written
-   beside without it, in turns (it must cost no more, within the
-   spread);
+   before each call); flash_attention's backward at both serve shapes,
+   every launch of a call, with its 5-product bound and SDPA's backward
+   (forward plus backward less its forward), which it must beat, and
+   its launches' registers, shared memory and blocks an SM; and the
+   forward with the log-sum-exp written beside without it, in turns (it
+   must cost no more, within the spread);
 5. main path at full width — the defaults of examples/million_streams.py:
    1,000,000 streams, 3 tiers, K=8, planned on the card by the device
    planner (shp.plan_ntier_arrays, plan_solve), the shared hot-tier
@@ -1427,9 +1432,10 @@ def score_kernel_timings():
 
 
 # flash_attention's backward at the seams beyond FA_CASES (label, B, Sq,
-# Skv, H, KV, hd, causal, window): groups of 1, 4 and 12, head dims 16 to
-# 128, Sq and Skv off multiples of 64, batch 1, windows, and Sq > Skv with
-# rows whose keys are all masked
+# Skv, H, KV, hd, causal, window): groups of 1, 4 and 12, head dims 16
+# to 128, Sq and Skv off multiples of 64, batch 1, windows, and Sq > Skv
+# with rows whose keys are all masked. At batch 1 and one or two KV heads
+# backward_plan splits every group of more than one head.
 FA_BWD_SEAMS = (
     ("g 1, hd 16, Sq > Skv: rows with no key", 1, 90, 33, 4, 4, 16, True, 0),
     ("g 4, hd 32, window 7, Sq > Skv", 1, 90, 33, 8, 2, 32, True, 7),
@@ -1439,29 +1445,45 @@ FA_BWD_SEAMS = (
      0),
     ("g 1, hd 64, Sq < Skv, window 50, batch 2", 2, 100, 257, 4, 4, 64, True,
      50),
-    ("g 4, hd 32, non-causal, Sq < Skv", 1, 65, 129, 8, 2, 32, False, 0))
+    ("g 4, hd 32, non-causal, Sq < Skv", 1, 65, 129, 8, 2, 32, False, 0),
+    ("g 12, KV 1, batch 1", 1, 200, 200, 12, 1, 64, True, 0),
+    ("g 12, KV 2, batch 1, hd 128", 1, 256, 256, 24, 2, 128, True, 0),
+    ("g 12, hd 128, ragged Skv > Sq", 1, 100, 333, 12, 1, 128, True, 0))
+# grids backward_plan leaves unsplit, with long dK/dV sums in one block:
+# 8 heads of 4096 queries at head dim 64, 6 heads of 2048 at 128
+FA_BWD_LONG = (
+    ("g 8, 4096 keys, batch 9", 9, 4096, 4096, 8, 1, 64, True, 0),
+    ("g 6, 2048 keys, batch 9, hd 128", 9, 2048, 2048, 24, 4, 128, True, 0))
+
+
+def bwd_launch_names(plan):
+    """The kernels one backward call launches under ``plan``."""
+    return ("flash_bwd_dq", "flash_bwd_dkdv") + (
+        ("flash_bwd_group_sum",) if plan["split"] > 1 else ())
 
 
 def flash_backward_parity():
-    """flash_attention's backward pair and the forward's row log-sum-exp
-    against reference_backward and reference_lse on the card, float32
-    (1e-4 of each plain gradient's largest magnitude; the lse within
-    2e-5 relative and absolute) and bfloat16 (2e-2): the largest absolute
-    difference of a float32 gradient."""
+    """flash_attention's backward and the forward's row log-sum-exp against
+    reference_backward and reference_lse on the card, float32 (1e-4 of
+    each plain gradient's largest magnitude; the lse within 2e-5 relative
+    and absolute) and bfloat16 (2e-2), under backward_plan (FA_CASES,
+    FA_BWD_SEAMS, FA_BWD_LONG), a second call bit-equal to the first: the
+    largest absolute difference of a float32 gradient."""
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(6)
     worst = 0.0
-    for label, b, sq, skv, h, kvh, hd, causal, window in (FA_CASES
-                                                           + FA_BWD_SEAMS):
+    for label, b, sq, skv, h, kvh, hd, causal, window in (
+            FA_CASES + FA_BWD_SEAMS + FA_BWD_LONG):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             q, k, v = fa_inputs(g, b, sq, skv, h, kvh, hd, dtype)
             dout = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
             kw = dict(causal=causal, window=window)
             out, lse = fa.forward_with_lse(q, k, v, **kw)
-            got = fa.backward(q, k, v, out, lse, dout, **kw)
-            torch.cuda.synchronize()
             want = fa.reference_backward(q, k, v, out, lse, dout, **kw)
             within_tol([lse], [fa.reference_lse(q, k, v, **kw)], 2e-5)
+            plan = fa.backward_plan(b, h, kvh, sq, skv, hd)
+            got = fa.backward(q, k, v, out, lse, dout, **kw)
+            torch.cuda.synchronize()
             rel, diff = [], 0.0
             for a, r in zip(got, want):
                 if a.shape != r.shape or a.dtype != r.dtype:
@@ -1471,29 +1493,35 @@ def flash_backward_parity():
                 top = float(r.float().abs().max())
                 rel.append(d / top if top else d)
                 diff = max(diff, d)
+            again = fa.backward(q, k, v, out, lse, dout, **kw)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
             log(f"parity flash_attention_bwd [{label}] B={b} Sq={sq} "
                 f"Skv={skv} H={h} KV={kvh} hd={hd} causal={causal} "
-                f"window={window} {str(dtype)[6:]}: dq, dk, dv max abs diff "
-                f"over the largest magnitude {rel[0]:.3e}, {rel[1]:.3e}, "
-                f"{rel[2]:.3e} (limit {tol}); max abs diff {diff:.3e}")
-            if max(rel) > tol:
+                f"window={window} {str(dtype)[6:]}, {plan['warps']} warps, "
+                f"split {plan['split']}: dq, dk, dv max abs diff over the "
+                f"largest magnitude {rel[0]:.3e}, {rel[1]:.3e}, {rel[2]:.3e} "
+                f"(limit {tol}); max abs diff {diff:.3e}; a second call "
+                f"bit-equal {same}")
+            if max(rel) > tol or not same:
                 raise AssertionError(f"flash_attention's backward differs "
-                                     f"from reference_backward [{label}, "
-                                     f"{dtype}]")
+                                     f"from reference_backward or from "
+                                     f"itself [{label}, {dtype}]")
             if dtype == torch.float32:
                 worst = max(worst, diff)
-            del q, k, v, dout, out, lse, got, want
+            del q, k, v, dout, out, lse, want, got, again
     return worst
 
 
 def flash_backward_timings(smi):
-    """flash_attention's backward pair at both serve shapes, causal:
-    device ms of both launches (profiler, median of WINDOWS windows with
-    the spread), wrapper ms, plain ms, the bound of its five products at
-    the 3xTF32 rate, and SDPA's backward (forward plus backward less
-    its forward) as the yardstick; then the forward with the row
-    log-sum-exp written beside without it, windows in turns. The first
-    shape goes into the kernels line."""
+    """flash_attention's backward at both serve shapes, causal: device ms
+    of every launch of a call under backward_plan (dq, dk/dv and, when the
+    group is split, the group sum; profiler, median of WINDOWS windows
+    with the spread, and each launch's median), wrapper ms, plain ms,
+    the bound of its five products at the 3xTF32 rate, and SDPA's
+    backward (forward plus backward less its forward) as the yardstick;
+    the launches' registers, shared memory and blocks an SM; then the forward
+    with the row log-sum-exp written beside without it, windows in
+    turns. The first shape goes into the kernels line."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -1503,9 +1531,13 @@ def flash_backward_timings(smi):
         q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
         dout = torch.randn(q.shape, device="cuda", generator=g)
         o, lse = fa.forward_with_lse(q, k, v)
+        plan = fa.backward_plan(b, h, kvh, s, s, hd)
         call = lambda: fa.backward(q, k, v, o, lse, dout)  # noqa: E731
         med, lo, hi, parts = device_ms_windows(
-            call, 5, ("flash_bwd_dq", "flash_bwd_dkdv"), WINDOWS)
+            call, 5, bwd_launch_names(plan), WINDOWS)
+        info = "; ".join(f"{n} {r} registers, {m} bytes of shared memory, "
+                         f"{n_sm} blocks an SM" for n, (r, m, n_sm)
+                         in fa.backward_info(hd, q.dtype).items())
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                       for x in (q, k, v))
         dt = dout.transpose(1, 2).contiguous()
@@ -1523,9 +1555,9 @@ def flash_backward_timings(smi):
                  lambda: fa.reference_backward(q, k, v, o, lse, dout), 2),
              "library_ms": fwd_bwd - fwd,
              "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-             # the card's fastest rate for float32 products at this
-             # accuracy is 3xTF32 (as row 7's bound); the float32 units'
-             # time, which this kernel runs on, is logged beside it
+             # every product runs as 3xTF32 on the tensor cores, the
+             # card's fastest rate for float32 products at this accuracy;
+             # the float32 units' time is logged beside it
              "ops_ms": 3 * flops / TF32_FLOPS * 1e3,
              "f32_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
@@ -1534,19 +1566,27 @@ def flash_backward_timings(smi):
         out[key] = t
         each = ", ".join(f"{n} {x:.4f}" for n, x in parts.items())
         log(f"timing {key} [q ({b}, {s}, {h}, {hd}), k and v ({b}, {s}, "
-            f"{kvh}, {hd}) f32, causal]: kernel pair {med:.4f} ms on the "
-            f"device (profiler, median of {WINDOWS} windows of 5 calls; min "
-            f"{lo:.4f}, max {hi:.4f}; medians {each}); {t['call_ms']:.4f} ms "
-            f"per wrapper call; plain {t['plain_ms']:.4f} ms; bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {flops:.4g} "
-            f"operations as 3xTF32 at 495/3 TFLOP/s; {t['f32_ms']:.4f} ms "
-            f"at the 67 TFLOP/s of the float32 units, which the kernel runs "
-            f"on; {t['bytes_ms']:.4f} ms of bytes); {med / t['bound_ms']:.2f}"
-            f"x its bound; {flops / med / 1e9:.2f} "
+            f"{kvh}, {hd}) f32, causal; plan: {plan['warps']} warps, split "
+            f"{plan['split']}, {plan['blocks']} dK/dV blocks, "
+            f"{plan['scratch_bytes']} bytes of partials]: kernels "
+            f"{med:.4f} ms on the device (every launch of a call; profiler, "
+            f"median of {WINDOWS} windows of 5 calls; min {lo:.4f}, max "
+            f"{hi:.4f}; medians {each}); {t['call_ms']:.4f} ms per wrapper "
+            f"call; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']}: {flops:.4g} operations as 3xTF32 at "
+            f"495/3 TFLOP/s; {t['f32_ms']:.4f} ms at the 67 TFLOP/s of the "
+            f"float32 units; {t['bytes_ms']:.4f} ms of bytes); "
+            f"{med / t['bound_ms']:.2f}x its bound; {flops / med / 1e9:.2f} "
             f"TFLOP/s; library_ms {t['library_ms']:.4f} = torch.nn."
             f"functional.scaled_dot_product_attention(is_causal, enable_gqa) "
             f"forward plus backward {fwd_bwd:.4f} less its forward "
             f"{fwd:.4f}, never called by the port; {smi}")
+        log(f"backward launches [{plan['keys']} keys a dK/dV block, hd {hd} "
+            f"f32]: {info}")
+        if med >= t["library_ms"]:
+            raise AssertionError(f"{key}: the backward's {med:.4f} ms is not "
+                                 f"below SDPA's backward "
+                                 f"{t['library_ms']:.4f} ms")
         if key == "flash_attention_bwd":
             # the forward with the log-sum-exp written against without it,
             # windows in turns (off, on, on, off, ...)
@@ -4458,6 +4498,13 @@ def train_full_width(smi):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     profile_report(prof, f"train [17b {ARCH} step, {b} x {s}]", 1, wall, smi)
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    bwd = [e for e in dev if "flash_bwd" in e.name]
+    bwd_ms = sum(e.time_range.end - e.time_range.start for e in bwd) / 1e3
+    log(f"train [17b] flash_attention's backward in the profiled step: "
+        f"{len(bwd)} launches, {bwd_ms:.3f} ms = {bwd_ms / union_ms(dev):.4f} "
+        f"of the device's busy {union_ms(dev):.3f} ms; {smi}")
     del state, met, batches, prof
     torch.cuda.empty_cache()
     return counted

@@ -61,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kNeg = -2.0e9f;
@@ -113,13 +115,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // rows [r0, r0 + ROWS) of a (n, ., HD) tensor whose rows are `stride`
 // elements apart, into a padded shared tile; rows past n zero-filled
-template <typename T, int HD, int ROWS>
+template <typename T, int HD, int ROWS, int THR = kThreads>
 __device__ __forceinline__ void load_tile(T* tile, const T* base, int r0,
                                           int n, int64_t stride) {
   constexpr int kPer = 16 / sizeof(T);  // elements per copy
   constexpr int kCopies = HD / kPer;    // copies per row
   constexpr int kLd = row_stride<T, HD>();
-  for (int e = threadIdx.x; e < ROWS * kCopies; e += kThreads) {
+  for (int e = threadIdx.x; e < ROWS * kCopies; e += THR) {
     const int r = e / kCopies, c = (e % kCopies) * kPer;
     const bool in = r0 + r < n;
     cp_async16(tile + r * kLd + c, base + (in ? (r0 + r) * stride : 0) + c,
@@ -394,7 +396,8 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// Backward: FlashAttention-2's as two launches, plain float32 FMAs
+// Backward: FlashAttention-2's on the tensor cores, two launches and a
+// fixed-order sum
 // ---------------------------------------------------------------------------
 //
 // The gradient of the function above, the counterpart of XLA's derivative
@@ -410,82 +413,178 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
 // forward, so it gives each key's dV dO / Skv and no dS.
 //
 // Bound on this card: operations. Five products of the forward's size
-// (S, dP, dV, dQ, dK: 2 * hd operations each per visible pair), 8.6e10
-// at llama3.2-1b's training shape (B=8, S=1024, H=32, hd=64, causal):
-// 0.52 ms as 3xTF32 at 495/3 TFLOP/s, the card's fastest rate for
-// float32 products at this accuracy (1.28 ms on the float32 units, which
-// this kernel runs on). This first kernel recomputes S and dP in
-// both launches (seven products) and runs on the float32 units with a
-// 4x4 register tile a thread, operands from shared memory; a wgmma design
-// is later work.
+// (S, dP, dV, dQ, dK: 2 * hd operations each per visible pair), 8.598e10
+// at llama3.2-1b's training shape (B=8, S=1024, H=32, KV=8, hd=64,
+// causal): 0.5211 ms as 3xTF32 at 495/3 TFLOP/s, the card's fastest rate
+// for float32 products at the 1e-4 the gradients are held to (TF32 alone
+// keeps about three decimal digits). Both launches recompute S and dP, so
+// seven products run: 0.7295 ms is this design's floor. The bytes take
+// ~0.1 ms. Every product runs as the forward's does: each float32
+// operand split into a TF32 big part and a small rest, three m16n8k8
+// TF32 mma.sync a product, float32 accumulation.
 //
-// dq launch: a block of 256 threads per (batch, head, 64 query rows).
-// Its prologue writes Delta of its rows to a (B, H, Sq) float32 scratch;
-// then it walks the key tiles the masks leave live, building dS in shared
-// memory and dQ in registers. dkdv launch: a block per (batch, KV head,
-// 64 key rows); it walks the g = H / KV query heads of the group and,
-// for each, the query tiles its keys are visible to, summing dK and dV of
-// the whole group in registers: the grouped-head reduction with no
-// atomics, so the gradients are the same run to run. Operands are
-// converted to float32 when loaded into shared memory (rows padded by one
-// float: the 16 rows a warp reads at one column fall in 16 banks), so a
-// bfloat16 call runs the same float32 arithmetic and rounds its
-// gradients to bfloat16 once, at the store.
+// dq launch (flash_bwd_dq): a block of 4 warps per (batch, head, 64 * MT
+// query rows), warp w owning MT m-tiles of 16 rows as in the forward. Its
+// prologue writes Delta of its rows to a (B, H, Sq) float32 scratch. Q and
+// dO land once; K and V tiles of BK keys arrive by cp.async into two
+// buffers, the next loading while this one is computed. S = Q K^T and
+// dP = dO V^T go to accumulator fragments, dS is formed there, and dS's
+// accumulator fragment is dS K's A fragment directly (the k index t read
+// as key 2t, t + 4 as key 2t + 1, K's B fragment loaded in the same
+// order, as the forward turns S into P V's A fragment): dS never leaves
+// registers. dkdv launch (flash_bwd_dkdv): a block of NW warps per
+// (batch, KV head, part of the group, 16 * NW keys), warp w owning 16
+// keys. K and V land once; Q, dO, lse and Delta tiles of BM query rows
+// stream through two buffers across the part's query heads. S^T = K Q^T
+// and dP^T = V dO^T have the keys as rows, so P^T and dS^T become the A
+// fragments of P^T dO and dS^T Q in registers, and the warp's dK and dV
+// (HD floats a thread) sum in registers over every head of the part.
+// The tensor cores add inside an mma with truncation, so a sum carried in
+// one accumulator through thousands of mma drifts, the more the longer
+// the sum: 4.2e-5 of dK's largest magnitude at llama3.2-1b's training
+// shape (4 heads of 1024 queries), half that with the group split in
+// two. Each query tile's products therefore go into a zeroed fragment
+// (a chain of 3 * BM / 8 mma), which a float32 add, rounded to nearest,
+// puts into the totals: 2.6e-6 at the training shape, 3.3e-6 over 8
+// heads of 4096 queries. dQ's sums over keys, whose dS rows sum to zero,
+// stay within 4e-6 at 4096 keys and are carried as they are.
+//
+// Splitting the group: when kvh * B * ceil(Skv / (16 NW)) blocks cannot
+// fill the card (ops.backward_plan decides), the g query heads of each KV
+// head are cut into s contiguous parts of g / s heads, a block each. A
+// part writes its float32 dK and dV partials to a (2, s, B, Skv, KV, hd)
+// scratch, and flash_bwd_group_sum adds them in part order 0..s-1,
+// scales dK and casts both. With s = 1 dkdv writes dK and dV itself. No atomics anywhere:
+// every sum runs in an order the code fixes, so the same inputs and s give
+// the same bits run to run. (A single fused pass would add dQ from every
+// key block with atomics, whose order changes from run to run.)
+//
+// Tiles and layouts, chosen by timing on the card at both training
+// shapes of PERF.md (head dims 64 and 128): dq takes 2 m-tiles a warp and
+// 32-key tiles at head dim <= 64 (two blocks an SM, 105 KB each in
+// float32), 1 m-tile and 16-key tiles at 128 (two blocks, 102 KB); one
+// m-tile a warp, or 32-key tiles at 128 (one block an SM), were slower.
+// dkdv takes 32-row query tiles and NW = 4 warps (64 keys a block) at
+// head dim <= 64, NW = 8 (128 keys, 203 KB, one block an SM) at 128; the
+// other layout at each (8 warps at 64; 4 warps with 16-row tiles at 128)
+// was slower (PERF.md, row 7b), and ops.BWD_WARPS mirrors this choice.
+//
+// Masks are computed only on tiles that cut the causal diagonal, the
+// window's edge, Sq or Skv; a warp skips a tile in which none of its
+// pairs is visible (and, in dkdv, no row is without keys). Query tiles
+// run longest first in dq, early keys (most queries) first in dkdv.
+// bfloat16 tiles are converted when a fragment is loaded: their values
+// are exact in TF32, so a bfloat16 call runs the same arithmetic and
+// rounds its gradients once, at the store.
 
-constexpr int kBwdThreads = 256;  // a 16 x 16 grid of threads
-
-// keys a tile in the dq launch, query rows a tile in the dkdv launch
+// the dq launch: m-tiles of 16 rows a warp and keys a tile
 template <int HD>
-struct Bwd {
-  static constexpr int BN = HD <= 64 ? 64 : 32;
-  static constexpr int LD = HD + 1;  // padded row stride in floats
+struct DqShape {
+  static constexpr int MT = HD <= 64 ? 2 : 1;
+  static constexpr int BK = HD <= 64 ? 32 : 16;
 };
 
-template <int HD>
+template <typename T, int HD>
 constexpr int dq_smem_bytes() {
-  constexpr int BN = Bwd<HD>::BN, LD = Bwd<HD>::LD;
-  return ((2 * 64 + 2 * BN) * LD + 64 * (BN + 1)) * 4;
+  return (2 * 64 * DqShape<HD>::MT + 4 * DqShape<HD>::BK) *
+         row_stride<T, HD>() * sizeof(T);
 }
 
+// the dkdv launch: warps of 16 keys a block and query rows a tile
 template <int HD>
+struct DkdvShape {
+  static constexpr int NW = HD == 128 ? 8 : 4;
+  static constexpr int BN = 16 * NW;
+  static constexpr int BM = 32;
+};
+
+template <typename T, int HD>
 constexpr int dkdv_smem_bytes() {
-  constexpr int BM = Bwd<HD>::BN, LD = Bwd<HD>::LD;
-  return ((2 * 64 + 2 * BM) * LD + 2 * 64 * (BM + 1)) * 4;
+  using S = DkdvShape<HD>;
+  return (2 * S::BN + 4 * S::BM) * row_stride<T, HD>() * sizeof(T) +
+         4 * S::BM * sizeof(float);
 }
 
-// rows [r0, r0 + ROWS) of a (n, ., HD) tensor whose rows are `stride`
-// elements apart, as float32 into a tile of row stride LD; rows past n
-// are zero
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_rows_f32(float* tile, const T* base,
-                                              int r0, int n, int64_t stride) {
-  constexpr int LD = Bwd<HD>::LD;
-  for (int e = threadIdx.x; e < ROWS * HD; e += kBwdThreads) {
-    const int r = e / HD, c = e % HD;
-    tile[r * LD + c] = r0 + r < n ? ld1(base + (r0 + r) * stride + c) : 0.f;
-  }
+constexpr int kSumThreads = 256;
+
+// 4 bytes from global to shared memory, asynchronously; zero-filled when
+// !in
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// the A fragment of 16 rows at 8 k columns: p points at row g, column t
+// of a padded tile
+template <typename T, int LD>
+__device__ __forceinline__ void frag_a(const T* p, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  split(ld1(p), big[0], small[0]);
+  split(ld1(p + 8 * LD), big[1], small[1]);
+  split(ld1(p + 4), big[2], small[2]);
+  split(ld1(p + 8 * LD + 4), big[3], small[3]);
+}
+
+// an accumulator fragment as the A fragment of the next product: its
+// column 2t is k index t, column 2t + 1 k index t + 4
+__device__ __forceinline__ void frag_acc(const float (&c)[4],
+                                         uint32_t (&big)[4],
+                                         uint32_t (&small)[4]) {
+  split(c[0], big[0], small[0]);
+  split(c[2], big[1], small[1]);
+  split(c[1], big[2], small[2]);
+  split(c[3], big[3], small[3]);
+}
+
+// the B fragment at p (k index t) and p + step (k index t + 4)
+template <typename T>
+__device__ __forceinline__ void frag_b(const T* p, int step, uint32_t& b0,
+                                       uint32_t& s0, uint32_t& b1,
+                                       uint32_t& s1) {
+  split(ld1(p), b0, s0);
+  split(ld1(p + step), b1, s1);
+}
+
+// d += a * b as 3xTF32: small * big, big * small, big * big
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0,
+                                     uint32_t bs0, uint32_t bb1,
+                                     uint32_t bs1) {
+  mma_tf32(d, as[0], as[1], as[2], as[3], bb0, bb1);
+  mma_tf32(d, ab[0], ab[1], ab[2], ab[3], bs0, bs1);
+  mma_tf32(d, ab[0], ab[1], ab[2], ab[3], bb0, bb1);
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ out,
              const T* __restrict__ dout, const float* __restrict__ lse,
              float* __restrict__ delta, T* __restrict__ dq, int sq, int skv,
              int h, int kvh, float scale, int causal, int window) {
-  constexpr int BM = 64, BN = Bwd<HD>::BN, LD = Bwd<HD>::LD;
-  constexpr int NJ = BN / 16, DJ = HD / 16, LS = BN + 1;
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;             // BM x LD
-  float* dos = qs + BM * LD;  // BM x LD
-  float* ks = dos + BM * LD;  // BN x LD
-  float* vs = ks + BN * LD;   // BN x LD
-  float* dss = vs + BN * LD;  // BM x LS
-  __shared__ float lse2[BM], dlt[BM];
+  constexpr int MT = DqShape<HD>::MT, BK = DqShape<HD>::BK;
+  constexpr int BQ = 64 * MT, NT = BK / 8, DT = HD / 8;
+  constexpr int kLd = row_stride<T, HD>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + BQ * kLd;
+  T* ks = dos + BQ * kLd;     // two K buffers
+  T* vs = ks + 2 * BK * kLd;  // two V buffers
+  __shared__ float dlt[BQ];
 
   const int head = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;  // longest tiles first
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
   const int kvhead = head / (h / kvh);
   const int off = skv - sq;
   const int64_t qstride = static_cast<int64_t>(h) * HD;
@@ -494,10 +593,26 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t koff = static_cast<int64_t>(b) * skv * kvstride + kvhead * HD;
   const int64_t roff = (static_cast<int64_t>(b) * h + head) * sq;
 
-  load_rows_f32<T, HD, BM>(qs, q + qoff, q0, sq, qstride);
-  load_rows_f32<T, HD, BM>(dos, dout + qoff, q0, sq, qstride);
-  {  // Delta = rowsum(dO * O), four threads a row
-    const int r = tid / 4, part = tid % 4;
+  // key tiles the masks leave live (none when every row has no key)
+  const int q_lo = q0 + off, q_hi = min(q0 + BQ, sq) - 1 + off;
+  int t_lo = 0, t_hi = (skv - 1) / BK;
+  if (causal) t_hi = q_hi < 0 ? -1 : min(t_hi, q_hi / BK);
+  if (window > 0) {
+    const int first = q_lo - window + 1;
+    if (first > 0) t_lo = first / BK;
+  }
+
+  load_tile<T, HD, BQ>(qs, q + qoff, q0, sq, qstride);
+  load_tile<T, HD, BQ>(dos, dout + qoff, q0, sq, qstride);
+  if (t_lo <= t_hi) {
+    load_tile<T, HD, BK>(ks, k + koff, t_lo * BK, skv, kvstride);
+    load_tile<T, HD, BK>(vs, v + koff, t_lo * BK, skv, kvstride);
+  }
+  cp_async_commit();
+
+  // Delta = rowsum(dO * O), four threads a row
+  for (int r = threadIdx.x / 4; r < BQ; r += kThreads / 4) {
+    const int part = threadIdx.x % 4;
     float s = 0.f;
     if (q0 + r < sq) {
       const T* orow = out + qoff + (q0 + r) * qstride;
@@ -507,306 +622,495 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     if (part == 0) {
-      const bool in = q0 + r < sq;
       dlt[r] = s;
-      lse2[r] = in ? lse[roff + q0 + r] * kLog2e : 0.f;
-      if (in) delta[roff + q0 + r] = s;
+      if (q0 + r < sq) delta[roff + q0 + r] = s;
     }
   }
+  __syncthreads();
 
-  // key tiles the masks leave live (none when every row has no key)
-  const int q_lo = q0 + off, q_hi = min(q0 + BM, sq) - 1 + off;
-  int t_lo = 0, t_hi = (skv - 1) / BN;
-  if (causal) t_hi = q_hi < 0 ? -1 : min(t_hi, q_hi / BN);
-  if (window > 0) {
-    const int first = q_lo - window + 1;
-    if (first > 0) t_lo = first / BN;
-  }
-
+  // this thread's rows g and g + 8 of each m-tile: lse (base 2), Delta
   const float sl = scale * kLog2e;
-  float acc[4][DJ];
+  float l2[MT][2], dl[MT][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * (MT * warp + mt) + g + 8 * hr;
+      l2[mt][hr] = q0 + r < sq ? lse[roff + q0 + r] * kLog2e : 0.f;
+      dl[mt][hr] = dlt[r];
+    }
+
+  float acc[MT][DT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][d][c] = 0.f;
+  const T* qw = qs + (16 * MT * warp + g) * kLd + t4;  // row g, dim t
+  const T* dw = dos + (16 * MT * warp + g) * kLd + t4;
+  const int w_lo = q0 + 16 * MT * warp + off;  // the warp's query positions
+  const int w_hi = w_lo + 16 * MT - 1;
+  const bool w_in = q0 + 16 * MT * warp < sq;
 
   for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * BN;
-    __syncthreads();  // the last tile's K and dS are no longer read
-    load_rows_f32<T, HD, BN>(ks, k + koff, k0, skv, kvstride);
-    load_rows_f32<T, HD, BN>(vs, v + koff, k0, skv, kvstride);
-    __syncthreads();
-    float s[4][NJ], dp[4][NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], c[4], bk[NJ], bv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[(ty + 16 * i) * LD + d];
-        c[i] = dos[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        bk[j] = ks[(tx + 16 * j) * LD + d];
-        bv[j] = vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(c[i], bv[j], dp[i][j]);
-        }
+    const int buf = (t - t_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed; tile t - 1 is no longer read
+    if (t < t_hi) {
+      load_tile<T, HD, BK>(ks + (buf ^ 1) * BK * kLd, k + koff, (t + 1) * BK,
+                           skv, kvstride);
+      load_tile<T, HD, BK>(vs + (buf ^ 1) * BK * kLd, v + koff, (t + 1) * BK,
+                           skv, kvstride);
+      cp_async_commit();
     }
+    const int k0 = t * BK;
+    // a warp none of whose pairs in this tile is visible skips it
+    if (!w_in || (causal && k0 > w_hi) ||
+        (window > 0 && k0 + BK - 1 <= w_lo - window))
+      continue;
+    const T* kt = ks + buf * BK * kLd;
+    const T* vt = vs + buf * BK * kLd;
+
+    // S = Q K^T and dP = dO V^T
+    float s[MT][NT][4], dp[MT][NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int row = ty + 16 * i, col = tx + 16 * j;
-        const int qpos = q0 + row + off, kpos = k0 + col;
-        bool ok = q0 + row < sq && kpos < skv;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        float ds = 0.f;
-        if (ok) {
-          const float p = exp2f(s[i][j] * sl - lse2[row]);
-          ds = p * (dp[i][j] - dlt[row]);
-        }
-        dss[row * LS + col] = ds;
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[mt][n][c] = dp[mt][n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 8) {
+      uint32_t qb[MT][4], qsm[MT][4], ob[MT][4], osm[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        frag_a<T, kLd>(qw + 16 * mt * kLd + kk, qb[mt], qsm[mt]);
+        frag_a<T, kLd>(dw + 16 * mt * kLd + kk, ob[mt], osm[mt]);
       }
-    __syncthreads();
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t bb0, bs0, bb1, bs1;
+        frag_b(kt + (8 * n + g) * kLd + kk + t4, 4, bb0, bs0, bb1, bs1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3(s[mt][n], qb[mt], qsm[mt], bb0, bs0, bb1, bs1);
+        frag_b(vt + (8 * n + g) * kLd + kk + t4, 4, bb0, bs0, bb1, bs1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3(dp[mt][n], ob[mt], osm[mt], bb0, bs0, bb1, bs1);
+      }
+    }
+
+    // dS = P * (dP - Delta) into dp, masks on the tiles that need them
+    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > w_lo) ||
+                      (window > 0 && k0 <= w_hi - window);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int qpos = w_lo + 16 * mt + g + 8 * hr;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kpos = k0 + 8 * n + 2 * t4 + c;
+            bool ok = true;
+            if (edge) {
+              ok = kpos < skv;
+              if (causal) ok = ok && kpos <= qpos;
+              if (window > 0) ok = ok && kpos > qpos - window;
+            }
+            const float p = exp2f(s[mt][n][2 * hr + c] * sl - l2[mt][hr]);
+            float& y = dp[mt][n][2 * hr + c];
+            y = ok ? p * (y - dl[mt][hr]) : 0.f;
+          }
+      }
+
     // dQ += dS K
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      float a[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = dss[(ty + 16 * i) * LS + c];
+    for (int n = 0; n < NT; ++n) {
+      uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float kk = ks[c * LD + tx + 16 * j];
+      for (int mt = 0; mt < MT; ++mt) frag_acc(dp[mt][n], ab[mt], as[mt]);
+      const T* kr = kt + (8 * n + 2 * t4) * kLd + g;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], kk, acc[i][j]);
+      for (int d = 0; d < DT; ++d) {
+        uint32_t bb0, bs0, bb1, bs1;
+        frag_b(kr + 8 * d, kLd, bb0, bs0, bb1, bs1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3(acc[mt][d], ab[mt], as[mt], bb0, bs0, bb1, bs1);
       }
     }
   }
+  cp_async_wait_all();  // nothing in flight when the block ends
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < sq) {
-      T* dst = dq + qoff + row * qstride;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) store(dst + tx + 16 * j, acc[i][j] * scale);
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = q0 + 16 * (MT * warp + mt) + g + 8 * hr;
+      if (row < sq) {
+        T* dst = dq + qoff + row * qstride + 2 * t4;
+#pragma unroll
+        for (int d = 0; d < DT; ++d)
+          store2(dst + 8 * d, acc[mt][d][2 * hr] * scale,
+                 acc[mt][d][2 * hr + 1] * scale);
+      }
     }
-  }
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(32 * DkdvShape<HD>::NW,
+                                  DkdvShape<HD>::NW == 4 ? 2 : 1)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, int sq, int skv, int h, int kvh,
-               float scale, int causal, int window) {
-  constexpr int BN = 64, BM = Bwd<HD>::BN, LD = Bwd<HD>::LD;
-  constexpr int NI = BM / 16, DJ = HD / 16, LS = BM + 1;
-  extern __shared__ __align__(16) float sm[];
-  float* ks = sm;             // BN x LD
-  float* vs = ks + BN * LD;   // BN x LD
-  float* qs = vs + BN * LD;   // BM x LD
-  float* dos = qs + BM * LD;  // BM x LD
-  float* ps = dos + BM * LD;  // BN x LS: P^T
-  float* dss = ps + BN * LS;  // BN x LS: dS^T
-  __shared__ float lse2[BM], dlt[BM];
+               T* __restrict__ dv, float* __restrict__ part, int sq, int skv,
+               int h, int kvh, int split, float scale, int causal,
+               int window) {
+  constexpr int BN = DkdvShape<HD>::BN, BM = DkdvShape<HD>::BM;
+  constexpr int NT = BM / 8, DT = HD / 8, THR = 32 * DkdvShape<HD>::NW;
+  constexpr int kLd = row_stride<T, HD>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + BN * kLd;
+  T* qs = vs + BN * kLd;         // two Q buffers
+  T* dos = qs + 2 * BM * kLd;    // two dO buffers
+  float* ls = reinterpret_cast<float*>(dos + 2 * BM * kLd);  // two lse
+  float* dls = ls + 2 * BM;                                  // two Delta
 
-  const int kvhead = blockIdx.x, b = blockIdx.y;
+  const int kvhead = blockIdx.x / split, prt = blockIdx.x % split;
+  const int b = blockIdx.y;
   const int k0 = blockIdx.z * BN;  // early keys (most queries) first
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int g = h / kvh, off = skv - sq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int grp = h / kvh, off = skv - sq;
+  // this part's query heads: [h0, h0 + nh); split divides the group
+  const int nh = grp / split, h0 = kvhead * grp + prt * nh;
   const int64_t qstride = static_cast<int64_t>(h) * HD;
   const int64_t kvstride = static_cast<int64_t>(kvh) * HD;
   const int64_t koff = static_cast<int64_t>(b) * skv * kvstride + kvhead * HD;
 
-  load_rows_f32<T, HD, BN>(ks, k + koff, k0, skv, kvstride);
-  load_rows_f32<T, HD, BN>(vs, v + koff, k0, skv, kvstride);
-
-  // query rows these keys are visible to; with causal masking and
+  // query tiles these keys are visible to; with causal masking and
   // Sq > Skv the rows with no key (the first Sq - Skv) are walked too
   const int k_hi = min(k0 + BN, skv) - 1;
   int i_lo = 0, i_hi = sq - 1;
   if (causal && off >= 0) i_lo = max(0, k0 - off);
   if (window > 0) i_hi = min(i_hi, k_hi + window - 1 - off);
+  const int ti_lo = i_lo / BM;
+  const int nt = i_lo <= i_hi ? i_hi / BM - ti_lo + 1 : 0;
+  const int total = nh * nt;  // (head, query tile) steps, head-major
+
+  // Q, dO, lse and Delta of step `idx` into buffer `buf`
+  auto prefetch = [&](int idx, int buf) {
+    const int head = h0 + idx / nt, i0 = (ti_lo + idx % nt) * BM;
+    const int64_t qoff = (static_cast<int64_t>(b) * sq * h + head) * HD;
+    const int64_t roff = (static_cast<int64_t>(b) * h + head) * sq;
+    load_tile<T, HD, BM, THR>(qs + buf * BM * kLd, q + qoff, i0, sq, qstride);
+    load_tile<T, HD, BM, THR>(dos + buf * BM * kLd, dout + qoff, i0, sq,
+                              qstride);
+    for (int r = threadIdx.x; r < BM; r += THR) {
+      const bool in = i0 + r < sq;
+      const int64_t at = roff + (in ? i0 + r : 0);
+      cp_async4(ls + buf * BM + r, lse + at, in);
+      cp_async4(dls + buf * BM + r, delta + at, in);
+    }
+  };
+
+  load_tile<T, HD, BN, THR>(ks, k + koff, k0, skv, kvstride);
+  load_tile<T, HD, BN, THR>(vs, v + koff, k0, skv, kvstride);
+  if (total > 0) prefetch(0, 0);
+  cp_async_commit();
+
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[d][c] = dva[d][c] = 0.f;
+  const int kw0 = k0 + 16 * warp;  // the warp's first key
+  const bool w_in = kw0 < skv;
+  const T* kw = ks + (16 * warp + g) * kLd + t4;  // key g, dim t
+  const T* vw = vs + (16 * warp + g) * kLd + t4;
   const float sl = scale * kLog2e;
   const float uniform = 1.f / static_cast<float>(skv);
 
-  float dka[4][DJ], dva[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+  for (int idx = 0; idx < total; ++idx) {
+    const int buf = idx & 1;
+    cp_async_wait_all();
+    __syncthreads();  // step idx has landed; step idx - 1 is no longer read
+    if (idx + 1 < total) {
+      prefetch(idx + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const int i0 = (ti_lo + idx % nt) * BM;
+    const int p_lo = i0 + off, p_hi = i0 + BM - 1 + off;  // query positions
+    // a warp skips a tile where none of its pairs is visible and no row
+    // is without keys
+    const bool dead = causal && p_lo < 0;
+    if (!w_in || (!dead && ((causal && kw0 > p_hi) ||
+                            (window > 0 && kw0 + 15 <= p_lo - window))))
+      continue;
+    const T* qt = qs + buf * BM * kLd;
+    const T* dt = dos + buf * BM * kLd;
+    const float* lt = ls + buf * BM;
+    const float* dlt = dls + buf * BM;
 
-  for (int hh = 0; hh < g && i_lo <= i_hi; ++hh) {
-    const int head = kvhead * g + hh;
-    const int64_t qoff = (static_cast<int64_t>(b) * sq * h + head) * HD;
-    const int64_t roff = (static_cast<int64_t>(b) * h + head) * sq;
-    for (int i0 = (i_lo / BM) * BM; i0 <= i_hi; i0 += BM) {
-      __syncthreads();  // the last tile's Q, dO, P and dS are no longer read
-      load_rows_f32<T, HD, BM>(qs, q + qoff, i0, sq, qstride);
-      load_rows_f32<T, HD, BM>(dos, dout + qoff, i0, sq, qstride);
-      if (tid < BM) {
-        const bool in = i0 + tid < sq;
-        lse2[tid] = in ? lse[roff + i0 + tid] * kLog2e : 0.f;
-        dlt[tid] = in ? delta[roff + i0 + tid] : 0.f;
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys by BM queries
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 8) {
+      uint32_t kb[4], ksm[4], vb[4], vsm[4];
+      frag_a<T, kLd>(kw + kk, kb, ksm);
+      frag_a<T, kLd>(vw + kk, vb, vsm);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t bb0, bs0, bb1, bs1;
+        frag_b(qt + (8 * n + g) * kLd + kk + t4, 4, bb0, bs0, bb1, bs1);
+        mma3(s[n], kb, ksm, bb0, bs0, bb1, bs1);
+        frag_b(dt + (8 * n + g) * kLd + kk + t4, 4, bb0, bs0, bb1, bs1);
+        mma3(dp[n], vb, vsm, bb0, bs0, bb1, bs1);
       }
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T: key rows ty + 16 i, query
-      // columns tx + 16 j
-      float s[4][NI], dp[4][NI];
+    }
+
+    // P^T into s and dS^T into dp, masks on the tiles that need them
+    const bool edge = i0 + BM > sq || kw0 + 16 > skv ||
+                      (causal && kw0 + 15 > p_lo) ||
+                      (window > 0 && kw0 <= p_hi - window);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NT; ++n) {
+      const float2 lv = *reinterpret_cast<const float2*>(lt + 8 * n + 2 * t4);
+      const float2 dv2 =
+          *reinterpret_cast<const float2*>(dlt + 8 * n + 2 * t4);
 #pragma unroll
-        for (int j = 0; j < NI; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < HD; ++d) {
-        float a[4], c[4], bq[NI], bd[NI];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = ks[(ty + 16 * i) * LD + d];
-          c[i] = vs[(ty + 16 * i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          bq[j] = qs[(tx + 16 * j) * LD + d];
-          bd[j] = dos[(tx + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NI; ++j) {
-            s[i][j] = fmaf(a[i], bq[j], s[i][j]);
-            dp[i][j] = fmaf(c[i], bd[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const int row = ty + 16 * i, col = tx + 16 * j;
-          const int kpos = k0 + row, qi = i0 + col, qpos = qi + off;
-          float p = 0.f, ds = 0.f;
-          if (qi < sq && kpos < skv) {
-            bool ok = true;
-            if (causal) ok = kpos <= qpos;
-            if (window > 0) ok = ok && kpos > qpos - window;
-            if (ok) {
-              p = exp2f(s[i][j] * sl - lse2[col]);
-              ds = p * (dp[i][j] - dlt[col]);
-            } else if (causal && qpos < 0) {
-              p = uniform;  // a row with no key averages v over all keys
-            }
-          }
-          ps[row * LS + col] = p;
-          dss[row * LS + col] = ds;
-        }
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q
-#pragma unroll 4
-      for (int c = 0; c < BM; ++c) {
-        float pa[4], da[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pa[i] = ps[(ty + 16 * i) * LS + c];
-          da[i] = dss[(ty + 16 * i) * LS + c];
-        }
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const float o = dos[c * LD + tx + 16 * j];
-          const float qq = qs[c * LD + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dva[i][j] = fmaf(pa[i], o, dva[i][j]);
-            dka[i][j] = fmaf(da[i], qq, dka[i][j]);
-          }
+      for (int c = 0; c < 4; ++c) {
+        const int cc = c & 1;  // query 8n + 2t + cc, key g + 8 (c / 2)
+        const float l2 = (cc ? lv.y : lv.x) * kLog2e;
+        const float dd = cc ? dv2.y : dv2.x;
+        const float p = exp2f(s[n][c] * sl - l2);
+        if (!edge) {
+          s[n][c] = p;
+          dp[n][c] = p * (dp[n][c] - dd);
+        } else {
+          const int kpos = kw0 + g + 8 * (c >> 1);
+          const int qi = i0 + 8 * n + 2 * t4 + cc, qpos = qi + off;
+          const bool in = qi < sq && kpos < skv;
+          bool ok = in;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          // a row with no key averages v over all keys
+          s[n][c] = ok ? p : (in && causal && qpos < 0 ? uniform : 0.f);
+          dp[n][c] = ok ? p * (dp[n][c] - dd) : 0.f;
         }
       }
     }
-  }
 
+    // dV += P^T dO, dK += dS^T Q: the tile's BM queries summed into a
+    // zeroed fragment, then added to the totals with a float32 add
+    uint32_t pb[NT][4], psm[NT][4], db[NT][4], dsm[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row < skv) {
-      T* kd = dk + koff + row * kvstride;
-      T* vd = dv + koff + row * kvstride;
+    for (int n = 0; n < NT; ++n) {
+      frag_acc(s[n], pb[n], psm[n]);
+      frag_acc(dp[n], db[n], dsm[n]);
+    }
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        store(kd + tx + 16 * j, dka[i][j] * scale);
-        store(vd + tx + 16 * j, dva[i][j]);
+    for (int d = 0; d < DT; ++d) {
+      float tv[4] = {0.f, 0.f, 0.f, 0.f}, tk[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t bb0, bs0, bb1, bs1;
+        const int at = (8 * n + 2 * t4) * kLd + g + 8 * d;
+        frag_b(dt + at, kLd, bb0, bs0, bb1, bs1);
+        mma3(tv, pb[n], psm[n], bb0, bs0, bb1, bs1);
+        frag_b(qt + at, kLd, bb0, bs0, bb1, bs1);
+        mma3(tk, db[n], dsm[n], bb0, bs0, bb1, bs1);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dva[d][c] += tv[c];
+        dka[d][c] += tk[c];
       }
     }
   }
+  cp_async_wait_all();  // nothing in flight when the block ends
+
+  const int64_t n_all = static_cast<int64_t>(gridDim.y) * skv * kvstride;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = kw0 + g + 8 * hr;
+    if (key >= skv) continue;
+    const int64_t at = koff + key * kvstride + 2 * t4;
+    if (split == 1) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        store2(dk + at + 8 * d, dka[d][2 * hr] * scale,
+               dka[d][2 * hr + 1] * scale);
+        store2(dv + at + 8 * d, dva[d][2 * hr], dva[d][2 * hr + 1]);
+      }
+    } else {  // this part's float32 partials, dK unscaled
+      float* pk = part + prt * n_all + at;
+      float* pv = part + (split + prt) * n_all + at;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        store2(pk + 8 * d, dka[d][2 * hr], dka[d][2 * hr + 1]);
+        store2(pv + 8 * d, dva[d][2 * hr], dva[d][2 * hr + 1]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  store2(p, x.x, x.y);
+  store2(p + 2, x.z, x.w);
+}
+
+// dK and dV from `part`, (2, split, n) float32 (dK's partials, then
+// dV's): four elements a thread, summed over the parts in order 0..split-1;
+// dK times scale; both cast to T
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+flash_bwd_group_sum(const float* __restrict__ part, T* __restrict__ dk,
+                    T* __restrict__ dv, int64_t n, int split, float scale) {
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * kSumThreads + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const bool is_k = i < n;
+  const int64_t j = is_k ? i : i - n;
+  const float* src = part + (is_k ? 0 : split * n) + j;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int p = 1; p < split; ++p) {
+    const float4 x = *reinterpret_cast<const float4*>(src + p * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  if (is_k) {
+    acc.x *= scale;
+    acc.y *= scale;
+    acc.z *= scale;
+    acc.w *= scale;
+    store4(dk + j, acc);
+  } else {
+    store4(dv + j, acc);
+  }
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<T>, HD) for the dtype and head dim the kernels are built for
+template <typename F>
+int dispatch(int dtype, int hd, F&& f) {
+  auto at_hd = [&](auto tag) {
+    switch (hd) {
+      case 16: return f(tag, std::integral_constant<int, 16>());
+      case 32: return f(tag, std::integral_constant<int, 32>());
+      case 64: return f(tag, std::integral_constant<int, 64>());
+      case 128: return f(tag, std::integral_constant<int, 128>());
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  if (dtype == 0) return at_hd(Tag<float>());
+  if (dtype == 1) return at_hd(Tag<__nv_bfloat16>());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int HD>
+int dkdv_hd(const T* q, const T* k, const T* v, const T* dout,
+            const float* lse, const float* delta, T* dk, T* dv, float* part,
+            int b, int sq, int skv, int h, int kvh, int split, float scale,
+            int causal, int window, cudaStream_t stream) {
+  constexpr int bytes = dkdv_smem_bytes<T, HD>();
+  using S = DkdvShape<HD>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv<T, HD><<<dim3(kvh * split, b, (skv + S::BN - 1) / S::BN),
+                          32 * S::NW, bytes, stream>>>(
+          q, k, v, dout, lse, delta, dk, dv, part, sq, skv, h, kvh, split,
+          scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// registers a thread, shared memory a block (static and dynamic) and
+// blocks an SM of `kernel` launched with `threads` threads and `dyn`
+// bytes of dynamic shared memory
+template <typename K>
+int kernel_info(K kernel, int threads, int dyn, int* info) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel,
+                                                        threads, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.sharedSizeBytes) + dyn;
+  return 0;
 }
 
 template <typename T, int HD>
 int bwd_hd(const void* q, const void* k, const void* v, const void* out,
            const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int b, int sq, int skv, int h, int kvh,
-           float scale, int causal, int window, cudaStream_t stream) {
-  constexpr int dq_bytes = dq_smem_bytes<HD>();
-  constexpr int kv_bytes = dkdv_smem_bytes<HD>();
+           void* dk, void* dv, float* part, int b, int sq, int skv, int h,
+           int kvh, float scale, int causal, int window, int split,
+           cudaStream_t stream) {
+  constexpr int dq_bytes = dq_smem_bytes<T, HD>();
+  constexpr int rows = 64 * DqShape<HD>::MT;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       dq_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kv_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  flash_bwd_dq<T, HD><<<dim3(h, b, (sq + 63) / 64), kBwdThreads, dq_bytes,
-                        stream>>>(qt, kt, vt, static_cast<const T*>(out),
-                                  dot, lse, delta, static_cast<T*>(dq), sq,
-                                  skv, h, kvh, scale, causal, window);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
+  flash_bwd_dq<T, HD><<<dim3(h, b, (sq + rows - 1) / rows), kThreads,
+                        dq_bytes, stream>>>(
+      qt, kt, vt, static_cast<const T*>(out), dot, lse, delta,
+      static_cast<T*>(dq), sq, skv, h, kvh, scale, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // reads the Delta the dq launch wrote: same stream, so in order
-  flash_bwd_dkdv<T, HD><<<dim3(kvh, b, (skv + 63) / 64), kBwdThreads,
-                          kv_bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      sq, skv, h, kvh, scale, causal, window);
+  const int got = dkdv_hd<T, HD>(qt, kt, vt, dot, lse, delta, dkt, dvt, part,
+                                 b, sq, skv, h, kvh, split, scale, causal,
+                                 window, stream);
+  if (got != 0 || split == 1) return got;
+  const int64_t n = static_cast<int64_t>(b) * skv * kvh * HD;
+  const int64_t threads = 2 * n / 4;
+  flash_bwd_group_sum<T>
+      <<<static_cast<unsigned>((threads + kSumThreads - 1) / kSumThreads),
+         kSumThreads, 0, stream>>>(part, dkt, dvt, n, split, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int bwd_typed(const void* q, const void* k, const void* v, const void* out,
-              const void* dout, const float* lse, float* delta, void* dq,
-              void* dk, void* dv, int b, int sq, int skv, int h, int kvh,
-              int hd, float scale, int causal, int window,
-              cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return bwd_hd<T, 16>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq,
-                           skv, h, kvh, scale, causal, window, stream);
-    case 32:
-      return bwd_hd<T, 32>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq,
-                           skv, h, kvh, scale, causal, window, stream);
-    case 64:
-      return bwd_hd<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq,
-                           skv, h, kvh, scale, causal, window, stream);
-    case 128:
-      return bwd_hd<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, b,
-                            sq, skv, h, kvh, scale, causal, window, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <typename T, int HD>
+int bwd_info(int which, int* info) {
+  if (which == 0)
+    return kernel_info(flash_bwd_dq<T, HD>, kThreads, dq_smem_bytes<T, HD>(),
+                       info);
+  if (which == 1)
+    return kernel_info(flash_bwd_dkdv<T, HD>, 32 * DkdvShape<HD>::NW,
+                       dkdv_smem_bytes<T, HD>(), info);
+  if (which == 2)
+    return kernel_info(flash_bwd_group_sum<T>, kSumThreads, 0, info);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -848,26 +1152,41 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward of flash_attention_launch's function, two launches on
-// `stream` (dq, then dk and dv); returns the first CUDA error. q, k, v,
-// out and dout as the forward takes them (`out` the forward's output,
-// `dout` its gradient), `lse` the forward's (B, H, Sq) float32 output,
-// `delta` a (B, H, Sq) float32 scratch the first launch writes and the
-// second reads; dq, dk and dv are written in the inputs' type, each
-// contiguous and shaped as its input. No atomics: the same inputs give
-// the same bits.
+// The backward of flash_attention_launch's function on `stream`: the dq
+// launch, the dkdv launch with each group of H / KV query heads cut into
+// `split` parts of as many heads (split divides H / KV), and, when
+// split > 1, the group sum; returns the first CUDA error. q, k, v, out and
+// dout as the forward takes them (`out` the forward's output, `dout` its
+// gradient), `lse` the forward's (B, H, Sq) float32 output, `delta` a
+// (B, H, Sq) float32 scratch the first launch writes and the second
+// reads, `part` a (2, split, B, Skv, KV, hd) float32 scratch (null when
+// split = 1); dq, dk and dv are written in the inputs' type, each
+// contiguous and shaped as its input. No atomics: the same inputs and
+// split give the same bits.
 extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int b, int sq, int skv, int h, int kvh, int hd, float scale,
-    int causal, int window, int dtype, cudaStream_t stream) {
-  if (dtype == 0)
-    return bwd_typed<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, b,
-                            sq, skv, h, kvh, hd, scale, causal, window,
-                            stream);
-  if (dtype == 1)
-    return bwd_typed<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk,
-                                    dv, b, sq, skv, h, kvh, hd, scale, causal,
-                                    window, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+    void* dv, float* part, int b, int sq, int skv, int h, int kvh, int hd,
+    float scale, int causal, int window, int split, int dtype,
+    cudaStream_t stream) {
+  if (split < 1 || (h / kvh) % split != 0 || (split > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, hd, [&](auto tag, auto hdc) {
+    using T = typename decltype(tag)::type;
+    return bwd_hd<T, decltype(hdc)::value>(
+        q, k, v, out, dout, lse, delta, dq, dk, dv, part, b, sq, skv, h, kvh,
+        scale, causal, window, split, stream);
+  });
+}
+
+// Registers a thread, shared memory a block in bytes (static and dynamic)
+// and resident blocks an SM of one backward launch, into info[0..2]:
+// `which` 0 is flash_bwd_dq, 1 flash_bwd_dkdv, 2 flash_bwd_group_sum.
+// Returns a CUDA error (0 = none).
+extern "C" int flash_attention_backward_info(int hd, int dtype, int which,
+                                             int* info) {
+  return dispatch(dtype, hd, [&](auto tag, auto hdc) {
+    using T = typename decltype(tag)::type;
+    return bwd_info<T, decltype(hdc)::value>(which, info);
+  });
 }

@@ -16,11 +16,18 @@ differentiates. There is no switch between the two.
 The gradient: on a CUDA tensor, with grad enabled and an input that
 requires it, ``flash_attention`` runs ``FlashAttentionFn``. Its forward is
 the same kernel with the row log-sum-exp written beside the output, and
-its backward the hand-written backward pair of the same source (a dQ
-launch, then a dK/dV launch that sums the grouped heads without atomics).
-It is the counterpart of XLA's derivative of the reference's training
-attention; the reference has no Pallas backward. ``reference_lse`` and
-``reference_backward`` are the plain versions the backward is held to.
+its backward the hand-written backward of the same source: a dQ launch,
+then a dK/dV launch, every product on the tensor cores as 3xTF32
+``mma.sync`` with P and dS kept in registers and each query tile's dK/dV
+products added to the totals in float32 (the tensor cores truncate
+inside long sums). ``backward_plan`` picks how many even parts the dK/dV
+launch cuts each group of query heads into when its blocks alone cannot
+fill the card; each part then writes float32 partials, and a third
+launch adds them in part order. No atomics: the
+same inputs give the same bits. It is the counterpart of XLA's
+derivative of the reference's training attention; the reference has no
+Pallas backward. ``reference_lse`` and ``reference_backward`` are the
+plain versions the backward is held to.
 """
 from __future__ import annotations
 
@@ -36,9 +43,17 @@ NEG = -2.0e9  # the reference's mask value
 HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
 ROWS = 64  # the fewest query rows a block of the kernel takes
 MAX_GRID = 65535  # the kernel's grid: batch and Sq / ROWS each up to this
+SMS = 132  # streaming multiprocessors of an H100 SXM
+# dK/dV blocks the backward wants before it splits the query-head groups:
+# four for each SM
+BWD_FILL = 4 * SMS
+# warps of a dK/dV block (16 keys each) by head dim, as the kernel is
+# compiled (DkdvShape in the .cu): the faster layout at the training
+# shapes timed on the card (PERF.md, row 7b)
+BWD_WARPS = {16: 4, 32: 4, 64: 4, 128: 8}
 
 # kernel launches made by ``flash_attention`` since the last reset: the
-# forward, and the backward pair (counted once a call)
+# forward, and the backward (counted once a call, whatever its launches)
 launches = 0
 bwd_launches = 0
 
@@ -154,11 +169,52 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     fn = build.library("flash_attention").flash_attention_backward_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def backward_plan(b, h, kvh, sq, skv, hd) -> dict:
+    """How the backward launches at this shape: ``warps`` a dK/dV block
+    (16 keys each, ``BWD_WARPS``), ``split``, the parts each group of
+    ``h // kvh`` query heads is cut into, the dK/dV grid's ``blocks`` and
+    the partials' ``scratch_bytes``. A pure function of the shape.
+
+    When ``kvh · b · ⌈Skv / keys⌉`` blocks reach ``BWD_FILL`` the group is
+    not split. Otherwise ``split`` is the smallest divisor of the group
+    that brings the blocks to ``BWD_FILL`` (the whole group when none
+    does), so every part holds as many heads; its float32 dK and dV
+    partials take ``split`` times the bytes of float32 dK and dV."""
+    warps = BWD_WARPS[hd]
+    group, keys = h // kvh, 16 * warps
+    blocks = kvh * b * -(-skv // keys)
+    per_part = 2 * 4 * b * skv * kvh * hd  # dK and dV partials, float32
+    divisors = [d for d in range(1, group + 1) if group % d == 0]
+    split = 1
+    if 0 < blocks < BWD_FILL:
+        split = next((d for d in divisors if d * blocks >= BWD_FILL), group)
+    return {"warps": warps, "keys": keys, "split": split,
+            "blocks": blocks * split,
+            "scratch_bytes": per_part * split if split > 1 else 0}
+
+
+def backward_info(hd, dtype=torch.float32):
+    """{launch: (registers a thread, shared memory bytes a block, blocks
+    an SM)} of the backward's three kernels at this head dim and type,
+    from the CUDA runtime (needs the card)."""
+    fn = build.library("flash_attention").flash_attention_backward_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for which, name in enumerate(("flash_bwd_dq", "flash_bwd_dkdv",
+                                  "flash_bwd_group_sum")):
+        info = (ctypes.c_int * 3)()
+        err = fn(hd, _DTYPES[dtype], which, info)
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+        out[name] = tuple(info)
+    return out
 
 
 def _prepare(q, k, v):
@@ -203,7 +259,8 @@ def _launch_forward(q, k, v, causal, window, scale, with_lse):
 
 
 def _launch_backward(q, k, v, out, lse, dout, causal, window, scale):
-    """The backward pair on prepared inputs: (dq, dk, dv)."""
+    """The backward launches on prepared inputs, as ``backward_plan``
+    says: (dq, dk, dv)."""
     global bwd_launches
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -213,15 +270,19 @@ def _launch_backward(q, k, v, out, lse, dout, causal, window, scale):
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    split = backward_plan(b, h, kvh, sq, skv, hd)["split"]
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    part = (torch.empty((2, split) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device) if split > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                            dv.data_ptr(), b, sq, skv, h, kvh, hd, scale,
-                            int(causal), int(window), _DTYPES[q.dtype],
-                            stream)
+                            dv.data_ptr(),
+                            0 if part is None else part.data_ptr(), b, sq,
+                            skv, h, kvh, hd, scale, int(causal), int(window),
+                            split, _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")
@@ -231,7 +292,7 @@ def _launch_backward(q, k, v, out, lse, dout, causal, window, scale):
 
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel with its gradient: the forward launch with the row
-    log-sum-exp kept, the backward pair on the saved tensors."""
+    log-sum-exp kept, the backward launches on the saved tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -258,8 +319,8 @@ def forward_with_lse(q, k, v, *, causal: bool = True, window: int = 0,
 
 def backward(q, k, v, out, lse, dout, *, causal: bool = True,
              window: int = 0, scale: float | None = None):
-    """The backward pair on CUDA tensors: (dq, dk, dv), held to
-    ``reference_backward``."""
+    """The backward launches on CUDA tensors, as ``backward_plan`` says:
+    (dq, dk, dv), held to ``reference_backward``."""
     q, k, v = _prepare(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     return _launch_backward(q, k, v, out.contiguous(), lse.contiguous(),
@@ -275,7 +336,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     CUDA tensors run the kernel, CPU tensors the plain version. On a
     CUDA tensor with grad enabled and an input that requires grad, the
-    call runs ``FlashAttentionFn``, whose backward is the kernel pair."""
+    call runs ``FlashAttentionFn``, whose backward runs the backward
+    kernels (``backward``)."""
     if q.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window, scale=scale)
     scale = scale or 1.0 / math.sqrt(q.shape[-1])

@@ -1750,29 +1750,39 @@ def test_sharded_engine_across_cards_equals_unsharded(cuda_device):
 
 # FA_CASES and the backward's seams: groups of 1, 4 and 12, head dims 16
 # to 128, Sq and Skv off multiples of 64, batch 1, windows, Sq > Skv with
-# rows whose keys are all masked
+# rows whose keys are all masked; at batch 1 and one or two KV heads
+# backward_plan splits the whole group (g 12 over KV 1 and 2, a ragged Skv
+# at head dim 128), and at (5, 1024, 16 over 2) into 4 parts of 2 heads
 FA_BWD_CASES = FA_CASES + [(1, 90, 33, 4, 4, 16, True, 0),
                            (1, 90, 33, 8, 2, 32, True, 7),
                            (1, 77, 77, 12, 1, 16, False, 9),
                            (1, 130, 130, 24, 2, 128, True, 0),
                            (1, 70, 24, 4, 1, 128, True, 0),
-                           (2, 100, 257, 4, 4, 64, True, 50)]
+                           (2, 100, 257, 4, 4, 64, True, 50),
+                           (1, 200, 200, 12, 1, 64, True, 0),
+                           (1, 256, 256, 24, 2, 128, True, 0),
+                           (1, 100, 333, 12, 1, 128, True, 0),
+                           (5, 1024, 1024, 16, 2, 64, True, 0)]
+# grids the plan leaves unsplit with long dK/dV sums: 8 heads of 4096
+# queries at head dim 64 (576 blocks), 6 heads of 2048 at 128 (576)
+FA_BWD_LONG = [(9, 4096, 4096, 8, 1, 64, True, 0),
+               (9, 2048, 2048, 24, 4, 128, True, 0)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window", FA_BWD_CASES)
-def test_flash_attention_backward_kernel_equals_plain(b, sq, skv, h, kvh, hd,
-                                                      causal, window, dtype,
-                                                      cuda_device):
-    """The backward pair against reference_backward: float32 within 1e-4
-    of each plain gradient's largest magnitude, bfloat16 within 2e-2; the
-    forward's log-sum-exp within 2e-5 of reference_lse."""
+def _bwd_inputs(b, sq, skv, h, kvh, hd, dtype, device):
     rng = np.random.default_rng(sq * 7 + skv)
-    q, k, v = (torch.tensor(x, device=cuda_device).to(dtype)
+    q, k, v = (torch.tensor(x, device=device).to(dtype)
                for x in fa_case(b, sq, skv, h, kvh, hd, sq + skv))
-    dout = torch.tensor(rng.standard_normal(q.shape),
-                        device=cuda_device).to(dtype)
+    dout = torch.tensor(rng.standard_normal(q.shape), device=device).to(dtype)
+    return q, k, v, dout
+
+
+def _check_backward(case, dtype, device):
+    """The backward against reference_backward: float32 within 1e-4 of
+    each plain gradient's largest magnitude, bfloat16 within 2e-2; the
+    forward's log-sum-exp within 2e-5 of reference_lse."""
+    b, sq, skv, h, kvh, hd, causal, window = case
+    q, k, v, dout = _bwd_inputs(b, sq, skv, h, kvh, hd, dtype, device)
     kw = dict(causal=causal, window=window)
     out, lse = t_fa.forward_with_lse(q, k, v, **kw)
     before = t_fa.bwd_launches
@@ -1790,15 +1800,47 @@ def test_flash_attention_backward_kernel_equals_plain(b, sq, skv, h, kvh, hd,
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_is_deterministic(cuda_device):
-    """No atomics: two backward calls agree bit for bit."""
-    q, k, v = (torch.tensor(x, device=cuda_device)
-               for x in fa_case(2, 300, 300, 32, 8, 64, 1))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window", FA_BWD_CASES)
+def test_flash_attention_backward_kernel_equals_plain(b, sq, skv, h, kvh, hd,
+                                                      causal, window, dtype,
+                                                      cuda_device):
+    """The backward under backward_plan against reference_backward."""
+    _check_backward((b, sq, skv, h, kvh, hd, causal, window), dtype,
+                    cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_BWD_LONG)
+def test_flash_attention_backward_long_sums_equal_plain(case, dtype,
+                                                        cuda_device):
+    """Long dK/dV sums in one block, where the plan leaves the group
+    unsplit, against reference_backward."""
+    b, sq, skv, h, kvh, hd, _, _ = case
+    assert t_fa.backward_plan(b, h, kvh, sq, skv, hd)["split"] == 1
+    _check_backward(case, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,split", [
+    ((3, 2048, 2048, 16, 8, 64, True, 0), 1),
+    ((2, 300, 300, 32, 8, 64, True, 0), 4),
+    ((5, 1024, 1024, 16, 2, 64, True, 0), 4),
+    ((1, 130, 130, 24, 2, 128, True, 0), 12),
+    ((1, 100, 333, 12, 1, 128, True, 0), 12)])
+def test_flash_attention_backward_is_deterministic(case, split, dtype,
+                                                   cuda_device):
+    """No atomics: two backward calls agree bit for bit, with the group
+    unsplit and split, as the plan says."""
+    b, sq, skv, h, kvh, hd, causal, window = case
+    assert t_fa.backward_plan(b, h, kvh, sq, skv, hd)["split"] == split
+    q, k, v, dout = _bwd_inputs(b, sq, skv, h, kvh, hd, dtype, cuda_device)
     out, lse = t_fa.forward_with_lse(q, k, v)
-    dout = torch.randn_like(q)
-    a = t_fa.backward(q, k, v, out, lse, dout)
-    b = t_fa.backward(q, k, v, out, lse, dout)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    first = t_fa.backward(q, k, v, out, lse, dout)
+    again = t_fa.backward(q, k, v, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.cuda

@@ -222,3 +222,85 @@ def test_head_dims_of_the_build_cover_every_config():
             if cfg.n_heads and not cfg.use_mla:
                 dims.add(cfg.head_dim)
     assert dims <= set(t_ops.HEAD_DIMS) and 128 in dims
+
+
+# ---------------------------------------------------------------------------
+# backward_plan: how the backward's dK/dV launch cuts each query-head group
+# ---------------------------------------------------------------------------
+
+# the most float32 dK/dV partials a training shape may ask for
+SCRATCH_LIMIT = 128 << 20
+
+
+def _plan_archs():
+    from repro_torch import configs
+    return [a for a in configs.ARCHS
+            if configs.get_config(a).n_heads
+            and not configs.get_config(a).use_mla]
+
+
+@pytest.mark.parametrize("arch", _plan_archs())
+@pytest.mark.parametrize("batch", [4, 8])
+def test_backward_plan_invariants_at_every_config(arch, batch):
+    """At each config's full width and batch x 1024 tokens: the dK/dV
+    block the kernel is compiled with; 1 <= split <= g with split | g
+    (even parts); the dK/dV grid is the unsplit one times split; the
+    group is split exactly when that grid is below BWD_FILL; the
+    partials stay within SCRATCH_LIMIT."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    plan = t_ops.backward_plan(batch, h, kvh, 1024, 1024, hd)
+    g, warps = h // kvh, t_ops.BWD_WARPS[hd]
+    base = kvh * batch * -(-1024 // (16 * warps))
+    assert plan["warps"] == warps and plan["keys"] == 16 * warps
+    assert 1 <= plan["split"] <= g and g % plan["split"] == 0
+    assert plan["blocks"] == base * plan["split"]
+    assert plan["scratch_bytes"] <= SCRATCH_LIMIT
+    if base >= t_ops.BWD_FILL or g == 1:
+        assert plan["split"] == 1 and plan["scratch_bytes"] == 0
+    else:
+        assert plan["split"] > 1
+        assert plan["scratch_bytes"] == (plan["split"] * 2 * 4 * batch
+                                         * 1024 * kvh * hd)
+
+
+def test_backward_plan_leaves_a_full_grid_unsplit():
+    """llama3.2-1b's training shape (phase 17b): 8 KV heads x 8 x 16 key
+    blocks = 1,024 dK/dV blocks fill the 132 SMs, so no split and no
+    scratch."""
+    plan = t_ops.backward_plan(8, 32, 8, 1024, 1024, 64)
+    assert plan == {"warps": 4, "keys": 64, "split": 1, "blocks": 1024,
+                    "scratch_bytes": 0}
+    assert plan["blocks"] >= t_ops.BWD_FILL >= t_ops.SMS
+
+
+@pytest.mark.parametrize("batch,split", [(4, 12), (8, 6)])
+def test_backward_plan_splits_the_head_dim_128_group(batch, split):
+    """q (batch, 1024, 24, 128), k and v (batch, 1024, 2, 128): 2 x batch
+    x 8 blocks of 128 keys leave the card short, so the 12 heads of a
+    group are cut into the fewest even parts that reach BWD_FILL; 768
+    blocks and 96 MiB of float32 partials."""
+    plan = t_ops.backward_plan(batch, 24, 2, 1024, 1024, 128)
+    assert plan["warps"] == 8 and plan["keys"] == 128
+    assert plan["split"] == split and plan["blocks"] == 768
+    assert plan["scratch_bytes"] == split * 2 * 4 * batch * 1024 * 2 * 128
+    assert plan["scratch_bytes"] <= SCRATCH_LIMIT
+
+
+def test_backward_plan_small_grids():
+    """A batch-1 call with one KV head splits its whole group when no
+    divisor reaches BWD_FILL; a group of one head, or an empty one, is
+    never split; a grid just short of BWD_FILL takes the smallest divisor
+    that reaches it."""
+    assert t_ops.backward_plan(1, 12, 1, 200, 200, 64)["split"] == 12
+    assert t_ops.backward_plan(1, 6, 1, 150, 150, 32)["split"] == 6
+    assert t_ops.backward_plan(1, 4, 4, 90, 33, 16)["split"] == 1
+    assert t_ops.backward_plan(1, 4, 4, 0, 0, 64)["split"] == 1
+    # 512 blocks of 64 keys: 2 parts of the 12 heads reach 1,024
+    plan = t_ops.backward_plan(1, 12, 1, 32_768, 32_768, 64)
+    assert plan["split"] == 2 and plan["blocks"] == 1024
+    assert plan["scratch_bytes"] == 2 * 2 * 4 * 32_768 * 64
+    # 256 blocks of 128 keys at head dim 128: 2 parts fall short, 3 reach
+    plan = t_ops.backward_plan(1, 12, 1, 32_768, 32_768, 128)
+    assert plan["split"] == 3 and plan["blocks"] == 768

@@ -269,11 +269,15 @@ def test_loader_elastic_repartition_and_resume():
 # ---------------------------------------------------------------------------
 
 # (B, Sq, Skv, H, KV, hd, causal, window): g = 1 and 4, causal and not,
-# windows, Sq < Skv, and Sq > Skv with rows whose keys are all masked
+# windows, Sq < Skv, and Sq > Skv with rows whose keys are all masked;
+# then the card's split seams at batch 1: g = 12 over KV 1 and 2, g = 6,
+# and a ragged Skv at head dim 128
 BWD_CASES = [(2, 16, 16, 4, 4, 16, True, 0), (1, 24, 24, 8, 2, 16, True, 5),
              (1, 10, 6, 4, 1, 16, True, 0), (1, 8, 20, 4, 4, 32, True, 0),
              (1, 12, 12, 4, 1, 16, False, 4), (1, 14, 9, 4, 4, 16, True, 3),
-             (2, 9, 9, 4, 1, 32, False, 0)]
+             (2, 9, 9, 4, 1, 32, False, 0),
+             (1, 20, 20, 12, 1, 16, True, 0), (1, 18, 18, 24, 2, 32, True, 0),
+             (1, 15, 15, 6, 1, 16, True, 6), (1, 10, 37, 12, 1, 128, True, 0)]
 
 
 def bwd_case(b, sq, skv, h, kvh, hd, seed):
