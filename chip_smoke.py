@@ -33,10 +33,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    exact (NaN where the plain version has NaN), and batched_topk,
    logmem_update and topk_filter also bit for bit, among them tiles whose
    maximum is +0.0 or -0.0; then
-   flash_attention and entropy_scores at both score producers' shapes
-   (head dims 64 and 128; vocabularies of 128,256 and 49,152) and edge
-   cases, among them a 4096-key sliding window over 4608 keys at head
-   dim 128 (see below); then flash_attention's backward (its dQ and
+   flash_attention and entropy_scores at the score producers' shapes
+   (head dims 64 and 128; hymba-1.5b's 25 query heads over 5 KV heads
+   under its 1024-token window, and a ragged odd group; vocabularies of
+   128,256, 49,152, 50,280 and 32,001, the last on the scalar path) and
+   edge cases, among them a 4096-key sliding window over 4608 keys at
+   head dim 128 (see below); then flash_attention's backward (its dQ and
    dK/dV launches and, where ops.backward_plan splits the query-head
    group over dK/dV blocks, the group sum) and the forward's row
    log-sum-exp against reference_backward and reference_lse at the same
@@ -50,7 +52,8 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 4. timings: each kernel, its plain version and its bound (bytes, or
    operations where they take longer), with the PyTorch call that
    computes the same function where there is one; flash_attention and
-   entropy_scores at both score producers' shapes, batched_topk and
+   entropy_scores at the score producers' shapes (hymba-1.5b's windowed
+   prefill beside SDPA with the boolean window mask), batched_topk and
    tier_assign at the main path's, logmem_update and topk_filter at
    their paths' shapes and a large one, and each plan_solve launch (with
    the kernel and launch plan it took; the re-solve's among them), each
@@ -249,7 +252,26 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    --device cuda --ckpt-dir build/train17d, sent SIGTERM once its first
    checkpoint is on disk: exit 0, stopped before step 40, and the final
    checkpoint restores at the step its last line names. Checkpoint
-   directories are removed at the end.
+   directories are removed at the end;
+18. the SSM and hybrid score producers at full width, seeded random
+   weights on the card, float32: 18a mamba2-2.7b (64 SSD layers,
+   d_model 2560, 80 heads of 64, state 128, chunk 128, vocab 50,280,
+   tied; no attention, no FFN) with prompts of 1024 and 18b hymba-1.5b
+   (32 attn_ssm_parallel layers: GQA 25 over 5 KV heads, head dim 64,
+   RoPE, 3 global and 29 layers under a 1024-token window, beside 50
+   SSD heads of 64 with state 16; SiLU-GLU FFN of 5504; vocab 32,001,
+   tied) with prompts of 2048, each serving 16 requests in batches of 8
+   (32 generated, top-8). Each: the first batch teacher-forced through
+   both routes; decode against the forward (the batch's prompt
+   prefilled, 8 tokens decoded, each position's logits within 2e-3
+   relative and 3e-4 of the logits' largest magnitude of lm.forward's
+   over P + 8 tokens: the chunked scan against the recurrence, hymba's
+   rolling caches wrapped); one counted single-tenant serve run with
+   exact launches (mamba2 0 flash_attention, hymba one a layer a batch,
+   64; entropy_scores 62 each) and the retained set against the top-K
+   of the scores; prefill ms a batch, decode ms a step, tokens/s, peak
+   device memory; profiles of a prefill and of decode steps, and one
+   layer's SSD scan profiled alone with its share of the prefill.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -303,6 +325,17 @@ SC_ARCH = "starcoder2-3b"
 SC_SERVE = dict(requests=16, batch=8, prompt_len=1024, gen_len=32, topk=8)
 FA_SC = (SC_SERVE["batch"], SC_SERVE["prompt_len"], 24, 2, 128)
 ENT_SC = (SC_SERVE["batch"], 49_152)
+MB_ARCH = "mamba2-2.7b"  # phase 18a: SSD layers only
+HY_ARCH = "hymba-1.5b"  # phase 18b: attention and SSD in parallel
+SSM_SERVE = {
+    MB_ARCH: dict(requests=16, batch=8, prompt_len=1024, gen_len=32, topk=8),
+    HY_ARCH: dict(requests=16, batch=8, prompt_len=2048, gen_len=32, topk=8)}
+HY_WINDOW = 1024  # hymba's sliding window (29 of its 32 layers)
+FA_HY = (SSM_SERVE[HY_ARCH]["batch"], SSM_SERVE[HY_ARCH]["prompt_len"], 25,
+         5, 64)
+ENT_MB = (SSM_SERVE[MB_ARCH]["batch"], 50_280)  # vector loads
+ENT_HY = (SSM_SERVE[HY_ARCH]["batch"], 32_001)  # V % 4 != 0: scalar loads
+DECODE_CHECK = 8  # phase 18's decode steps held to lm.forward
 WINDOWS = 5  # timing windows of the redesigned kernels (median, spread)
 L2_FLUSH_BYTES = 128 << 20  # written between calls of an L2-cold timing
 TF_WINDOW_BATCHES = 12  # filter_then_merge batches in a phase 10 window
@@ -1259,7 +1292,11 @@ FA_CASES = (("serve prefill", *FA_PATH[:2], *FA_PATH[1:], True, 0),  # Sq = Skv
             ("window 4096, Skv > 4096, hd 128", 1, 4608, 4608, 8, 2, 128,
              True, 4096),
             ("Sq > Skv: rows with no key, hd 128", 1, 40, 24, 2, 1, 128, True,
-             0))
+             0),
+            ("hymba-1.5b prefill, 25 over 5, window 1024", *FA_HY[:2],
+             *FA_HY[1:], True, HY_WINDOW),
+            ("GQA 25 over 5, ragged, window 100", 1, 300, 300, 25, 5, 64,
+             True, 100))
 
 
 def fa_inputs(g, b, sq, skv, h, kvh, hd, dtype):
@@ -1309,6 +1346,9 @@ def score_kernel_parity():
                 f"relative and absolute)")
     for b, v, kind, label in ((*ENT_PATH, "normal", "serve decode step"),
                               (*ENT_SC, "normal", f"{SC_ARCH} decode step"),
+                              (*ENT_MB, "normal", f"{MB_ARCH} decode step"),
+                              (*ENT_HY, "normal",
+                               f"{HY_ARCH} decode step, scalar loads"),
                               (*ENT_LARGE, "normal", "large scorer shape"),
                               (132, 128_256, "normal", "132 rows, 2 spans"),
                               (5, 5001, "normal", "V=5001, scalar loads"),
@@ -1333,9 +1373,10 @@ def score_kernel_parity():
 
 
 def score_kernel_timings():
-    """flash_attention at the two serve paths' prefill shapes (head dims 64
-    and 128) and entropy_scores at their decode shapes (and a large scorer
-    shape): device ms (profiler; median of WINDOWS windows, with the
+    """flash_attention at the serve paths' prefill shapes (llama3.2-1b and
+    starcoder2-3b causal at head dims 64 and 128, hymba-1.5b under its
+    1024-token window) and entropy_scores at their decode shapes (and a
+    large scorer shape): device ms (profiler; median of WINDOWS windows, with the
     spread), wrapper ms, plain ms, bound, and the PyTorch call that
     computes the same function as the yardstick. The first shape of each
     kernel goes into the kernels line."""
@@ -1344,23 +1385,41 @@ def score_kernel_timings():
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(5)
     out = {}
-    for key, (b, s, h, kvh, hd) in (("flash_attention", FA_PATH),
-                                    ("flash_attention@hd128", FA_SC)):
+    for key, (b, s, h, kvh, hd), window in (
+            ("flash_attention", FA_PATH, 0),
+            ("flash_attention@hd128", FA_SC, 0),
+            ("flash_attention@hymba", FA_HY, HY_WINDOW)):
         q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
-        # the library yardstick: SDPA on (B, heads, S, hd), grouped heads
+        # the library yardstick: SDPA on (B, heads, S, hd), grouped heads;
+        # under a window, with the (S, S) boolean mask of the visible keys
+        # and K/V copied out to every query head (no mask-taking backend
+        # groups heads)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        pairs = b * h * s * (s + 1) // 2  # causal: visible (query, key) pairs
+        if window:
+            i = torch.arange(s, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+            kt, vt = (x.repeat_interleave(h // kvh, dim=1) for x in (kt, vt))
+            sdpa = dict(attn_mask=mask)
+        else:
+            sdpa = dict(is_causal=True, enable_gqa=True)
+        # visible (query, key) pairs: causal, capped at the window
+        vis = np.minimum(np.arange(1, s + 1), window or s)
+        pairs = b * h * int(vis.sum())
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * hd * pairs  # a multiply-add each for q.k and p.v
         # the kernel takes each multiply-add as three TF32 products (3xTF32)
         # on the tensor cores; the float32 units' bound is logged beside
+        kw = dict(window=window)
         med, lo, hi, _ = device_ms_windows(
-            lambda: fa.flash_attention(q, k, v), 10, "flash_fwd", WINDOWS)
+            lambda: fa.flash_attention(q, k, v, **kw), 10, "flash_fwd",
+            WINDOWS)
         t = {"ms": med,
-             "call_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
-             "plain_ms": cuda_ms(lambda: fa.reference(q, k, v), 3),
+             "call_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                                10),
+             "plain_ms": cuda_ms(lambda: fa.reference(q, k, v, **kw), 3),
              "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+                 qt, kt, vt, **sdpa), 10),
              "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
              "ops_ms": 3 * flops / TF32_FLOPS * 1e3,
              "f32_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
@@ -1369,7 +1428,8 @@ def score_kernel_timings():
                          else "operations")
         out[key] = t
         log(f"timing {key} [q ({b}, {s}, {h}, {hd}), k and v ({b}, {s}, "
-            f"{kvh}, {hd}) f32, causal]: kernel {med:.4f} ms on the device "
+            f"{kvh}, {hd}) f32, causal, window {window}]: kernel {med:.4f} "
+            f"ms on the device "
             f"(profiler, median of {WINDOWS} windows of 10 calls; min "
             f"{lo:.4f}, max {hi:.4f}); {t['call_ms']:.4f} ms per wrapper "
             f"call; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
@@ -1378,11 +1438,13 @@ def score_kernel_timings():
             f"float32 units; {t['bytes_ms']:.4f} ms of bytes); "
             f"{flops / med / 1e9:.2f} TFLOP/s; library_ms "
             f"{t['library_ms']:.4f} = torch.nn.functional."
-            f"scaled_dot_product_attention(is_causal, enable_gqa) on (B, "
+            f"scaled_dot_product_attention({', '.join(sdpa)}) on (B, "
             f"heads, S, hd) copies, never called by the port")
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, sdpa
     for key, (b, v) in (("entropy_scores", ENT_PATH),
                         ("entropy_scores@starcoder2", ENT_SC),
+                        ("entropy_scores@mamba2", ENT_MB),
+                        ("entropy_scores@hymba", ENT_HY),
                         ("entropy_scores@large", ENT_LARGE)):
         logits, labels = ent_inputs(g, b, v, "normal", torch.float32)
         lab64 = labels.long()
@@ -2302,7 +2364,8 @@ def single_stream_profile(state, dev_s, dev_i, attempts=3 * WINDOWS):
 
 def profile_report(prof, label, steps, wall_ms, smi):
     """Device busy share and top device operations of a profiled window
-    of ``steps`` steps that took ``wall_ms`` per step."""
+    of ``steps`` steps that took ``wall_ms`` per step; returns the device's
+    busy ms a step."""
     from torch.autograd import DeviceType
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = union_ms(dev) / steps
@@ -2318,26 +2381,43 @@ def profile_report(prof, label, steps, wall_ms, smi):
             f"ms/step {e.self_device_time_total / total:6.3f}  {e.key[:90]}")
     if busy <= 0:
         raise AssertionError(f"the {label} profile saw no device time")
+    return busy
 
 
 def serve_profile(params, cfg, prompts, smi, steps=4):
     """torch.profiler over one prefill of a batch, then over ``steps``
     decode steps (each: the model, the entropy_scores kernel, argmax):
-    wall ms, the device's busy share, the top operations."""
+    wall ms, the device's busy share, the top operations. A model with
+    SSD layers also gets its scan's share of the prefill (``ssd_share``)
+    from the first layer's scan inputs, captured in the prefill."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import interestingness
     from repro_torch.models import lm
+    from repro_torch.models import ssm as ssm_mod
     b, s = prompts.shape
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     cache = lm.init_cache(cfg, b, s + steps + 1, device=prompts.device)
+    scan, captured = ssm_mod.ssd_chunked, []
+
+    def capture(*args, **kw):
+        if not captured:
+            captured.append((args, kw))
+        return scan(*args, **kw)
+
+    ssm_mod.ssd_chunked = capture
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        logits, cache = lm.prefill(params, cfg, {"tokens": prompts}, cache)
-        tok = torch.argmax(logits, -1)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    profile_report(prof, f"{cfg.name} prefill ({b} x {s})", 1, wall_ms, smi)
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(params, cfg, {"tokens": prompts},
+                                       cache)
+            tok = torch.argmax(logits, -1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ssm_mod.ssd_chunked = scan
+    busy = profile_report(prof, f"{cfg.name} prefill ({b} x {s})", 1,
+                          wall_ms, smi)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -2348,6 +2428,53 @@ def serve_profile(params, cfg, prompts, smi, steps=4):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     profile_report(prof, f"{cfg.name} decode (batch {b})", steps, wall_ms,
                    smi)
+    if captured:
+        args, kw = captured.pop()
+        ssd_share(cfg, args, kw, busy, smi)
+
+
+def attention_layers(cfg):
+    return sum(s.count for s in cfg.layers
+               if s.mixer in ("attn", "attn_ssm_parallel"))
+
+
+def ssd_share(cfg, args, kw, prefill_busy_ms, smi, attempts=3):
+    """One layer's SSD scan (``ssm.ssd_chunked`` on the inputs the prefill
+    gave its first SSD layer) alone: its device ms (CUDA events, the mean
+    of 5 calls after two warm-up calls) and its share of the prefill's
+    device busy time, taken as the layer count times one scan's ms; then
+    its operations by device time under torch.profiler, over a window of
+    3 calls. The profiler drops kernel records now and then
+    (``device_parts``), so a window that holds none is taken again, up to
+    ``attempts`` windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ssm as ssm_mod
+    scan = lambda: ssm_mod.ssd_chunked(*args, **kw)  # noqa: E731
+    ms = cuda_ms(scan, 5)
+    n = sum(s.count for s in cfg.layers
+            if s.mixer in ("ssm", "attn_ssm_parallel"))
+    label = (f"{cfg.name} SSD scan (ssm.ssd_chunked, one layer: xh "
+             f"{tuple(args[0].shape)}, state {args[1].shape[-1]}, chunk "
+             f"{args[5]})")
+    log(f"{label}: {ms:.3f} ms on the device (CUDA events, mean of 5 "
+        f"calls); share of a prefill: {n} layers x {ms:.3f} ms = "
+        f"{n * ms:.3f} ms of the prefill's {prefill_busy_ms:.3f} ms of "
+        f"device busy time = {n * ms / prefill_busy_ms:.3f}; {smi}")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for attempt in range(1, attempts + 1):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                scan()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            profile_report(prof, label, 3, wall_ms, smi)
+            return
+        log(f"{label} profile: window {attempt} held no device record")
+    log(f"{label} profile: the profiler dropped every device record of "
+        f"{attempts} windows; its operations are not named this run")
 
 
 def teacher_forced(params, cfg, prompts, gen):
@@ -2386,11 +2513,11 @@ def check_serve(res, cfg, run, label, smi):
     launches = {"flash_attention": fa.launches,
                 "entropy_scores": ent.launches}
     batches = -(-run["requests"] // run["batch"])
-    want = {"flash_attention": cfg.n_layers * batches,
+    want = {"flash_attention": attention_layers(cfg) * batches,
             "entropy_scores": (run["gen_len"] - 1) * batches}
     log(f"serve [{label}] launches: {launches} (want {want}: one "
-        f"flash_attention per layer per prefill, one entropy_scores per "
-        f"scored decode step)")
+        f"flash_attention per attention layer per prefill, one "
+        f"entropy_scores per scored decode step)")
     if launches != want:
         raise AssertionError(f"serve [{label}] launches {launches} != "
                              f"{want}")
@@ -4758,6 +4885,125 @@ def training(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the SSM and hybrid score producers at full width
+# ---------------------------------------------------------------------------
+
+def decode_vs_forward(params, cfg, prompts, label, steps=DECODE_CHECK):
+    """Prefill the batch's ``P`` prompt tokens, decode ``steps`` more (the
+    SSD recurrence from the carried states; hymba's rolling 1024-slot
+    caches wrapped by the prefill), and hold the prefill's and each
+    step's logits to ``lm.forward``'s at that position over P + steps
+    tokens (the chunked scan; flash_attention in the forward):
+    |decode - forward| <= 2e-3 |forward| + 3e-4 scale, tests/test_decode.py's
+    rtol and atol with the atol scaled by ``scale``, the largest |logit|
+    of the checked positions."""
+    from repro_torch.models import lm
+    b, p = prompts.shape
+    g = torch.Generator(device="cuda").manual_seed(18)
+    extra = torch.randint(0, cfg.vocab_size, (b, steps), device="cuda",
+                          generator=g)
+    full, _ = lm.forward(params, cfg, {"tokens": torch.cat([prompts, extra],
+                                                           1)})
+    want = full[:, p - 1:].clone()  # positions P-1 .. P+steps-1
+    del full
+    cache = lm.init_cache(cfg, b, p + steps + 1, device="cuda")
+    logits, cache = lm.prefill(params, cfg, {"tokens": prompts}, cache)
+    got = [logits]
+    for t in range(steps):
+        logits, cache = lm.decode_step(params, cfg, extra[:, t], cache)
+        got.append(logits)
+    got = torch.stack(got, 1)
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    worst = float((diff - 2e-3 * want.abs()).max())
+    per_step = " ".join(f"{float(d.max()):.3e}" for d in diff.unbind(1))
+    rolled = [len(lc["kv"].pos[0]) for grp in cache["groups"]
+              for lc in grp if "kv" in lc]
+    log(f"decode vs forward [{label}]: prefill of {b} x {p}, then {steps} "
+        f"decode steps against lm.forward over {p + steps} tokens: max abs "
+        f"diff per position (prefill first) {per_step}; largest excess over "
+        f"2e-3 |forward| {worst:.3e} (limit 3e-4 x {scale:.3f} = "
+        f"{3e-4 * scale:.3e}); KV cache slots per attention layer "
+        f"{sorted(set(rolled)) or 'none'}; cache position {cache['pos']}")
+    if not (torch.isfinite(got).all() and worst <= 3e-4 * scale):
+        raise AssertionError(f"decode differs from the forward [{label}]")
+
+
+def ssm_serve(smi, arch, sub):
+    """Phase 18a/b: ``arch`` at full width with random weights from a
+    seeded torch.Generator on the card: the first batch teacher-forced
+    through both routes, decode against the forward, one counted
+    single-tenant serve run whose launches must be exact, the retained
+    set against the top-K of the scores, peak memory, then the profiles
+    (with the SSD scan's share of a prefill). Returns the launches."""
+    from repro_torch import configs
+    from repro_torch.kernels.entropy_scores import ops as ent
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()  # the previous phase's blocks
+    cfg = configs.get_config(arch)
+    run = SSM_SERVE[arch]
+    label = f"{sub} {arch}"
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    mixers = ", ".join(f"{s.count} {s.mixer}"
+                       + (f" (window {s.window_list()[0]})"
+                          if any(s.window_list()) else "")
+                       for s in cfg.layers)
+    attn = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, head_dim "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff} {cfg.ffn_act}, "
+            if attention_layers(cfg) else "no attention, no FFN, ")
+    log(f"serve [{label}]: full width ({cfg.n_layers} layers: {mixers}; "
+        f"d_model {cfg.d_model}, SSD {cfg.ssm_heads} heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+        f"conv width {cfg.ssm_conv_width}, {attn}vocab {cfg.vocab_size}, "
+        f"tied embeddings {cfg.tie_embeddings}, {cfg.param_dtype}): "
+        f"{lm.param_count(cfg)} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.3f}s; TF32 off; {smi}")
+    b, plen = run["batch"], run["prompt_len"]
+    first = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, plen)), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    teacher_forced(params, cfg, first, run["gen_len"])
+    decode_vs_forward(params, cfg, first, label)
+    checks_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    # the counted run: counters to 0, serve, read
+    fa.launches = ent.launches = 0
+    res = serve.serve(cfg, params, tenants=1, device="cuda", **run)
+    launches = check_serve(res, cfg, run, f"{label}, single tenant", smi)
+    order = np.lexsort((np.arange(run["requests"]), -res.scores))
+    want = sorted(order[:run["topk"]].tolist())
+    log(f"serve [{label}]: scores "
+        f"{' '.join(f'{x:.7g}' for x in res.scores)}; retained "
+        f"{res.retained}, top-{run['topk']} of the scores (ties to the "
+        f"lower id) {want}; curation {res.curator.stats.as_dict()}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"in the serve run, {checks_peak:.3f} GiB in the checks before it "
+        f"(the plain route's attention included); {smi}")
+    if res.retained != want:
+        raise AssertionError("retained set is not the top-K of the scores")
+    serve_profile(params, cfg, first, smi)
+    return launches
+
+
+def ssm_hybrid(smi):
+    """Phase 18: mamba2-2.7b (18a) and hymba-1.5b (18b) served at full
+    width. Returns the launches of flash_attention and entropy_scores
+    summed over the two counted serve runs."""
+    launches = {"flash_attention": 0, "entropy_scores": 0}
+    for sub, arch in (("18a", MB_ARCH), ("18b", HY_ARCH)):
+        with phase_clock(f"{arch} at full width (phase {sub})"):
+            for key, n in ssm_serve(smi, arch, sub).items():
+                launches[key] += n
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4821,6 +5067,9 @@ def main():
     with phase_clock("training with top-K curation (phase 17)"):
         launches["flash_attention_bwd"] = 0
         for key, n in training(smi).items():
+            launches[key] += n
+    with phase_clock("ssm and hybrid score producers (phase 18)"):
+        for key, n in ssm_hybrid(smi).items():
             launches[key] += n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",

@@ -7,8 +7,11 @@ that attention runs on the ``flash_attention`` kernel, which takes the
 place of the reference's dense and chunked pure-JAX paths; a gradient
 through it (training) runs the kernel's backward pair. Decode (one
 query over a cache with empty slots) stays the plain grouped attention,
-as the reference routes it. MLA, cross-attention and attention logit
-soft-capping are not ported yet (ROADMAP queue 1 item 10).
+as the reference routes it. It serves the ``attn`` mixer and the
+attention branch of ``attn_ssm_parallel`` layers (``models.blocks``),
+global or sliding-window, over full or rolling caches. MLA,
+cross-attention and attention logit soft-capping are not ported yet
+(ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 

@@ -1,23 +1,34 @@
-"""Layer blocks: (attention → residual) → (dense FFN → residual), pre-norm:
-the ``attn`` mixer of the reference's ``models.blocks``. One
-``block_forward`` serves the forward, prefill and decode; the SSM and
-hybrid mixers, cross-attention and MoE are not ported yet (ROADMAP queue 1
-item 10)."""
+"""Layer blocks: (mixer → residual) → (dense FFN → residual), pre-norm —
+the port of the reference's ``models.blocks``. The mixer is attention
+(``attn``), the SSD scan (``ssm``), the mean of both, each behind its own
+pre-norm (``attn_ssm_parallel``), or nothing (``none``). One
+``block_forward`` serves the forward, prefill and decode; a layer's cache
+holds ``kv`` and/or ``ssm``. Cross-attention and MoE are not ported yet
+(ROADMAP queue 1 item 10)."""
 from __future__ import annotations
+
+import torch
 
 from . import attention as attn
 from . import ffn as ffn_mod
+from . import ssm as ssm_mod
 from .common import apply_norm, norm_params
 
 
 def check_supported(spec) -> None:
     """Raise for the layer kinds the port does not run."""
-    if spec.mixer != "attn":
-        raise NotImplementedError(f"the {spec.mixer!r} mixer {attn.UNPORTED}")
     if spec.cross_attn:
         raise NotImplementedError(f"cross-attention {attn.UNPORTED}")
     if spec.ffn == "moe":
         raise NotImplementedError(f"the MoE FFN {attn.UNPORTED}")
+
+
+def _has_attn(spec) -> bool:
+    return spec.mixer in ("attn", "attn_ssm_parallel")
+
+
+def _has_ssm(spec) -> bool:
+    return spec.mixer in ("ssm", "attn_ssm_parallel")
 
 
 def block_shapes(spec, cfg) -> dict:
@@ -25,7 +36,11 @@ def block_shapes(spec, cfg) -> dict:
     norm = {"scale": (cfg.d_model,)}
     if cfg.use_layernorm:
         norm["bias"] = (cfg.d_model,)
-    shapes = {"attn": attn.gqa_shapes(cfg), "norm_attn": dict(norm)}
+    shapes = {}
+    if _has_attn(spec):
+        shapes.update(attn=attn.gqa_shapes(cfg), norm_attn=dict(norm))
+    if _has_ssm(spec):
+        shapes.update(ssm=ssm_mod.ssm_shapes(cfg), norm_ssm=dict(norm))
     if spec.ffn == "dense":
         shapes["ffn"] = ffn_mod.dense_shapes(cfg.d_model, cfg.d_ff,
                                              cfg.ffn_act, cfg.ffn_bias)
@@ -36,8 +51,13 @@ def block_shapes(spec, cfg) -> dict:
 def block_params(gen, spec, cfg, dtype) -> dict:
     check_supported(spec)
     ln = cfg.use_layernorm
-    p = {"attn": attn.gqa_params(gen, cfg, dtype),
-         "norm_attn": norm_params(cfg.d_model, ln, dtype, gen.device)}
+    p = {}
+    if _has_attn(spec):
+        p["attn"] = attn.gqa_params(gen, cfg, dtype)
+        p["norm_attn"] = norm_params(cfg.d_model, ln, dtype, gen.device)
+    if _has_ssm(spec):
+        p["ssm"] = ssm_mod.ssm_params(gen, cfg, dtype)
+        p["norm_ssm"] = norm_params(cfg.d_model, ln, dtype, gen.device)
     if spec.ffn == "dense":
         p["ffn"] = ffn_mod.dense_params(gen, cfg.d_model, cfg.d_ff,
                                         cfg.ffn_act, cfg.ffn_bias, dtype)
@@ -48,20 +68,48 @@ def block_params(gen, spec, cfg, dtype) -> dict:
 def init_layer_cache(spec, cfg, batch, kv_len, dtype, device=None) -> dict:
     """Cache entry for ONE layer of this spec."""
     check_supported(spec)
-    return {"kv": attn.init_kv_cache(batch, kv_len, cfg.n_kv_heads,
-                                     cfg.head_dim, dtype, device)}
+    c = {}
+    if _has_attn(spec):
+        c["kv"] = attn.init_kv_cache(batch, kv_len, cfg.n_kv_heads,
+                                     cfg.head_dim, dtype, device)
+    if _has_ssm(spec):
+        c["ssm"] = ssm_mod.init_ssm_state(batch, cfg, dtype, device)
+    return c
+
+
+def _mixer(p, spec, cfg, x, positions, cache, window, flash):
+    """Returns (mixer_out, new_cache)."""
+    new_cache = None if cache is None else dict(cache)
+    outs = []
+    if _has_attn(spec):
+        h = apply_norm(p["norm_attn"], x, cfg.norm_eps, cfg.use_layernorm)
+        out, kv = attn.gqa_forward(p["attn"], h, positions, cfg,
+                                   causal=spec.causal, window=window,
+                                   cache=None if cache is None
+                                   else cache["kv"], flash=flash)
+        if cache is not None:
+            new_cache["kv"] = kv
+        outs.append(out)
+    if _has_ssm(spec):
+        h = apply_norm(p["norm_ssm"], x, cfg.norm_eps, cfg.use_layernorm)
+        out, st = ssm_mod.ssm_forward(p["ssm"], h, cfg,
+                                      None if cache is None else cache["ssm"],
+                                      return_state=cache is not None)
+        if cache is not None:
+            new_cache["ssm"] = st
+        outs.append(out)
+    if not outs:
+        return torch.zeros_like(x), new_cache
+    mix = outs[0] if len(outs) == 1 else 0.5 * (outs[0] + outs[1])
+    return mix, new_cache
 
 
 def block_forward(p, spec, cfg, x, positions, cache=None, window=0,
                   flash=False):
     """Returns (x, new_cache). ``flash``: see ``attention.gqa_forward``."""
-    h = apply_norm(p["norm_attn"], x, cfg.norm_eps, cfg.use_layernorm)
-    out, kv = attn.gqa_forward(p["attn"], h, positions, cfg,
-                               causal=spec.causal, window=window,
-                               cache=None if cache is None else cache["kv"],
-                               flash=flash)
-    x = x + out
+    mix, new_cache = _mixer(p, spec, cfg, x, positions, cache, window, flash)
+    x = x + mix
     if spec.ffn == "dense":
         h = apply_norm(p["norm_ffn"], x, cfg.norm_eps, cfg.use_layernorm)
         x = x + ffn_mod.dense_forward(p["ffn"], h, cfg.ffn_act)
-    return x, (None if cache is None else {"kv": kv})
+    return x, new_cache

@@ -1,6 +1,8 @@
 """Top-level model: embedding → layer groups → norm → LM head — the port
-of the reference's ``models.lm`` for decoder-only attention models with
-dense FFNs (llama3.2-1b, yi-9b, starcoder2-3b, command-r-plus-104b).
+of the reference's ``models.lm`` for decoder-only models whose layers
+mix by attention, the SSD scan or both in parallel, with dense FFNs
+(llama3.2-1b, yi-9b, starcoder2-3b, command-r-plus-104b, mamba2-2.7b,
+hymba-1.5b).
 
 * ``forward(params, cfg, batch)``          — full-sequence logits
 * ``prefill(params, cfg, batch, cache)``   — fill caches, last logits
@@ -11,15 +13,17 @@ dense FFNs (llama3.2-1b, yi-9b, starcoder2-3b, command-r-plus-104b).
 Parameters are a plain dict in the reference's layout, with each group a
 list of per-layer dicts where the reference stacks the layers on a
 leading axis; the layers run in a Python loop where the reference scans.
-Caches are updated in place; the forward writes into no tensor that
-autograd saved, so ``lm_loss`` differentiates through it.
-``use_kernel=False`` takes the plain grouped attention for prefill and
-the forward, the reference's own route; otherwise they run on the
-``flash_attention`` kernel, and a gradient through the forward on the
-card runs the kernel's backward.
+KV caches are updated in place and SSM states replaced; the forward
+writes into no tensor that autograd saved, so ``lm_loss`` differentiates
+through it. ``use_kernel=False`` takes the plain grouped attention for
+prefill and the forward, the reference's own route; otherwise they run on
+the ``flash_attention`` kernel, and a gradient through the forward on the
+card runs the kernel's backward. The SSD scan is plain tensor operations
+on either route (``models.ssm``).
 
-Encoder-decoder models, vision/audio frontends, MoE, SSM, MLA and
-cross-attention raise ``NotImplementedError`` (ROADMAP queue 1 item 10).
+Encoder-decoder models, vision/audio frontends, MoE, MLA,
+cross-attention and attention logit soft-capping raise
+``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 
 from . import attention as attn_mod
 from . import blocks
+from . import ssm as ssm_mod
 from .common import apply_norm, dtype_of, init_dense, norm_params
 
 
@@ -82,15 +87,17 @@ def _leaves(tree):
 def abstract_params(cfg: ModelConfig) -> dict:
     """The parameter tree as tensors on the ``meta`` device: shapes and
     dtypes, no storage — the counterpart of the reference's
-    ``jax.eval_shape`` of ``init_params``."""
+    ``jax.eval_shape`` of ``init_params``. Leaves take ``param_dtype``,
+    except the SSM's ``a_log``, ``dt_bias`` and ``d_skip`` (float32)."""
     dtype = dtype_of(cfg.param_dtype)
 
-    def conv(tree):
+    def conv(tree, name=None):
         if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
+            return {k: conv(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [conv(v) for v in tree]
-        return torch.empty(tree, dtype=dtype, device="meta")
+        leaf = (torch.float32 if name in ssm_mod.FLOAT32_LEAVES else dtype)
+        return torch.empty(tree, dtype=leaf, device="meta")
 
     return conv(param_shapes(cfg))
 
@@ -204,8 +211,9 @@ def group_kv_len(spec: LayerSpec, kv_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, device=None):
-    """Per-layer KV caches on ``device`` (the CUDA card unless given) and
-    the global position, a Python int."""
+    """Per-layer caches on ``device`` (the CUDA card unless given) — a KV
+    cache for attention, an ``ssm.SSMState`` for the SSD scan — and the
+    global position, a Python int."""
     check_supported(cfg)
     dev = device_mod.resolve(device)
     dtype = dtype_of(cfg.activation_dtype)

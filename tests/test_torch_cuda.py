@@ -1034,6 +1034,23 @@ def test_flash_attention_kernel_equals_plain(b, sq, skv, h, kvh, hd, causal,
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+# (b, sq, skv, h, kvh, hd, causal, window): hymba-1.5b's odd group of 5
+# query heads a KV head, ragged under a window of 100, and at its prefill
+# (a batch of 1 of 2048 queries under its 1024-token window)
+FA_ODD_GROUP_CASES = [(1, 300, 300, 25, 5, 64, True, 100),
+                      (1, 2048, 2048, 25, 5, 64, True, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window",
+                         FA_ODD_GROUP_CASES)
+def test_flash_attention_odd_group_window_equals_plain(
+        b, sq, skv, h, kvh, hd, causal, window, dtype, cuda_device):
+    test_flash_attention_kernel_equals_plain(b, sq, skv, h, kvh, hd, causal,
+                                             window, dtype, cuda_device)
+
+
 @pytest.mark.cuda
 def test_flash_attention_head_dim_outside_the_build_raises(cuda_device):
     q = torch.zeros((1, 4, 2, 48), device=cuda_device)
@@ -1042,10 +1059,11 @@ def test_flash_attention_head_dim_outside_the_build_raises(cuda_device):
 
 
 # (b, v): one span and many (ops.split_columns), starcoder2-3b's
-# vocabulary, rows that fill the card (one span a row) and 132 rows (two)
+# vocabulary, rows that fill the card (one span a row) and 132 rows (two),
+# hymba-1.5b's (V % 4 != 0: scalar loads) and mamba2-2.7b's decode steps
 ENT_CASES = [(1, 128), (3, 300), (8, 2048), (5, 5000), (16, 32000),
              (8, 128256), (4, 128257), (8, 49152), (132, 128256),
-             (300, 5001)]
+             (300, 5001), (8, 32001), (8, 50280)]
 
 
 @pytest.mark.cuda
@@ -1086,6 +1104,14 @@ def test_entropy_nll_extremes_and_unaligned_rows(cuda_device):
         torch.testing.assert_close(a, r, rtol=2e-5, atol=2e-5)
 
 
+def params_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tenants", [1, 3])
 def test_serve_on_card_equals_cpu(tenants, cuda_device):
@@ -1095,15 +1121,7 @@ def test_serve_on_card_equals_cpu(tenants, cuda_device):
     where no two scores lie within that tolerance (checked first)."""
     cfg = t_configs.get_config("llama3.2-1b", reduced=True)
     cpu = t_lm.init_params(cfg, seed=0, device="cpu")
-
-    def to_card(tree):
-        if isinstance(tree, dict):
-            return {k: to_card(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_card(v) for v in tree]
-        return tree.to(cuda_device)
-
-    gpu = to_card(cpu)
+    gpu = params_to(cpu, cuda_device)
     run = dict(requests=24, batch=8, prompt_len=8, gen_len=6, topk=8,
                tenants=tenants)
     t_fa.launches = t_ent.launches = 0
@@ -1121,6 +1139,31 @@ def test_serve_on_card_equals_cpu(tenants, cuda_device):
     else:
         for t in ref.retained:
             np.testing.assert_array_equal(res.retained[t], ref.retained[t])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b"])
+def test_serve_ssm_families_on_card_equal_cpu(arch, cuda_device):
+    """Reduced mamba2-2.7b and hymba-1.5b served on the card (the SSD scan
+    and recurrence as plain tensor operations, flash_attention in hymba's
+    prefill, entropy_scores per decode step) against the CPU's run with
+    the same weights: exact launch counts (no flash launch for mamba2),
+    tokens equal, scores within 2e-5, retention equal."""
+    cfg = t_configs.get_config(arch, reduced=True)
+    cpu = t_lm.init_params(cfg, seed=0, device="cpu")
+    run = dict(requests=24, batch=8, prompt_len=8, gen_len=6, topk=8)
+    t_fa.launches = t_ent.launches = 0
+    res = t_serve.serve(cfg, params_to(cpu, cuda_device), device=cuda_device,
+                        **run)
+    attn_layers = sum(s.count for s in cfg.layers
+                      if s.mixer in ("attn", "attn_ssm_parallel"))
+    assert (t_fa.launches, t_ent.launches) == (attn_layers * 3, 5 * 3)
+    ref = t_serve.serve(cfg, cpu, device="cpu", **run)
+    np.testing.assert_array_equal(res.tokens, ref.tokens)
+    np.testing.assert_allclose(res.scores, ref.scores, rtol=2e-5, atol=2e-5)
+    assert np.diff(np.sort(ref.scores)).min() > 4e-5
+    assert res.retained == ref.retained
+    assert res.store.ledger.as_dict() == ref.store.ledger.as_dict()
 
 
 @pytest.mark.cuda

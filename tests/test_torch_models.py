@@ -27,10 +27,10 @@ from repro_torch.models import common as t_common
 from repro_torch.models import lm as t_lm
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-PORTED = ["llama3.2-1b", "yi-9b", "starcoder2-3b", "command-r-plus-104b"]
+PORTED = ["llama3.2-1b", "yi-9b", "starcoder2-3b", "command-r-plus-104b",
+          "mamba2-2.7b", "hymba-1.5b"]
 UNPORTED = {"deepseek-v2-236b": "MoE FFN|MLA",
             "grok-1-314b": "soft-capping|MoE FFN",
-            "mamba2-2.7b": "'ssm' mixer", "hymba-1.5b": "mixer",
             "whisper-base": "encoder-decoder", "pixtral-12b": "frontend"}
 
 
@@ -109,7 +109,8 @@ def test_init_dense_is_a_truncated_fan_in_normal():
     assert not bool(p["final_norm"]["scale"].any())
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "yi-9b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "yi-9b", "starcoder2-3b",
+                                  "mamba2-2.7b", "hymba-1.5b"])
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_forward_matches_reference(arch, use_kernel):
     cfg, params, tcfg, tparams = ref_setup(arch)
@@ -121,8 +122,14 @@ def test_forward_matches_reference(arch, use_kernel):
     close(got, ref)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b",
+                                  "mamba2-2.7b", "hymba-1.5b"])
 def test_prefill_and_decode_match_reference(arch):
+    """Logits of the prefill and of each decode step, then every layer's
+    cache against the reference's: the KV cache's positions exactly (a
+    rolling window of 8 in starcoder2's layers and hymba's second group,
+    which the 12-token prompt overruns) and its K/V, the SSM state and
+    the conv state within TOL."""
     cfg, params, tcfg, tparams = ref_setup(arch)
     toks = tokens_for(cfg, 2, 20)
     t0, kv_len = 12, 21
@@ -143,13 +150,30 @@ def test_prefill_and_decode_match_reference(arch):
                                              torch.tensor(toks[:, t]),
                                              t_cache)
         close(t_logits, r_logits)
-    for li, lc in enumerate(t_cache["groups"][0]):
-        np.testing.assert_array_equal(lc["kv"].pos.numpy(),
-                                      np.asarray(r_cache["groups"][0]["kv"]
-                                                 .pos[li]))
+    assert t_cache["pos"] == int(r_cache["pos"]) == 20
+    kinds = set()
+    for t_group, r_group in zip(t_cache["groups"], r_cache["groups"]):
+        assert len(t_group) == len(jax.tree.leaves(r_group)[0])
+        for li, lc in enumerate(t_group):
+            assert lc.keys() == r_group.keys()
+            kinds.update(lc)
+            if "kv" in lc:
+                r_kv = r_group["kv"]
+                np.testing.assert_array_equal(lc["kv"].pos.numpy(),
+                                              np.asarray(r_kv.pos[li]))
+                close(lc["kv"].k, r_kv.k[li])
+                close(lc["kv"].v, r_kv.v[li])
+            if "ssm" in lc:
+                r_st = r_group["ssm"]
+                assert lc["ssm"].state.dtype == torch.float32
+                close(lc["ssm"].state, r_st.state[li])
+                close(lc["ssm"].conv, r_st.conv[li])
+    assert kinds == {"mamba2-2.7b": {"ssm"}, "hymba-1.5b": {"kv", "ssm"}}.get(
+        arch, {"kv"})
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b",
+                                  "mamba2-2.7b", "hymba-1.5b"])
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_prefill_then_decode_matches_forward(arch, use_kernel):
     tcfg = t_configs.get_config(arch, reduced=True)
@@ -193,3 +217,57 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
                  lambda: t_lm.init_cache(cfg, 1, 8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", "hymba-1.5b"])
+def test_abstract_params_dtypes_equal_reference(arch):
+    """Leaf by leaf, shapes and dtypes of ``abstract_params`` against the
+    reference's ``jax.eval_shape`` at bfloat16 parameters: the SSM's
+    a_log, dt_bias and d_skip stay float32."""
+    cfg = r_configs.get_config(arch, reduced=True).with_dtypes("bfloat16",
+                                                               "bfloat16")
+    tcfg = t_configs.get_config(arch, reduced=True).with_dtypes("bfloat16",
+                                                                "bfloat16")
+    ours = t_lm.abstract_params(tcfg)
+    seen = set()
+    for path, leaf in jax.tree_util.tree_leaves_with_path(
+            r_lm.abstract_params(cfg)):
+        keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+        node = ours
+        for k in keys[:2] if keys[0] == "dec" else keys:
+            node = node[k]
+        if keys[0] == "dec":
+            node = node[0]
+            for k in keys[2:]:
+                node = node[k]
+            want = leaf.shape[1:]
+        else:
+            want = leaf.shape
+        assert node.device.type == "meta"
+        assert (tuple(node.shape), str(node.dtype)[6:]) == \
+            (want, str(leaf.dtype)), keys
+        seen.add(str(leaf.dtype))
+    assert seen == ({"bfloat16"} if arch == "llama3.2-1b"
+                    else {"bfloat16", "float32"})
+
+
+def test_none_mixer_matches_reference():
+    """Layers with the ``none`` mixer (zeros; the FFN alone) beside
+    attention layers: parameter count and forward logits against the
+    reference's."""
+    from repro.configs.base import LayerSpec as RSpec
+    from repro_torch.configs.base import LayerSpec as TSpec
+    cfg = r_configs.get_config("llama3.2-1b", reduced=True)
+    cfg = cfg.replace(layers=(RSpec(count=1), RSpec(count=2, mixer="none")))
+    tcfg = t_configs.get_config("llama3.2-1b", reduced=True)
+    tcfg = tcfg.replace(layers=(TSpec(count=1), TSpec(count=2,
+                                                      mixer="none")))
+    assert t_lm.param_count(tcfg) == r_lm.param_count(cfg)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(4))
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    assert tparams["dec"][1][0].keys() == {"ffn", "norm_ffn"}
+    toks = tokens_for(cfg, 2, 12)
+    ref, _ = r_lm.forward(params, cfg, {"tokens": jnp.asarray(toks)})
+    got, _ = t_lm.forward(tparams, tcfg, {"tokens": torch.tensor(toks)})
+    close(got, ref)

@@ -83,6 +83,20 @@ def starcoder():
     return cfg, params, tcfg, tparams
 
 
+@pytest.fixture(scope="module", params=["mamba2-2.7b", "hymba-1.5b"])
+def ssm_family(request):
+    """Reduced mamba2-2.7b (two SSD layers, chunk 16) and hymba-1.5b (a
+    global and a window-8 attn_ssm_parallel layer, SiLU-GLU FFN) with the
+    reference's weights. The seed is one whose 24 scores hold no pair
+    within the score tolerance (assert_no_near_tie)."""
+    cfg = r_configs.get_config(request.param, reduced=True)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(3))
+    tcfg = t_configs.get_config(request.param, reduced=True)
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    return cfg, params, tcfg, tparams
+
+
 @pytest.fixture(autouse=True)
 def numpy_reference_planner():
     prev = r_shp.set_planner_backend("numpy")
@@ -198,6 +212,30 @@ def test_serve_starcoder2_reduced_matches_reference(example, starcoder):
     assert res.retained == sorted(retained) == sorted(ours)
     for d in retained:
         np.testing.assert_array_equal(ours[d].numpy(), np.asarray(retained[d]))
+
+
+def test_serve_ssm_and_hybrid_reduced_match_reference(example, ssm_family):
+    """The serve loop on the families chip_smoke.py serves at full width
+    as mamba2-2.7b and hymba-1.5b: the 8-token prompts fill half a chunk
+    of 16 (a padded scan), decode carries the SSM and conv states, and
+    hymba's window-8 layer reads a rolling cache; tokens equal, scores
+    within 2e-5, curation and retention equal, the retained set the
+    top-K of the scores."""
+    cfg, params, tcfg, tparams = ssm_family
+    r_scores, r_tokens, r_curator, r_store, _ = reference_serve(
+        example, cfg, params, **RUN)
+    res = t_serve.serve(tcfg, tparams, tenants=1, device="cpu", **RUN)
+    np.testing.assert_array_equal(res.tokens, r_tokens)
+    np.testing.assert_allclose(res.scores, r_scores, rtol=TOL, atol=TOL)
+    assert_no_near_tie(r_scores)
+    assert res.curator.stats.as_dict() == r_curator.stats.as_dict()
+    assert res.store.ledger.as_dict() == r_store.ledger.as_dict()
+    retained, ours = r_curator.finalize(), res.curator.finalize()
+    assert res.retained == sorted(retained) == sorted(ours)
+    for d in retained:
+        np.testing.assert_array_equal(ours[d].numpy(), np.asarray(retained[d]))
+    want = np.lexsort((np.arange(len(r_scores)), -r_scores))[:RUN["topk"]]
+    assert res.retained == sorted(want.tolist())
 
 
 def test_serve_tenants_matches_reference(example, model):

@@ -357,6 +357,38 @@ def test_lm_loss_and_grads_match_reference(use_kernel):
         _rel_close(g.numpy(), want[path].numpy(), 1e-5, str(path))
 
 
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b"])
+def test_lm_loss_and_grads_match_reference_ssm_families(arch, use_kernel):
+    """Reduced mamba2-2.7b (SSD layers only) and hymba-1.5b (attention and
+    SSD in parallel, a window of 8 over 32 tokens): the SSD scan's
+    gradients (chunk 16, two chunks a sequence) with the attention's,
+    against jax.value_and_grad of the reference's lm_loss."""
+    cfg = r_configs.get_config(arch, reduced=True)
+    tcfg = t_configs.get_config(arch, reduced=True)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(3))
+    batch = r_pipe.StreamLoader(cfg, R_SHAPE, seed=4).batch_for_step(0)
+    batch["labels"][0, :5] = -1  # masked labels count nowhere
+    (r_loss, r_met), r_grads = jax.value_and_grad(
+        lambda p: r_lm.lm_loss(p, cfg, jax.tree.map(jnp.asarray, batch)),
+        has_aux=True)(params)
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    loss, met, grads = t_steps.loss_and_grads(
+        tparams, tcfg, _to_torch(batch), use_kernel=use_kernel)
+    np.testing.assert_allclose(float(loss), float(r_loss), rtol=1e-5)
+    for key in ("loss", "per_example_nll", "tokens"):
+        np.testing.assert_allclose(met[key].numpy(), np.asarray(r_met[key]),
+                                   rtol=1e-5)
+    want = dict(_leaves_with_paths(t_lm.from_reference_params(
+        jax.tree.map(np.asarray, r_grads), tcfg, device="cpu")))
+    assert want.keys() == dict(_leaves_with_paths(grads)).keys()
+    for path, g in _leaves_with_paths(grads):
+        assert g.shape == want[path].shape and bool(g.abs().any()), path
+        assert g.dtype == want[path].dtype, path
+        _rel_close(g.numpy(), want[path].numpy(), 1e-5, str(path))
+
+
 def _check_params(t_params, r_params, r_m, lr, what):
     """The parameters' tolerance of the module docstring."""
     want = dict(_leaves_with_paths(_port_tree(r_params)))
