@@ -11,6 +11,14 @@
 // q's type, with (m, l, acc) carried in float32, as the TPU kernel does.
 // Head dims 16, 32, 64 and 128.
 //
+// Logit soft-capping (grok-1): with softcap c > 0 a logit x * scale
+// becomes c * tanh(x * scale / c) before the mask, as the reference's
+// models/attention.py caps and then masks (its Pallas kernel has no cap).
+// The cap is a template flag, so the uncapped launches run the code they
+// ran before. It uses the accurate tanhf (2 ulp), never tanh.approx.f32,
+// whose 2^-11 relative error is ~1.5e-2 on a cap of 30, beyond the 2e-5
+// the kernel is held to. The row log-sum-exp is that of the capped logits.
+//
 // Bound on this card: operations. The function does 4 * hd operations per
 // visible (query, key) pair: 3.4e10 at llama3.2-1b's prefill (B=8,
 // S=1024, H=32, hd=64, causal) and 5.2e10 at starcoder2-3b's (H=24,
@@ -149,12 +157,21 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-template <typename T, int HD>
+// a logit in base-2 units: x * scale * log2 e, or with the cap
+// c * tanh(x * scale / c) * log2 e (cs = scale / c, cl = c * log2 e)
+template <bool CAP>
+__device__ __forceinline__ float logit2(float x, float sl, float cs,
+                                        float cl) {
+  if constexpr (CAP) return cl * tanhf(x * cs);
+  return x * sl;
+}
+
+template <typename T, int HD, bool CAP>
 __global__ void __launch_bounds__(kThreads, Shape<HD>::MINB)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
           float* __restrict__ lse, int sq, int skv, int h, int kvh,
-          float scale, int causal, int window) {
+          float scale, int causal, int window, float softcap) {
   constexpr int MT = Shape<HD>::MT, BK = kBK;
   constexpr int BQ = 64 * MT, NT = BK / 8, DT = HD / 8;
   constexpr int kLd = row_stride<T, HD>();
@@ -192,6 +209,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_commit();
 
   const float sl = scale * kLog2e;
+  const float cs = CAP ? scale / softcap : 0.f;
+  const float cl = CAP ? softcap * kLog2e : 0.f;
   const float neg = kNeg * kLog2e;
   float o[MT][DT][4], m[MT][2], l[MT][2];
 #pragma unroll
@@ -276,8 +295,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
             bool ok = true;
             if (causal) ok = kpos <= qpos;
             if (window > 0) ok = ok && kpos > qpos - window;
-            x = !edge ? x * sl
-                      : (kpos >= skv ? -INFINITY : (ok ? x * sl : neg));
+            x = !edge ? logit2<CAP>(x, sl, cs, cl)
+                      : (kpos >= skv ? -INFINITY
+                                     : (ok ? logit2<CAP>(x, sl, cs, cl)
+                                           : neg));
             mx = fmaxf(mx, x);
           }
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -356,40 +377,55 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out,
-              float* lse, int b, int sq, int skv, int h, int kvh,
-              float scale, int causal, int window, cudaStream_t stream) {
+template <typename T, int HD, bool CAP>
+int launch_cap(const void* q, const void* k, const void* v, void* out,
+               float* lse, int b, int sq, int skv, int h, int kvh,
+               float scale, int causal, int window, float softcap,
+               cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T, HD>();
   constexpr int rows = 64 * Shape<HD>::MT;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd<T, HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, b, (sq + rows - 1) / rows);
-  flash_fwd<T, HD><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd<T, HD, CAP><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, sq, skv, h, kvh,
-      scale, causal, window);
+      scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              float* lse, int b, int sq, int skv, int h, int kvh,
+              float scale, int causal, int window, float softcap,
+              cudaStream_t stream) {
+  if (softcap > 0.f)
+    return launch_cap<T, HD, true>(q, k, v, out, lse, b, sq, skv, h, kvh,
+                                   scale, causal, window, softcap, stream);
+  return launch_cap<T, HD, false>(q, k, v, out, lse, b, sq, skv, h, kvh,
+                                  scale, causal, window, 0.f, stream);
 }
 
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  float* lse, int b, int sq, int skv, int h, int kvh, int hd,
-                 float scale, int causal, int window, cudaStream_t stream) {
+                 float scale, int causal, int window, float softcap,
+                 cudaStream_t stream) {
   switch (hd) {
     case 16:
       return launch_hd<T, 16>(q, k, v, out, lse, b, sq, skv, h, kvh, scale,
-                              causal, window, stream);
+                              causal, window, softcap, stream);
     case 32:
       return launch_hd<T, 32>(q, k, v, out, lse, b, sq, skv, h, kvh, scale,
-                              causal, window, stream);
+                              causal, window, softcap, stream);
     case 64:
       return launch_hd<T, 64>(q, k, v, out, lse, b, sq, skv, h, kvh, scale,
-                              causal, window, stream);
+                              causal, window, softcap, stream);
     case 128:
       return launch_hd<T, 128>(q, k, v, out, lse, b, sq, skv, h, kvh, scale,
-                               causal, window, stream);
+                               causal, window, softcap, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1136,19 +1172,22 @@ extern "C" int flash_attention_smem_bytes(int hd, int dtype) {
 // tensors are contiguous and 16-byte aligned; `hd` is 16, 32, 64 or 128;
 // b <= 65535 and Sq <= 64 * 65535. `lse`, when not null, is a float32
 // (B, H, Sq) tensor that receives each row's log-sum-exp of its scaled,
-// masked logits (natural units), which the backward reads.
+// capped, masked logits (natural units), which the backward reads.
+// `softcap` > 0 caps each scaled logit x at softcap * tanh(x / softcap)
+// before the mask; 0 leaves it uncapped.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       int b, int sq, int skv, int h, int kvh,
                                       int hd, float scale, int causal,
-                                      int window, int dtype,
+                                      int window, float softcap, int dtype,
                                       cudaStream_t stream) {
   if (dtype == 0)
     return launch_typed<float>(q, k, v, out, lse, b, sq, skv, h, kvh, hd,
-                               scale, causal, window, stream);
+                               scale, causal, window, softcap, stream);
   if (dtype == 1)
     return launch_typed<__nv_bfloat16>(q, k, v, out, lse, b, sq, skv, h, kvh,
-                                       hd, scale, causal, window, stream);
+                                       hd, scale, causal, window, softcap,
+                                       stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,7 +6,10 @@ h reads KV head h // (H / KV), and the expanded K/V never exist. With
 KV = H it is the reference's function. Query row i sits at position
 i + Skv − Sq and key j at position j; causal and sliding-window masks
 (``kpos > qpos − window``) come from those positions and use the
-reference's −2e9.
+reference's −2e9. ``softcap`` c > 0 caps each scaled logit x at
+c · tanh(x / c) before the mask, as the reference's model attention
+(``models.attention._softcap``) does around its Pallas kernel, which has
+no cap; the kernel computes it inside, with the accurate ``tanhf``.
 
 The device of the input decides what runs: a CUDA tensor launches the
 hand-written kernel (``csrc/flash_attention.cu``) or raises, a CPU tensor
@@ -27,7 +30,10 @@ launch adds them in part order. No atomics: the
 same inputs give the same bits. It is the counterpart of XLA's
 derivative of the reference's training attention; the reference has no
 Pallas backward. ``reference_lse`` and ``reference_backward`` are the
-plain versions the backward is held to.
+plain versions the backward is held to. The backward of a soft-capped
+forward is not written yet (ROADMAP queue 2): with ``softcap`` > 0 it
+raises ``NotImplementedError`` on the card, where the CPU's plain version
+is differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -88,39 +94,43 @@ def _visible(sq, skv, causal, window, device):
     return ok
 
 
-def _logits(q, k, causal, window, scale):
-    """(B, H, Sq, Skv) float32 logits, scaled and masked with −2e9, and
-    the visibility mask; KV heads repeated to the query heads."""
+def _logits(q, k, causal, window, scale, softcap=0.0):
+    """(B, H, Sq, Skv) float32 logits, scaled, soft-capped when ``softcap``
+    > 0 and then masked with −2e9, and the visibility mask; KV heads
+    repeated to the query heads."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     kf = k.to(torch.float32).repeat_interleave(h // k.shape[2], dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
     ok = _visible(sq, skv, causal, window, q.device)
     return torch.where(ok[None, None], logits, NEG), ok
 
 
 def reference(q, k, v, *, causal: bool = True, window: int = 0,
-              scale: float | None = None):
+              scale: float | None = None, softcap: float = 0.0):
     """Plain PyTorch version, the reference's ``ref.flash_attention``:
-    float32 logits scaled after the product, masked with −2e9, softmax,
-    float32 product with v, cast to q's dtype; KV heads mapped to query
-    heads by repetition."""
+    float32 logits scaled after the product, soft-capped (``softcap`` >
+    0), masked with −2e9, softmax, float32 product with v, cast to q's
+    dtype; KV heads mapped to query heads by repetition."""
     _check(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     g = q.shape[2] // k.shape[2]
     vf = v.to(torch.float32).repeat_interleave(g, dim=2)
-    logits, _ = _logits(q, k, causal, window, scale)
+    logits, _ = _logits(q, k, causal, window, scale, softcap)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
 
 
 def reference_lse(q, k, v, *, causal: bool = True, window: int = 0,
-                  scale: float | None = None):
+                  scale: float | None = None, softcap: float = 0.0):
     """Plain version of the forward's second output: (B, H, Sq) float32
-    log-sum-exp of each row's scaled, masked logits."""
+    log-sum-exp of each row's scaled, soft-capped, masked logits."""
     _check(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
-    return torch.logsumexp(_logits(q, k, causal, window, scale)[0], dim=-1)
+    return torch.logsumexp(_logits(q, k, causal, window, scale, softcap)[0],
+                           dim=-1)
 
 
 def reference_backward(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -160,8 +170,8 @@ def reference_backward(q, k, v, out, lse, dout, *, causal: bool = True,
 def _kernel():
     fn = build.library("flash_attention").flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -236,7 +246,7 @@ def _prepare(q, k, v):
     return tuple(x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
 
 
-def _launch_forward(q, k, v, causal, window, scale, with_lse):
+def _launch_forward(q, k, v, causal, window, scale, with_lse, softcap=0.0):
     """The forward kernel on prepared inputs: (out, lse or None)."""
     global launches
     b, sq, h, hd = q.shape
@@ -251,7 +261,7 @@ def _launch_forward(q, k, v, causal, window, scale, with_lse):
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), 0 if lse is None else lse.data_ptr(),
                         b, sq, skv, h, kvh, hd, scale, int(causal),
-                        int(window), _DTYPES[q.dtype], stream)
+                        int(window), float(softcap), _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
@@ -290,12 +300,20 @@ def _launch_backward(q, k, v, out, lse, dout, causal, window, scale):
     return dq, dk, dv
 
 
+def _no_capped_backward(softcap) -> None:
+    if softcap > 0:
+        raise NotImplementedError(
+            "the backward of soft-capped flash_attention is not written yet "
+            "(ROADMAP queue 2)")
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel with its gradient: the forward launch with the row
     log-sum-exp kept, the backward launches on the saved tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, softcap=0.0):
+        _no_capped_backward(softcap)
         q, k, v = _prepare(q, k, v)
         out, lse = _launch_forward(q, k, v, causal, window, scale, True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -306,21 +324,24 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _launch_backward(q, k, v, out, lse, dout, *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def forward_with_lse(q, k, v, *, causal: bool = True, window: int = 0,
-                     scale: float | None = None):
+                     scale: float | None = None, softcap: float = 0.0):
     """The forward kernel with the row log-sum-exp written: (out, lse)."""
     q, k, v = _prepare(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
-    return _launch_forward(q, k, v, causal, window, scale, True)
+    return _launch_forward(q, k, v, causal, window, scale, True, softcap)
 
 
 def backward(q, k, v, out, lse, dout, *, causal: bool = True,
-             window: int = 0, scale: float | None = None):
+             window: int = 0, scale: float | None = None,
+             softcap: float = 0.0):
     """The backward launches on CUDA tensors, as ``backward_plan`` says:
-    (dq, dk, dv), held to ``reference_backward``."""
+    (dq, dk, dv), held to ``reference_backward``. A soft-capped forward's
+    backward raises ``NotImplementedError``."""
+    _no_capped_backward(softcap)
     q, k, v = _prepare(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     return _launch_backward(q, k, v, out.contiguous(), lse.contiguous(),
@@ -328,20 +349,25 @@ def backward(q, k, v, out, lse, dout, *, causal: bool = True,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None):
+                    scale: float | None = None, softcap: float = 0.0):
     """q (B, Sq, H, hd), k and v (B, Skv, KV, hd), float32 or bfloat16 →
     (B, Sq, H, hd) in q's dtype. ``scale`` defaults to 1/√hd (0 counts as
-    unset, as in the reference). A row whose keys are all masked averages
-    v over all Skv keys, as the reference's plain version does.
+    unset, as in the reference); ``softcap`` > 0 caps the scaled logits
+    (0 or less: no cap, as in the reference). A row whose keys are all
+    masked averages v over all Skv keys, as the reference's plain version
+    does.
 
     CUDA tensors run the kernel, CPU tensors the plain version. On a
     CUDA tensor with grad enabled and an input that requires grad, the
     call runs ``FlashAttentionFn``, whose backward runs the backward
-    kernels (``backward``)."""
+    kernels (``backward``); with a cap it raises ``NotImplementedError``
+    (ROADMAP queue 2)."""
+    softcap = float(softcap or 0.0)
     if q.device.type == "cpu":
-        return reference(q, k, v, causal=causal, window=window, scale=scale)
+        return reference(q, k, v, causal=causal, window=window, scale=scale,
+                         softcap=softcap)
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale, softcap)
     q, k, v = _prepare(q, k, v)
-    return _launch_forward(q, k, v, causal, window, scale, False)[0]
+    return _launch_forward(q, k, v, causal, window, scale, False, softcap)[0]

@@ -9,9 +9,13 @@ through it (training) runs the kernel's backward pair. Decode (one
 query over a cache with empty slots) stays the plain grouped attention,
 as the reference routes it. It serves the ``attn`` mixer and the
 attention branch of ``attn_ssm_parallel`` layers (``models.blocks``),
-global or sliding-window, over full or rolling caches. MLA,
-cross-attention and attention logit soft-capping are not ported yet
-(ROADMAP queue 1 item 10).
+global or sliding-window, over full or rolling caches, with the logits
+soft-capped where the config says so (grok-1: inside the kernel, before
+the mask, as the reference caps). ``chunked_attention`` is the
+reference's online-softmax scan over key chunks as a plain function; the
+port's prefill does not route to it, since the kernel takes long
+prompts, but the kernel's long-key cases are held to it. MLA and cross-attention are not ported yet (ROADMAP queue 1
+item 10).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from .common import apply_rope, init_dense
 
 BIG_NEG = -2.0e9  # mask value safe in bf16/f32
+KV_CHUNK = 1024  # keys a step of chunked_attention's scan
 
 UNPORTED = "is not ported yet (ROADMAP queue 1 item 10)"
 
@@ -33,8 +38,6 @@ def check_supported(cfg) -> None:
     """Raise for the attention variants the port does not run."""
     if cfg.use_mla:
         raise NotImplementedError(f"MLA attention {UNPORTED}")
-    if cfg.attn_logit_softcap and cfg.attn_logit_softcap > 0:
-        raise NotImplementedError(f"attention logit soft-capping {UNPORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -78,15 +81,25 @@ def mask_ok(q_pos, kv_pos, causal: bool, window: int):
     return ok
 
 
-def grouped_attention(q, k, v, q_pos, kv_pos, *, causal, window, scale=None):
+def _softcap(x, cap: float):
+    """cap · tanh(x / cap) where cap > 0, else x."""
+    if cap and cap > 0:
+        return torch.tanh(x / cap) * cap
+    return x
+
+
+def grouped_attention(q, k, v, q_pos, kv_pos, *, causal, window, softcap=0.0,
+                      scale=None):
     """q: (B,Sq,H,hd) — k,v: (B,Skv,KV,hd), KV | H — returns (B,Sq,H,hd_v).
-    The plain dense path: float32 logits over the grouped layout."""
+    The plain dense path: float32 logits over the grouped layout,
+    soft-capped, then masked."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
     scale = scale or 1.0 / math.sqrt(hd)
     qg = (q * scale).to(torch.float32).reshape(b, sq, kvh, g, hd)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32))
+    logits = _softcap(logits, softcap)
     ok = mask_ok(q_pos, kv_pos, causal, window)  # (B, Sq, Skv)
     logits = torch.where(ok[:, None, None], logits, BIG_NEG)
     probs = torch.softmax(logits, dim=-1)
@@ -94,19 +107,64 @@ def grouped_attention(q, k, v, q_pos, kv_pos, *, causal, window, scale=None):
     return out.reshape(b, sq, h, v.shape[-1])
 
 
-def attend(q, k, v, q_pos, kv_pos, *, causal, window, scale=None,
-           flash: bool = False):
-    """Attention of q over (k, v). ``flash`` is the caller's statement that
-    the keys sit at the query positions and those run consecutively along
-    the sequence (prefill, the cache-less forward); with more than one
-    query the ``flash_attention`` kernel then computes it (its masks
-    depend only on position differences). Otherwise the plain grouped
-    attention does."""
+def chunked_attention(q, k, v, q_pos, kv_pos, *, causal, window,
+                      softcap=0.0, scale=None, chunk=KV_CHUNK):
+    """The reference's online-softmax scan over key chunks of ``chunk``
+    (O(Sq·chunk) live memory), as a Python loop: the keys are padded to
+    whole chunks with position −1 (masked), each chunk's logits soft-capped
+    and masked, and (max, sum, acc) carried in float32. The plain
+    counterpart that the kernel's cases with keys past one chunk are held
+    to (tests/test_torch_flash_attention.py, tests/test_torch_cuda.py and
+    chip_smoke.py's phase 3); no serving path calls it."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    skv = k.shape[1]
+    hdv = v.shape[-1]
+    scale = scale or 1.0 / math.sqrt(hd)
+    pad = (-skv) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
+    qg = (q.to(torch.float32) * scale).reshape(b, sq, kvh, g, hd)
+    m = torch.full((b, kvh, g, sq), BIG_NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, hdv), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, k.shape[1], chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kb.to(torch.float32))
+        logits = _softcap(logits, softcap)
+        ok = mask_ok(q_pos, kv_pos[:, c0:c0 + chunk], causal, window)
+        logits = torch.where(ok[:, None, None], logits, BIG_NEG)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, vb.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4)  # (b, sq, kvh, g, hdv)
+    return out.reshape(b, sq, h, hdv).to(v.dtype)
+
+
+def attend(q, k, v, q_pos, kv_pos, *, causal, window, softcap=0.0,
+           scale=None, flash: bool = False):
+    """Attention of q over (k, v), logits soft-capped at ``softcap`` (0:
+    none). ``flash`` is the caller's statement that the keys sit at the
+    query positions and those run consecutively along the sequence
+    (prefill, the cache-less forward); with more than one query the
+    ``flash_attention`` kernel then computes it (its masks depend only on
+    position differences). Otherwise the plain grouped attention does."""
     if flash and q.shape[1] > 1:
         return flash_ops.flash_attention(q, k, v, causal=causal,
-                                         window=window, scale=scale)
+                                         window=window, scale=scale,
+                                         softcap=softcap)
     return grouped_attention(q, k, v, q_pos, kv_pos, causal=causal,
-                             window=window, scale=scale)
+                             window=window, softcap=softcap, scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +241,7 @@ def gqa_forward(p, x, positions, cfg, *, causal=True, window=0,
             cache = cache_write(cache, k, v, positions)
         k_all, v_all, kv_pos = k, v, positions
     out = attend(q, k_all, v_all, positions, kv_pos, causal=causal,
-                 window=window, flash=flash)
+                 window=window, softcap=cfg.attn_logit_softcap, flash=flash)
     h, hd, d = p["wo"].shape
     y = out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
     if "bo" in p:

@@ -1,10 +1,11 @@
-"""Layer blocks: (mixer → residual) → (dense FFN → residual), pre-norm —
-the port of the reference's ``models.blocks``. The mixer is attention
+"""Layer blocks: (mixer → residual) → (FFN → residual), pre-norm — the
+port of the reference's ``models.blocks``. The mixer is attention
 (``attn``), the SSD scan (``ssm``), the mean of both, each behind its own
-pre-norm (``attn_ssm_parallel``), or nothing (``none``). One
-``block_forward`` serves the forward, prefill and decode; a layer's cache
-holds ``kv`` and/or ``ssm``. Cross-attention and MoE are not ported yet
-(ROADMAP queue 1 item 10)."""
+pre-norm (``attn_ssm_parallel``), or nothing (``none``); the FFN is dense
+or the Mixture-of-Experts (``moe``), whose load-balancing loss the block
+returns. One ``block_forward`` serves the forward, prefill and decode; a
+layer's cache holds ``kv`` and/or ``ssm``. Cross-attention is not ported
+yet (ROADMAP queue 1 item 10)."""
 from __future__ import annotations
 
 import torch
@@ -19,8 +20,6 @@ def check_supported(spec) -> None:
     """Raise for the layer kinds the port does not run."""
     if spec.cross_attn:
         raise NotImplementedError(f"cross-attention {attn.UNPORTED}")
-    if spec.ffn == "moe":
-        raise NotImplementedError(f"the MoE FFN {attn.UNPORTED}")
 
 
 def _has_attn(spec) -> bool:
@@ -45,6 +44,9 @@ def block_shapes(spec, cfg) -> dict:
         shapes["ffn"] = ffn_mod.dense_shapes(cfg.d_model, cfg.d_ff,
                                              cfg.ffn_act, cfg.ffn_bias)
         shapes["norm_ffn"] = dict(norm)
+    elif spec.ffn == "moe":
+        shapes["ffn"] = ffn_mod.moe_shapes(cfg)
+        shapes["norm_ffn"] = dict(norm)
     return shapes
 
 
@@ -61,6 +63,9 @@ def block_params(gen, spec, cfg, dtype) -> dict:
     if spec.ffn == "dense":
         p["ffn"] = ffn_mod.dense_params(gen, cfg.d_model, cfg.d_ff,
                                         cfg.ffn_act, cfg.ffn_bias, dtype)
+        p["norm_ffn"] = norm_params(cfg.d_model, ln, dtype, gen.device)
+    elif spec.ffn == "moe":
+        p["ffn"] = ffn_mod.moe_params(gen, cfg, dtype)
         p["norm_ffn"] = norm_params(cfg.d_model, ln, dtype, gen.device)
     return p
 
@@ -106,10 +111,17 @@ def _mixer(p, spec, cfg, x, positions, cache, window, flash):
 
 def block_forward(p, spec, cfg, x, positions, cache=None, window=0,
                   flash=False):
-    """Returns (x, new_cache). ``flash``: see ``attention.gqa_forward``."""
+    """Returns (x, new_cache, aux_loss): aux is the MoE's load-balancing
+    loss, None for other FFNs (no tensor made where none is needed).
+    ``flash``: see ``attention.gqa_forward``."""
+    aux = None
     mix, new_cache = _mixer(p, spec, cfg, x, positions, cache, window, flash)
     x = x + mix
     if spec.ffn == "dense":
         h = apply_norm(p["norm_ffn"], x, cfg.norm_eps, cfg.use_layernorm)
         x = x + ffn_mod.dense_forward(p["ffn"], h, cfg.ffn_act)
-    return x, new_cache
+    elif spec.ffn == "moe":
+        h = apply_norm(p["norm_ffn"], x, cfg.norm_eps, cfg.use_layernorm)
+        y, aux = ffn_mod.moe_forward(p["ffn"], h, cfg)
+        x = x + y
+    return x, new_cache, aux

@@ -24,7 +24,7 @@ def init_dense(gen: torch.Generator, shape, in_axes=(0,), dtype=torch.float32,
     fan_in = int(np.prod([shape[a] for a in in_axes]))
     out = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (out * (scale / math.sqrt(fan_in))).to(dtype)
+    return out.mul_(scale / math.sqrt(fan_in)).to(dtype)  # in place: no copy
 
 
 def rmsnorm(x, scale, eps):

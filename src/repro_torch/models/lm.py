@@ -1,8 +1,9 @@
 """Top-level model: embedding → layer groups → norm → LM head — the port
 of the reference's ``models.lm`` for decoder-only models whose layers
-mix by attention, the SSD scan or both in parallel, with dense FFNs
-(llama3.2-1b, yi-9b, starcoder2-3b, command-r-plus-104b, mamba2-2.7b,
-hymba-1.5b).
+mix by attention (soft-capped where the config says so), the SSD scan or
+both in parallel, with dense or Mixture-of-Experts FFNs (llama3.2-1b,
+yi-9b, starcoder2-3b, command-r-plus-104b, mamba2-2.7b, hymba-1.5b,
+grok-1-314b).
 
 * ``forward(params, cfg, batch)``          — full-sequence logits
 * ``prefill(params, cfg, batch, cache)``   — fill caches, last logits
@@ -18,12 +19,13 @@ writes into no tensor that autograd saved, so ``lm_loss`` differentiates
 through it. ``use_kernel=False`` takes the plain grouped attention for
 prefill and the forward, the reference's own route; otherwise they run on
 the ``flash_attention`` kernel, and a gradient through the forward on the
-card runs the kernel's backward. The SSD scan is plain tensor operations
-on either route (``models.ssm``).
+card runs the kernel's backward (not yet for soft-capped attention,
+which raises there). The SSD scan and the MoE's routing, dispatch and
+combine are plain tensor operations on either route (``models.ssm``,
+``models.ffn``).
 
-Encoder-decoder models, vision/audio frontends, MoE, MLA,
-cross-attention and attention logit soft-capping raise
-``NotImplementedError`` (ROADMAP queue 1 item 10).
+Encoder-decoder models, vision/audio frontends, MLA and cross-attention
+raise ``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -39,6 +41,10 @@ from . import attention as attn_mod
 from . import blocks
 from . import ssm as ssm_mod
 from .common import apply_norm, dtype_of, init_dense, norm_params
+
+# leaves kept in float32 whatever param_dtype is: the SSM's decay and skip
+# terms and the MoE router
+FLOAT32_LEAVES = ssm_mod.FLOAT32_LEAVES + ("router",)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -88,7 +94,8 @@ def abstract_params(cfg: ModelConfig) -> dict:
     """The parameter tree as tensors on the ``meta`` device: shapes and
     dtypes, no storage — the counterpart of the reference's
     ``jax.eval_shape`` of ``init_params``. Leaves take ``param_dtype``,
-    except the SSM's ``a_log``, ``dt_bias`` and ``d_skip`` (float32)."""
+    except ``FLOAT32_LEAVES``: the SSM's ``a_log``, ``dt_bias`` and
+    ``d_skip`` and the MoE's ``router``."""
     dtype = dtype_of(cfg.param_dtype)
 
     def conv(tree, name=None):
@@ -96,7 +103,7 @@ def abstract_params(cfg: ModelConfig) -> dict:
             return {k: conv(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [conv(v) for v in tree]
-        leaf = (torch.float32 if name in ssm_mod.FLOAT32_LEAVES else dtype)
+        leaf = torch.float32 if name in FLOAT32_LEAVES else dtype
         return torch.empty(tree, dtype=leaf, device="meta")
 
     return conv(param_shapes(cfg))
@@ -170,19 +177,22 @@ def _head(p, cfg, x):
 
 
 def _run_layers(p, cfg, x, positions, cache_groups=None, flash=False):
-    """Every layer in order; returns (x, new cache groups or None)."""
-    new_groups = []
+    """Every layer in order; returns (x, new cache groups or None, the
+    MoE layers' aux losses summed, or None without MoE)."""
+    new_groups, aux = [], None
     for gi, (gp, spec) in enumerate(zip(p["dec"], cfg.layers)):
         windows = spec.window_list()
         new_layers = []
         for li, lp in enumerate(gp):
             lc = None if cache_groups is None else cache_groups[gi][li]
-            x, lc = blocks.block_forward(lp, spec, cfg, x, positions,
-                                         cache=lc, window=windows[li],
-                                         flash=flash)
+            x, lc, a = blocks.block_forward(lp, spec, cfg, x, positions,
+                                            cache=lc, window=windows[li],
+                                            flash=flash)
+            if a is not None:
+                aux = a if aux is None else aux + a
             new_layers.append(lc)
         new_groups.append(new_layers)
-    return x, (None if cache_groups is None else new_groups)
+    return x, (None if cache_groups is None else new_groups), aux
 
 
 # ---------------------------------------------------------------------------
@@ -190,14 +200,16 @@ def _run_layers(p, cfg, x, positions, cache_groups=None, flash=False):
 # ---------------------------------------------------------------------------
 
 def forward(p, cfg: ModelConfig, batch: dict, *, use_kernel: bool = True):
-    """batch: tokens (B,S). Returns (logits (B,S,V) float32, aux loss 0)."""
+    """batch: tokens (B,S). Returns (logits (B,S,V) float32, aux loss: the
+    MoE layers' load-balancing losses summed, 0 without MoE)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     positions = _positions(*tokens.shape, tokens.device)
     x = _embed_tokens(p, cfg, tokens)
-    x, _ = _run_layers(p, cfg, x, positions, flash=use_kernel)
-    return _head(p, cfg, x), torch.zeros((), dtype=torch.float32,
-                                         device=x.device)
+    x, _, aux = _run_layers(p, cfg, x, positions, flash=use_kernel)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(p, cfg, x), aux
 
 
 def group_kv_len(spec: LayerSpec, kv_len: int) -> int:
@@ -235,8 +247,8 @@ def prefill(p, cfg: ModelConfig, batch: dict, cache, *,
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed_tokens(p, cfg, tokens)
-    x, groups = _run_layers(p, cfg, x, positions, cache["groups"],
-                            flash=use_kernel)
+    x, groups, _ = _run_layers(p, cfg, x, positions, cache["groups"],
+                               flash=use_kernel)
     logits = _head(p, cfg, x[:, -1:])[:, 0]
     return logits, {"pos": s, "groups": groups}
 
@@ -249,7 +261,7 @@ def decode_step(p, cfg: ModelConfig, token, cache):
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=token.device)
     x = _embed_tokens(p, cfg, token[:, None])
-    x, groups = _run_layers(p, cfg, x, positions, cache["groups"])
+    x, groups, _ = _run_layers(p, cfg, x, positions, cache["groups"])
     logits = _head(p, cfg, x)[:, 0]
     return logits, {"pos": pos + 1, "groups": groups}
 
@@ -262,9 +274,10 @@ def lm_loss(p, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01, *,
             use_kernel: bool = True):
     """Causal-LM cross-entropy. Returns (loss, metrics): masked
     log-sum-exp minus the gold logit, averaged over the labelled tokens
-    (labels < 0 are masked), plus ``aux_weight`` times the aux loss (0:
-    no MoE is ported). metrics carries ``per_example_nll`` (B,) — the
-    interestingness hook — and the token count."""
+    (labels < 0 are masked), plus ``aux_weight`` times the MoE layers'
+    load-balancing loss (0 without MoE). metrics carries
+    ``per_example_nll`` (B,) — the interestingness hook — and the token
+    count."""
     logits, aux = forward(p, cfg, batch, use_kernel=use_kernel)
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)

@@ -1980,3 +1980,138 @@ def test_train_step_on_card_equals_cpu(cuda_device):
         torch.testing.assert_close(card.reservoir.ids.cpu(),
                                    nxt.reservoir.ids)
         cpu = nxt
+
+
+# ---------------------------------------------------------------------------
+# soft-capped flash_attention and the MoE score producer (grok-1-314b)
+# ---------------------------------------------------------------------------
+
+# (b, sq, skv, h, kvh, hd, causal, window, softcap, q scale): grok-1's
+# heads (48 over 8, head dim 128) at cap 30; a ragged windowed case where
+# a cap of 5 bites hard (logits up to ~±50); Sq < Skv; rows with no key
+FA_CAP_CASES = [(1, 256, 256, 48, 8, 128, True, 0, 30.0, 1.0),
+                (1, 300, 300, 6, 2, 64, True, 100, 5.0, 8.0),
+                (2, 100, 333, 4, 1, 128, True, 0, 5.0, 8.0),
+                (1, 96, 96, 4, 4, 32, False, 0, 2.0, 4.0),
+                (1, 40, 24, 2, 1, 16, True, 0, 5.0, 4.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window,cap,qs",
+                         FA_CAP_CASES)
+def test_flash_attention_softcap_equals_plain(b, sq, skv, h, kvh, hd, causal,
+                                              window, cap, qs, dtype,
+                                              cuda_device):
+    """The capped kernel against its plain version (cap before the mask):
+    output within 2e-5 in float32 and 2e-2 in bfloat16, the row
+    log-sum-exp of the capped logits within the same, one launch a
+    call."""
+    q, k, v = (torch.tensor(x, device=cuda_device)
+               for x in fa_case(b, sq, skv, h, kvh, hd, sq + skv + 3))
+    q, k, v = (q * qs).to(dtype), k.to(dtype), v.to(dtype)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    before = t_fa.launches
+    out = t_fa.flash_attention(q, k, v, **kw)
+    o2, lse = t_fa.forward_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert t_fa.launches == before + 2
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    ref = t_fa.reference(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, o2)
+    torch.testing.assert_close(lse, t_fa.reference_lse(q, k, v, **kw),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_capped_backward_raises(cuda_device):
+    """No backward for a soft-capped forward yet: the autograd route and
+    ops.backward raise, and nothing falls back to the plain version."""
+    q, k, v = (torch.tensor(x, device=cuda_device)
+               for x in fa_case(1, 64, 64, 2, 2, 64, 9))
+    out, lse = t_fa.forward_with_lse(q, k, v, softcap=30.0)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        t_fa.backward(q, k, v, out, lse, torch.ones_like(q), softcap=30.0)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        t_fa.flash_attention(q.requires_grad_(True), k, v, softcap=30.0)
+    with torch.no_grad():  # serving needs no backward
+        t_fa.flash_attention(q, k, v, softcap=30.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor,shape", [(2.0, (2, 24)), (1.25, (3, 21))])
+def test_moe_forward_on_card_equals_cpu(factor, shape, cuda_device):
+    """Reduced grok-1's MoE layer on the card (routing, dispatch and
+    combine as plain tensor operations, the experts as batched products)
+    against the CPU's: the same routes, output and aux within 2e-5;
+    dropless and with drops and a padded group."""
+    from repro_torch.models import ffn
+    cfg = t_configs.get_config("grok-1-314b", reduced=True).replace(
+        capacity_factor=factor)
+    p = ffn.moe_params(torch.Generator().manual_seed(1), cfg, torch.float32)
+    x = torch.tensor(np.random.default_rng(2).standard_normal(
+        (*shape, cfg.d_model)).astype(np.float32))
+    y, aux = ffn.moe_forward(p, x, cfg)
+    yc, auxc = ffn.moe_forward(params_to(p, cuda_device), x.to(cuda_device),
+                               cfg)
+    torch.testing.assert_close(yc.cpu(), y, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(auxc.cpu(), aux, rtol=2e-5, atol=2e-5)
+    logits = torch.randn((2, 16, cfg.n_experts), generator=torch.Generator(
+        ).manual_seed(3))
+    torch.testing.assert_close(
+        ffn.moe_dispatch(logits.to(cuda_device), 2, 6, True).cpu(),
+        ffn.moe_dispatch(logits, 2, 6, True), rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_serve_moe_on_card_equals_cpu(cuda_device):
+    """Reduced grok-1-314b served on the card (capped flash_attention in
+    each prefill layer, the MoE as plain tensor operations, entropy_scores
+    per decode step) against the CPU's run with the same weights: exact
+    launch counts, tokens equal, scores within 2e-5, retention equal."""
+    cfg = t_configs.get_config("grok-1-314b", reduced=True)
+    cpu = t_lm.init_params(cfg, seed=0, device="cpu")
+    run = dict(requests=24, batch=8, prompt_len=8, gen_len=6, topk=8)
+    t_fa.launches = t_ent.launches = 0
+    res = t_serve.serve(cfg, params_to(cpu, cuda_device), device=cuda_device,
+                        **run)
+    assert (t_fa.launches, t_ent.launches) == (cfg.n_layers * 3, 5 * 3)
+    ref = t_serve.serve(cfg, cpu, device="cpu", **run)
+    np.testing.assert_array_equal(res.tokens, ref.tokens)
+    np.testing.assert_allclose(res.scores, ref.scores, rtol=2e-5, atol=2e-5)
+    assert np.diff(np.sort(ref.scores)).min() > 4e-5
+    assert res.retained == ref.retained
+    assert res.store.ledger.as_dict() == ref.store.ledger.as_dict()
+
+
+# keys past one KV_CHUNK of chunked_attention's scan (b, sq, skv, h, kvh,
+# hd, window, softcap, q scale): phase 3's 4096-key window over 4608 keys
+# and its capped case over three chunks
+FA_LONG_CASES = [(1, 4608, 4608, 8, 2, 128, 4096, 0.0, 1.0),
+                 (1, 1300, 1300, 4, 2, 64, 0, 5.0, 8.0),
+                 (1, 700, 2200, 8, 2, 128, 1500, 5.0, 8.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,window,cap,qs", FA_LONG_CASES)
+def test_flash_attention_long_keys_equal_chunked_attention(
+        b, sq, skv, h, kvh, hd, window, cap, qs, cuda_device):
+    """The kernel's long-key cases against the model's chunked_attention
+    (the reference's scan over key chunks) on the card, float32 within
+    2e-5."""
+    from repro_torch.models import attention as t_attn
+    q, k, v = (torch.tensor(x, device=cuda_device)
+               for x in fa_case(b, sq, skv, h, kvh, hd, skv + 7))
+    q = q * qs
+    kw = dict(causal=True, window=window, softcap=cap)
+    before = t_fa.launches
+    out = t_fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert t_fa.launches == before + 1
+    qp = torch.arange(skv - sq, skv, device=cuda_device).expand(b, sq)
+    kp = torch.arange(skv, device=cuda_device).expand(b, skv)
+    torch.testing.assert_close(
+        out, t_attn.chunked_attention(q, k, v, qp, kp, **kw), rtol=2e-5,
+        atol=2e-5)

@@ -9,6 +9,7 @@ Tolerance: 2e-5 in float32 and 2e-2 in bfloat16, those of the reference's
 own tests (the softmax sums in another order; bfloat16 rounds the
 output).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -304,3 +305,93 @@ def test_backward_plan_small_grids():
     # 256 blocks of 128 keys at head dim 128: 2 parts fall short, 3 reach
     plan = t_ops.backward_plan(1, 12, 1, 32_768, 32_768, 128)
     assert plan["split"] == 3 and plan["blocks"] == 768
+
+
+# ---------------------------------------------------------------------------
+# soft-capping: the reference caps in its model attention, not its kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cap", [30.0, 5.0])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,window", [
+    (2, 48, 48, 6, 2, 0),     # grouped, causal
+    (1, 40, 72, 4, 4, 24),    # Sq < Skv under a window
+])
+def test_plain_softcap_matches_model_grouped_attention(b, sq, skv, h, kvh,
+                                                       window, hd, cap):
+    """``reference(..., softcap=)`` and ``reference_lse`` against the
+    reference's ``models.attention.grouped_attention`` with ``softcap``
+    (and the log-sum-exp of its capped, masked logits), q scaled so the
+    logits reach ±50 and the cap bites."""
+    from repro.models import attention as r_attn
+    q, k, v = make(b, sq, skv, h, hd, kvh=kvh, seed=13)
+    q = q * 4.0 * np.float32(hd) ** 0.25
+    qpos = np.broadcast_to(np.arange(skv - sq, skv, dtype=np.int32), (b, sq))
+    kpos = np.broadcast_to(np.arange(skv, dtype=np.int32), (b, skv))
+    qj, kj, vj = to_jax((q, k, v), jnp.float32)
+    kw = dict(causal=True, window=window)
+    want = r_attn.grouped_attention(qj, kj, vj, jnp.asarray(qpos),
+                                    jnp.asarray(kpos), softcap=cap, **kw)
+    tq, tk, tv = to_torch((q, k, v), torch.float32)
+    got = t_ops.flash_attention(tq, tk, tv, softcap=cap, **kw)
+    close(got, want, 2e-5)
+    close(t_ops.reference(tq, tk, tv, softcap=cap, **kw), want, 2e-5)
+    # the reference's capped, masked logits (B, KV, g, Sq, Skv), their
+    # log-sum-exp laid out (B, H, Sq) as the kernel writes it
+    g = h // kvh
+    qg = (qj / np.sqrt(hd)).reshape(b, sq, kvh, g, hd)
+    logits = r_attn._softcap(jnp.einsum("bqkgd,bskd->bkgqs", qg, kj), cap)
+    ok = r_attn.mask_ok(jnp.asarray(qpos), jnp.asarray(kpos), True, window)
+    logits = jnp.where(ok[:, None, None], logits, r_attn.BIG_NEG)
+    lse = jax.nn.logsumexp(logits, axis=-1).reshape(b, h, sq)
+    close(t_ops.reference_lse(tq, tk, tv, softcap=cap, **kw), lse, 2e-5)
+    assert float(np.abs(np.asarray(logits)).max()) > cap * 0.99
+    uncapped = t_ops.reference(tq, tk, tv, **kw)
+    assert float((uncapped - got).abs().max()) > 1e-3
+
+
+def test_softcap_zero_or_negative_is_no_cap():
+    arrays = to_torch(make(1, 32, 32, 2, 16, seed=14), torch.float32)
+    out = t_ops.flash_attention(*arrays)
+    for cap in (0.0, -1.0, None):
+        torch.testing.assert_close(t_ops.flash_attention(*arrays, softcap=cap),
+                                   out, rtol=0, atol=0)
+
+
+def test_softcap_gradient_on_the_cpu_is_autograd_of_the_plain_version():
+    """On the CPU the capped forward is the plain version, which autograd
+    differentiates (the card's capped backward is not written yet)."""
+    q, k, v = (x.requires_grad_(True) for x in to_torch(
+        make(1, 24, 24, 4, 16, kvh=2, seed=15), torch.float32))
+    out = t_ops.flash_attention(q * 4, k, v, softcap=5.0)
+    gq, gk, gv = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert all(bool(torch.isfinite(x).all()) and bool(x.abs().any())
+               for x in (gq, gk, gv))
+
+
+# (b, sq, skv, h, kvh, hd, window, softcap, q scale): keys past one
+# KV_CHUNK of chunked_attention's scan; the 4096-key window over 4608 keys
+# (the card's long-key case, fewer heads); a cap of 5 that bites past one
+# chunk; Sq < Skv over three chunks under a window of 1500
+LONG_KEY_CASES = [(1, 4608, 4608, 2, 1, 128, 4096, 0.0, 1.0),
+                  (1, 1300, 1300, 4, 2, 64, 0, 5.0, 8.0),
+                  (1, 700, 2200, 4, 2, 128, 1500, 5.0, 8.0)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,window,cap,qs", LONG_KEY_CASES)
+def test_long_keys_match_chunked_attention(b, sq, skv, h, kvh, hd, window,
+                                           cap, qs):
+    """flash_attention's long-key cases against the model's
+    ``chunked_attention`` (the reference's online-softmax scan over key
+    chunks, which the kernel replaces on long prompts) within 2e-5 in
+    float32, the query positions the suffix of the keys' as the kernel
+    places them."""
+    from repro_torch.models import attention as t_attn
+    q, k, v = make(b, sq, skv, h, hd, kvh=kvh, seed=16)
+    tq, tk, tv = to_torch((q * qs, k, v), torch.float32)
+    assert skv > t_attn.KV_CHUNK
+    kw = dict(causal=True, window=window, softcap=cap)
+    qp = torch.arange(skv - sq, skv).expand(b, sq)
+    kp = torch.arange(skv).expand(b, skv)
+    close(t_ops.flash_attention(tq, tk, tv, **kw),
+          t_attn.chunked_attention(tq, tk, tv, qp, kp, **kw), 2e-5)

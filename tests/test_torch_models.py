@@ -28,9 +28,8 @@ from repro_torch.models import lm as t_lm
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 PORTED = ["llama3.2-1b", "yi-9b", "starcoder2-3b", "command-r-plus-104b",
-          "mamba2-2.7b", "hymba-1.5b"]
-UNPORTED = {"deepseek-v2-236b": "MoE FFN|MLA",
-            "grok-1-314b": "soft-capping|MoE FFN",
+          "mamba2-2.7b", "hymba-1.5b", "grok-1-314b"]
+UNPORTED = {"deepseek-v2-236b": "MLA",
             "whisper-base": "encoder-decoder", "pixtral-12b": "frontend"}
 
 
@@ -110,20 +109,24 @@ def test_init_dense_is_a_truncated_fan_in_normal():
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "yi-9b", "starcoder2-3b",
-                                  "mamba2-2.7b", "hymba-1.5b"])
+                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b"])
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_forward_matches_reference(arch, use_kernel):
+    """Logits and the aux loss (the MoE layers' load-balancing loss,
+    exactly 0 without MoE)."""
     cfg, params, tcfg, tparams = ref_setup(arch)
     toks = tokens_for(cfg, 2, 24)
-    ref, _ = r_lm.forward(params, cfg, {"tokens": jnp.asarray(toks)})
+    ref, r_aux = r_lm.forward(params, cfg, {"tokens": jnp.asarray(toks)})
     got, aux = t_lm.forward(tparams, tcfg, {"tokens": torch.tensor(toks)},
                             use_kernel=use_kernel)
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
     close(got, ref)
+    close(aux, r_aux)
+    assert (float(aux) == 0.0) == (cfg.n_experts == 0)
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b",
-                                  "mamba2-2.7b", "hymba-1.5b"])
+                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b"])
 def test_prefill_and_decode_match_reference(arch):
     """Logits of the prefill and of each decode step, then every layer's
     cache against the reference's: the KV cache's positions exactly (a
@@ -173,7 +176,7 @@ def test_prefill_and_decode_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b",
-                                  "mamba2-2.7b", "hymba-1.5b"])
+                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b"])
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_prefill_then_decode_matches_forward(arch, use_kernel):
     tcfg = t_configs.get_config(arch, reduced=True)
@@ -203,11 +206,32 @@ def test_unported_families_raise(arch):
             call()
 
 
-def test_attention_softcap_raises():
-    cfg = t_configs.get_config("llama3.2-1b", reduced=True).replace(
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_attention_softcap_forward_matches_reference(use_kernel):
+    """Reduced llama3.2-1b with its attention logits soft-capped at 30 (no
+    head cap): logits against the reference's forward, through the
+    kernel's plain version and the grouped attention; the cap moves
+    them."""
+    cfg = r_configs.get_config("llama3.2-1b", reduced=True).replace(
         attn_logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="soft-capping"):
-        t_lm.init_params(cfg, device="cpu")
+    tcfg = t_configs.get_config("llama3.2-1b", reduced=True).replace(
+        attn_logit_softcap=30.0)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(2))
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    # larger query weights, so that the cap bites
+    for lp in tparams["dec"][0]:
+        lp["attn"]["wq"] = lp["attn"]["wq"] * 8.0
+    params["dec"][0]["attn"]["wq"] = params["dec"][0]["attn"]["wq"] * 8.0
+    toks = tokens_for(cfg, 2, 24)
+    ref, _ = r_lm.forward(params, cfg, {"tokens": jnp.asarray(toks)})
+    got, _ = t_lm.forward(tparams, tcfg, {"tokens": torch.tensor(toks)},
+                          use_kernel=use_kernel)
+    close(got, ref)
+    plain, _ = t_lm.forward(tparams, tcfg.replace(attn_logit_softcap=0.0),
+                            {"tokens": torch.tensor(toks)},
+                            use_kernel=use_kernel)
+    assert float((plain - got).abs().max()) > 1e-4
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
@@ -219,11 +243,12 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", "hymba-1.5b",
+                                  "grok-1-314b"])
 def test_abstract_params_dtypes_equal_reference(arch):
     """Leaf by leaf, shapes and dtypes of ``abstract_params`` against the
     reference's ``jax.eval_shape`` at bfloat16 parameters: the SSM's
-    a_log, dt_bias and d_skip stay float32."""
+    a_log, dt_bias and d_skip and the MoE's router stay float32."""
     cfg = r_configs.get_config(arch, reduced=True).with_dtypes("bfloat16",
                                                                "bfloat16")
     tcfg = t_configs.get_config(arch, reduced=True).with_dtypes("bfloat16",

@@ -97,6 +97,20 @@ def ssm_family(request):
     return cfg, params, tcfg, tparams
 
 
+@pytest.fixture(scope="module")
+def moe():
+    """Reduced grok-1-314b (two attn + MoE layers: 4 experts, top-2, groups
+    of 16, dropless; both soft-caps at 30) with the reference's weights.
+    Prefill routes the batch's 64 prompt tokens in 4 groups, each decode
+    step its 8 tokens in one group."""
+    cfg = r_configs.get_config("grok-1-314b", reduced=True)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(3))
+    tcfg = t_configs.get_config("grok-1-314b", reduced=True)
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    return cfg, params, tcfg, tparams
+
+
 @pytest.fixture(autouse=True)
 def numpy_reference_planner():
     prev = r_shp.set_planner_backend("numpy")
@@ -222,6 +236,28 @@ def test_serve_ssm_and_hybrid_reduced_match_reference(example, ssm_family):
     within 2e-5, curation and retention equal, the retained set the
     top-K of the scores."""
     cfg, params, tcfg, tparams = ssm_family
+    r_scores, r_tokens, r_curator, r_store, _ = reference_serve(
+        example, cfg, params, **RUN)
+    res = t_serve.serve(tcfg, tparams, tenants=1, device="cpu", **RUN)
+    np.testing.assert_array_equal(res.tokens, r_tokens)
+    np.testing.assert_allclose(res.scores, r_scores, rtol=TOL, atol=TOL)
+    assert_no_near_tie(r_scores)
+    assert res.curator.stats.as_dict() == r_curator.stats.as_dict()
+    assert res.store.ledger.as_dict() == r_store.ledger.as_dict()
+    retained, ours = r_curator.finalize(), res.curator.finalize()
+    assert res.retained == sorted(retained) == sorted(ours)
+    for d in retained:
+        np.testing.assert_array_equal(ours[d].numpy(), np.asarray(retained[d]))
+    want = np.lexsort((np.arange(len(r_scores)), -r_scores))[:RUN["topk"]]
+    assert res.retained == sorted(want.tolist())
+
+
+def test_serve_moe_reduced_matches_reference(example, moe):
+    """The serve loop on the family chip_smoke.py serves at full width as
+    grok-1-314b (soft-capped attention, MoE FFNs, a soft-capped head):
+    tokens equal, scores within 2e-5, curation and retention equal, the
+    retained set the top-K of the scores."""
+    cfg, params, tcfg, tparams = moe
     r_scores, r_tokens, r_curator, r_store, _ = reference_serve(
         example, cfg, params, **RUN)
     res = t_serve.serve(tcfg, tparams, tenants=1, device="cpu", **RUN)
@@ -413,6 +449,16 @@ def test_cli_serves_on_cpu(capsys):
                   "--prompt-len", "4", "--tenants", "2"])
     out = capsys.readouterr().out
     assert "served 12 requests" in out and "tenant 1: top-4" in out
+
+
+def test_cli_serves_grok_on_cpu(capsys):
+    """``--arch grok-1-314b`` (the reduced MoE with soft-capping) runs
+    through the launcher's existing flags."""
+    t_serve.main(["--device", "cpu", "--arch", "grok-1-314b", "--requests",
+                  "12", "--gen-len", "3", "--prompt-len", "4"])
+    out = capsys.readouterr().out
+    assert "serving reduced grok-1-314b on cpu" in out
+    assert "served 12 requests" in out
 
 
 # ---------------------------------------------------------------------------

@@ -389,6 +389,41 @@ def test_lm_loss_and_grads_match_reference_ssm_families(arch, use_kernel):
         _rel_close(g.numpy(), want[path].numpy(), 1e-5, str(path))
 
 
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_lm_loss_aux_and_grads_match_reference_moe(use_kernel):
+    """Reduced grok-1-314b (soft-capped attention, two MoE layers of 4
+    experts, top-2, groups of 16; 8 x 32 tokens in 16 groups): the loss
+    with aux_weight times the load-balancing loss, the aux itself, and
+    every gradient (the router's through the gates and the aux; the
+    experts' through the dispatched slots) against jax.value_and_grad of
+    the reference's lm_loss. The CPU's plain attention differentiates
+    through the cap."""
+    cfg = r_configs.get_config("grok-1-314b", reduced=True)
+    tcfg = t_configs.get_config("grok-1-314b", reduced=True)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(3))
+    batch = r_pipe.StreamLoader(cfg, R_SHAPE, seed=4).batch_for_step(0)
+    batch["labels"][0, :5] = -1  # masked labels count nowhere
+    (r_loss, r_met), r_grads = jax.value_and_grad(
+        lambda p: r_lm.lm_loss(p, cfg, jax.tree.map(jnp.asarray, batch),
+                               aux_weight=0.5), has_aux=True)(params)
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    loss, met, grads = t_steps.loss_and_grads(
+        tparams, tcfg, _to_torch(batch), 0.5, use_kernel=use_kernel)
+    np.testing.assert_allclose(float(loss), float(r_loss), rtol=1e-5)
+    for key in ("loss", "aux_loss", "per_example_nll", "tokens"):
+        np.testing.assert_allclose(met[key].numpy(), np.asarray(r_met[key]),
+                                   rtol=1e-5)
+    assert float(met["aux_loss"]) > 0
+    want = dict(_leaves_with_paths(t_lm.from_reference_params(
+        jax.tree.map(np.asarray, r_grads), tcfg, device="cpu")))
+    assert want.keys() == dict(_leaves_with_paths(grads)).keys()
+    assert any("router" in p for p in want)
+    for path, g in _leaves_with_paths(grads):
+        assert g.shape == want[path].shape and bool(g.abs().any()), path
+        _rel_close(g.numpy(), want[path].numpy(), 1e-5, str(path))
+
+
 def _check_params(t_params, r_params, r_m, lr, what):
     """The parameters' tolerance of the module docstring."""
     want = dict(_leaves_with_paths(_port_tree(r_params)))
