@@ -54,7 +54,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    queries and 6 of 2048): float32 within 1e-4 of each plain gradient's
    largest magnitude, bfloat16 within 2e-2, and a second call bit-equal
    to the first; the backward of a capped forward must raise
-   NotImplementedError;
+   NotImplementedError; flash_attention at MLA's unequal head dims (q/k
+   192, v 128; deepseek-v2-236b's prefill of 8 x 1024 at 128 heads, a
+   ragged Sq < Skv case, rows with no key, and the reduced config's 24
+   and 16) with its log-sum-exp, and past one latent chunk (1,300 keys)
+   against the model's _mla_attend_latent_chunked on the same latents;
+   the backward at unequal head dims must raise NotImplementedError;
 4. timings: each kernel, its plain version and its bound (bytes, or
    operations where they take longer), with the PyTorch call that
    computes the same function where there is one; flash_attention and
@@ -63,7 +68,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    capped prefill beside the same launch uncapped, flex_attention with
    a tanh score_mod (compiled; held once to the plain version) and SDPA
    uncapped, and the uncapped launches at the other three shapes held
-   within the spread PERF.md records for them plus 5% on a 700 W card),
+   within the spread PERF.md records for them plus 5% on a 700 W card;
+   deepseek-v2-236b's MLA prefill at head dims 192 and 128 beside SDPA
+   with is_causal and the same scale, its backend named),
    batched_topk and tier_assign at the main path's, logmem_update and
    topk_filter at their paths' shapes and a large one, and each
    plan_solve launch (with the kernel and launch plan it took; the
@@ -130,7 +137,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 13. drift-aware re-planning at fleet scale: examples/online_replanning.py's
    setting (K=64, windows of 12,000 docs, an 8x record-rate burst at doc
    3,000, chunks of 64, DriftConfig(alpha=0.05)) through
-   StreamEngine(replan=) on the card, meter on: 13a 32,768 two-tier
+   StreamEngine(replan=) on the card, meter on: 13a 16,384 two-tier
    tenants of the example's make_fleet shape (costs jittered, hot tier
    of 4K docs), 13b 4,096 four-tier tenants drawn as
    tests/test_constraints.py draws its N-tier models, with K/2 caps on
@@ -165,7 +172,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    setting (K=64, windows of 12,000 docs, the first half of the tenants
    with an 8x burst at doc 3,000, chunks of 64, TierCapacity(0, 4K),
    ObsConfig(costs=True, cost_trigger=True, cost_alpha=0.01,
-   budget_factor=1.2), DriftConfig(alpha=1e-9)) at 32,768 tenants,
+   budget_factor=1.2), DriftConfig(alpha=1e-9)) at 8,192 tenants,
    meter on, chunks made one at a time from a seeded generator: the
    chain (cost or burn alerts on drifted tenants, cost-triggered
    re-plans applied, the drifted tenants' realized-cost slope lower
@@ -303,18 +310,44 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    against the capacity, peak memory; profiles of a prefill and of
    decode steps, with the device spans of the MoE's router, dispatch,
    expert products and combine (its record_function ranges) and their
-   shares of each window's device time.
+   shares of each window's device time;
+20. the MLA score producer: deepseek-v2-236b at full width (d_model
+   5120, MLA with 128 heads, kv_lora 512, q_lora 1536, q/k head dim 128
+   nope + 64 rope, v head dim 128; a dense layer of d_ff 12,288, then
+   MoE layers of 160 routed experts of d_ff 1536, top-6, 2 shared,
+   groups of 512 at capacity factor 1.25; vocab 102,400, untied;
+   float32, seeded random weights on the card) with its depth cut to 3
+   of its 60 layers (layer 0 and 2 of the 59 identical MoE layers;
+   9.33e9 parameters; the whole model's 2.36e11 fit no card), serving
+   16 requests in batches of 8 (prompts of 1024, 32 generated, top-8):
+   phase 19's checks (the first batch teacher-forced through both
+   routes with the routing compared, decode against the forward at the
+   dropless capacity on 2 rows of 256 + 8 tokens: the absorbed decode
+   over the latent cache against the expanded forward on the kernel; one
+   counted serve run with exact launches, 6 flash_attention at head dims
+   192 and 128 and 62 entropy_scores; the retained set against the
+   top-K; dropped token-choices and each expert's demand), the latent
+   caches' bytes beside a GQA KV cache's of the same heads, peak memory,
+   and profiles of a prefill and of decode steps with the MoE's and the
+   MLA attention's device spans (the flash_attention kernel's share
+   among them).
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
 (bfloat16) relative and absolute, the tolerances of the reference's own
 kernel tests: the kernels sum in another order.
 
+``python3 chip_smoke.py --fa-ab SRC`` runs none of the phases: it holds
+this tree's flash_attention to the one under SRC (another commit's src/,
+unpacked with git archive), bit for bit and timed in turns, at the four
+serve shapes of FA_RECORDED and grok-1's capped one.
+
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 repository's sources beside it, the script exits non-zero and prints no
 result.
 """
+import hashlib
 import json
 import os
 import re
@@ -377,6 +410,15 @@ GK_CAP = 30.0  # grok-1's attention logit soft-cap
 FA_GK = (GK_SERVE["batch"], GK_SERVE["prompt_len"], 48, 8, 128)
 ENT_GK = (GK_SERVE["batch"], 131_072)
 GK_DECODE = (2, 256)  # rows and prompt tokens of the dropless decode check
+# phase 20: deepseek-v2-236b at full width, 3 of its 60 layers: layer 0
+# (dense) and 2 of the 59 identical MoE layers (the whole model's 943 GB
+# of float32 fits no card)
+DS_ARCH = "deepseek-v2-236b"
+DS_MOE_LAYERS = 2
+DS_SERVE = dict(requests=16, batch=8, prompt_len=1024, gen_len=32, topk=8)
+# flash_attention at deepseek's prefill: (B, S, H, q/k head dim, v head dim)
+FA_DS = (DS_SERVE["batch"], DS_SERVE["prompt_len"], 128, 192, 128)
+ENT_DS = (DS_SERVE["batch"], 102_400)
 # the uncapped flash_attention medians and spreads [min, max] that PERF.md's
 # kernel table (row 7) records at the llama3.2-1b, starcoder2-3b and
 # hymba-1.5b shapes (NVIDIA H100 80GB HBM3 at 700.00 W), before the kernel
@@ -391,8 +433,8 @@ TF_WINDOW_BATCHES = 12  # filter_then_merge batches in a phase 10 window
 RP_DOCS, RP_K, RP_CHUNK = 12_000, 64, 64  # window, K, docs a chunk
 RP_DRIFT_AT, RP_MULT, RP_ALPHA = 3_000, 8.0, 0.05  # burst, DriftConfig
 # tenants of 13a and 13b; 13a's count (like 14b's) is cut so that the
-# script stays near half of its time limit
-RP_TWO, RP_FOUR = 32_768, 4_096
+# script stays well inside its time limit
+RP_TWO, RP_FOUR = 16_384, 4_096
 RP_SAMPLE = 512  # streams of each engine held to the port's CPU run
 RP_ORACLE = 16  # 13a streams scored against the process oracle
 
@@ -555,10 +597,10 @@ def build_kernels():
     if "flash_attention" in reports:
         from repro_torch.kernels.flash_attention import ops as fa
         fn = build.library("flash_attention").flash_attention_smem_bytes
-        for hd in fa.HEAD_DIMS:
-            log(f"build flash_attention: hd {hd}: {fn(hd, 0)} bytes of "
-                f"dynamic shared memory a block in float32, {fn(hd, 1)} in "
-                f"bfloat16")
+        for hd, hd_v in fa.HEAD_DIMS:
+            log(f"build flash_attention: hd {hd}, hd_v {hd_v}: "
+                f"{fn(hd, hd_v, 0)} bytes of dynamic shared memory a forward "
+                f"block in float32, {fn(hd, hd_v, 1)} in bfloat16")
 
 
 def log2_rule():
@@ -1432,8 +1474,10 @@ def score_kernel_parity():
                 f"softcap={cap} {str(dtype)[6:]}: max abs diff {err:.3e}"
                 f"{lse_text} (limit {tol} relative and absolute)")
             del q, k, v, out
+    errs["flash_attention@deepseek"] = mla_kernel_parity(g, tols)
     for b, v, kind, label in ((*ENT_PATH, "normal", "serve decode step"),
                               (*ENT_GK, "normal", f"{GK_ARCH} decode step"),
+                              (*ENT_DS, "normal", f"{DS_ARCH} decode step"),
                               (*ENT_SC, "normal", f"{SC_ARCH} decode step"),
                               (*ENT_MB, "normal", f"{MB_ARCH} decode step"),
                               (*ENT_HY, "normal",
@@ -1459,6 +1503,87 @@ def score_kernel_parity():
                 f"nll max abs diff {err:.3e} (limit {tol} relative and "
                 f"absolute)")
     return errs
+
+
+# (label, B, Sq, Skv, H, q/k head dim, v head dim) of flash_attention at
+# unequal head dims (MLA), causal: deepseek-v2's prefill, ragged Sq < Skv,
+# rows with no key, the reduced config's pair
+FA_MLA_CASES = (("deepseek-v2 prefill", FA_DS[0], FA_DS[1], *FA_DS[1:]),
+                ("ragged Sq < Skv", 1, 200, 333, 16, 192, 128),
+                ("Sq > Skv: rows with no key", 1, 40, 24, 4, 192, 128),
+                ("reduced deepseek pair, ragged", 2, 100, 100, 4, 24, 16))
+FA_MLA_LONG = (1, 1300, 16)  # B, S, H past one MLA_CHUNK of latents
+
+
+def mla_kernel_parity(g, tols):
+    """flash_attention at MLA's unequal head dims against its plain version
+    (output and row log-sum-exp; float32 2e-5, bfloat16 2e-2) at
+    FA_MLA_CASES, and at FA_MLA_LONG against the model's
+    ``_mla_attend_latent_chunked`` (the reference's latent-chunked scan)
+    on the same latents, expanded as ``mla_forward_expanded`` expands
+    them; then the unequal-dim backward must raise. Returns the largest
+    float32 difference."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import attention as attn
+    worst = 0.0
+    for label, b, sq, skv, h, hd, hd_v in FA_MLA_CASES:
+        for dtype, tol in tols.items():
+            shapes = ((b, sq, h, hd), (b, skv, h, hd), (b, skv, h, hd_v))
+            q, k, v = (torch.randn(x, device="cuda", generator=g).to(dtype)
+                       for x in shapes)
+            kw = dict(causal=True, scale=hd ** -0.5)
+            out, lse = fa.forward_with_lse(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = within_tol([out.float()],
+                             [fa.reference(q, k, v, **kw).float()], tol)
+            lse_err = within_tol([lse], [fa.reference_lse(q, k, v, **kw)],
+                                 tol)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            log(f"parity flash_attention [MLA {label}] B={b} Sq={sq} "
+                f"Skv={skv} H={h} hd={hd} hd_v={hd_v} causal "
+                f"{str(dtype)[6:]}: out {tuple(out.shape)} max abs diff "
+                f"{err:.3e}, lse {lse_err:.3e} (limit {tol} relative and "
+                f"absolute)")
+            del q, k, v, out, lse
+    cfg = configs.get_config(DS_ARCH)
+    b, s, h = FA_MLA_LONG
+    r, nope = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    q = torch.randn((b, s, h, nope + cfg.qk_rope_head_dim), device="cuda",
+                    generator=g)
+    ckv = torch.randn((b, s, r), device="cuda", generator=g)
+    kr = torch.randn((b, s, cfg.qk_rope_head_dim), device="cuda", generator=g)
+    wkb = torch.randn((r, h, nope + cfg.v_head_dim), device="cuda",
+                      generator=g) / r ** 0.5
+    kv = torch.einsum("bsr,rhk->bshk", ckv, wkb)
+    k = torch.cat([kv[..., :nope], kr[:, :, None].expand(b, s, h, -1)], -1)
+    scale = q.shape[-1] ** -0.5
+    out = fa.flash_attention(q, k, kv[..., nope:], causal=True, scale=scale)
+    pos = torch.arange(s, device="cuda").expand(b, s)
+    want = attn._mla_attend_latent_chunked(q, ckv, kr, wkb, pos, cfg,
+                                           causal=True, scale=scale)
+    err = within_tol([out], [want], tols[torch.float32])
+    worst = max(worst, err)
+    log(f"parity flash_attention [MLA past one latent chunk] B={b} S={s} "
+        f"H={h} hd={q.shape[-1]} hd_v={cfg.v_head_dim} causal float32: "
+        f"against _mla_attend_latent_chunked ({-(-s // attn.MLA_CHUNK)} "
+        f"chunks of {attn.MLA_CHUNK} latents, the tail padded) max abs diff "
+        f"{err:.3e} (limit 2e-05 relative and absolute)")
+    v = kv[..., nope:].contiguous()
+    out, lse = fa.forward_with_lse(q, k, v, scale=scale)
+    for call in (lambda: fa.backward(q, k, v, out, lse, torch.ones_like(out),
+                                     scale=scale),
+                 lambda: fa.flash_attention(q.requires_grad_(True), k, v,
+                                            scale=scale)):
+        try:
+            call()
+        except NotImplementedError as e:
+            log(f"parity flash_attention [MLA backward]: raises "
+                f"NotImplementedError ({e})")
+        else:
+            raise AssertionError("the backward at unequal head dims ran")
+    return worst
 
 
 def fa_uncapped_check(out, smi):
@@ -1610,8 +1735,10 @@ def score_kernel_timings(smi):
         f"{capped['ms'] - plain['ms']:.4f} ms ({capped['ms']:.4f} capped, "
         f"{plain['ms']:.4f} uncapped, medians of {WINDOWS} windows)")
     fa_uncapped_check(out, smi)
+    out["flash_attention@deepseek"] = mla_kernel_timing(g)
     for key, (b, v) in (("entropy_scores", ENT_PATH),
                         ("entropy_scores@grok", ENT_GK),
+                        ("entropy_scores@deepseek", ENT_DS),
                         ("entropy_scores@starcoder2", ENT_SC),
                         ("entropy_scores@mamba2", ENT_MB),
                         ("entropy_scores@hymba", ENT_HY),
@@ -1661,6 +1788,61 @@ def score_kernel_timings(smi):
             del flush
         del logits, labels, lab64
     return out
+
+
+def mla_kernel_timing(g):
+    """flash_attention at deepseek-v2's prefill (FA_DS: q and k of head dim
+    192, v of 128, 128 heads, causal, float32): device ms (profiler,
+    median of WINDOWS windows, with the spread), wrapper ms, plain ms, the
+    bound (operations: 2 * (192 + 128) a visible pair as 3xTF32; bytes:
+    q, k, v read and the output written once), and SDPA on (B, heads, S,
+    hd) copies with is_causal and the same scale as the library yardstick,
+    with the backend its dispatcher takes."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from repro_torch.kernels.flash_attention import ops as fa
+    b, s, h, hd, hd_v = FA_DS
+    q = torch.randn((b, s, h, hd), device="cuda", generator=g)
+    k = torch.randn((b, s, h, hd), device="cuda", generator=g)
+    v = torch.randn((b, s, h, hd_v), device="cuda", generator=g)
+    scale = hd ** -0.5
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    backend = SDPBackend(torch._fused_sdp_choice(
+        qt, kt, vt, None, 0.0, True, scale=scale)).name
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale), 5)
+    del qt, kt, vt
+    pairs = b * h * s * (s + 1) // 2
+    flops = 2 * (hd + hd_v) * pairs
+    nbytes = 4 * (q.numel() + k.numel() + 2 * v.numel())
+    med, lo, hi, _ = device_ms_windows(
+        lambda: fa.flash_attention(q, k, v, scale=scale), 5, "flash_fwd",
+        WINDOWS)
+    t = {"ms": med, "lo": lo, "hi": hi,
+         "call_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, scale=scale),
+                            5),
+         "plain_ms": cuda_ms(lambda: fa.reference(q, k, v, scale=scale), 2),
+         "library_ms": sdpa_ms,
+         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "ops_ms": 3 * flops / TF32_FLOPS * 1e3,
+         "f32_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
+    t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+    t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                     else "operations")
+    log(f"timing flash_attention@deepseek [q and k ({b}, {s}, {h}, {hd}), v "
+        f"({b}, {s}, {h}, {hd_v}) f32, causal, scale 1/sqrt({hd})]: kernel "
+        f"{med:.4f} ms on the device (profiler, median of {WINDOWS} windows "
+        f"of 5 calls; min {lo:.4f}, max {hi:.4f}); {t['call_ms']:.4f} ms per "
+        f"wrapper call; plain {t['plain_ms']:.4f} ms; bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {pairs:.4g} visible pairs,"
+        f" {flops:.4g} operations as 3xTF32 at 495/3 TFLOP/s; "
+        f"{t['f32_ms']:.4f} ms at the 67 TFLOP/s of the float32 units; "
+        f"{nbytes / 1e9:.4g} GB in {t['bytes_ms']:.4f} ms); "
+        f"{med / t['bound_ms']:.2f}x its bound; {flops / med / 1e9:.2f} "
+        f"TFLOP/s; library_ms {sdpa_ms:.4f} = torch.nn.functional."
+        f"scaled_dot_product_attention(is_causal=True, scale=) on (B, heads, "
+        f"S, hd) copies, backend {backend}, never called by the port")
+    return t
 
 
 # flash_attention's backward at the seams beyond FA_CASES (label, B, Sq,
@@ -2558,37 +2740,51 @@ def single_stream_profile(state, dev_s, dev_i, attempts=3 * WINDOWS):
 # each a device-side span from its first kernel to its last, which
 # profile_report reports apart from the operations
 MOE_RANGES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
+# and those of models.attention's MLA: the expanded form (prefill, with its
+# flash_attention launch) and the absorbed form (decode)
+MLA_RANGES = ("mla.expanded", "mla.absorbed")
 
 
 def profile_report(prof, label, steps, wall_ms, smi):
     """Device busy share and top device operations of a profiled window
     of ``steps`` steps that took ``wall_ms`` per step, and the device
-    spans of MOE_RANGES with their shares of the busy time; returns the
+    spans of MOE_RANGES and MLA_RANGES with their shares of the busy time
+    (with MLA, the flash_attention kernel's share too); returns the
     device's busy ms a step."""
     from torch.autograd import DeviceType
+    ranges = MOE_RANGES + MLA_RANGES
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = [e for e in dev if e.name in MOE_RANGES]
-    dev = [e for e in dev if e.name not in MOE_RANGES]
+    spans = [e for e in dev if e.name in ranges]
+    dev = [e for e in dev if e.name not in ranges]
     busy = union_ms(dev) / steps
     log(f"{label} profile: {steps} step(s): wall {wall_ms:.3f} ms/step "
         f"(profiler on); device busy {busy:.3f} ms/step = "
         f"{busy / wall_ms:.3f} of wall; {len(dev) // steps} device "
         f"operations per step; {smi}")
     ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and e.key not in MOE_RANGES]
+           and e.key not in ranges]
     ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total = sum(e.self_device_time_total for e in ops) or 1.0
     for e in ops[:8]:
         log(f"{label} profile: {e.self_device_time_total / 1e3 / steps:9.4f} "
             f"ms/step {e.self_device_time_total / total:6.3f}  {e.key[:90]}")
-    if spans:
-        parts = {n: sum(e.time_range.end - e.time_range.start for e in spans
-                        if e.name == n) / 1e3 / steps for n in MOE_RANGES}
-        moe = sum(parts.values())
+    parts = {n: sum(e.time_range.end - e.time_range.start for e in spans
+                    if e.name == n) / 1e3 / steps for n in ranges}
+    moe = sum(parts[n] for n in MOE_RANGES)
+    if moe:
         log(f"{label} profile: the MoE's device spans {moe:.4f} ms/step = "
             f"{moe / busy:.3f} of the busy time: " + ", ".join(
-                f"{n} {ms:.4f} ms ({ms / busy:.3f})"
-                for n, ms in parts.items()))
+                f"{n} {parts[n]:.4f} ms ({parts[n] / busy:.3f})"
+                for n in MOE_RANGES))
+    mla = sum(parts[n] for n in MLA_RANGES)
+    if mla:
+        flash = sum(e.self_device_time_total for e in ops
+                    if "flash_fwd" in e.key) / 1e3 / steps
+        log(f"{label} profile: the MLA attention's device spans {mla:.4f} "
+            f"ms/step = {mla / busy:.3f} of the busy time (" + ", ".join(
+                f"{n} {parts[n]:.4f} ms" for n in MLA_RANGES)
+            + f"); the flash_attention kernel inside them {flash:.4f} "
+            f"ms/step = {flash / busy:.3f}")
     if busy <= 0:
         raise AssertionError(f"the {label} profile saw no device time")
     return busy
@@ -3316,7 +3512,7 @@ def replanning(smi):
 # ---------------------------------------------------------------------------
 
 OB_SAMPLE = 256  # 14a streams held to the port's CPU run
-CB_TENANTS = 16_384  # 14b: examples/cost_attribution.py's fleet at scale
+CB_TENANTS = 8_192  # 14b: examples/cost_attribution.py's fleet at scale
 CB_PROFILE_AT = 60  # 14b's first chunk fed through ingest() under the
 CB_PROFILED = 2  # profiler, and the number of such chunks
 CB_MAX_EVENTS = 4_000_000  # the tracer's bound at 14b's fleet
@@ -5480,6 +5676,190 @@ def moe_serve(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# flash_attention against another tree's (python3 chip_smoke.py --fa-ab SRC)
+# ---------------------------------------------------------------------------
+
+# (label, (B, S, H, KV, hd), window, softcap): the four serve shapes whose
+# uncapped times FA_RECORDED holds, and grok-1's capped
+FA_AB = (("llama3.2-1b", FA_PATH, 0, 0.0), ("starcoder2-3b", FA_SC, 0, 0.0),
+         ("hymba-1.5b", FA_HY, HY_WINDOW, 0.0), ("grok-1", FA_GK, 0, 0.0),
+         ("grok-1 capped", FA_GK, 0, GK_CAP))
+
+
+def fa_child(src, path):
+    """``--fa-child SRC PATH``: flash_attention of the repro_torch under SRC
+    (built there) at FA_AB on float32 inputs from a fixed seed; each
+    output's sha256 and its device ms (CUDA events, median of WINDOWS
+    means of 10 calls) written to PATH as JSON."""
+    sys.path.insert(0, src)
+    from repro_torch.kernels.flash_attention import ops as fa
+    g = torch.Generator(device="cuda").manual_seed(20)
+    got = {}
+    for label, (b, s, h, kvh, hd), window, cap in FA_AB:
+        q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
+        call = lambda: fa.flash_attention(q, k, v, window=window,  # noqa
+                                          softcap=cap)
+        ms = statistics.median(cuda_ms(call, 10) for _ in range(WINDOWS))
+        digest = hashlib.sha256(call().cpu().numpy().tobytes()).hexdigest()
+        got[label] = (digest, ms)
+    Path(path).write_text(json.dumps(got))
+    return 0
+
+
+def fa_ab(parent_src, smi):
+    """``--fa-ab SRC``: this tree's flash_attention against the one under
+    SRC (a parent commit's src/, unpacked with git archive) at FA_AB, in
+    turns (SRC, this, this, SRC), each turn its own process: every output
+    bit-equal to the first turn's, and each side's two medians logged."""
+    runs = []
+    for i, src in enumerate((parent_src, str(ROOT / "src"),
+                             str(ROOT / "src"), parent_src)):
+        path = ROOT / "build" / f"fa_ab_{i}.json"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--fa-child", src, str(path)], check=True,
+                        timeout=900)
+        runs.append(json.loads(path.read_text()))
+        path.unlink()
+    for label, *_ in FA_AB:
+        same = len({r[label][0] for r in runs}) == 1
+        ms = [r[label][1] for r in runs]
+        log(f"fa-ab [{label}]: outputs bit-equal across the four turns: "
+            f"{same}; ms parent {ms[0]:.4f} / {ms[3]:.4f}, this tree "
+            f"{ms[1]:.4f} / {ms[2]:.4f} (CUDA events, median of {WINDOWS} "
+            f"means of 10 calls); {smi}")
+        if not same:
+            raise AssertionError(f"fa-ab [{label}]: outputs differ")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the MLA score producer at full width
+# ---------------------------------------------------------------------------
+
+def mla_cache_bytes(cfg, batch, kv_len, n_attn):
+    """(bytes of the MLA latent caches, bytes a GQA KV cache with K and V
+    for every one of the same heads would take) at float32."""
+    mla = 4 * batch * kv_len * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    gqa = 4 * batch * kv_len * cfg.n_heads * (
+        cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
+    return n_attn * mla, n_attn * gqa
+
+
+def mla_serve(smi):
+    """Phase 20: deepseek-v2-236b at full width with its depth cut to its
+    dense layer 0 and DS_MOE_LAYERS of its 59 identical MoE layers, random
+    weights from a seeded torch.Generator on the card: the first batch
+    teacher-forced through both routes with the routing compared
+    (``moe_teacher_forced``: the kernel route's expanded prefill on
+    flash_attention at head dims (192, 128), the plain route's on the
+    grouped attention; decode the absorbed form on both), decode (absorbed,
+    over the latent cache) against the forward (expanded, on the kernel)
+    at the dropless capacity on GK_DECODE, one counted single-tenant serve
+    run whose launches must be exact, the retained set against the top-K
+    of the scores, the shares of token-choices dropped and each expert's
+    demand at prefill, the latent caches' bytes beside a GQA KV cache's of
+    the same heads, peak memory, then the profiles (the MoE's and the MLA
+    attention's device spans and shares, the kernel's among them). Returns
+    the launches."""
+    from repro_torch import configs
+    from repro_torch.configs.base import LayerSpec
+    from repro_torch.kernels.entropy_scores import ops as ent
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import ffn
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()  # the previous phases' blocks
+    held = torch.cuda.memory_allocated() / 2**30
+    full = configs.get_config(DS_ARCH)
+    dense, moe = full.layers
+    cfg = full.replace(layers=(dense, LayerSpec(count=DS_MOE_LAYERS,
+                                                mixer=moe.mixer,
+                                                ffn=moe.ffn)))
+    run = DS_SERVE
+    label = f"20 {DS_ARCH}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    router = params["dec"][1][0]["ffn"]["router"]
+    log(f"serve [{label}]: full width, depth cut to {cfg.n_layers} of "
+        f"{full.n_layers} layers ({dense.count} dense, d_ff {cfg.d_ff}; "
+        f"{DS_MOE_LAYERS} of {moe.count} MoE) (d_model {cfg.d_model}, MLA "
+        f"with {cfg.n_heads} heads: kv_lora {cfg.kv_lora_rank}, q_lora "
+        f"{cfg.q_lora_rank}, q/k head dim {cfg.qk_nope_head_dim} nope + "
+        f"{cfg.qk_rope_head_dim} rope, v head dim {cfg.v_head_dim}; "
+        f"{cfg.n_experts} routed experts of d_ff {cfg.d_ff_expert}, top-"
+        f"{cfg.top_k_experts}, {cfg.n_shared_experts} shared, groups of "
+        f"{cfg.moe_group_size}, capacity factor {cfg.capacity_factor}; "
+        f"vocab {cfg.vocab_size}, tied embeddings {cfg.tie_embeddings}, "
+        f"{cfg.param_dtype}): {lm.param_count(cfg)} parameters (the whole "
+        f"model {lm.param_count(full)}) drawn on the card in "
+        f"{time.perf_counter() - t0:.3f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB while drawn "
+        f"({held:.3f} GiB held by earlier phases); router {router.dtype}; "
+        f"TF32 off; {smi}")
+    if router.dtype != torch.float32:
+        raise AssertionError("the router is not float32")
+    b, plen = run["batch"], run["prompt_len"]
+    first = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, plen)), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    moe_teacher_forced(params, cfg, first, run["gen_len"])
+    rows, p = GK_DECODE
+    free = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k_experts)
+    decode_vs_forward(params, free, first[:rows, :p].contiguous(),
+                      f"{label}, dropless capacity factor "
+                      f"{free.capacity_factor}")
+    checks_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    # the counted run: counters to 0, serve, read
+    fa.launches = ent.launches = 0
+    with RouteLog() as routes:
+        res = serve.serve(cfg, params, tenants=1, device="cuda", **run)
+    launches = check_serve(res, cfg, run, f"{label}, single tenant", smi)
+    order = np.lexsort((np.arange(run["requests"]), -res.scores))
+    want = sorted(order[:run["topk"]].tolist())
+    cap = ffn._capacity(cfg.moe_group_size, cfg.top_k_experts,
+                        cfg.n_experts, cfg.capacity_factor)
+    shares = dropped_shares(routes.calls, cap)
+    demand, past = expert_demand(routes.calls, cap, DS_MOE_LAYERS,
+                                 cfg.n_experts)
+    dec_cap = ffn._capacity(b, cfg.top_k_experts, cfg.n_experts,
+                            cfg.capacity_factor)
+    kv_len = plen + run["gen_len"] + 1  # serve.generate's cache depth
+    mla_b, gqa_b = mla_cache_bytes(cfg, b, kv_len, attention_layers(cfg))
+    log(f"serve [{label}]: scores "
+        f"{' '.join(f'{x:.7g}' for x in res.scores)}; retained "
+        f"{res.retained}, top-{run['topk']} of the scores (ties to the "
+        f"lower id) {want}; curation {res.curator.stats.as_dict()}; "
+        f"token-choices dropped past capacity: prefill "
+        f"{shares['prefill'][0]} of {shares['prefill'][1]} = "
+        f"{shares['prefill'][0] / shares['prefill'][1]:.4f} ({cap} slots an "
+        f"expert and group of {cfg.moe_group_size}), decode "
+        f"{shares['decode'][0]} of {shares['decode'][1]} = "
+        f"{shares['decode'][0] / shares['decode'][1]:.4f} ({dec_cap} slots "
+        f"an expert for a step's {b} tokens); MLA latent caches of a batch "
+        f"({b} x {kv_len} positions, {attention_layers(cfg)} layers, "
+        f"float32) {mla_b} bytes, beside {gqa_b} bytes for a GQA KV cache "
+        f"of K and V for all {cfg.n_heads} heads ({gqa_b / mla_b:.1f}x); "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB in the serve "
+        f"run, {checks_peak:.3f} GiB in the checks before it (the plain "
+        f"route's attention included); {smi}")
+    log(f"serve [{label}] prefill demand: {demand}")
+    del routes
+    if past != shares["prefill"][0]:
+        raise AssertionError(f"{past} choices past capacity, but "
+                             f"{shares['prefill'][0]} dropped")
+    if res.retained != want:
+        raise AssertionError("retained set is not the top-K of the scores")
+    serve_profile(params, cfg, first, smi)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5495,7 +5875,11 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:2] == ["--chaos-child"]:
         return chaos_child(sys.argv[2])  # phase 15b's child process
+    if sys.argv[1:2] == ["--fa-child"]:
+        return fa_child(*sys.argv[2:4])  # a turn of --fa-ab
     smi = environment()
+    if sys.argv[1:2] == ["--fa-ab"]:
+        return fa_ab(sys.argv[2], smi)
     with phase_clock("build and log2 rule (phase 2)"):
         build_kernels()
         log2_rule()
@@ -5551,6 +5935,12 @@ def main():
                      "(phase 19)"):
         for key, n in moe_serve(smi).items():
             launches[key] += n
+    with phase_clock(f"{DS_ARCH} at full width, {1 + DS_MOE_LAYERS} layers "
+                     "(phase 20)"):
+        ds = mla_serve(smi)
+        launches["flash_attention@deepseek"] = ds["flash_attention"]
+        for key, n in ds.items():
+            launches[key] += n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",
@@ -5562,13 +5952,16 @@ def main():
             "src/repro/kernels/entropy_scores/entropy_scores.py:56",
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:64",
+        # the same kernel at MLA's unequal head dims, deepseek-v2's shape
+        "flash_attention@deepseek":
+            "src/repro/kernels/flash_attention/flash_attention.py:64",
         # no Pallas backward exists: the counterpart of XLA's derivative of
         # the reference's training attention (grouped_attention)
         "flash_attention_bwd": "src/repro/models/attention.py:113"}
     kernels = []
     for name in replaces:
         t = times[name]
-        src = name.removesuffix("_bwd")
+        src = name.split("@")[0].removesuffix("_bwd")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",

@@ -9,7 +9,11 @@
 // sliding-window masks (kpos > qpos - window) put the reference's -2e9 on
 // the logit; keys past Skv take no part. Output is acc / max(l, 1e-30) in
 // q's type, with (m, l, acc) carried in float32, as the TPU kernel does.
-// Head dims 16, 32, 64 and 128.
+// Head dims 16, 32, 64 and 128, with v's head dim equal to q's and k's;
+// and for MLA (deepseek-v2) q/k head dim 192 with v head dim 128, and its
+// reduced config's 24 and 16: S = Q K^T runs over the q/k head dim, O =
+// P V over v's. These two pairs are built without the soft-cap, since the
+// reference's MLA attention has none.
 //
 // Logit soft-capping (grok-1): with softcap c > 0 a logit x * scale
 // becomes c * tanh(x * scale / c) before the mask, as the reference's
@@ -49,16 +53,24 @@
 // With two m-tiles a warp (hd <= 64), each K and V fragment, loaded and
 // split once, feeds two products.
 //
-// K and V tiles of 32 keys arrive by cp.async into two buffers in dynamic
-// shared memory: the next tile loads while this one is computed (one
-// block barrier a tile). Rows past Sq or Skv are zero-filled by the copy,
-// so no padding exists in device memory. Row strides are padded by 16
-// bytes, which keeps every fragment load free of bank conflicts. Shared
-// memory per block, float32: (64 * MT + 4 * 32) rows of (hd + 4) * 4 bytes
+// K and V tiles of 32 keys (16 at MLA's q/k head dim of 192, below)
+// arrive by cp.async into two buffers in dynamic shared memory: the next
+// tile loads while this one is computed (one block barrier a tile). Rows
+// past Sq or Skv are zero-filled by the copy, so no padding exists in
+// device memory. Row strides are padded by 16 bytes, which keeps every
+// fragment load free of bank conflicts. Shared memory per block,
+// float32: (64 * MT + 4 * 32) rows of (hd + 4) * 4 bytes
 // — 70 KB at hd 64 (MT 2, three blocks an SM), 101 KB at hd 128 (MT 1,
 // two); bfloat16 tiles take half (their values are exact in TF32, so
 // their small parts are zero). The tile shapes were chosen by timing 64-
 // and 128-row blocks with 32- and 64-key tiles at both serve shapes.
+// MLA's pair keeps the hd 128 layout (MT 1) with Q and K rows of 192 and
+// V rows of 128, but key tiles of 16: (64 + 2 * 16) * 196 * 4 + 2 * 16 *
+// 132 * 4 = 90 KB in float32, so two blocks share an SM (32-key tiles
+// take 131 KB, one block; timed slower at deepseek-v2's prefill). Its
+// bound is operations too: 2 * (192 + 128) a visible pair, 3.4e11 at
+// deepseek-v2's prefill (B=8, S=1024, H=128, causal), 2.08 ms as
+// 3xTF32; the bytes take 0.80.
 // Tiles that every row of the block masks out (beyond the causal
 // diagonal, or older than the window) are skipped; when a row has no
 // visible key at all (causal, Sq > Skv) nothing is skipped, so such a row
@@ -76,13 +88,15 @@ namespace {
 constexpr float kNeg = -2.0e9f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kBK = 32;        // keys per tile
 constexpr int kThreads = 128;  // 4 warps
 
-// m-tiles of 16 rows a warp owns, and blocks an SM is built for
+// m-tiles of 16 rows a warp owns, keys a tile and blocks an SM it is
+// built for, by the q/k head dim (at 192, key tiles of 16 keep a float32
+// block at 90 KB, so that two fit an SM)
 template <int HD>
 struct Shape {
   static constexpr int MT = HD <= 64 ? 2 : 1;
+  static constexpr int BK = HD <= 128 ? 32 : 16;
   static constexpr int MINB = HD <= 64 ? 3 : 2;
 };
 
@@ -92,9 +106,13 @@ __host__ __device__ constexpr int row_stride() {
   return HD + 16 / static_cast<int>(sizeof(T));
 }
 
-template <typename T, int HD>
+// a Q tile and two K tiles of rows HDK wide, two V tiles of rows HDV wide
+template <typename T, int HDK, int HDV>
 constexpr int smem_bytes() {
-  return (64 * Shape<HD>::MT + 4 * kBK) * row_stride<T, HD>() * sizeof(T);
+  using S = Shape<HDK>;
+  return ((64 * S::MT + 2 * S::BK) * row_stride<T, HDK>() +
+          2 * S::BK * row_stride<T, HDV>()) *
+         sizeof(T);
 }
 
 __device__ __forceinline__ float ld1(const float* p) { return *p; }
@@ -166,15 +184,17 @@ __device__ __forceinline__ float logit2(float x, float sl, float cs,
   return x * sl;
 }
 
-template <typename T, int HD, bool CAP>
-__global__ void __launch_bounds__(kThreads, Shape<HD>::MINB)
+// HDK: the head dim of q and k; HDV: that of v and the output
+template <typename T, int HDK, int HDV, bool CAP>
+__global__ void __launch_bounds__(kThreads, Shape<HDK>::MINB)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
           float* __restrict__ lse, int sq, int skv, int h, int kvh,
           float scale, int causal, int window, float softcap) {
-  constexpr int MT = Shape<HD>::MT, BK = kBK;
-  constexpr int BQ = 64 * MT, NT = BK / 8, DT = HD / 8;
-  constexpr int kLd = row_stride<T, HD>();
+  constexpr int MT = Shape<HDK>::MT, BK = Shape<HDK>::BK;
+  constexpr int BQ = 64 * MT, NT = BK / 8, DT = HDV / 8;
+  constexpr int kLd = row_stride<T, HDK>();  // Q and K rows
+  constexpr int vLd = row_stride<T, HDV>();  // V rows
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   T* ks = qs + BQ * kLd;       // two K buffers
@@ -199,13 +219,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const int64_t kv_stride = static_cast<int64_t>(kvh) * HD;
-  const T* qb = q + (static_cast<int64_t>(b) * sq * h + head) * HD;
-  const T* kb = k + static_cast<int64_t>(b) * skv * kv_stride + kvhead * HD;
-  const T* vb = v + static_cast<int64_t>(b) * skv * kv_stride + kvhead * HD;
-  load_tile<T, HD, BQ>(qs, qb, q0, sq, static_cast<int64_t>(h) * HD);
-  load_tile<T, HD, BK>(ks, kb, t_lo * BK, skv, kv_stride);
-  load_tile<T, HD, BK>(vs, vb, t_lo * BK, skv, kv_stride);
+  const int64_t kv_stride = static_cast<int64_t>(kvh) * HDK;
+  const int64_t v_stride = static_cast<int64_t>(kvh) * HDV;
+  const T* qb = q + (static_cast<int64_t>(b) * sq * h + head) * HDK;
+  const T* kb = k + static_cast<int64_t>(b) * skv * kv_stride + kvhead * HDK;
+  const T* vb = v + static_cast<int64_t>(b) * skv * v_stride + kvhead * HDV;
+  load_tile<T, HDK, BQ>(qs, qb, q0, sq, static_cast<int64_t>(h) * HDK);
+  load_tile<T, HDK, BK>(ks, kb, t_lo * BK, skv, kv_stride);
+  load_tile<T, HDV, BK>(vs, vb, t_lo * BK, skv, v_stride);
   cp_async_commit();
 
   const float sl = scale * kLog2e;
@@ -229,14 +250,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();  // tile t has landed; tile t - 1 is no longer read
     if (t < t_hi) {
-      load_tile<T, HD, BK>(ks + (buf ^ 1) * BK * kLd, kb, (t + 1) * BK, skv,
-                           kv_stride);
-      load_tile<T, HD, BK>(vs + (buf ^ 1) * BK * kLd, vb, (t + 1) * BK, skv,
-                           kv_stride);
+      load_tile<T, HDK, BK>(ks + (buf ^ 1) * BK * kLd, kb, (t + 1) * BK, skv,
+                            kv_stride);
+      load_tile<T, HDV, BK>(vs + (buf ^ 1) * BK * vLd, vb, (t + 1) * BK, skv,
+                            v_stride);
       cp_async_commit();
     }
     const T* kt = ks + buf * BK * kLd;
-    const T* vt = vs + buf * BK * kLd;
+    const T* vt = vs + buf * BK * vLd;
 
     // S = Q K^T, each product as three TF32 mma
     float s[MT][NT][4];
@@ -247,7 +268,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[mt][n][c] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD; kk += 8) {
+    for (int kk = 0; kk < HDK; kk += 8) {
       uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -334,12 +355,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         split(s[mt][n][1], ab[mt][2], as[mt][2]);
         split(s[mt][n][3], ab[mt][3], as[mt][3]);
       }
-      const T* vr = vt + (8 * n + 2 * t4) * kLd + g;
+      const T* vr = vt + (8 * n + 2 * t4) * vLd + g;
 #pragma unroll
       for (int d = 0; d < DT; ++d) {
         uint32_t bb0, bs0, bb1, bs1;
         split(ld1(vr + 8 * d), bb0, bs0);
-        split(ld1(vr + kLd + 8 * d), bb1, bs1);
+        split(ld1(vr + vLd + 8 * d), bb1, bs1);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_tf32(o[mt][d], as[mt][0], as[mt][1], as[mt][2], as[mt][3], bb0,
@@ -367,7 +388,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           lse[(static_cast<int64_t>(b) * h + head) * sq + row] =
               (m[mt][hr] + log2f(sum)) * kLn2;
         const float inv = 1.f / fmaxf(sum, 1e-30f);
-        T* op = out + ((static_cast<int64_t>(b) * sq + row) * h + head) * HD;
+        T* op = out + ((static_cast<int64_t>(b) * sq + row) * h + head) * HDV;
 #pragma unroll
         for (int d = 0; d < DT; ++d) {
           store(op + 8 * d + 2 * t4, o[mt][d][2 * hr] * inv);
@@ -377,58 +398,78 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int HD, bool CAP>
+template <typename T, int HDK, int HDV, bool CAP>
 int launch_cap(const void* q, const void* k, const void* v, void* out,
                float* lse, int b, int sq, int skv, int h, int kvh,
                float scale, int causal, int window, float softcap,
                cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<T, HD>();
-  constexpr int rows = 64 * Shape<HD>::MT;
+  constexpr int bytes = smem_bytes<T, HDK, HDV>();
+  constexpr int rows = 64 * Shape<HDK>::MT;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd<T, HDK, HDV, CAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, b, (sq + rows - 1) / rows);
-  flash_fwd<T, HD, CAP><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd<T, HDK, HDV, CAP><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, sq, skv, h, kvh,
       scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <typename T, int HDK, int HDV>
 int launch_hd(const void* q, const void* k, const void* v, void* out,
               float* lse, int b, int sq, int skv, int h, int kvh,
               float scale, int causal, int window, float softcap,
               cudaStream_t stream) {
-  if (softcap > 0.f)
-    return launch_cap<T, HD, true>(q, k, v, out, lse, b, sq, skv, h, kvh,
-                                   scale, causal, window, softcap, stream);
-  return launch_cap<T, HD, false>(q, k, v, out, lse, b, sq, skv, h, kvh,
-                                  scale, causal, window, 0.f, stream);
+  if (softcap > 0.f) {
+    if constexpr (HDK == HDV)
+      return launch_cap<T, HDK, HDV, true>(q, k, v, out, lse, b, sq, skv, h,
+                                           kvh, scale, causal, window,
+                                           softcap, stream);
+    else  // MLA's pairs are built without the cap
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_cap<T, HDK, HDV, false>(q, k, v, out, lse, b, sq, skv, h,
+                                        kvh, scale, causal, window, 0.f,
+                                        stream);
+}
+
+// f(HDK, HDV) for each (q/k, v) head-dim pair the forward is built for;
+// cudaErrorInvalidValue for any other
+template <typename F>
+int forward_pair(int hd, int hd_v, F&& f) {
+  using std::integral_constant;
+  if (hd == hd_v) {
+    switch (hd) {
+      case 16:
+        return f(integral_constant<int, 16>(), integral_constant<int, 16>());
+      case 32:
+        return f(integral_constant<int, 32>(), integral_constant<int, 32>());
+      case 64:
+        return f(integral_constant<int, 64>(), integral_constant<int, 64>());
+      case 128:
+        return f(integral_constant<int, 128>(),
+                 integral_constant<int, 128>());
+    }
+  } else if (hd == 192 && hd_v == 128) {
+    return f(integral_constant<int, 192>(), integral_constant<int, 128>());
+  } else if (hd == 24 && hd_v == 16) {
+    return f(integral_constant<int, 24>(), integral_constant<int, 16>());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  float* lse, int b, int sq, int skv, int h, int kvh, int hd,
-                 float scale, int causal, int window, float softcap,
+                 int hd_v, float scale, int causal, int window, float softcap,
                  cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch_hd<T, 16>(q, k, v, out, lse, b, sq, skv, h, kvh, scale,
-                              causal, window, softcap, stream);
-    case 32:
-      return launch_hd<T, 32>(q, k, v, out, lse, b, sq, skv, h, kvh, scale,
-                              causal, window, softcap, stream);
-    case 64:
-      return launch_hd<T, 64>(q, k, v, out, lse, b, sq, skv, h, kvh, scale,
-                              causal, window, softcap, stream);
-    case 128:
-      return launch_hd<T, 128>(q, k, v, out, lse, b, sq, skv, h, kvh, scale,
-                               causal, window, softcap, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return forward_pair(hd, hd_v, [&](auto hdk, auto hdv) {
+    return launch_hd<T, decltype(hdk)::value, decltype(hdv)::value>(
+        q, k, v, out, lse, b, sq, skv, h, kvh, scale, causal, window,
+        softcap, stream);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -1149,27 +1190,24 @@ int bwd_info(int which, int* info) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
-int smem_typed(int hd) {
-  switch (hd) {
-    case 16: return smem_bytes<T, 16>();
-    case 32: return smem_bytes<T, 32>();
-    case 64: return smem_bytes<T, 64>();
-    case 128: return smem_bytes<T, 128>();
-    default: return -1;
-  }
-}
-
 }  // namespace
 
-// Dynamic shared memory of one block in bytes (-1: no such build).
-extern "C" int flash_attention_smem_bytes(int hd, int dtype) {
-  return dtype == 0 ? smem_typed<float>(hd) : smem_typed<__nv_bfloat16>(hd);
+// Dynamic shared memory of one forward block in bytes at the head-dim
+// pair (hd of q and k, hd_v of v) and type (-1: no such build).
+extern "C" int flash_attention_smem_bytes(int hd, int hd_v, int dtype) {
+  const int got = forward_pair(hd, hd_v, [&](auto hdk, auto hdv) {
+    constexpr int K = decltype(hdk)::value, V = decltype(hdv)::value;
+    return dtype == 0 ? smem_bytes<float, K, V>()
+                      : smem_bytes<__nv_bfloat16, K, V>();
+  });
+  return got == static_cast<int>(cudaErrorInvalidValue) ? -1 : got;
 }
 
 // Launches on `stream`; returns the first CUDA error (0 = launched).
 // `dtype`: 0 float32, 1 bfloat16 (q, k, v and out alike). All four
-// tensors are contiguous and 16-byte aligned; `hd` is 16, 32, 64 or 128;
+// tensors are contiguous and 16-byte aligned; (`hd`, `hd_v`), the head
+// dims of q and k and of v and out, is (16, 16), (32, 32), (64, 64),
+// (128, 128), (192, 128) or (24, 16), the last two only uncapped;
 // b <= 65535 and Sq <= 64 * 65535. `lse`, when not null, is a float32
 // (B, H, Sq) tensor that receives each row's log-sum-exp of its scaled,
 // capped, masked logits (natural units), which the backward reads.
@@ -1178,16 +1216,16 @@ extern "C" int flash_attention_smem_bytes(int hd, int dtype) {
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       int b, int sq, int skv, int h, int kvh,
-                                      int hd, float scale, int causal,
-                                      int window, float softcap, int dtype,
-                                      cudaStream_t stream) {
+                                      int hd, int hd_v, float scale,
+                                      int causal, int window, float softcap,
+                                      int dtype, cudaStream_t stream) {
   if (dtype == 0)
     return launch_typed<float>(q, k, v, out, lse, b, sq, skv, h, kvh, hd,
-                               scale, causal, window, softcap, stream);
+                               hd_v, scale, causal, window, softcap, stream);
   if (dtype == 1)
     return launch_typed<__nv_bfloat16>(q, k, v, out, lse, b, sq, skv, h, kvh,
-                                       hd, scale, causal, window, softcap,
-                                       stream);
+                                       hd, hd_v, scale, causal, window,
+                                       softcap, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,11 +1,14 @@
 """Forward attention with online softmax: the port of the reference's
 ``kernels.flash_attention.ops.flash_attention``, with grouped KV heads.
 
-q is (B, Sq, H, hd), k and v are (B, Skv, KV, hd) with KV | H: query head
-h reads KV head h // (H / KV), and the expanded K/V never exist. With
-KV = H it is the reference's function. Query row i sits at position
-i + Skv − Sq and key j at position j; causal and sliding-window masks
-(``kpos > qpos − window``) come from those positions and use the
+q is (B, Sq, H, hd), k is (B, Skv, KV, hd) and v (B, Skv, KV, hd_v) with
+KV | H: query head h reads KV head h // (H / KV), and the expanded K/V
+never exist. With KV = H and hd_v = hd it is the reference's function.
+The kernel is built for head dims 16, 32, 64 and 128 with hd_v = hd, and
+for MLA's (hd, hd_v) of (192, 128) (deepseek-v2) and (24, 16) (its
+reduced config), those two uncapped (``HEAD_DIMS``). Query row i sits at
+position i + Skv − Sq and key j at position j; causal and sliding-window
+masks (``kpos > qpos − window``) come from those positions and use the
 reference's −2e9. ``softcap`` c > 0 caps each scaled logit x at
 c · tanh(x / c) before the mask, as the reference's model attention
 (``models.attention._softcap``) does around its Pallas kernel, which has
@@ -33,7 +36,9 @@ Pallas backward. ``reference_lse`` and ``reference_backward`` are the
 plain versions the backward is held to. The backward of a soft-capped
 forward is not written yet (ROADMAP queue 2): with ``softcap`` > 0 it
 raises ``NotImplementedError`` on the card, where the CPU's plain version
-is differentiated by autograd.
+is differentiated by autograd. Nor is the backward at unequal head dims
+(MLA's): on the card it raises ``NotImplementedError`` in the same way,
+so the kernel serves MLA but does not train it.
 """
 from __future__ import annotations
 
@@ -46,7 +51,9 @@ import torch
 from .. import build
 
 NEG = -2.0e9  # the reference's mask value
-HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
+# (q/k head dim, v head dim) pairs the forward kernel is compiled for; the
+# backward takes the equal ones. MLA's unequal pairs are built uncapped.
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128), (24, 16))
 ROWS = 64  # the fewest query rows a block of the kernel takes
 MAX_GRID = 65535  # the kernel's grid: batch and Sq / ROWS each up to this
 SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -70,7 +77,7 @@ def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, heads, head_dim)")
     b, _, h, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"fit q {tuple(q.shape)}")
     if h % k.shape[2]:
@@ -113,7 +120,8 @@ def reference(q, k, v, *, causal: bool = True, window: int = 0,
     """Plain PyTorch version, the reference's ``ref.flash_attention``:
     float32 logits scaled after the product, soft-capped (``softcap`` >
     0), masked with −2e9, softmax, float32 product with v, cast to q's
-    dtype; KV heads mapped to query heads by repetition."""
+    dtype; KV heads mapped to query heads by repetition. Any head dims:
+    the output takes v's."""
     _check(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     g = q.shape[2] // k.shape[2]
@@ -169,7 +177,7 @@ def reference_backward(q, k, v, out, lse, dout, *, causal: bool = True,
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.library("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -227,17 +235,21 @@ def backward_info(hd, dtype=torch.float32):
     return out
 
 
-def _prepare(q, k, v):
+def _prepare(q, k, v, softcap=0.0):
     """Checks for a kernel launch; returns q, k, v contiguous and 16-byte
-    aligned (the kernel copies 16-byte pieces of rows) and the scale."""
+    aligned (the kernel copies 16-byte pieces of rows)."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v)
     b, sq, h, hd = q.shape
-    skv = k.shape[1]
-    if hd not in HEAD_DIMS:
+    skv, pair = k.shape[1], (hd, v.shape[3])
+    if pair not in HEAD_DIMS:
         raise NotImplementedError(f"the flash_attention kernel is built for "
-                                  f"head dims {HEAD_DIMS}, not {hd}")
+                                  f"(q/k, v) head dims {HEAD_DIMS}, not "
+                                  f"{pair}")
+    if softcap > 0 and pair[0] != pair[1]:
+        raise NotImplementedError(f"the flash_attention kernel is built "
+                                  f"without the soft-cap at head dims {pair}")
     if b > MAX_GRID or -(-max(sq, skv) // ROWS) > MAX_GRID:
         raise ValueError(f"the flash_attention kernel takes a batch and "
                          f"Sq / {ROWS} and Skv / {ROWS} up to {MAX_GRID}, "
@@ -250,8 +262,8 @@ def _launch_forward(q, k, v, causal, window, scale, with_lse, softcap=0.0):
     """The forward kernel on prepared inputs: (out, lse or None)."""
     global launches
     b, sq, h, hd = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0 or skv == 0:
@@ -260,7 +272,7 @@ def _launch_forward(q, k, v, causal, window, scale, with_lse, softcap=0.0):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-                        b, sq, skv, h, kvh, hd, scale, int(causal),
+                        b, sq, skv, h, kvh, hd, hd_v, scale, int(causal),
                         int(window), float(softcap), _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
@@ -307,6 +319,14 @@ def _no_capped_backward(softcap) -> None:
             "(ROADMAP queue 2)")
 
 
+def _no_unequal_backward(q, v) -> None:
+    if q.shape[-1] != v.shape[-1]:
+        raise NotImplementedError(
+            f"the backward of flash_attention at unequal head dims "
+            f"({q.shape[-1]}, {v.shape[-1]}: MLA) is not written yet "
+            f"(ROADMAP queue 2)")
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel with its gradient: the forward launch with the row
     log-sum-exp kept, the backward launches on the saved tensors."""
@@ -314,6 +334,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, softcap=0.0):
         _no_capped_backward(softcap)
+        _no_unequal_backward(q, v)
         q, k, v = _prepare(q, k, v)
         out, lse = _launch_forward(q, k, v, causal, window, scale, True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -330,7 +351,7 @@ class FlashAttentionFn(torch.autograd.Function):
 def forward_with_lse(q, k, v, *, causal: bool = True, window: int = 0,
                      scale: float | None = None, softcap: float = 0.0):
     """The forward kernel with the row log-sum-exp written: (out, lse)."""
-    q, k, v = _prepare(q, k, v)
+    q, k, v = _prepare(q, k, v, softcap)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     return _launch_forward(q, k, v, causal, window, scale, True, softcap)
 
@@ -340,8 +361,10 @@ def backward(q, k, v, out, lse, dout, *, causal: bool = True,
              softcap: float = 0.0):
     """The backward launches on CUDA tensors, as ``backward_plan`` says:
     (dq, dk, dv), held to ``reference_backward``. A soft-capped forward's
-    backward raises ``NotImplementedError``."""
+    backward, and one at unequal head dims, raise
+    ``NotImplementedError``."""
     _no_capped_backward(softcap)
+    _no_unequal_backward(q, v)
     q, k, v = _prepare(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     return _launch_backward(q, k, v, out.contiguous(), lse.contiguous(),
@@ -350,9 +373,10 @@ def backward(q, k, v, out, lse, dout, *, causal: bool = True,
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, softcap: float = 0.0):
-    """q (B, Sq, H, hd), k and v (B, Skv, KV, hd), float32 or bfloat16 →
-    (B, Sq, H, hd) in q's dtype. ``scale`` defaults to 1/√hd (0 counts as
-    unset, as in the reference); ``softcap`` > 0 caps the scaled logits
+    """q (B, Sq, H, hd), k (B, Skv, KV, hd) and v (B, Skv, KV, hd_v),
+    float32 or bfloat16 → (B, Sq, H, hd_v) in q's dtype. ``scale``
+    defaults to 1/√hd (0 counts as unset, as in the reference);
+    ``softcap`` > 0 caps the scaled logits
     (0 or less: no cap, as in the reference). A row whose keys are all
     masked averages v over all Skv keys, as the reference's plain version
     does.
@@ -360,8 +384,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     CUDA tensors run the kernel, CPU tensors the plain version. On a
     CUDA tensor with grad enabled and an input that requires grad, the
     call runs ``FlashAttentionFn``, whose backward runs the backward
-    kernels (``backward``); with a cap it raises ``NotImplementedError``
-    (ROADMAP queue 2)."""
+    kernels (``backward``); with a cap or unequal head dims it raises
+    ``NotImplementedError`` (ROADMAP queue 2)."""
     softcap = float(softcap or 0.0)
     if q.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window, scale=scale,
@@ -369,5 +393,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, window, scale, softcap)
-    q, k, v = _prepare(q, k, v)
+    q, k, v = _prepare(q, k, v, softcap)
     return _launch_forward(q, k, v, causal, window, scale, False, softcap)[0]

@@ -1,5 +1,7 @@
-"""Grouped-query attention (full or sliding-window) with a KV cache: the
-GQA part of the reference's ``models.attention``.
+"""Attention mixers: grouped-query attention (full or sliding-window) with
+a KV cache, and DeepSeek-V2's multi-head latent attention (MLA) with its
+latent cache — the port of the reference's ``models.attention`` but for
+cross-attention.
 
 Prefill and the cache-less forward attend over keys at the query
 positions themselves; with ``flash=True`` (what ``lm`` passes by default)
@@ -14,8 +16,22 @@ soft-capped where the config says so (grok-1: inside the kernel, before
 the mask, as the reference caps). ``chunked_attention`` is the
 reference's online-softmax scan over key chunks as a plain function; the
 port's prefill does not route to it, since the kernel takes long
-prompts, but the kernel's long-key cases are held to it. MLA and cross-attention are not ported yet (ROADMAP queue 1
-item 10).
+prompts, but the kernel's long-key cases are held to it.
+
+MLA (``mla_*``): queries through a low-rank ``wq_a`` / ``q_norm`` /
+``wq_b`` (or one ``wq``), keys and values from a normed latent of
+``kv_lora_rank`` plus one shared RoPE key of ``qk_rope_head_dim``.
+Prefill and the cache-less forward (``mla_forward_expanded``) expand the
+latent to per-head K = [k_nope | k_rope] (q/k head dim nope + rope) and V
+(``v_head_dim``) and attend on the ``flash_attention`` kernel at those
+unequal head dims (``flash=True``), in place of the reference's dense and
+latent-chunked paths; ``_mla_attend_latent_chunked`` is the reference's
+chunked path as a plain function that the kernel's long-key MLA cases are
+held to. Decode (``mla_forward_absorbed``) scores the query against the
+latent cache through the absorbed ``wkv_b``, as plain float32 tensor
+products, as the reference computes it. The KV and latent caches are
+written in place (``cache_write``). Cross-attention
+is not ported yet (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -23,21 +39,17 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
-from .common import apply_rope, init_dense
+from .common import apply_rope, init_dense, rmsnorm
 
 BIG_NEG = -2.0e9  # mask value safe in bf16/f32
 KV_CHUNK = 1024  # keys a step of chunked_attention's scan
+MLA_CHUNK = 1024  # latent positions a step of _mla_attend_latent_chunked
 
 UNPORTED = "is not ported yet (ROADMAP queue 1 item 10)"
-
-
-def check_supported(cfg) -> None:
-    """Raise for the attention variants the port does not run."""
-    if cfg.use_mla:
-        raise NotImplementedError(f"MLA attention {UNPORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -53,16 +65,40 @@ def gqa_shapes(cfg) -> dict:
     return shapes
 
 
-def gqa_params(gen: torch.Generator, cfg, dtype) -> dict:
-    check_supported(cfg)
+def mla_shapes(cfg) -> dict:
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    shapes = {"wkv_a": (d, r + rope), "kv_norm": (r,),
+              "wkv_b": (r, h, nope + cfg.v_head_dim),
+              "wo": (h, cfg.v_head_dim, d)}
+    if cfg.q_lora_rank > 0:
+        shapes.update(wq_a=(d, cfg.q_lora_rank), q_norm=(cfg.q_lora_rank,),
+                      wq_b=(cfg.q_lora_rank, h, nope + rope))
+    else:
+        shapes["wq"] = (d, h, nope + rope)
+    return shapes
+
+
+def _init(gen, shapes, dtype) -> dict:
+    """Matrices ("w…") fan-in over every axis but the last two for ``wo``
+    and the first otherwise, as the reference draws them; norm scales and
+    biases start at zero."""
     p = {}
-    for name, shape in gqa_shapes(cfg).items():
+    for name, shape in shapes.items():
         if name.startswith("w"):
             p[name] = init_dense(gen, shape, (0, 1) if name == "wo" else (0,),
                                  dtype)
-        else:  # biases start at zero
+        else:
             p[name] = torch.zeros(shape, dtype=dtype, device=gen.device)
     return p
+
+
+def gqa_params(gen: torch.Generator, cfg, dtype) -> dict:
+    return _init(gen, gqa_shapes(cfg), dtype)
+
+
+def mla_params(gen: torch.Generator, cfg, dtype) -> dict:
+    return _init(gen, mla_shapes(cfg), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -185,20 +221,24 @@ def init_kv_cache(batch, w, kvh, hd, dtype, device=None) -> KVCache:
     )
 
 
-def cache_write(cache: KVCache, k_new, v_new, positions) -> KVCache:
-    """Write S_new entries at ``positions`` (B, S_new) into rolling slots,
-    in place (the reference returns a new cache; the port updates the
-    cache's tensors and returns the same cache). If S_new ≥ W (prefill
-    longer than a rolling window) only the last W entries are written —
-    earlier ones would be overwritten anyway."""
-    w = cache.k.shape[1]
-    if k_new.shape[1] >= w:
-        k_new, v_new = k_new[:, -w:], v_new[:, -w:]
+def cache_write(cache, *new):
+    """Write S_new entries into rolling slots ``positions % W``, in place
+    (the reference returns a new cache; the port updates the cache's
+    tensors and returns the same cache). ``new``: one (B, S_new, ...)
+    tensor for each field of ``cache`` before ``pos`` (K and V of a
+    ``KVCache``, the latents and RoPE keys of an ``MLACache``), then the
+    positions (B, S_new). If S_new ≥ W (prefill longer than a rolling
+    window) only the last W entries are written — earlier ones would be
+    overwritten anyway."""
+    *new, positions = new
+    w = cache.pos.shape[1]
+    if positions.shape[1] >= w:
+        new = [x[:, -w:] for x in new]
         positions = positions[:, -w:]
     slots = (positions % w).to(torch.int64)  # (B, S_new)
-    bidx = torch.arange(cache.k.shape[0], device=slots.device)[:, None]
-    cache.k[bidx, slots] = k_new.to(cache.k.dtype)
-    cache.v[bidx, slots] = v_new.to(cache.v.dtype)
+    bidx = torch.arange(cache.pos.shape[0], device=slots.device)[:, None]
+    for field, x in zip(cache[:-1], new):
+        field[bidx, slots] = x.to(field.dtype)
     cache.pos[bidx, slots] = positions.to(torch.int32)
     return cache
 
@@ -247,3 +287,141 @@ def gqa_forward(p, x, positions, cfg, *, causal=True, window=0,
     if "bo" in p:
         y = y + p["bo"]
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): expanded prefill on the kernel, absorbed decode
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor  # (B, W, kv_lora)
+    krope: torch.Tensor  # (B, W, rope_dim)
+    pos: torch.Tensor  # (B, W) int32 key positions, -1 = empty
+
+
+def init_mla_cache(batch, w, cfg, dtype, device=None) -> MLACache:
+    return MLACache(
+        ckv=torch.zeros((batch, w, cfg.kv_lora_rank), dtype=dtype,
+                        device=device),
+        krope=torch.zeros((batch, w, cfg.qk_rope_head_dim), dtype=dtype,
+                          device=device),
+        pos=torch.full((batch, w), -1, dtype=torch.int32, device=device),
+    )
+
+
+def _mla_q(p, x, positions, cfg):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), RoPE applied."""
+    if "wq_a" in p:
+        qa = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+        q = _project(qa, p["wq_b"])
+    else:
+        q = _project(x, p["wq"])
+    nope = cfg.qk_nope_head_dim
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p, x, positions, cfg):
+    """(c_kv (B,S,kv_lora) normed, k_rope (B,S,rope) with RoPE)."""
+    kv = x @ p["wkv_a"]
+    r = cfg.kv_lora_rank
+    ckv = rmsnorm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
+    kr = apply_rope(kv[:, :, None, r:], positions, cfg.rope_theta)[:, :, 0]
+    return ckv, kr
+
+
+def _mla_attend_latent_chunked(q, ckv, kr, wkb, positions, cfg, *, causal,
+                               scale, chunk=MLA_CHUNK):
+    """The reference's flash-MLA dataflow as a plain function: latent
+    chunks of ``chunk`` positions (the tail padded with position −1,
+    masked), each expanded to per-head K = [k_nope | k_rope] and V in
+    float32, and (max, sum, acc) carried over them in float32. q: (B, S,
+    H, nope + rope) at ``positions``, which are the keys' too. No serving
+    path calls it: the kernel's MLA cases with keys past one chunk are
+    held to it."""
+    b, s, h, _ = q.shape
+    nope, hdv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    pad = (-s) % chunk
+    kv_pos = positions
+    if pad:
+        ckv = torch.nn.functional.pad(ckv, (0, 0, 0, pad))
+        kr = torch.nn.functional.pad(kr, (0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
+    qf = q.to(torch.float32) * scale
+    wk = wkb[..., :nope].to(torch.float32)
+    wv = wkb[..., nope:].to(torch.float32)
+    m = torch.full((b, h, s), BIG_NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, hdv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, ckv.shape[1], chunk):
+        ckv_c = ckv[:, c0:c0 + chunk].to(torch.float32)
+        kn = torch.einsum("bcr,rhk->bchk", ckv_c, wk)
+        vc = torch.einsum("bcr,rhk->bchk", ckv_c, wv)
+        kr_c = kr[:, c0:c0 + chunk].to(torch.float32)
+        kc = torch.cat([kn, kr_c[:, :, None].expand(*kn.shape[:3],
+                                                    kr_c.shape[-1])], -1)
+        logits = torch.einsum("bqhd,bchd->bhqc", qf, kc)
+        ok = mask_ok(positions, kv_pos[:, c0:c0 + chunk], causal, 0)
+        logits = torch.where(ok[:, None], logits, BIG_NEG)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(logits - m_new[..., None])
+        l = l * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqc,bchd->bhqd", pexp,
+                                                    vc)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 2, 1, 3).to(q.dtype)  # (b, s, h, hdv)
+
+
+def mla_forward_expanded(p, x, positions, cfg, *, causal=True,
+                         flash: bool = False):
+    """Training / prefill form: the latent expanded to per-head K (nope +
+    rope) and V (``v_head_dim``), attention over the sequence itself at
+    scale 1/√(nope + rope), then ``wo``. ``flash``: as in ``gqa_forward``;
+    with more than one query the ``flash_attention`` kernel attends at the
+    unequal head dims, else the plain grouped attention."""
+    with record_function("mla.expanded"):
+        qn, qr = _mla_q(p, x, positions, cfg)
+        ckv, kr = _mla_latent(p, x, positions, cfg)
+        nope = cfg.qk_nope_head_dim
+        kv = _project(ckv, p["wkv_b"])  # (B, S, H, nope + v)
+        kr_b = kr[:, :, None, :].expand(*kv.shape[:3], kr.shape[-1])
+        q = torch.cat([qn, qr], -1)
+        k = torch.cat([kv[..., :nope], kr_b], -1)
+        scale = 1.0 / math.sqrt(nope + cfg.qk_rope_head_dim)
+        out = attend(q, k, kv[..., nope:], positions, positions,
+                     causal=causal, window=0, scale=scale, flash=flash)
+        h, hdv, d = p["wo"].shape
+        return out.reshape(*out.shape[:2], h * hdv) @ p["wo"].reshape(
+            h * hdv, d)
+
+
+def mla_forward_absorbed(p, x, positions, cfg, cache: MLACache, *,
+                         causal=True):
+    """Decode form: the new latents written into the cache (in place), then
+    the queries scored against the whole latent cache through the
+    absorbed ``wkv_b`` (per-head K/V over the context never made), in
+    float32: q_lat = q_nope · w_k, logits = (q_lat · c_kv + q_rope ·
+    k_rope) · scale, masked, softmax, the context over c_kv, then w_v and
+    ``wo`` in x's dtype. Returns (y, cache)."""
+    with record_function("mla.absorbed"):
+        qn, qr = _mla_q(p, x, positions, cfg)
+        ckv_new, kr_new = _mla_latent(p, x, positions, cfg)
+        cache = cache_write(cache, ckv_new, kr_new, positions)
+        nope = cfg.qk_nope_head_dim
+        f32 = torch.float32
+        wkb = p["wkv_b"].to(f32)
+        q_lat = torch.einsum("bshk,rhk->bshr", qn.to(f32), wkb[..., :nope])
+        ckv = cache.ckv.to(f32)
+        scale = 1.0 / math.sqrt(nope + cfg.qk_rope_head_dim)
+        logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
+                  + torch.einsum("bshk,btk->bhst", qr.to(f32),
+                                 cache.krope.to(f32))) * scale
+        ok = mask_ok(positions, cache.pos, causal, 0)
+        probs = torch.softmax(torch.where(ok[:, None], logits, BIG_NEG), -1)
+        ctx = torch.einsum("bhst,btr->bshr", probs, ckv)
+        out = torch.einsum("bshr,rhk->bshk", ctx, wkb[..., nope:])
+        h, hdv, d = p["wo"].shape
+        y = out.to(x.dtype).reshape(*x.shape[:2], h * hdv) @ p["wo"].reshape(
+            h * hdv, d)
+        return y, cache

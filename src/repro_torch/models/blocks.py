@@ -3,9 +3,10 @@ port of the reference's ``models.blocks``. The mixer is attention
 (``attn``), the SSD scan (``ssm``), the mean of both, each behind its own
 pre-norm (``attn_ssm_parallel``), or nothing (``none``); the FFN is dense
 or the Mixture-of-Experts (``moe``), whose load-balancing loss the block
-returns. One ``block_forward`` serves the forward, prefill and decode; a
-layer's cache holds ``kv`` and/or ``ssm``. Cross-attention is not ported
-yet (ROADMAP queue 1 item 10)."""
+returns. Attention is grouped-query, or MLA where ``cfg.use_mla`` says
+so. One ``block_forward`` serves the forward, prefill and decode; a
+layer's cache holds ``kv`` (or ``mla``) and/or ``ssm``. Cross-attention
+is not ported yet (ROADMAP queue 1 item 10)."""
 from __future__ import annotations
 
 import torch
@@ -37,7 +38,8 @@ def block_shapes(spec, cfg) -> dict:
         norm["bias"] = (cfg.d_model,)
     shapes = {}
     if _has_attn(spec):
-        shapes.update(attn=attn.gqa_shapes(cfg), norm_attn=dict(norm))
+        shapes.update(attn=(attn.mla_shapes(cfg) if cfg.use_mla
+                            else attn.gqa_shapes(cfg)), norm_attn=dict(norm))
     if _has_ssm(spec):
         shapes.update(ssm=ssm_mod.ssm_shapes(cfg), norm_ssm=dict(norm))
     if spec.ffn == "dense":
@@ -55,7 +57,8 @@ def block_params(gen, spec, cfg, dtype) -> dict:
     ln = cfg.use_layernorm
     p = {}
     if _has_attn(spec):
-        p["attn"] = attn.gqa_params(gen, cfg, dtype)
+        p["attn"] = (attn.mla_params(gen, cfg, dtype) if cfg.use_mla
+                     else attn.gqa_params(gen, cfg, dtype))
         p["norm_attn"] = norm_params(cfg.d_model, ln, dtype, gen.device)
     if _has_ssm(spec):
         p["ssm"] = ssm_mod.ssm_params(gen, cfg, dtype)
@@ -74,7 +77,9 @@ def init_layer_cache(spec, cfg, batch, kv_len, dtype, device=None) -> dict:
     """Cache entry for ONE layer of this spec."""
     check_supported(spec)
     c = {}
-    if _has_attn(spec):
+    if _has_attn(spec) and cfg.use_mla:
+        c["mla"] = attn.init_mla_cache(batch, kv_len, cfg, dtype, device)
+    elif _has_attn(spec):
         c["kv"] = attn.init_kv_cache(batch, kv_len, cfg.n_kv_heads,
                                      cfg.head_dim, dtype, device)
     if _has_ssm(spec):
@@ -82,11 +87,35 @@ def init_layer_cache(spec, cfg, batch, kv_len, dtype, device=None) -> dict:
     return c
 
 
+def _mla(p, spec, cfg, h, positions, cache, flash):
+    """MLA, as the reference branches: without a cache the expanded form;
+    one token with a cache the absorbed form over the latent cache; a
+    prompt with a cache its latents written, then the expanded form over
+    the prompt. Returns (out, latent cache or None)."""
+    if cache is None:
+        return attn.mla_forward_expanded(p, h, positions, cfg,
+                                         causal=spec.causal, flash=flash), None
+    if h.shape[1] == 1:
+        return attn.mla_forward_absorbed(p, h, positions, cfg, cache,
+                                         causal=spec.causal)
+    ckv, kr = attn._mla_latent(p, h, positions, cfg)
+    cache = attn.cache_write(cache, ckv, kr, positions)
+    return attn.mla_forward_expanded(p, h, positions, cfg,
+                                     causal=spec.causal, flash=flash), cache
+
+
 def _mixer(p, spec, cfg, x, positions, cache, window, flash):
     """Returns (mixer_out, new_cache)."""
     new_cache = None if cache is None else dict(cache)
     outs = []
-    if _has_attn(spec):
+    if _has_attn(spec) and cfg.use_mla:
+        h = apply_norm(p["norm_attn"], x, cfg.norm_eps, cfg.use_layernorm)
+        out, mla = _mla(p["attn"], spec, cfg, h, positions,
+                        None if cache is None else cache["mla"], flash)
+        if cache is not None:
+            new_cache["mla"] = mla
+        outs.append(out)
+    elif _has_attn(spec):
         h = apply_norm(p["norm_attn"], x, cfg.norm_eps, cfg.use_layernorm)
         out, kv = attn.gqa_forward(p["attn"], h, positions, cfg,
                                    causal=spec.causal, window=window,

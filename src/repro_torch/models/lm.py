@@ -1,9 +1,9 @@
 """Top-level model: embedding → layer groups → norm → LM head — the port
 of the reference's ``models.lm`` for decoder-only models whose layers
-mix by attention (soft-capped where the config says so), the SSD scan or
-both in parallel, with dense or Mixture-of-Experts FFNs (llama3.2-1b,
-yi-9b, starcoder2-3b, command-r-plus-104b, mamba2-2.7b, hymba-1.5b,
-grok-1-314b).
+mix by attention (grouped-query, soft-capped where the config says so, or
+MLA), the SSD scan or both in parallel, with dense or Mixture-of-Experts
+FFNs (llama3.2-1b, yi-9b, starcoder2-3b, command-r-plus-104b,
+mamba2-2.7b, hymba-1.5b, grok-1-314b, deepseek-v2-236b).
 
 * ``forward(params, cfg, batch)``          — full-sequence logits
 * ``prefill(params, cfg, batch, cache)``   — fill caches, last logits
@@ -14,18 +14,20 @@ grok-1-314b).
 Parameters are a plain dict in the reference's layout, with each group a
 list of per-layer dicts where the reference stacks the layers on a
 leading axis; the layers run in a Python loop where the reference scans.
-KV caches are updated in place and SSM states replaced; the forward
-writes into no tensor that autograd saved, so ``lm_loss`` differentiates
-through it. ``use_kernel=False`` takes the plain grouped attention for
-prefill and the forward, the reference's own route; otherwise they run on
-the ``flash_attention`` kernel, and a gradient through the forward on the
-card runs the kernel's backward (not yet for soft-capped attention,
-which raises there). The SSD scan and the MoE's routing, dispatch and
-combine are plain tensor operations on either route (``models.ssm``,
-``models.ffn``).
+KV and MLA latent caches are updated in place and SSM states replaced;
+the forward writes into no tensor that autograd saved, so ``lm_loss``
+differentiates through it. ``use_kernel=False`` takes the plain grouped
+attention for prefill and the forward, the reference's own route;
+otherwise they run on the ``flash_attention`` kernel, and a gradient
+through the forward on the card runs the kernel's backward (not yet for
+soft-capped attention, which raises there, nor for MLA's unequal head
+dims). MLA's decode over
+its latent cache, the SSD scan and the MoE's routing, dispatch and
+combine are plain tensor operations on either route
+(``models.attention``, ``models.ssm``, ``models.ffn``).
 
-Encoder-decoder models, vision/audio frontends, MLA and cross-attention
-raise ``NotImplementedError`` (ROADMAP queue 1 item 10).
+Encoder-decoder models, vision/audio frontends and cross-attention raise
+``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -55,7 +57,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend != "none" or cfg.learned_pos_embed:
         raise NotImplementedError(f"the {cfg.frontend!r} frontend and "
                                   f"learned positions {attn_mod.UNPORTED}")
-    attn_mod.check_supported(cfg)
     for spec in cfg.layers:
         blocks.check_supported(spec)
 

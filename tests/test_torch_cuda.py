@@ -2115,3 +2115,88 @@ def test_flash_attention_long_keys_equal_chunked_attention(
     torch.testing.assert_close(
         out, t_attn.chunked_attention(q, k, v, qp, kp, **kw), rtol=2e-5,
         atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention at unequal head dims and the MLA score producer
+# (deepseek-v2-236b)
+# ---------------------------------------------------------------------------
+
+# (b, sq, skv, h, hd, hd_v, causal, window): deepseek's pair (192, 128) at
+# 128 heads causal, ragged Sq < Skv, and rows with no key; the reduced
+# config's (24, 16) windowed
+FA_MLA_CASES = [(1, 256, 256, 128, 192, 128, True, 0),
+                (2, 100, 333, 4, 192, 128, True, 0),
+                (1, 40, 24, 2, 192, 128, True, 0),
+                (2, 70, 70, 4, 24, 16, True, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,hd,hd_v,causal,window", FA_MLA_CASES)
+def test_flash_attention_unequal_head_dims_equal_plain(
+        b, sq, skv, h, hd, hd_v, causal, window, dtype, cuda_device):
+    """The kernel at (q/k, v) head dims (192, 128) and (24, 16) against its
+    plain version: output (B, Sq, H, hd_v) within 2e-5 in float32 and 2e-2
+    in bfloat16, the row log-sum-exp within the same, one launch a call."""
+    rng = np.random.default_rng(sq + skv + hd)
+    q, k, v = (torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                            device=cuda_device).to(dtype)
+               for shape in ((b, sq, h, hd), (b, skv, h, hd),
+                             (b, skv, h, hd_v)))
+    kw = dict(causal=causal, window=window, scale=hd ** -0.5)
+    before = t_fa.launches
+    out = t_fa.flash_attention(q, k, v, **kw)
+    o2, lse = t_fa.forward_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert t_fa.launches == before + 2
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    ref = t_fa.reference(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape == (b, sq, h, hd_v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, o2)
+    torch.testing.assert_close(lse, t_fa.reference_lse(q, k, v, **kw),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_unequal_head_dims_backward_and_cap_raise(
+        cuda_device):
+    """No backward at unequal head dims yet, and no capped build of MLA's
+    pairs: the autograd route, ops.backward and a capped call raise, and
+    nothing falls back to the plain version."""
+    q = torch.randn((1, 64, 2, 192), device=cuda_device)
+    k = torch.randn((1, 64, 2, 192), device=cuda_device)
+    v = torch.randn((1, 64, 2, 128), device=cuda_device)
+    out, lse = t_fa.forward_with_lse(q, k, v)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        t_fa.backward(q, k, v, out, lse, torch.ones_like(out))
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        t_fa.flash_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(NotImplementedError, match="soft-cap"):
+        t_fa.flash_attention(q.detach(), k, v, softcap=30.0)
+    with torch.no_grad():  # serving needs no backward
+        t_fa.flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+def test_serve_mla_on_card_equals_cpu(cuda_device):
+    """Reduced deepseek-v2-236b served on the card (flash_attention at head
+    dims (24, 16) in each prefill layer, the absorbed decode over the
+    latent cache and the MoE as plain tensor operations, entropy_scores
+    per decode step) against the CPU's run with the same weights: exact
+    launch counts, tokens equal, scores within 2e-5, retention equal."""
+    cfg = t_configs.get_config("deepseek-v2-236b", reduced=True)
+    # seed 1: no two of the CPU's scores within twice the tolerance
+    cpu = t_lm.init_params(cfg, seed=1, device="cpu")
+    run = dict(requests=24, batch=8, prompt_len=8, gen_len=6, topk=8)
+    t_fa.launches = t_ent.launches = 0
+    res = t_serve.serve(cfg, params_to(cpu, cuda_device), device=cuda_device,
+                        **run)
+    assert (t_fa.launches, t_ent.launches) == (cfg.n_layers * 3, 5 * 3)
+    ref = t_serve.serve(cfg, cpu, device="cpu", **run)
+    np.testing.assert_array_equal(res.tokens, ref.tokens)
+    np.testing.assert_allclose(res.scores, ref.scores, rtol=2e-5, atol=2e-5)
+    assert np.diff(np.sort(ref.scores)).min() > 4e-5
+    assert res.retained == ref.retained
+    assert res.store.ledger.as_dict() == ref.store.ledger.as_dict()

@@ -213,16 +213,22 @@ def test_plain_non_causal_at_head_dim_128():
 
 
 def test_head_dims_of_the_build_cover_every_config():
-    """Every head dim of the ten configs (full and reduced) is one the
-    kernel is built for; MLA's unequal q/v head dims stay unbuilt."""
+    """Every (q/k, v) head-dim pair of the ten configs (full and reduced)
+    is one the kernel is built for: head_dim twice for grouped-query
+    attention, (nope + rope, v_head_dim) for MLA, (192, 128) at full
+    width and (24, 16) reduced."""
     from repro_torch import configs
-    dims = set()
+    pairs = set()
     for arch in configs.ARCHS:
         for reduced in (False, True):
             cfg = configs.get_config(arch, reduced=reduced)
-            if cfg.n_heads and not cfg.use_mla:
-                dims.add(cfg.head_dim)
-    assert dims <= set(t_ops.HEAD_DIMS) and 128 in dims
+            if cfg.use_mla:
+                pairs.add((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                           cfg.v_head_dim))
+            elif cfg.n_heads:
+                pairs.add((cfg.head_dim, cfg.head_dim))
+    assert pairs <= set(t_ops.HEAD_DIMS)
+    assert {(128, 128), (192, 128), (24, 16)} <= pairs
 
 
 # ---------------------------------------------------------------------------
@@ -395,3 +401,72 @@ def test_long_keys_match_chunked_attention(b, sq, skv, h, kvh, hd, window,
     kp = torch.arange(skv).expand(b, skv)
     close(t_ops.flash_attention(tq, tk, tv, **kw),
           t_attn.chunked_attention(tq, tk, tv, qp, kp, **kw), 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# unequal q/k and v head dims (MLA: deepseek-v2's 192 and 128)
+# ---------------------------------------------------------------------------
+
+def make_mla(b, sq, skv, h, hd, hd_v, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, h, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, h, hd_v)).astype(np.float32))
+
+
+# (b, sq, skv, h, hd, hd_v, causal, window): deepseek's pair causal, ragged
+# Sq < Skv, windowed, non-causal, rows with no key; the reduced config's
+MLA_CASES = [(1, 96, 96, 2, 192, 128, True, 0),
+             (1, 40, 100, 2, 192, 128, True, 0),
+             (2, 70, 70, 2, 192, 128, True, 24),
+             (1, 64, 64, 1, 192, 128, False, 0),
+             (1, 40, 24, 2, 192, 128, True, 0),
+             (2, 33, 33, 4, 24, 16, True, 0)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hd,hd_v,causal,window", MLA_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_unequal_head_dims_match_reference(b, sq, skv, h, hd, hd_v,
+                                                 causal, window, dtype):
+    """The plain version at (hd, hd_v) against the reference's jnp oracle
+    (any head dims: it contracts q with k and the probabilities with v)
+    and, in float32, the model's grouped_attention at the same scale; the
+    output takes v's head dim."""
+    from repro_torch.models import attention as t_attn
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = make_mla(b, sq, skv, h, hd, hd_v, seed=sq + skv)
+    scale = 1.0 / np.sqrt(hd)
+    tq, tk, tv = to_torch(arrays, tdt)
+    out = t_ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                scale=scale)
+    assert out.dtype == tdt and out.shape == (b, sq, h, hd_v)
+    close(out, r_ref.flash_attention(*to_jax(arrays, jdt), causal=causal,
+                                     window=window, scale=scale), tol)
+    if dtype == "float32":
+        qp = torch.arange(skv - sq, skv).expand(b, sq)
+        kp = torch.arange(skv).expand(b, skv)
+        close(out, t_attn.grouped_attention(tq, tk, tv, qp, kp,
+                                            causal=causal, window=window,
+                                            scale=scale), tol)
+        lse = t_ops.reference_lse(tq, tk, tv, causal=causal, window=window,
+                                  scale=scale)
+        assert lse.shape == (b, h, sq) and bool(torch.isfinite(lse).all())
+
+
+def test_unequal_head_dims_shape_checks_and_gradient():
+    """v may differ from q and k in its last dim alone; on the CPU the
+    plain version's gradient is autograd's (the card's backward at unequal
+    head dims raises, as for the cap)."""
+    q, k, v = to_torch(make_mla(1, 8, 8, 2, 24, 16, seed=3), torch.float32)
+    with pytest.raises(ValueError, match="do not fit"):
+        t_ops.flash_attention(q, k[..., :16], v)
+    with pytest.raises(ValueError, match="do not fit"):
+        t_ops.flash_attention(q, k, v[:, :4])
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    out = t_ops.flash_attention(q, k, v)
+    gq, gk, gv = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert gv.shape == v.shape and all(bool(x.abs().any())
+                                       for x in (gq, gk, gv))
+    with pytest.raises(NotImplementedError, match="unequal head dims"):
+        t_ops.backward(q, k, v, out, torch.zeros((1, 2, 8)),
+                       torch.ones_like(out))

@@ -28,9 +28,8 @@ from repro_torch.models import lm as t_lm
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 PORTED = ["llama3.2-1b", "yi-9b", "starcoder2-3b", "command-r-plus-104b",
-          "mamba2-2.7b", "hymba-1.5b", "grok-1-314b"]
-UNPORTED = {"deepseek-v2-236b": "MLA",
-            "whisper-base": "encoder-decoder", "pixtral-12b": "frontend"}
+          "mamba2-2.7b", "hymba-1.5b", "grok-1-314b", "deepseek-v2-236b"]
+UNPORTED = {"whisper-base": "encoder-decoder", "pixtral-12b": "frontend"}
 
 
 def ref_setup(arch, seed=0):
@@ -109,7 +108,8 @@ def test_init_dense_is_a_truncated_fan_in_normal():
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "yi-9b", "starcoder2-3b",
-                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b"])
+                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b",
+                                  "deepseek-v2-236b"])
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_forward_matches_reference(arch, use_kernel):
     """Logits and the aux loss (the MoE layers' load-balancing loss,
@@ -126,13 +126,15 @@ def test_forward_matches_reference(arch, use_kernel):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b",
-                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b"])
+                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b",
+                                  "deepseek-v2-236b"])
 def test_prefill_and_decode_match_reference(arch):
     """Logits of the prefill and of each decode step, then every layer's
     cache against the reference's: the KV cache's positions exactly (a
     rolling window of 8 in starcoder2's layers and hymba's second group,
     which the 12-token prompt overruns) and its K/V, the SSM state and
-    the conv state within TOL."""
+    the conv state within TOL; deepseek's MLA latent cache (positions
+    exactly, latents and RoPE keys within TOL)."""
     cfg, params, tcfg, tparams = ref_setup(arch)
     toks = tokens_for(cfg, 2, 20)
     t0, kv_len = 12, 21
@@ -171,12 +173,19 @@ def test_prefill_and_decode_match_reference(arch):
                 assert lc["ssm"].state.dtype == torch.float32
                 close(lc["ssm"].state, r_st.state[li])
                 close(lc["ssm"].conv, r_st.conv[li])
-    assert kinds == {"mamba2-2.7b": {"ssm"}, "hymba-1.5b": {"kv", "ssm"}}.get(
-        arch, {"kv"})
+            if "mla" in lc:
+                r_mla = r_group["mla"]
+                np.testing.assert_array_equal(lc["mla"].pos.numpy(),
+                                              np.asarray(r_mla.pos[li]))
+                close(lc["mla"].ckv, r_mla.ckv[li])
+                close(lc["mla"].krope, r_mla.krope[li])
+    assert kinds == {"mamba2-2.7b": {"ssm"}, "hymba-1.5b": {"kv", "ssm"},
+                     "deepseek-v2-236b": {"mla"}}.get(arch, {"kv"})
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b",
-                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b"])
+                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b",
+                                  "deepseek-v2-236b"])
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_prefill_then_decode_matches_forward(arch, use_kernel):
     tcfg = t_configs.get_config(arch, reduced=True)
@@ -244,7 +253,7 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", "hymba-1.5b",
-                                  "grok-1-314b"])
+                                  "grok-1-314b", "deepseek-v2-236b"])
 def test_abstract_params_dtypes_equal_reference(arch):
     """Leaf by leaf, shapes and dtypes of ``abstract_params`` against the
     reference's ``jax.eval_shape`` at bfloat16 parameters: the SSM's
@@ -296,3 +305,19 @@ def test_none_mixer_matches_reference():
     ref, _ = r_lm.forward(params, cfg, {"tokens": jnp.asarray(toks)})
     got, _ = t_lm.forward(tparams, tcfg, {"tokens": torch.tensor(toks)})
     close(got, ref)
+
+
+def test_deepseek_full_size_param_count():
+    """The whole deepseek-v2-236b: 235,741,434,880 parameters, as the
+    reference counts them; and the 3-of-60-layer cut the card serves (the
+    dense layer 0 and two MoE layers): 9,330,795,520."""
+    from repro_torch.configs.base import LayerSpec
+    cfg = t_configs.get_config("deepseek-v2-236b")
+    assert t_lm.param_count(cfg) == 235_741_434_880 == r_lm.param_count(
+        r_configs.get_config("deepseek-v2-236b"))
+    cut = cfg.replace(layers=(LayerSpec(count=1, mixer="attn", ffn="dense"),
+                              LayerSpec(count=2, mixer="attn", ffn="moe")))
+    assert t_lm.param_count(cut) == 9_330_795_520
+    shapes = t_lm.param_shapes(cfg)["dec"][1][0]["attn"]
+    assert shapes["wkv_b"] == (512, 128, 256) and shapes["wq_b"] == (
+        1536, 128, 192)

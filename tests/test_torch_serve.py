@@ -111,6 +111,22 @@ def moe():
     return cfg, params, tcfg, tparams
 
 
+@pytest.fixture(scope="module")
+def mla():
+    """Reduced deepseek-v2-236b (MLA attention: 4 heads, kv_lora 16, q_lora
+    24, q/k head dim 16 + 8, v head dim 16; a dense layer, then two MoE
+    layers of 8 experts, top-2, with a shared expert) with the reference's
+    weights. Prefill attends on the kernel's plain version at head dims
+    (24, 16); each decode step is the absorbed form over the latent
+    cache."""
+    cfg = r_configs.get_config("deepseek-v2-236b", reduced=True)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(3))
+    tcfg = t_configs.get_config("deepseek-v2-236b", reduced=True)
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    return cfg, params, tcfg, tparams
+
+
 @pytest.fixture(autouse=True)
 def numpy_reference_planner():
     prev = r_shp.set_planner_backend("numpy")
@@ -442,6 +458,39 @@ def test_cli_obs_port_serves_monotone_counters():
     assert first.keys() <= second.keys()
     assert all(second[k] >= first[k] for k in first)
     assert any(k.endswith("costs_device_resident_steps") for k in first)
+
+
+def test_serve_mla_reduced_matches_reference(example, mla):
+    """The serve loop on the family chip_smoke.py serves at full width as
+    deepseek-v2-236b (MLA: the expanded prefill and the latent cache's
+    absorbed decode; MoE FFNs with a shared expert): tokens equal, scores
+    within 2e-5, curation and retention equal, the retained set the top-K
+    of the scores."""
+    cfg, params, tcfg, tparams = mla
+    r_scores, r_tokens, r_curator, r_store, _ = reference_serve(
+        example, cfg, params, **RUN)
+    res = t_serve.serve(tcfg, tparams, tenants=1, device="cpu", **RUN)
+    np.testing.assert_array_equal(res.tokens, r_tokens)
+    np.testing.assert_allclose(res.scores, r_scores, rtol=TOL, atol=TOL)
+    assert_no_near_tie(r_scores)
+    assert res.curator.stats.as_dict() == r_curator.stats.as_dict()
+    assert res.store.ledger.as_dict() == r_store.ledger.as_dict()
+    retained, ours = r_curator.finalize(), res.curator.finalize()
+    assert res.retained == sorted(retained) == sorted(ours)
+    for d in retained:
+        np.testing.assert_array_equal(ours[d].numpy(), np.asarray(retained[d]))
+    want = np.lexsort((np.arange(len(r_scores)), -r_scores))[:RUN["topk"]]
+    assert res.retained == sorted(want.tolist())
+
+
+def test_cli_serves_deepseek_on_cpu(capsys):
+    """``--arch deepseek-v2-236b`` (the reduced MLA model) runs through the
+    launcher's existing flags."""
+    t_serve.main(["--device", "cpu", "--arch", "deepseek-v2-236b",
+                  "--requests", "12", "--gen-len", "3", "--prompt-len", "4"])
+    out = capsys.readouterr().out
+    assert "serving reduced deepseek-v2-236b on cpu" in out
+    assert "served 12 requests" in out
 
 
 def test_cli_serves_on_cpu(capsys):

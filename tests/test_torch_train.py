@@ -424,6 +424,40 @@ def test_lm_loss_aux_and_grads_match_reference_moe(use_kernel):
         _rel_close(g.numpy(), want[path].numpy(), 1e-5, str(path))
 
 
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_lm_loss_aux_and_grads_match_reference_mla(use_kernel):
+    """Reduced deepseek-v2-236b (MLA attention: the low-rank query, the
+    normed latent and the shared RoPE key, expanded per head; a dense
+    layer, then two MoE layers with a shared expert): the loss with
+    aux_weight times the load-balancing loss and every gradient against
+    jax.value_and_grad of the reference's lm_loss. On the CPU both routes
+    differentiate the plain attention at head dims (24, 16)."""
+    cfg = r_configs.get_config("deepseek-v2-236b", reduced=True)
+    tcfg = t_configs.get_config("deepseek-v2-236b", reduced=True)
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(3))
+    batch = r_pipe.StreamLoader(cfg, R_SHAPE, seed=4).batch_for_step(0)
+    batch["labels"][0, :5] = -1  # masked labels count nowhere
+    (r_loss, r_met), r_grads = jax.value_and_grad(
+        lambda p: r_lm.lm_loss(p, cfg, jax.tree.map(jnp.asarray, batch),
+                               aux_weight=0.5), has_aux=True)(params)
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    loss, met, grads = t_steps.loss_and_grads(
+        tparams, tcfg, _to_torch(batch), 0.5, use_kernel=use_kernel)
+    np.testing.assert_allclose(float(loss), float(r_loss), rtol=1e-5)
+    for key in ("loss", "aux_loss", "per_example_nll", "tokens"):
+        np.testing.assert_allclose(met[key].numpy(), np.asarray(r_met[key]),
+                                   rtol=1e-5)
+    want = dict(_leaves_with_paths(t_lm.from_reference_params(
+        jax.tree.map(np.asarray, r_grads), tcfg, device="cpu")))
+    assert want.keys() == dict(_leaves_with_paths(grads)).keys()
+    assert any("wkv_b" in p for p in want) and any("q_norm" in p
+                                                   for p in want)
+    for path, g in _leaves_with_paths(grads):
+        assert g.shape == want[path].shape and bool(g.abs().any()), path
+        _rel_close(g.numpy(), want[path].numpy(), 1e-5, str(path))
+
+
 def _check_params(t_params, r_params, r_m, lr, what):
     """The parameters' tolerance of the module docstring."""
     want = dict(_leaves_with_paths(_port_tree(r_params)))
