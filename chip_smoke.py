@@ -60,6 +60,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    and 16) with its log-sum-exp, and past one latent chunk (1,300 keys)
    against the model's _mla_attend_latent_chunked on the same latents;
    the backward at unequal head dims must raise NotImplementedError;
+   flash_attention non-causal with no window, forward with its
+   log-sum-exp and backward, at whisper-base's encoder (8 x 1500 x 1500,
+   8 heads of 64) and cross-attention (8 x 416 and 8 x 448 queries over
+   1500 frames) launches and at batch 2, a ragged Sq = Skv = 1500 over a
+   group of 2 and Sq > Skv (90 x 33); whisper-base's causal decoder
+   self-attention (8 x 416 and 8 x 448, a group of 1) and pixtral-12b's
+   causal prefill (8 x 2048, 32 heads over 8 of 128); entropy_scores at
+   whisper-base's vocabulary of 51,865 (scalar loads);
 4. timings: each kernel, its plain version and its bound (bytes, or
    operations where they take longer), with the PyTorch call that
    computes the same function where there is one; flash_attention and
@@ -70,7 +78,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    uncapped, and the uncapped launches at the other three shapes held
    within the spread PERF.md records for them plus 5% on a 700 W card;
    deepseek-v2-236b's MLA prefill at head dims 192 and 128 beside SDPA
-   with is_causal and the same scale, its backend named),
+   with is_causal and the same scale, its backend named; whisper-base's
+   encoder and cross-attention launches, forward and backward, every
+   pair visible, and pixtral-12b's prefill, each beside SDPA with the
+   same mask and enable_gqa),
    batched_topk and tier_assign at the main path's, logmem_update and
    topk_filter at their paths' shapes and a large one, and each
    plan_solve launch (with the kernel and launch plan it took; the
@@ -330,7 +341,40 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    caches' bytes beside a GQA KV cache's of the same heads, peak memory,
    and profiles of a prefill and of decode steps with the MoE's and the
    MLA attention's device spans (the flash_attention kernel's share
-   among them).
+   among them);
+21. the encoder-decoder and the vision-patch frontend at full width and
+   depth, float32, seeded random weights on the card, driven through the
+   model's own entry points (lm.prefill with the batch's frames or patch
+   embeddings, lm.decode_step, entropy_scores on each step's logits), as
+   the reference's tests/test_decode.py drives them: 21a whisper-base
+   (6 + 6 layers, d_model 512, 8 heads of 64, LayerNorm, GELU, biases,
+   learned decoder positions of 448, vocab 51,865, tied; 70,924,800
+   parameters), 16 requests in batches of 8 with 1500 frame embeddings
+   each (the conv stem is the config's stub), prompts of 416 and 32
+   generated; 21b pixtral-12b (40 layers, d_model 5120, 32 heads over 8
+   of 128, SiLU-GLU of 14,336, vocab 131,072; 12,247,782,400 parameters,
+   45.63 GiB), 16 requests in batches of 8, prompts of 2048 whose first
+   1024 positions are patch embeddings, 32 generated. Each: the first
+   batch teacher-forced through both routes (logits within 1e-3, scores
+   1e-4); decode against lm.forward over P + 8 tokens (2e-3 relative,
+   3e-4 of the logits' scale); one counted run with exact launches (per
+   batch whisper 6 encoder + 6 cross + 6 causal flash_attention launches
+   at prefill, pixtral 40, none at decode; 31 entropy_scores); prefill ms
+   a batch (whisper's lm.encode alone beside it), decode ms a step,
+   tokens/s, peak memory, profiles of a prefill and of decode steps.
+   Then whisper-base trains: one StreamLoader batch of 8 x 448 tokens
+   over 1500 frames through loss_and_grads on both routes, and on the
+   CPU port's plain route as a witness of float32's own rounding (loss
+   and NLL within 1e-5 relative; the gradients within 1e-4 relative
+   (L2), each leaf within 1e-4 of its own largest magnitude but those
+   that reach the loss only through attention logits (the query and key
+   projections, the cross-attention's LayerNorm: each row of the
+   softmax's gradient sums to 0, so their terms cancel), within 1e-4 of
+   their layer's largest; the witness's leaves within 1e-4 of their
+   own), one train_step timed after a warm-up step, with its peak
+   memory, and 6 steps of runtime.train_loop.run (finite, falling
+   losses), the flash launches and backward launches counted exactly,
+   by shape.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -419,6 +463,38 @@ DS_SERVE = dict(requests=16, batch=8, prompt_len=1024, gen_len=32, topk=8)
 # flash_attention at deepseek's prefill: (B, S, H, q/k head dim, v head dim)
 FA_DS = (DS_SERVE["batch"], DS_SERVE["prompt_len"], 128, 192, 128)
 ENT_DS = (DS_SERVE["batch"], 102_400)
+# phase 21a: whisper-base at full width and depth (6 + 6 layers), its
+# encoder over 1500 frame embeddings (max_source_positions; the conv stem
+# is the config's stub), decoder prompts of 416 and 32 generated, so that
+# every decoder position stays under its 448 (max_target_positions)
+WH_ARCH = "whisper-base"
+WH_SERVE = dict(requests=16, batch=8, prompt_len=416, gen_len=32, topk=8)
+WH_FRAMES = 1500
+WH_TRAIN_STEPS = 6  # train_loop.run's steps at full width (after 1 step)
+# flash_attention at whisper's launches: (B, Sq, Skv, H, KV, hd), the
+# encoder's self-attention and the decoder's cross-attention over the
+# frames at serving (416 queries) and training (448: the synthetic
+# batches' decoder_len tokens), all non-causal with no window; and the
+# decoder's causal self-attention at serving and training
+FA_WH_ENC = (WH_SERVE["batch"], WH_FRAMES, WH_FRAMES, 8, 8, 64)
+FA_WH_CROSS = (WH_SERVE["batch"], WH_SERVE["prompt_len"], WH_FRAMES, 8, 8,
+               64)
+FA_WH_CROSS_TRAIN = (WH_SERVE["batch"], 448, WH_FRAMES, 8, 8, 64)
+FA_WH_DEC = (WH_SERVE["batch"], WH_SERVE["prompt_len"],
+             WH_SERVE["prompt_len"], 8, 8, 64)
+FA_WH_DEC_TRAIN = (WH_SERVE["batch"], 448, 448, 8, 8, 64)
+ENT_WH = (WH_SERVE["batch"], 51_865)  # V % 4 != 0: scalar loads
+# phase 21b: pixtral-12b at full width and depth (40 layers, 45.63 GiB of
+# float32), prompts of 2048 (the 1024 patch embeddings of n_patches, then
+# 1024 text tokens) and 32 generated
+PX_ARCH = "pixtral-12b"
+PX_SERVE = dict(requests=16, batch=8, prompt_len=2048, gen_len=32, topk=8)
+FA_PX = (PX_SERVE["batch"], PX_SERVE["prompt_len"], 32, 8, 128)
+# the kernels line's phase 21 entries, by the FA_CASES labels whose
+# largest difference each takes
+FA_ENTRIES = (("whisper-base encoder", "whisper-encoder"),
+              ("whisper-base cross", "whisper-cross"),
+              (PX_ARCH, PX_ARCH))
 # the uncapped flash_attention medians and spreads [min, max] that PERF.md's
 # kernel table (row 7) records at the llama3.2-1b, starcoder2-3b and
 # hymba-1.5b shapes (NVIDIA H100 80GB HBM3 at 700.00 W), before the kernel
@@ -1400,7 +1476,31 @@ FA_CASES = (("serve prefill", *FA_PATH[:2], *FA_PATH[1:], True, 0, 0.0),
             ("Sq > Skv: rows with no key, cap 2", 1, 40, 24, 2, 1, 16, True,
              0, 2.0),
             ("Sq < Skv past two chunks, window 1500, cap 5 biting, hd 128",
-             1, 700, 2200, 8, 2, 128, True, 1500, 5.0))
+             1, 700, 2200, 8, 2, 128, True, 1500, 5.0),
+            # non-causal with no window: whisper-base's encoder and its
+            # cross-attention (serving, training) at phase 21a's shapes and
+            # at batch 2, a ragged Sq = Skv = 1500 over a group of 2, and
+            # Sq > Skv; whisper-base's causal decoder self-attention
+            # (serving, training: a group of 1); then pixtral-12b's causal
+            # prefill (phase 21b)
+            ("whisper-base encoder, non-causal", *FA_WH_ENC, False, 0, 0.0),
+            ("whisper-base cross, serving, non-causal Sq < Skv",
+             *FA_WH_CROSS, False, 0, 0.0),
+            ("whisper-base cross, training, non-causal Sq < Skv",
+             *FA_WH_CROSS_TRAIN, False, 0, 0.0),
+            ("whisper-base encoder at batch 2, non-causal", 2,
+             *FA_WH_ENC[1:], False, 0, 0.0),
+            ("whisper-base cross at batch 2, non-causal Sq < Skv", 2,
+             *FA_WH_CROSS[1:], False, 0, 0.0),
+            ("ragged non-causal Sq = Skv = 1500, GQA 8 over 4", 1, 1500,
+             1500, 8, 4, 64, False, 0, 0.0),
+            ("non-causal Sq > Skv", 1, 90, 33, 4, 2, 64, False, 0, 0.0),
+            ("whisper-base decoder, serving, causal, group 1", *FA_WH_DEC,
+             True, 0, 0.0),
+            ("whisper-base decoder, training, causal, group 1",
+             *FA_WH_DEC_TRAIN, True, 0, 0.0),
+            ("pixtral-12b prefill, 32 over 8, hd 128", FA_PX[0], FA_PX[1],
+             *FA_PX[1:], True, 0, 0.0))
 
 
 def fa_inputs(g, b, sq, skv, h, kvh, hd, dtype):
@@ -1457,18 +1557,24 @@ def score_kernel_parity():
                 chunks = -(-skv // attn.KV_CHUNK)
                 lse_text = (f"; against chunked_attention ({chunks} chunks "
                             f"of {attn.KV_CHUNK} keys) {c_err:.3e}")
-            if cap:  # the capped row log-sum-exp, for the lse's callers
+            if cap or not causal:  # the row log-sum-exp (the backward's
+                # input) where it is new: capped and non-causal
                 _, lse = fa.forward_with_lse(q, k, v, **kw)
                 lse_err = within_tol([lse], [fa.reference_lse(q, k, v, **kw)],
                                      tol)
-                lg, ok = fa._logits(q, k, causal, window, 1 / hd ** 0.5)
-                top = float(torch.where(ok, lg, 0.0).abs().max())
-                del lg
-                lse_text += (f"; lse max abs diff {lse_err:.3e}; uncapped "
-                             f"logits up to {top:.1f}")
+                lse_text += f"; lse max abs diff {lse_err:.3e}"
+                if cap:
+                    lg, ok = fa._logits(q, k, causal, window, 1 / hd ** 0.5)
+                    top = float(torch.where(ok, lg, 0.0).abs().max())
+                    del lg
+                    lse_text += f"; uncapped logits up to {top:.1f}"
                 del lse
             if dtype == torch.float32:
                 errs["flash_attention"] = max(errs["flash_attention"], err)
+                for prefix, entry in FA_ENTRIES:
+                    if label.startswith(prefix):
+                        key = f"flash_attention@{entry}"
+                        errs[key] = max(errs.get(key, 0.0), err)
             log(f"parity flash_attention [{label}] B={b} Sq={sq} Skv={skv} "
                 f"H={h} KV={kvh} hd={hd} causal={causal} window={window} "
                 f"softcap={cap} {str(dtype)[6:]}: max abs diff {err:.3e}"
@@ -1478,6 +1584,8 @@ def score_kernel_parity():
     for b, v, kind, label in ((*ENT_PATH, "normal", "serve decode step"),
                               (*ENT_GK, "normal", f"{GK_ARCH} decode step"),
                               (*ENT_DS, "normal", f"{DS_ARCH} decode step"),
+                              (*ENT_WH, "normal",
+                               f"{WH_ARCH} decode step, scalar loads"),
                               (*ENT_SC, "normal", f"{SC_ARCH} decode step"),
                               (*ENT_MB, "normal", f"{MB_ARCH} decode step"),
                               (*ENT_HY, "normal",
@@ -1735,10 +1843,15 @@ def score_kernel_timings(smi):
         f"{capped['ms'] - plain['ms']:.4f} ms ({capped['ms']:.4f} capped, "
         f"{plain['ms']:.4f} uncapped, medians of {WINDOWS} windows)")
     fa_uncapped_check(out, smi)
-    out["flash_attention@deepseek"] = mla_kernel_timing(g)
+    b, s, h, hd, hd_v = FA_DS
+    out["flash_attention@deepseek"] = fa_launch_timing(
+        "flash_attention@deepseek", (b, s, s, h, h, hd), True, smi, g=g,
+        hd_v=hd_v, backend=True)
+    out.update(encdec_kernel_timings(g, smi))
     for key, (b, v) in (("entropy_scores", ENT_PATH),
                         ("entropy_scores@grok", ENT_GK),
                         ("entropy_scores@deepseek", ENT_DS),
+                        ("entropy_scores@whisper", ENT_WH),
                         ("entropy_scores@starcoder2", ENT_SC),
                         ("entropy_scores@mamba2", ENT_MB),
                         ("entropy_scores@hymba", ENT_HY),
@@ -1790,59 +1903,132 @@ def score_kernel_timings(smi):
     return out
 
 
-def mla_kernel_timing(g):
-    """flash_attention at deepseek-v2's prefill (FA_DS: q and k of head dim
-    192, v of 128, 128 heads, causal, float32): device ms (profiler,
-    median of WINDOWS windows, with the spread), wrapper ms, plain ms, the
-    bound (operations: 2 * (192 + 128) a visible pair as 3xTF32; bytes:
-    q, k, v read and the output written once), and SDPA on (B, heads, S,
-    hd) copies with is_causal and the same scale as the library yardstick,
-    with the backend its dispatcher takes."""
+def visible_pairs(b, sq, skv, h, causal):
+    """(query, key) pairs a launch's masks leave visible, no window: every
+    pair when non-causal; causal, query row i at position i + Skv - Sq
+    sees the keys up to it."""
+    if not causal:
+        return b * h * sq * skv
+    pos = np.arange(sq) + (skv - sq)
+    return b * h * int(np.clip(pos + 1, 0, skv).sum())
+
+
+def fa_launch_timing(key, shape, causal, smi, backward=False, g=None,
+                     hd_v=None, backend=False):
+    """One flash_attention launch shape (B, Sq, Skv, H, KV, hd), float32,
+    no window, the default scale 1/sqrt(hd), v of head dim ``hd_v`` (hd
+    unless given): the forward (``flash_fwd``) or, with ``backward``,
+    every launch of a backward call under backward_plan: device ms
+    (profiler, median of WINDOWS windows, with the spread, and each
+    launch's median), wrapper ms, plain ms, the bound (the forward's two
+    products, the backward's five, a multiply-add each a visible pair as
+    3xTF32; bytes: each input read and each output written once), and
+    SDPA on (B, heads, S, hd) copies with the same mask (``is_causal``,
+    ``enable_gqa``) and scale as the library yardstick: its forward, or
+    its forward plus backward less its forward; ``backend`` names the
+    backend its dispatcher takes for the forward."""
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend
     from repro_torch.kernels.flash_attention import ops as fa
-    b, s, h, hd, hd_v = FA_DS
-    q = torch.randn((b, s, h, hd), device="cuda", generator=g)
-    k = torch.randn((b, s, h, hd), device="cuda", generator=g)
-    v = torch.randn((b, s, h, hd_v), device="cuda", generator=g)
-    scale = hd ** -0.5
+    b, sq, skv, h, kvh, hd = shape
+    hd_v = hd_v or hd
+    q, k, v = fa_inputs(g, b, sq, skv, h, kvh, hd, torch.float32)
+    if hd_v != hd:
+        v = torch.randn((b, skv, kvh, hd_v), device="cuda", generator=g)
+    pairs = visible_pairs(b, sq, skv, h, causal)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    backend = SDPBackend(torch._fused_sdp_choice(
-        qt, kt, vt, None, 0.0, True, scale=scale)).name
-    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=scale), 5)
-    del qt, kt, vt
-    pairs = b * h * s * (s + 1) // 2
-    flops = 2 * (hd + hd_v) * pairs
-    nbytes = 4 * (q.numel() + k.numel() + 2 * v.numel())
-    med, lo, hi, _ = device_ms_windows(
-        lambda: fa.flash_attention(q, k, v, scale=scale), 5, "flash_fwd",
-        WINDOWS)
-    t = {"ms": med, "lo": lo, "hi": hi,
-         "call_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, scale=scale),
-                            5),
-         "plain_ms": cuda_ms(lambda: fa.reference(q, k, v, scale=scale), 2),
-         "library_ms": sdpa_ms,
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    lib_text = ""
+    if backend:
+        from torch.nn.attention import SDPBackend
+        lib_text = ", backend " + SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, None, 0.0, causal)).name
+    reps = 5 if pairs > 5e8 else 10
+    if backward:
+        dout = torch.randn(q.shape, device="cuda", generator=g)
+        o, lse = fa.forward_with_lse(q, k, v, causal=causal)
+        plan = fa.backward_plan(b, h, kvh, sq, skv, hd)
+        call = lambda: fa.backward(q, k, v, o, lse, dout,  # noqa: E731
+                                   causal=causal)
+        plain = lambda: fa.reference_backward(  # noqa: E731
+            q, k, v, o, lse, dout, causal=causal)
+        names = bwd_launch_names(plan)
+        for x in (qt, kt, vt):
+            x.requires_grad_(True)
+        dt = dout.transpose(1, 2).contiguous()
+        fwd_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                      dt), reps)
+        fwd = cuda_ms(sdpa, reps)
+        library = fwd_bwd - fwd
+        flops = 2 * 5 * hd * pairs  # S, dP, dV, dQ, dK
+        nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                      + lse.numel())  # q, o, dO, dQ; k, dK; v, dV; lse
+        what = (f"backward (plan: {plan['warps']} warps, split "
+                f"{plan['split']}, {plan['blocks']} dK/dV blocks, "
+                f"{plan['scratch_bytes']} bytes of partials)")
+        lib_text = (f"forward plus backward {fwd_bwd:.4f} less its forward "
+                    f"{fwd:.4f}{lib_text}")
+    else:
+        call = lambda: fa.flash_attention(q, k, v,  # noqa: E731
+                                          causal=causal)
+        plain = lambda: fa.reference(q, k, v, causal=causal)  # noqa: E731
+        names = "flash_fwd"
+        library = cuda_ms(sdpa, reps)
+        flops = 2 * (hd + hd_v) * pairs  # S = Q K^T, P V
+        nbytes = 4 * (q.numel() + k.numel() + v.numel()
+                      + b * sq * h * hd_v)
+        what, lib_text = "forward", "forward" + lib_text
+    med, lo, hi, parts = device_ms_windows(call, reps, names, WINDOWS)
+    t = {"ms": med, "lo": lo, "hi": hi, "call_ms": cuda_ms(call, reps),
+         "plain_ms": cuda_ms(plain, 2), "library_ms": library,
          "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         # every product runs as 3xTF32 on the tensor cores, the card's
+         # fastest rate for float32 products at this accuracy; the float32
+         # units' time is logged beside it
          "ops_ms": 3 * flops / TF32_FLOPS * 1e3,
          "f32_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
     t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
     t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                      else "operations")
-    log(f"timing flash_attention@deepseek [q and k ({b}, {s}, {h}, {hd}), v "
-        f"({b}, {s}, {h}, {hd_v}) f32, causal, scale 1/sqrt({hd})]: kernel "
+    each = ", ".join(f"{n} {x:.4f}" for n, x in parts.items())
+    log(f"timing {key} [{what}; q ({b}, {sq}, {h}, {hd}), k ({b}, {skv}, "
+        f"{kvh}, {hd}), v ({b}, {skv}, {kvh}, {hd_v}) f32, causal={causal}, "
+        f"no window, scale 1/sqrt({hd})]: kernel "
         f"{med:.4f} ms on the device (profiler, median of {WINDOWS} windows "
-        f"of 5 calls; min {lo:.4f}, max {hi:.4f}); {t['call_ms']:.4f} ms per "
-        f"wrapper call; plain {t['plain_ms']:.4f} ms; bound "
-        f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {pairs:.4g} visible pairs,"
-        f" {flops:.4g} operations as 3xTF32 at 495/3 TFLOP/s; "
-        f"{t['f32_ms']:.4f} ms at the 67 TFLOP/s of the float32 units; "
-        f"{nbytes / 1e9:.4g} GB in {t['bytes_ms']:.4f} ms); "
+        f"of {reps} calls; min {lo:.4f}, max {hi:.4f}; medians {each}); "
+        f"{t['call_ms']:.4f} ms per wrapper call; plain {t['plain_ms']:.4f} "
+        f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {pairs:.4g} "
+        f"visible pairs, {flops:.4g} operations as 3xTF32 at 495/3 "
+        f"TFLOP/s; {t['f32_ms']:.4f} ms at the 67 TFLOP/s of the float32 "
+        f"units; {nbytes / 1e9:.4g} GB in {t['bytes_ms']:.4f} ms); "
         f"{med / t['bound_ms']:.2f}x its bound; {flops / med / 1e9:.2f} "
-        f"TFLOP/s; library_ms {sdpa_ms:.4f} = torch.nn.functional."
-        f"scaled_dot_product_attention(is_causal=True, scale=) on (B, heads, "
-        f"S, hd) copies, backend {backend}, never called by the port")
+        f"TFLOP/s; library_ms {library:.4f} = torch.nn.functional."
+        f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True) "
+        f"{lib_text} on (B, heads, S, hd) copies, never called by the port; "
+        f"{smi}")
     return t
+
+
+def encdec_kernel_timings(g, smi):
+    """flash_attention at phase 21's launches: whisper-base's encoder
+    self-attention and its cross-attention at serving, forward, and the
+    encoder's and the cross-attention's backward at training (every pair
+    visible: non-causal, no window), and pixtral-12b's causal prefill,
+    under their kernels-line names."""
+    return {
+        "flash_attention@whisper-encoder": fa_launch_timing(
+            "flash_attention@whisper-encoder", FA_WH_ENC, False, smi, g=g),
+        "flash_attention@whisper-cross": fa_launch_timing(
+            "flash_attention@whisper-cross", FA_WH_CROSS, False, smi, g=g),
+        "flash_attention_bwd@whisper-encoder": fa_launch_timing(
+            "flash_attention_bwd@whisper-encoder", FA_WH_ENC, False, smi,
+            backward=True, g=g),
+        "flash_attention_bwd@whisper-cross": fa_launch_timing(
+            "flash_attention_bwd@whisper-cross", FA_WH_CROSS_TRAIN, False,
+            smi, backward=True, g=g),
+        "flash_attention@pixtral-12b": fa_launch_timing(
+            "flash_attention@pixtral-12b", (FA_PX[0], FA_PX[1], *FA_PX[1:]),
+            True, smi, g=g)}
 
 
 # flash_attention's backward at the seams beyond FA_CASES (label, B, Sq,
@@ -1884,10 +2070,12 @@ def flash_backward_parity():
     FA_BWD_SEAMS, FA_BWD_LONG), a second call bit-equal to the first: the
     largest absolute difference of a float32 gradient. FA_CASES' capped
     cases have no backward yet: it must raise NotImplementedError, through
-    ops.backward and through the autograd route."""
+    ops.backward and through the autograd route. Returns the errors of
+    the kernels line's entries: every case's, and those of FA_ENTRIES'
+    whisper-base cases."""
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(6)
-    worst = 0.0
+    worst, errs = 0.0, {}
     for label, b, sq, skv, h, kvh, hd, causal, window, cap in FA_CASES:
         if not cap:
             continue
@@ -1944,107 +2132,60 @@ def flash_backward_parity():
                                      f"itself [{label}, {dtype}]")
             if dtype == torch.float32:
                 worst = max(worst, diff)
+                for prefix, entry in FA_ENTRIES[:2]:
+                    if label.startswith(prefix):
+                        key = f"flash_attention_bwd@{entry}"
+                        errs[key] = max(errs.get(key, 0.0), diff)
             del q, k, v, dout, out, lse, want, got, again
-    return worst
+    return {"flash_attention_bwd": worst, **errs}
 
 
 def flash_backward_timings(smi):
-    """flash_attention's backward at both serve shapes, causal: device ms
-    of every launch of a call under backward_plan (dq, dk/dv and, when the
-    group is split, the group sum; profiler, median of WINDOWS windows
-    with the spread, and each launch's median), wrapper ms, plain ms,
-    the bound of its five products at the 3xTF32 rate, and SDPA's
-    backward (forward plus backward less its forward) as the yardstick;
-    the launches' registers, shared memory and blocks an SM; then the forward
-    with the row log-sum-exp written beside without it, windows in
-    turns. The first shape goes into the kernels line."""
-    import torch.nn.functional as F
+    """flash_attention's backward at both serve shapes, causal, through
+    ``fa_launch_timing`` (every launch of a call under backward_plan
+    beside SDPA's backward, which it must beat), with the launches'
+    registers, shared memory and blocks an SM; then the forward with the
+    row log-sum-exp written beside without it, windows in turns. The
+    first shape goes into the kernels line."""
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(7)
     out = {}
     for key, (b, s, h, kvh, hd) in (("flash_attention_bwd", FA_PATH),
                                     ("flash_attention_bwd@hd128", FA_SC)):
-        q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
-        dout = torch.randn(q.shape, device="cuda", generator=g)
-        o, lse = fa.forward_with_lse(q, k, v)
+        t = out[key] = fa_launch_timing(key, (b, s, s, h, kvh, hd), True,
+                                        smi, backward=True, g=g)
         plan = fa.backward_plan(b, h, kvh, s, s, hd)
-        call = lambda: fa.backward(q, k, v, o, lse, dout)  # noqa: E731
-        med, lo, hi, parts = device_ms_windows(
-            call, 5, bwd_launch_names(plan), WINDOWS)
         info = "; ".join(f"{n} {r} registers, {m} bytes of shared memory, "
                          f"{n_sm} blocks an SM" for n, (r, m, n_sm)
-                         in fa.backward_info(hd, q.dtype).items())
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                      for x in (q, k, v))
-        dt = dout.transpose(1, 2).contiguous()
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        fwd_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
-                                                      dt), 5)
-        fwd = cuda_ms(sdpa, 5)
-        pairs = b * h * s * (s + 1) // 2  # causal: visible (query, key) pairs
-        flops = 5 * 2 * hd * pairs  # S, dP, dV, dQ, dK: a multiply-add each
-        nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                      + lse.numel())  # q, o, dO, dQ; k, dK; v, dV; lse
-        t = {"ms": med, "call_ms": cuda_ms(call, 5),
-             "plain_ms": cuda_ms(
-                 lambda: fa.reference_backward(q, k, v, o, lse, dout), 2),
-             "library_ms": fwd_bwd - fwd,
-             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-             # every product runs as 3xTF32 on the tensor cores, the
-             # card's fastest rate for float32 products at this accuracy;
-             # the float32 units' time is logged beside it
-             "ops_ms": 3 * flops / TF32_FLOPS * 1e3,
-             "f32_ms": flops / PEAK_FLOPS[torch.float32] * 1e3}
-        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
-        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
-                         else "operations")
-        out[key] = t
-        each = ", ".join(f"{n} {x:.4f}" for n, x in parts.items())
-        log(f"timing {key} [q ({b}, {s}, {h}, {hd}), k and v ({b}, {s}, "
-            f"{kvh}, {hd}) f32, causal; plan: {plan['warps']} warps, split "
-            f"{plan['split']}, {plan['blocks']} dK/dV blocks, "
-            f"{plan['scratch_bytes']} bytes of partials]: kernels "
-            f"{med:.4f} ms on the device (every launch of a call; profiler, "
-            f"median of {WINDOWS} windows of 5 calls; min {lo:.4f}, max "
-            f"{hi:.4f}; medians {each}); {t['call_ms']:.4f} ms per wrapper "
-            f"call; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
-            f"ms ({t['bound_by']}: {flops:.4g} operations as 3xTF32 at "
-            f"495/3 TFLOP/s; {t['f32_ms']:.4f} ms at the 67 TFLOP/s of the "
-            f"float32 units; {t['bytes_ms']:.4f} ms of bytes); "
-            f"{med / t['bound_ms']:.2f}x its bound; {flops / med / 1e9:.2f} "
-            f"TFLOP/s; library_ms {t['library_ms']:.4f} = torch.nn."
-            f"functional.scaled_dot_product_attention(is_causal, enable_gqa) "
-            f"forward plus backward {fwd_bwd:.4f} less its forward "
-            f"{fwd:.4f}, never called by the port; {smi}")
+                         in fa.backward_info(hd, torch.float32).items())
         log(f"backward launches [{plan['keys']} keys a dK/dV block, hd {hd} "
             f"f32]: {info}")
-        if med >= t["library_ms"]:
-            raise AssertionError(f"{key}: the backward's {med:.4f} ms is not "
-                                 f"below SDPA's backward "
+        if t["ms"] >= t["library_ms"]:
+            raise AssertionError(f"{key}: the backward's {t['ms']:.4f} ms is "
+                                 f"not below SDPA's backward "
                                  f"{t['library_ms']:.4f} ms")
-        if key == "flash_attention_bwd":
-            # the forward with the log-sum-exp written against without it,
-            # windows in turns (off, on, on, off, ...)
-            runs = {False: [], True: []}
-            for i in range(2 * WINDOWS):
-                with_lse = (i % 4) in (1, 2)
-                fn = ((lambda: fa.forward_with_lse(q, k, v)) if with_lse
-                      else (lambda: fa.flash_attention(q, k, v)))
-                runs[with_lse].append(device_ms(fn, 10, "flash_fwd"))
-            off, on = (sorted(runs[x]) for x in (False, True))
-            m_off, m_on = statistics.median(off), statistics.median(on)
-            slack = max(off[-1] - off[0], 0.01 * m_off)
-            log(f"timing flash_attention forward with the row log-sum-exp "
-                f"written: {m_on:.4f} ms (min {on[0]:.4f}, max {on[-1]:.4f}) "
-                f"beside {m_off:.4f} ms without (min {off[0]:.4f}, max "
-                f"{off[-1]:.4f}); {WINDOWS} profiled windows of 10 calls "
-                f"each, in turns; limit {m_off + slack:.4f} ms (the spread "
-                f"without, or 1%)")
-            if m_on > m_off + slack:
-                raise AssertionError("writing the log-sum-exp slows the "
-                                     "forward beyond its spread")
-        del q, k, v, dout, o, lse, qt, kt, vt, dt
+    # the forward with the log-sum-exp written against without it,
+    # windows in turns (off, on, on, off, ...)
+    b, s, h, kvh, hd = FA_PATH
+    q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
+    runs = {False: [], True: []}
+    for i in range(2 * WINDOWS):
+        with_lse = (i % 4) in (1, 2)
+        fn = ((lambda: fa.forward_with_lse(q, k, v)) if with_lse
+              else (lambda: fa.flash_attention(q, k, v)))
+        runs[with_lse].append(device_ms(fn, 10, "flash_fwd"))
+    off, on = (sorted(runs[x]) for x in (False, True))
+    m_off, m_on = statistics.median(off), statistics.median(on)
+    slack = max(off[-1] - off[0], 0.01 * m_off)
+    log(f"timing flash_attention forward with the row log-sum-exp "
+        f"written: {m_on:.4f} ms (min {on[0]:.4f}, max {on[-1]:.4f}) "
+        f"beside {m_off:.4f} ms without (min {off[0]:.4f}, max "
+        f"{off[-1]:.4f}); {WINDOWS} profiled windows of 10 calls "
+        f"each, in turns; limit {m_off + slack:.4f} ms (the spread "
+        f"without, or 1%)")
+    if m_on > m_off + slack:
+        raise AssertionError("writing the log-sum-exp slows the "
+                             "forward beyond its spread")
     return out
 
 
@@ -2790,21 +2931,24 @@ def profile_report(prof, label, steps, wall_ms, smi):
     return busy
 
 
-def serve_profile(params, cfg, prompts, smi, steps=4):
+def serve_profile(params, cfg, prompts, smi, steps=4, extra=None):
     """torch.profiler over one prefill of a batch, then over ``steps``
     decode steps (each: the model, the entropy_scores kernel, argmax):
     wall ms, the device's busy share, the top operations; with MoE layers
     the device spans of the MoE's parts and their share of each window
     (``profile_report``). A model with SSD layers also gets its scan's
     share of the prefill (``ssd_share``) from the first layer's scan
-    inputs, captured in the prefill."""
+    inputs, captured in the prefill. ``extra``: the batch's other model
+    inputs (``frames`` or ``patch_embeds``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import interestingness
     from repro_torch.models import lm
     from repro_torch.models import ssm as ssm_mod
     b, s = prompts.shape
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    cache = lm.init_cache(cfg, b, s + steps + 1, device=prompts.device)
+    extra = extra or {}
+    cache = lm.init_cache(cfg, b, s + steps + 1, device=prompts.device,
+                          enc_len=enc_len_of(extra))
     scan, captured = ssm_mod.ssd_chunked, []
 
     def capture(*args, **kw):
@@ -2817,8 +2961,8 @@ def serve_profile(params, cfg, prompts, smi, steps=4):
     try:
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            logits, cache = lm.prefill(params, cfg, {"tokens": prompts},
-                                       cache)
+            logits, cache = lm.prefill(params, cfg, {"tokens": prompts,
+                                                     **extra}, cache)
             tok = torch.argmax(logits, -1)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2839,6 +2983,11 @@ def serve_profile(params, cfg, prompts, smi, steps=4):
     if captured:
         args, kw = captured.pop()
         ssd_share(cfg, args, kw, busy, smi)
+
+
+def enc_len_of(extra):
+    """Encoder positions a cache needs for a batch's ``extra`` inputs."""
+    return extra["frames"].shape[1] if "frames" in extra else 0
 
 
 def attention_layers(cfg):
@@ -2885,16 +3034,21 @@ def ssd_share(cfg, args, kw, prefill_busy_ms, smi, attempts=3):
         f"{attempts} windows; its operations are not named this run")
 
 
-def teacher_forced(params, cfg, prompts, gen):
+def teacher_forced(params, cfg, prompts, gen, extra=None):
     """The first batch through the kernel route and, fed the kernel
     route's tokens, through the plain route (grouped attention in
     prefill, -sum p log p per step) on the card, ``gen`` tokens each:
     logits and scores held within the stated tolerance, argmax agreement
-    printed."""
-    from repro_torch.launch import serve
-    a = serve.generate(params, cfg, prompts, gen, keep_logits=True)
-    b = serve.generate(params, cfg, prompts, gen, use_kernel=False,
-                       forced=a.tokens, keep_logits=True)
+    printed. The batch carries ``extra`` (its frames or patch
+    embeddings) beside its tokens, where there are any."""
+
+    def run(**kw):
+        return model_generate(params, cfg, {"tokens": prompts,
+                                             **(extra or {})},
+                              gen, keep_logits=True, **kw)
+
+    a = run()
+    b = run(use_kernel=False, forced=a.tokens)
     d_pre = float((a.logits[0] - b.logits[0]).abs().max())
     d_dec = max(float((x - y).abs().max())
                 for x, y in zip(a.logits[1:], b.logits[1:]))
@@ -5297,7 +5451,8 @@ def training(smi):
 # phase 18: the SSM and hybrid score producers at full width
 # ---------------------------------------------------------------------------
 
-def decode_vs_forward(params, cfg, prompts, label, steps=DECODE_CHECK):
+def decode_vs_forward(params, cfg, prompts, label, steps=DECODE_CHECK,
+                      extra=None):
     """Prefill the batch's ``P`` prompt tokens, decode ``steps`` more (the
     SSD recurrence from the carried states; hymba's rolling 1024-slot
     caches wrapped by the prefill), and hold the prefill's and each
@@ -5305,21 +5460,26 @@ def decode_vs_forward(params, cfg, prompts, label, steps=DECODE_CHECK):
     tokens (the chunked scan; flash_attention in the forward):
     |decode - forward| <= 2e-3 |forward| + 3e-4 scale, tests/test_decode.py's
     rtol and atol with the atol scaled by ``scale``, the largest |logit|
-    of the checked positions."""
+    of the checked positions. ``extra``: the batch's other model inputs
+    (``frames`` or ``patch_embeds``), given to the forward and the
+    prefill."""
     from repro_torch.models import lm
     b, p = prompts.shape
+    extra = extra or {}
     g = torch.Generator(device="cuda").manual_seed(18)
-    extra = torch.randint(0, cfg.vocab_size, (b, steps), device="cuda",
-                          generator=g)
-    full, _ = lm.forward(params, cfg, {"tokens": torch.cat([prompts, extra],
-                                                           1)})
+    more = torch.randint(0, cfg.vocab_size, (b, steps), device="cuda",
+                         generator=g)
+    full, _ = lm.forward(params, cfg, {"tokens": torch.cat([prompts, more],
+                                                           1), **extra})
     want = full[:, p - 1:].clone()  # positions P-1 .. P+steps-1
     del full
-    cache = lm.init_cache(cfg, b, p + steps + 1, device="cuda")
-    logits, cache = lm.prefill(params, cfg, {"tokens": prompts}, cache)
+    cache = lm.init_cache(cfg, b, p + steps + 1, device="cuda",
+                          enc_len=enc_len_of(extra))
+    logits, cache = lm.prefill(params, cfg, {"tokens": prompts, **extra},
+                               cache)
     got = [logits]
     for t in range(steps):
-        logits, cache = lm.decode_step(params, cfg, extra[:, t], cache)
+        logits, cache = lm.decode_step(params, cfg, more[:, t], cache)
         got.append(logits)
     got = torch.stack(got, 1)
     scale = float(want.abs().max())
@@ -5860,6 +6020,430 @@ def mla_serve(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the encoder-decoder and the vision-patch frontend at full width
+# ---------------------------------------------------------------------------
+
+def model_generate(params, cfg, batch, gen, *, use_kernel=True, forced=None,
+                   keep_logits=False):
+    """``launch.serve.generate``'s loop through the model's own entry
+    points, as the reference's tests/test_decode.py drives them, for a
+    batch that may carry frames (encoder-decoder) or patch embeddings
+    beside its tokens (with tokens alone, ``serve.generate`` itself):
+    ``lm.prefill`` (the encoder, the cross-attention K/V
+    written, or the patch prefix blended), then ``gen - 1`` greedy
+    ``lm.decode_step``s, each step's logits scored by
+    ``interestingness.entropy_score`` (the entropy_scores kernel unless
+    ``use_kernel=False``); a request's score is the mean over the decode
+    steps. ``forced`` teacher-forces the decode."""
+    from types import SimpleNamespace
+    from repro_torch.core import interestingness
+    from repro_torch.models import lm
+    prompts = batch["tokens"]
+    b, s = prompts.shape
+    t0 = time.perf_counter()
+    cache = lm.init_cache(cfg, b, s + gen + 1, device=prompts.device,
+                          enc_len=enc_len_of(batch))
+    logits, cache = lm.prefill(params, cfg, batch, cache,
+                               use_kernel=use_kernel)
+    toks = [torch.argmax(logits, -1)]
+    kept = [logits] if keep_logits else None
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ent_sum = torch.zeros((b,), dtype=torch.float32, device=prompts.device)
+    for t in range(gen - 1):
+        feed = toks[-1] if forced is None else forced[:, t]
+        logits, cache = lm.decode_step(params, cfg, feed, cache)
+        ent_sum += interestingness.entropy_score(logits[:, None],
+                                                 use_kernel=use_kernel)
+        toks.append(torch.argmax(logits, -1))
+        if keep_logits:
+            kept.append(logits)
+    scores = ent_sum / (gen - 1)
+    torch.cuda.synchronize()
+    return SimpleNamespace(tokens=torch.stack(toks, 1), scores=scores,
+                           prefill_s=t1 - t0,
+                           decode_s=time.perf_counter() - t1, logits=kept)
+
+
+def frontend_inputs(cfg, b, seed):
+    """A batch's model inputs beside its tokens, float32 N(0, 1) from a
+    seeded generator on the card (as data.synthetic draws them):
+    whisper's WH_FRAMES frame embeddings or pixtral's n_patches patch
+    embeddings."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        return {"frames": torch.randn((b, WH_FRAMES, cfg.d_model),
+                                      device="cuda", generator=g)}
+    return {"patch_embeds": torch.randn((b, cfg.n_patches, cfg.d_model),
+                                        device="cuda", generator=g)}
+
+
+def prefill_launches(cfg):
+    """flash_attention launches of one prefill: one a decoder attention
+    layer, one an encoder layer, one a cross-attention layer."""
+    return (attention_layers(cfg)
+            + sum(s.count for s in cfg.encoder_layers)
+            + sum(s.count for s in cfg.layers if s.cross_attn))
+
+
+def frontend_serve(smi, arch, sub, run):
+    """Phase 21a/b: ``arch`` at full width and depth with random weights
+    from a seeded torch.Generator on the card, driven through the model's
+    own entry points (``model_generate``): the first batch teacher-forced
+    through both routes; decode against the forward; one counted run of
+    every request whose launches must be exact (every prefill's
+    attention on flash_attention, none at decode; entropy_scores at every
+    scored step), finite scores of the right shape; prefill ms a batch
+    (whisper: encode ms alone beside it), decode ms a step, tokens/s,
+    peak memory, then the profiles. Returns (launches, flash_attention's
+    launches by shape, params)."""
+    from repro_torch import configs
+    from repro_torch.kernels.entropy_scores import ops as ent
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()  # the previous phases' blocks
+    held = torch.cuda.memory_allocated() / 2**30
+    cfg = configs.get_config(arch)
+    label = f"{sub} {arch}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    enc = (f"encoder {sum(s.count for s in cfg.encoder_layers)} non-causal "
+           f"layers over {WH_FRAMES} frame embeddings (sinusoidal positions), "
+           f"decoder {cfg.n_layers - sum(s.count for s in cfg.encoder_layers)}"
+           f" layers with cross-attention, learned positions of "
+           f"{cfg.decoder_len}, LayerNorm, GELU, biases"
+           if cfg.is_encoder_decoder else
+           f"{cfg.n_layers} layers, the first {cfg.n_patches} positions "
+           f"replaced by patch embeddings, RoPE theta {cfg.rope_theta:g}, "
+           f"{cfg.ffn_act}")
+    log(f"serve [{label}]: full width and depth ({enc}; d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads "
+        f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+        f"embeddings {cfg.tie_embeddings}, {cfg.param_dtype}): "
+        f"{lm.param_count(cfg)} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.3f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB while drawn "
+        f"({held:.3f} GiB held by earlier phases); TF32 off; {smi}")
+    b, plen = run["batch"], run["prompt_len"]
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (b, plen)), device="cuda"),
+        **frontend_inputs(cfg, b, 21 + i)}
+        for i in range(-(-run["requests"] // b))]
+    first = batches[0]
+    extra = {k: x for k, x in first.items() if k != "tokens"}
+    torch.cuda.reset_peak_memory_stats()
+    teacher_forced(params, cfg, first["tokens"], run["gen_len"], extra)
+    decode_vs_forward(params, cfg, first["tokens"], label, extra=extra)
+    checks_peak = torch.cuda.max_memory_allocated() / 2**30
+    enc_text = ""
+    if cfg.is_encoder_decoder:
+        enc_ms = cuda_ms(lambda: lm.encode(params, cfg, first["frames"]), 3)
+        enc_text = (f"; lm.encode alone {enc_ms:.3f} ms a batch of {b} x "
+                    f"{WH_FRAMES} frames (CUDA events, mean of 3 calls)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the counted run: counters to 0, every batch, read
+    fa.launches = ent.launches = 0
+    fa.launches_at.clear()
+    t0 = time.perf_counter()
+    res = [model_generate(params, cfg, bt, run["gen_len"]) for bt in batches]
+    seconds = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches,
+                "entropy_scores": ent.launches}
+    by_shape = dict(fa.launches_at)
+    want = {"flash_attention": prefill_launches(cfg) * len(batches),
+            "entropy_scores": (run["gen_len"] - 1) * len(batches)}
+    log(f"serve [{label}] launches: {launches} (want {want}: per batch one "
+        f"flash_attention a decoder self-attention, encoder and "
+        f"cross-attention layer at prefill, none at decode; one "
+        f"entropy_scores a scored decode step); flash_attention by shape "
+        f"(B, Sq, Skv, H, KV, hd, causal): {by_shape}")
+    if launches != want:
+        raise AssertionError(f"serve [{label}] launches {launches} != {want}")
+    scores = torch.cat([r.scores for r in res]).cpu().numpy()
+    tokens = torch.cat([r.tokens for r in res]).cpu().numpy()
+    n = run["requests"]
+    if not (scores.shape == (n,) and np.isfinite(scores).all()
+            and tokens.shape == (n, run["gen_len"])
+            and ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"serve [{label}]: scores or tokens malformed")
+    pre = [r.prefill_s * 1e3 for r in res]
+    dec = [r.decode_s * 1e3 / (run["gen_len"] - 1) for r in res]
+    top = sorted(np.lexsort((np.arange(n), -scores))[:run["topk"]].tolist())
+    log(f"serve [{label}]: {n} requests in {seconds:.3f}s: prefill ms per "
+        f"batch of {b} x {plen} median {statistics.median(pre):.3f} (min "
+        f"{min(pre):.3f}, max {max(pre):.3f}){enc_text}; decode ms per token "
+        f"step (batch {b}) median {statistics.median(dec):.3f} (min "
+        f"{min(dec):.3f}, max {max(dec):.3f}); "
+        f"{n * (plen + run['gen_len']) / seconds:.6g} tokens/s (prompt and "
+        f"generated), {n * run['gen_len'] / seconds:.6g} generated tokens/s; "
+        f"scores {' '.join(f'{x:.7g}' for x in scores)}; top-{run['topk']} "
+        f"{top}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB in the counted "
+        f"run, {checks_peak:.3f} GiB in the checks before it (the plain "
+        f"route's attention included); host clock, device synced at each "
+        f"phase end; {smi}")
+    serve_profile(params, cfg, first["tokens"], smi, extra=extra)
+    del batches, first, extra, res
+    return launches, by_shape, params
+
+
+def on_logit_path(path):
+    """Whether a gradient leaf reaches the loss only through attention
+    logits: the query and key projections of an attention (``wq``,
+    ``bq``, ``wk``, ``bk``) and the cross-attention's LayerNorm, which
+    feeds its queries alone. Each row of the softmax's gradient dS sums
+    to 0 exactly, so these leaves are sums whose terms cancel (the key
+    bias's exact gradient is 0), and whatever leaves a residue in a
+    row's sum (float32 rounding; the kernel's rounding of the logits and
+    of Delta = rowsum(dO * O) from the forward's output) lands on them
+    undiminished."""
+    return path[-1] in ("wq", "bq", "wk", "bk") or "norm_cross" in path
+
+
+def grads_check(got, want, witness, label, frac=1e-4):
+    """The kernel route's gradient tree ``got`` against the plain route's
+    ``want`` on the card (the same paths), and ``witness``, the CPU
+    port's plain route on the same weights and batch, against ``want``.
+    The kernel route: the whole within ``frac`` relative (L2); each leaf
+    off the logits' path (``on_logit_path``) within ``frac`` of its own
+    largest magnitude (17a's rule), each leaf on it within ``frac`` of
+    the largest gradient magnitude of its layer (an encoder or decoder
+    layer's parameters; outside the layers, each top-level entry), its
+    ratio to its own logged beside. The witness: each leaf within
+    ``frac`` of its own largest magnitude, the key bias within ``frac``
+    of its value bias's (its exact gradient is 0). Logs the furthest
+    leaves of each class with the ratio of the kernel route's difference
+    to the witness's, then raises past a limit. Returns (the whole's
+    relative difference, the worst ratio to a limit's scale in each
+    class, the median kernel / witness ratio)."""
+    leaves = []
+
+    def walk(a, w, c, path):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], w[k], c[k], path + (k,))
+        elif isinstance(a, list):
+            for i, x in enumerate(a):
+                walk(x, w[i], c[i], path + (i,))
+        else:
+            leaves.append((path, a.float(), w.float(), c.float().to(w.device)))
+
+    walk(got, want, witness, ())
+
+    def layer(path):
+        return path[:3] if path[0] in ("enc", "dec") else path[:1]
+
+    scale, tops = {}, {}
+    for path, _, w, _ in leaves:
+        tops[path] = float(w.abs().max())
+        scale[layer(path)] = max(scale.get(layer(path), 0.0), tops[path])
+    rows, sums = [], [0.0, 0.0, 0.0]
+    for path, a, w, c in leaves:
+        own = max(tops[path], 1e-30)
+        ek = float((a - w).abs().max())
+        ew = float((c - w).abs().max())
+        sums[0] += float((a - w).double().square().sum())
+        sums[1] += float((c - w).double().square().sum())
+        sums[2] += float(w.double().square().sum())
+        logit = on_logit_path(path)
+        w_ref = tops[path[:-1] + ("bv",)] if path[-1] == "bk" else own
+        rows.append({"path": path, "own": own, "ek": ek, "ew": ew,
+                     "logit": logit,
+                     "ratio": ek / max(scale[layer(path)] if logit else own,
+                                       1e-30),
+                     "w_ratio": ew / max(w_ref, 1e-30),
+                     "vs": ek / max(ew, 1e-30)})
+    whole = (sums[0] / max(sums[2], 1e-300)) ** 0.5
+    whole_w = (sums[1] / max(sums[2], 1e-300)) ** 0.5
+    vs = statistics.median(r["vs"] for r in rows)
+    worst = {}
+    for logit, name in ((False, "own"), (True, "layer")):
+        part = sorted((r for r in rows if r["logit"] == logit),
+                      key=lambda r: r["ratio"], reverse=True)
+        worst[name] = part[0]["ratio"] if part else 0.0
+        whose = "their layer's" if logit else "their own"
+        log(f"{label} gradients, {len(part)} leaves "
+            f"{'on' if logit else 'off'} the logits' path, held to {whose} "
+            f"largest magnitude; the furthest from the plain route, kernel "
+            f"difference / {whose} largest (its own largest; kernel / own; "
+            f"witness / own; kernel / witness): "
+            + "; ".join(
+                f"{r['path']} {r['ratio']:.2e} ({r['own']:.2e}; "
+                f"{r['ek'] / r['own']:.2e}; {r['ew'] / r['own']:.2e}; "
+                f"{r['vs']:.3g})" for r in part[:6]))
+    w_worst = max(r["w_ratio"] for r in rows)
+    log(f"{label} gradients: the whole {whole:.3e} relative (L2) from the "
+        f"plain route on the card, the witness (the CPU port's plain route) "
+        f"{whole_w:.3e}, its leaves within {w_worst:.2e} of their own "
+        f"largest magnitude (the key biases of their value biases'); a "
+        f"leaf's kernel difference over the witness's median {vs:.3g}, max "
+        f"{max(r['vs'] for r in rows):.4g} over {len(rows)} leaves")
+    bad = max(rows, key=lambda r: r["ratio"])
+    if whole > frac or bad["ratio"] > frac:
+        raise AssertionError(f"{label}: the gradients differ by {whole:.3e} "
+                             f"relative, the leaf {bad['path']} by "
+                             f"{bad['ratio']:.3e} of "
+                             f"{'its layer' if bad['logit'] else 'its own'}"
+                             f" largest magnitude (limit {frac})")
+    if w_worst > frac:
+        raise AssertionError(f"{label}: the CPU port's plain route differs "
+                             f"from the card's by {w_worst:.3e} of a leaf's "
+                             f"largest magnitude (limit {frac})")
+    return whole, worst, vs
+
+
+def encdec_train(smi):
+    """Phase 21a's training: whisper-base at full width, one StreamLoader
+    batch of 8 examples (decoder_len tokens over WH_FRAMES frames)
+    through ``steps.loss_and_grads`` on the kernel route (flash_attention
+    and its backward in the encoder, the cross-attention and the decoder)
+    and the plain route, and the CPU port's plain route as the witness:
+    the loss and per-example NLL within 1e-5 relative, the gradients as
+    ``grads_check`` holds them; one warm-up ``train_step``, then one
+    timed with its peak memory; then WH_TRAIN_STEPS steps of
+    ``runtime.train_loop.run``. Returns the counted launches, in all and
+    by shape (``ops.launches_at`` / ``bwd_launches_at``)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import StreamLoader
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.runtime import steps, train_loop
+    cfg = configs.get_config(WH_ARCH)
+    torch.cuda.empty_cache()
+    state = steps.init_train_state(cfg, seed=0, reservoir_k=16,
+                                   device="cuda")
+    shape = ShapeConfig("21a", seq_len=WH_FRAMES, global_batch=8,
+                        kind="train")
+    loader = StreamLoader(cfg, shape, seed=0)
+    batch = {k: torch.as_tensor(x, device="cuda")
+             for k, x in loader.batch_for_step(0).items()}
+    b, s = batch["tokens"].shape
+    per = prefill_launches(cfg)
+    # the counted run: counters to 0, the gradients, two steps, the loop
+    fa.launches = fa.bwd_launches = 0
+    fa.launches_at.clear()
+    fa.bwd_launches_at.clear()
+    loss_k, met_k, g_k = steps.loss_and_grads(state.params, cfg, batch)
+    if (fa.launches, fa.bwd_launches) != (per, per):
+        raise AssertionError(f"21a gradient launches {fa.launches}, "
+                             f"{fa.bwd_launches} != {per} each")
+    loss_p, met_p, g_p = steps.loss_and_grads(state.params, cfg, batch,
+                                              use_kernel=False)
+    t0 = time.perf_counter()
+    host = {k: x.cpu() for k, x in batch.items()}
+    _, met_c, g_c = steps.loss_and_grads(state_to(state.params, "cpu"), cfg,
+                                         host, use_kernel=False)
+    cpu_s = time.perf_counter() - t0
+    rels = {}
+    for key in ("loss", "per_example_nll"):
+        a, w = met_k[key].double(), met_p[key].double()
+        rels[key] = float(((a - w).abs() / w.abs()).max())
+    rel_c = float(((met_c["loss"].double() - met_p["loss"].double().cpu())
+                   .abs() / met_p["loss"].double().cpu().abs()).max())
+    g_whole, g_worst, g_vs = grads_check(g_k, g_p, g_c, "train [21a]")
+    log(f"train [21a {WH_ARCH} full width]: {b} x {s} tokens over "
+        f"{batch['frames'].shape[1]} frames: kernel route vs plain route on "
+        f"the card: loss {float(loss_k):.6f} / {float(loss_p):.6f}, "
+        f"relative diffs loss {rels['loss']:.2e}, per-example NLL "
+        f"{rels['per_example_nll']:.2e} (limit 1e-5; the CPU port's plain "
+        f"route {rel_c:.2e}, in {cpu_s:.1f}s on the host); gradients "
+        f"{g_whole:.2e} relative (L2), the leaves off the logits' path within "
+        f"{g_worst['own']:.2e} of their own largest magnitude and those on "
+        f"it within {g_worst['layer']:.2e} of their layer's (limits 1e-4); "
+        f"the kernel "
+        f"route a median {g_vs:.3g} times as far from the plain route as "
+        f"the witness")
+    if max(rels.values()) > 1e-5:
+        raise AssertionError("21a: the kernel route's loss differs from the "
+                             "plain route's")
+    del g_k, g_p, g_c, host
+    state, _ = steps.train_step(state, batch, cfg, lr=TR_LR)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, met = steps.train_step(state, batch, cfg, lr=TR_LR)
+    loss = float(met["loss"])  # the step's one sync
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, met
+    rep = train_loop.run(cfg, loader, loop=train_loop.LoopConfig(
+        total_steps=WH_TRAIN_STEPS, ckpt_every=10**6, lr=TR_LR),
+        device="cuda")
+    counted = {"flash_attention": fa.launches,
+               "flash_attention_bwd": fa.bwd_launches}
+    want = per * (3 + WH_TRAIN_STEPS)
+    loop_ms = [x * 1e3 for x in rep.step_times]
+    at = {name: (fa.launches_at[shp + (False,)],
+                 fa.bwd_launches_at[shp + (False,)])
+          for name, shp in (("encoder", FA_WH_ENC),
+                            ("cross", FA_WH_CROSS_TRAIN))}
+    at["decoder"] = (fa.launches_at[FA_WH_DEC_TRAIN + (True,)],
+                     fa.bwd_launches_at[FA_WH_DEC_TRAIN + (True,)])
+    log(f"train [21a] train_step of {b} x {s} tokens over {WH_FRAMES} "
+        f"frames, after a warm-up step: {step_ms:.3f} ms (host clock, the "
+        f"loss read syncs), loss {loss:.6f}, {b * s / step_ms * 1e3:.6g} "
+        f"tokens/s, peak device memory {peak:.3f} GiB; train_loop.run, "
+        f"{WH_TRAIN_STEPS} steps: losses "
+        f"{' '.join(f'{x:.6f}' for x in rep.losses)}, step ms "
+        f"{' '.join(f'{x:.3f}' for x in loop_ms)} (median after the first "
+        f"{statistics.median(loop_ms[1:]):.3f}); launches {counted} (want "
+        f"{want} each: one a flash_attention layer a gradient), by shape "
+        f"(forward, backward) {at}; {smi}")
+    if counted != {"flash_attention": want, "flash_attention_bwd": want}:
+        raise AssertionError(f"21a training launches {counted} != {want}")
+    n_each = want // 3
+    if any(v != (n_each, n_each) for v in at.values()):
+        raise AssertionError(f"21a training launches by shape {at} are not "
+                             f"{n_each} each")
+    if not (np.isfinite(rep.losses).all() and np.isfinite(loss)
+            and rep.steps_run == WH_TRAIN_STEPS
+            and np.mean(rep.losses[-2:]) < np.mean(rep.losses[:2])):
+        raise AssertionError(f"21a: losses not finite or not falling: "
+                             f"{rep.losses}")
+    del rep
+    torch.cuda.empty_cache()
+    return counted, at
+
+
+def encdec_frontends(smi):
+    """Phase 21: whisper-base served (21a) and trained, then pixtral-12b
+    served (21b), each at full width and depth. Returns the launches of
+    the kernels line's entries: in all, and those of each entry's shape
+    (whisper's encoder and cross-attention, forward at serving and
+    backward in training; pixtral's prefill)."""
+    out = {}
+    with phase_clock(f"{WH_ARCH} at full width (phase 21a)"):
+        served, wh_at, params = frontend_serve(smi, WH_ARCH, "21a", WH_SERVE)
+        del params
+        trained, tr_at = encdec_train(smi)
+    with phase_clock(f"{PX_ARCH} at full width (phase 21b)"):
+        px, px_at, params = frontend_serve(smi, PX_ARCH, "21b", PX_SERVE)
+        del params
+        torch.cuda.empty_cache()
+    out["flash_attention@whisper-encoder"] = wh_at.get(
+        FA_WH_ENC + (False,), 0)
+    out["flash_attention@whisper-cross"] = wh_at.get(
+        FA_WH_CROSS + (False,), 0)
+    out["flash_attention_bwd@whisper-encoder"] = tr_at["encoder"][1]
+    out["flash_attention_bwd@whisper-cross"] = tr_at["cross"][1]
+    out[f"flash_attention@{PX_ARCH}"] = px_at.get(
+        (FA_PX[0], FA_PX[1], *FA_PX[1:], True), 0)
+    out["flash_attention"] = (served["flash_attention"]
+                              + trained["flash_attention"]
+                              + px["flash_attention"])
+    out["flash_attention_bwd"] = trained["flash_attention_bwd"]
+    out["entropy_scores"] = (served["entropy_scores"]
+                             + px["entropy_scores"])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5889,7 +6473,7 @@ def main():
         times["plan_solve"] = plan_solve_timings(solves)
         del solves
         errs.update(score_kernel_parity())
-        errs["flash_attention_bwd"] = flash_backward_parity()
+        errs.update(flash_backward_parity())
         times.update(score_kernel_timings(smi))
         times.update(flash_backward_timings(smi))
     with phase_clock("main path, self-check, step profile (phases 5-7)"):
@@ -5941,6 +6525,10 @@ def main():
         launches["flash_attention@deepseek"] = ds["flash_attention"]
         for key, n in ds.items():
             launches[key] += n
+    with phase_clock("encoder-decoder and vision frontend at full width "
+                     "(phase 21)"):
+        for key, n in encdec_frontends(smi).items():
+            launches[key] = launches.get(key, 0) + n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",
@@ -5957,7 +6545,21 @@ def main():
             "src/repro/kernels/flash_attention/flash_attention.py:64",
         # no Pallas backward exists: the counterpart of XLA's derivative of
         # the reference's training attention (grouped_attention)
-        "flash_attention_bwd": "src/repro/models/attention.py:113"}
+        "flash_attention_bwd": "src/repro/models/attention.py:113",
+        # the same kernels at phase 21's launches, each entry's launches
+        # those of its shape: whisper-base's encoder self-attention and
+        # its cross-attention (non-causal; the forward at serving, the
+        # backward at training) and pixtral-12b's prefill
+        "flash_attention@whisper-encoder":
+            "src/repro/kernels/flash_attention/flash_attention.py:64",
+        "flash_attention@whisper-cross":
+            "src/repro/kernels/flash_attention/flash_attention.py:64",
+        "flash_attention_bwd@whisper-encoder":
+            "src/repro/models/attention.py:113",
+        "flash_attention_bwd@whisper-cross":
+            "src/repro/models/attention.py:113",
+        f"flash_attention@{PX_ARCH}":
+            "src/repro/kernels/flash_attention/flash_attention.py:64"}
     kernels = []
     for name in replaces:
         t = times[name]

@@ -42,6 +42,7 @@ so the kernel serves MLA but does not train it.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -66,9 +67,12 @@ BWD_FILL = 4 * SMS
 BWD_WARPS = {16: 4, 32: 4, 64: 4, 128: 8}
 
 # kernel launches made by ``flash_attention`` since the last reset: the
-# forward, and the backward (counted once a call, whatever its launches)
+# forward, and the backward (counted once a call, whatever its launches);
+# beside each, the same launches by shape (B, Sq, Skv, H, KV, hd, causal)
 launches = 0
 bwd_launches = 0
+launches_at: collections.Counter = collections.Counter()
+bwd_launches_at: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -277,6 +281,7 @@ def _launch_forward(q, k, v, causal, window, scale, with_lse, softcap=0.0):
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
+    launches_at[(b, sq, skv, h, kvh, hd, bool(causal))] += 1
     return out, lse
 
 
@@ -309,6 +314,7 @@ def _launch_backward(q, k, v, out, lse, dout, causal, window, scale):
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")
     bwd_launches += 1
+    bwd_launches_at[(b, sq, skv, h, kvh, hd, bool(causal))] += 1
     return dq, dk, dv
 
 

@@ -2,10 +2,11 @@
 [...]`` — the port of the reference's ``launch.train``.
 
 Runs the fault-tolerant loop (auto-resume, SIGTERM-safe, straggler
-watchdog) with top-K tiered curation for the architectures the port runs,
-on the CUDA card unless ``--device`` names another. ``--reduced`` takes
-the reduced config. Matrix products run in full float32 (TF32 off for
-CUDA matmuls and cuDNN).
+watchdog) with top-K tiered curation for any of the ten architectures
+(an encoder-decoder's batches carry ``--seq`` frame embeddings beside its
+decoder's tokens), on the CUDA card unless ``--device`` names another.
+``--reduced`` takes the reduced config. Matrix products run in full
+float32 (TF32 off for CUDA matmuls and cuDNN).
 
 A SIGTERM or SIGINT stops the loop at the next step boundary; the final
 checkpoint is written and the last line names the step it holds.
@@ -65,8 +66,10 @@ def main(argv=None):
     plan = shp.plan_placement(cm)
     pol = placement.from_plan(plan)
     print(f"SHP curation plan: {plan.strategy} r*/N={plan.best.r_over_n:.3f}")
+    # an encoder-decoder's examples are its decoder's tokens, not --seq
+    dec_len = cfg.decoder_len if cfg.is_encoder_decoder else args.seq
     store = tiers.TieredStore(
-        pol, tiers.HotTier(args.reservoir_k, (args.seq,), dtype=torch.int32,
+        pol, tiers.HotTier(args.reservoir_k, (dec_len,), dtype=torch.int32,
                            device=dev),
         tiers.ColdTier())
     curator = TopKCurator(args.reservoir_k, store, policy=pol)

@@ -1,7 +1,7 @@
 """Attention mixers: grouped-query attention (full or sliding-window) with
-a KV cache, and DeepSeek-V2's multi-head latent attention (MLA) with its
-latent cache — the port of the reference's ``models.attention`` but for
-cross-attention.
+a KV cache, cross-attention over encoder states, and DeepSeek-V2's
+multi-head latent attention (MLA) with its latent cache — the port of the
+reference's ``models.attention``.
 
 Prefill and the cache-less forward attend over keys at the query
 positions themselves; with ``flash=True`` (what ``lm`` passes by default)
@@ -18,6 +18,15 @@ reference's online-softmax scan over key chunks as a plain function; the
 port's prefill does not route to it, since the kernel takes long
 prompts, but the kernel's long-key cases are held to it.
 
+Cross-attention (whisper's decoder, ``cross_params``): queries from the
+decoder states, keys and values projected from the encoder's
+(``gqa_forward(kv_source=)``, no RoPE) at positions 0..S_enc−1, or read
+from the layer's cache, where ``lm`` writes them once at prefill
+(``cross_forward_cached``). Its mask is non-causal with no window, so
+it does not depend on positions, and with more than one query it runs
+on the kernel too (``attend(cross=True)``); decode's one query attends
+plainly over the cached encoder keys.
+
 MLA (``mla_*``): queries through a low-rank ``wq_a`` / ``q_norm`` /
 ``wq_b`` (or one ``wq``), keys and values from a normed latent of
 ``kv_lora_rank`` plus one shared RoPE key of ``qk_rope_head_dim``.
@@ -30,8 +39,7 @@ chunked path as a plain function that the kernel's long-key MLA cases are
 held to. Decode (``mla_forward_absorbed``) scores the query against the
 latent cache through the absorbed ``wkv_b``, as plain float32 tensor
 products, as the reference computes it. The KV and latent caches are
-written in place (``cache_write``). Cross-attention
-is not ported yet (ROADMAP queue 1 item 10).
+written in place (``cache_write``).
 """
 from __future__ import annotations
 
@@ -48,8 +56,6 @@ from .common import apply_rope, init_dense, rmsnorm
 BIG_NEG = -2.0e9  # mask value safe in bf16/f32
 KV_CHUNK = 1024  # keys a step of chunked_attention's scan
 MLA_CHUNK = 1024  # latent positions a step of _mla_attend_latent_chunked
-
-UNPORTED = "is not ported yet (ROADMAP queue 1 item 10)"
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +105,12 @@ def gqa_params(gen: torch.Generator, cfg, dtype) -> dict:
 
 def mla_params(gen: torch.Generator, cfg, dtype) -> dict:
     return _init(gen, mla_shapes(cfg), dtype)
+
+
+# cross-attention: Q over the decoder states, K/V over the encoder's, with
+# the GQA projections' shapes (whisper's cross-attention)
+cross_shapes = gqa_shapes
+cross_params = gqa_params
 
 
 # ---------------------------------------------------------------------------
@@ -188,13 +200,23 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal, window,
 
 
 def attend(q, k, v, q_pos, kv_pos, *, causal, window, softcap=0.0,
-           scale=None, flash: bool = False):
+           scale=None, flash: bool = False, cross: bool = False):
     """Attention of q over (k, v), logits soft-capped at ``softcap`` (0:
-    none). ``flash`` is the caller's statement that the keys sit at the
-    query positions and those run consecutively along the sequence
-    (prefill, the cache-less forward); with more than one query the
-    ``flash_attention`` kernel then computes it (its masks depend only on
-    position differences). Otherwise the plain grouped attention does."""
+    none). ``flash`` is the caller's statement that the kernel's masks,
+    which take query row i at position i + Skv − Sq and key j at j, give
+    this attention; with more than one query the ``flash_attention``
+    kernel then computes it, otherwise the plain grouped attention does.
+    It holds in two cases: the keys sit at the query positions, which run
+    consecutively along the sequence (self-attention in prefill and the
+    cache-less forward); or, ``cross``, the keys are another sequence
+    with every slot valid and the mask is non-causal with no window, so
+    that no mask reads a position. A cross call with ``flash`` under a
+    causal or windowed mask raises ``ValueError``: the kernel's positions
+    would be wrong there."""
+    if flash and cross and (causal or window > 0):
+        raise ValueError(f"cross-attention runs on the kernel only under a "
+                         f"non-causal mask with no window, not causal="
+                         f"{causal}, window={window}")
     if flash and q.shape[1] > 1:
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          window=window, scale=scale,
@@ -253,21 +275,40 @@ def _project(x, w):
     return (x @ w.reshape(d, heads * hd)).reshape(*x.shape[:2], heads, hd)
 
 
+def _out(p, out):
+    """(B,S,H,hd) · wo (+ bo) → (B,S,D)."""
+    h, hd, d = p["wo"].shape
+    y = out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
+    if "bo" in p:
+        y = y + p["bo"]
+    return y
+
+
+def _source_positions(src):
+    """(B, S_src) int32 positions 0..S_src−1 of a key sequence."""
+    return torch.arange(src.shape[1], dtype=torch.int32,
+                        device=src.device).expand(*src.shape[:2])
+
+
 def gqa_forward(p, x, positions, cfg, *, causal=True, window=0,
-                cache: Optional[KVCache] = None, flash: bool = False):
+                cache: Optional[KVCache] = None, flash: bool = False,
+                kv_source=None):
     """x: (B,S,D). positions: (B,S). If ``cache`` is given, new K/V are
     written at ``positions`` and attention runs over the cache (decode) or
     over the prompt (prefill). ``flash``: the positions run consecutively
     along S, so prefill and the cache-less forward may take the
-    ``flash_attention`` kernel (see ``attend``)."""
+    ``flash_attention`` kernel (see ``attend``). ``kv_source`` (B, S_src,
+    D) overrides the K/V input (cross-attention): keys at 0..S_src−1, no
+    RoPE, no cache."""
+    src = x if kv_source is None else kv_source
     q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
+    k = _project(src, p["wk"])
+    v = _project(src, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    if cfg.use_rope:
+    if cfg.use_rope and kv_source is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None and x.shape[1] == 1:
@@ -279,14 +320,27 @@ def gqa_forward(p, x, positions, cfg, *, causal=True, window=0,
         # shorter than the prompt), then persists the tail for decode
         if cache is not None:
             cache = cache_write(cache, k, v, positions)
-        k_all, v_all, kv_pos = k, v, positions
+        k_all, v_all = k, v
+        kv_pos = positions if kv_source is None else _source_positions(src)
     out = attend(q, k_all, v_all, positions, kv_pos, causal=causal,
-                 window=window, softcap=cfg.attn_logit_softcap, flash=flash)
-    h, hd, d = p["wo"].shape
-    y = out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
-    if "bo" in p:
-        y = y + p["bo"]
-    return y, cache
+                 window=window, softcap=cfg.attn_logit_softcap, flash=flash,
+                 cross=kv_source is not None)
+    return _out(p, out), cache
+
+
+def cross_forward_cached(p, x, positions, k, v, *, flash: bool = False):
+    """Cross-attention over encoder K/V already projected into a layer's
+    cache (``cross_k`` / ``cross_v`` (B, S_enc, KV, hd)): q = x·wq + bq
+    attends over them at positions 0..S_enc−1, non-causal, with no
+    soft-cap (as the reference's cached route passes none), then wo + bo.
+    ``flash``: a prompt (prefill) runs on the kernel, one token
+    (decode) on the plain grouped attention."""
+    q = _project(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    out = attend(q, k, v, positions, _source_positions(k), causal=False,
+                 window=0, flash=flash, cross=True)
+    return _out(p, out)
 
 
 # ---------------------------------------------------------------------------

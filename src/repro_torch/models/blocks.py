@@ -1,12 +1,14 @@
-"""Layer blocks: (mixer → residual) → (FFN → residual), pre-norm — the
-port of the reference's ``models.blocks``. The mixer is attention
-(``attn``), the SSD scan (``ssm``), the mean of both, each behind its own
-pre-norm (``attn_ssm_parallel``), or nothing (``none``); the FFN is dense
-or the Mixture-of-Experts (``moe``), whose load-balancing loss the block
-returns. Attention is grouped-query, or MLA where ``cfg.use_mla`` says
-so. One ``block_forward`` serves the forward, prefill and decode; a
-layer's cache holds ``kv`` (or ``mla``) and/or ``ssm``. Cross-attention
-is not ported yet (ROADMAP queue 1 item 10)."""
+"""Layer blocks: (mixer → residual) → (cross-attention → residual) →
+(FFN → residual), pre-norm — the port of the reference's
+``models.blocks``. The mixer is attention (``attn``), the SSD scan
+(``ssm``), the mean of both, each behind its own pre-norm
+(``attn_ssm_parallel``), or nothing (``none``); a decoder layer of an
+encoder-decoder model then attends to the encoder's states
+(``cross_attn``); the FFN is dense or the Mixture-of-Experts (``moe``),
+whose load-balancing loss the block returns. Attention is grouped-query,
+or MLA where ``cfg.use_mla`` says so. One ``block_forward`` serves the
+forward, prefill and decode; a layer's cache holds ``kv`` (or ``mla``)
+and/or ``ssm``, and ``cross_k`` / ``cross_v`` with cross-attention."""
 from __future__ import annotations
 
 import torch
@@ -15,12 +17,6 @@ from . import attention as attn
 from . import ffn as ffn_mod
 from . import ssm as ssm_mod
 from .common import apply_norm, norm_params
-
-
-def check_supported(spec) -> None:
-    """Raise for the layer kinds the port does not run."""
-    if spec.cross_attn:
-        raise NotImplementedError(f"cross-attention {attn.UNPORTED}")
 
 
 def _has_attn(spec) -> bool:
@@ -32,7 +28,6 @@ def _has_ssm(spec) -> bool:
 
 
 def block_shapes(spec, cfg) -> dict:
-    check_supported(spec)
     norm = {"scale": (cfg.d_model,)}
     if cfg.use_layernorm:
         norm["bias"] = (cfg.d_model,)
@@ -42,6 +37,8 @@ def block_shapes(spec, cfg) -> dict:
                             else attn.gqa_shapes(cfg)), norm_attn=dict(norm))
     if _has_ssm(spec):
         shapes.update(ssm=ssm_mod.ssm_shapes(cfg), norm_ssm=dict(norm))
+    if spec.cross_attn:
+        shapes.update(cross=attn.cross_shapes(cfg), norm_cross=dict(norm))
     if spec.ffn == "dense":
         shapes["ffn"] = ffn_mod.dense_shapes(cfg.d_model, cfg.d_ff,
                                              cfg.ffn_act, cfg.ffn_bias)
@@ -53,7 +50,6 @@ def block_shapes(spec, cfg) -> dict:
 
 
 def block_params(gen, spec, cfg, dtype) -> dict:
-    check_supported(spec)
     ln = cfg.use_layernorm
     p = {}
     if _has_attn(spec):
@@ -63,6 +59,9 @@ def block_params(gen, spec, cfg, dtype) -> dict:
     if _has_ssm(spec):
         p["ssm"] = ssm_mod.ssm_params(gen, cfg, dtype)
         p["norm_ssm"] = norm_params(cfg.d_model, ln, dtype, gen.device)
+    if spec.cross_attn:
+        p["cross"] = attn.cross_params(gen, cfg, dtype)
+        p["norm_cross"] = norm_params(cfg.d_model, ln, dtype, gen.device)
     if spec.ffn == "dense":
         p["ffn"] = ffn_mod.dense_params(gen, cfg.d_model, cfg.d_ff,
                                         cfg.ffn_act, cfg.ffn_bias, dtype)
@@ -73,9 +72,11 @@ def block_params(gen, spec, cfg, dtype) -> dict:
     return p
 
 
-def init_layer_cache(spec, cfg, batch, kv_len, dtype, device=None) -> dict:
-    """Cache entry for ONE layer of this spec."""
-    check_supported(spec)
+def init_layer_cache(spec, cfg, batch, kv_len, dtype, device=None,
+                     enc_len=0) -> dict:
+    """Cache entry for ONE layer of this spec; with cross-attention, zeroed
+    ``cross_k`` / ``cross_v`` of (batch, enc_len, KV, hd) that
+    ``lm.prefill`` fills from the encoder."""
     c = {}
     if _has_attn(spec) and cfg.use_mla:
         c["mla"] = attn.init_mla_cache(batch, kv_len, cfg, dtype, device)
@@ -84,6 +85,10 @@ def init_layer_cache(spec, cfg, batch, kv_len, dtype, device=None) -> dict:
                                      cfg.head_dim, dtype, device)
     if _has_ssm(spec):
         c["ssm"] = ssm_mod.init_ssm_state(batch, cfg, dtype, device)
+    if spec.cross_attn:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return c
 
 
@@ -138,14 +143,32 @@ def _mixer(p, spec, cfg, x, positions, cache, window, flash):
     return mix, new_cache
 
 
+def _cross(p, cfg, x, positions, cache, flash, enc_out):
+    """The cross-attention branch's output: over the cached encoder K/V
+    when the layer's cache holds them (prefill, decode), else projected
+    from ``enc_out`` (the forward, training)."""
+    h = apply_norm(p["norm_cross"], x, cfg.norm_eps, cfg.use_layernorm)
+    if cache is not None and "cross_k" in cache:
+        return attn.cross_forward_cached(p["cross"], h, positions,
+                                         cache["cross_k"], cache["cross_v"],
+                                         flash=flash)
+    out, _ = attn.gqa_forward(p["cross"], h, positions, cfg, causal=False,
+                              window=0, flash=flash, kv_source=enc_out)
+    return out
+
+
 def block_forward(p, spec, cfg, x, positions, cache=None, window=0,
-                  flash=False):
+                  flash=False, enc_out=None):
     """Returns (x, new_cache, aux_loss): aux is the MoE's load-balancing
     loss, None for other FFNs (no tensor made where none is needed).
-    ``flash``: see ``attention.gqa_forward``."""
+    ``flash``: see ``attention.gqa_forward``. ``enc_out`` (B, S_enc, D):
+    the encoder's states, which a cross-attention layer without a cache
+    attends to."""
     aux = None
     mix, new_cache = _mixer(p, spec, cfg, x, positions, cache, window, flash)
     x = x + mix
+    if spec.cross_attn:
+        x = x + _cross(p, cfg, x, positions, cache, flash, enc_out)
     if spec.ffn == "dense":
         h = apply_norm(p["norm_ffn"], x, cfg.norm_eps, cfg.use_layernorm)
         x = x + ffn_mod.dense_forward(p["ffn"], h, cfg.ffn_act)

@@ -80,6 +80,19 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(seq_len: int, d_model: int, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal positional table (S, D) in float32, then
+    ``dtype``: [sin | cos] concatenated (not interleaved) over the
+    inverse frequencies exp(-i · ln 10000 / max(D/2 − 1, 1))."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    inv = torch.exp(-dim * (math.log(10000.0) / max(d_model // 2 - 1, 1)))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 def gelu(x):
     return F.gelu(x, approximate="tanh")
 

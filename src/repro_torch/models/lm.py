@@ -1,33 +1,38 @@
 """Top-level model: embedding → layer groups → norm → LM head — the port
-of the reference's ``models.lm`` for decoder-only models whose layers
-mix by attention (grouped-query, soft-capped where the config says so, or
-MLA), the SSD scan or both in parallel, with dense or Mixture-of-Experts
-FFNs (llama3.2-1b, yi-9b, starcoder2-3b, command-r-plus-104b,
-mamba2-2.7b, hymba-1.5b, grok-1-314b, deepseek-v2-236b).
+of the reference's ``models.lm`` for all ten configs: decoder-only
+models whose layers mix by attention (grouped-query, soft-capped where
+the config says so, or MLA), the SSD scan or both in parallel, with
+dense or Mixture-of-Experts FFNs; the vision-patch frontend
+(pixtral-12b); and the encoder-decoder (whisper-base).
 
+* ``encode(params, cfg, frames)``          — the encoder's states
 * ``forward(params, cfg, batch)``          — full-sequence logits
 * ``prefill(params, cfg, batch, cache)``   — fill caches, last logits
 * ``decode_step(params, cfg, tok, cache)`` — one token with cache
 * ``lm_loss(params, cfg, batch)``          — the training loss and the
   per-example NLL that curation scores by
 
-Parameters are a plain dict in the reference's layout, with each group a
-list of per-layer dicts where the reference stacks the layers on a
-leading axis; the layers run in a Python loop where the reference scans.
-KV and MLA latent caches are updated in place and SSM states replaced;
-the forward writes into no tensor that autograd saved, so ``lm_loss``
-differentiates through it. ``use_kernel=False`` takes the plain grouped
-attention for prefill and the forward, the reference's own route;
-otherwise they run on the ``flash_attention`` kernel, and a gradient
-through the forward on the card runs the kernel's backward (not yet for
+``batch`` holds ``tokens`` (B, S) and, where the config says so,
+``frames`` (B, S_enc, D) (encoder-decoder: the audio frontend's stub,
+precomputed frame embeddings) or ``patch_embeds`` (B, n_patches, D)
+(``vision_patches``: they replace the first n_patches positions of the
+sequence, in the forward and at prefill). Parameters are a plain dict in
+the reference's layout, with each group a list of per-layer dicts where
+the reference stacks the layers on a leading axis; the layers run in a
+Python loop where the reference scans. KV and MLA latent caches are
+updated in place and SSM states replaced; a cross-attention layer's
+encoder K/V are written into its cache once, at prefill. The forward
+writes into no tensor that autograd saved, so ``lm_loss`` differentiates
+through it. ``use_kernel=False`` takes the plain grouped attention for
+prefill, the encoder and the forward, the reference's own route;
+otherwise their attention runs on the ``flash_attention`` kernel
+(cross-attention too, under its non-causal mask), and a gradient through
+the forward on the card runs the kernel's backward (not yet for
 soft-capped attention, which raises there, nor for MLA's unequal head
-dims). MLA's decode over
-its latent cache, the SSD scan and the MoE's routing, dispatch and
-combine are plain tensor operations on either route
-(``models.attention``, ``models.ssm``, ``models.ffn``).
-
-Encoder-decoder models, vision/audio frontends and cross-attention raise
-``NotImplementedError`` (ROADMAP queue 1 item 10).
+dims). Decode's attention, MLA's decode over its latent cache, the SSD
+scan and the MoE's routing, dispatch and combine are plain tensor
+operations on either route (``models.attention``, ``models.ssm``,
+``models.ffn``).
 """
 from __future__ import annotations
 
@@ -42,39 +47,38 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from . import attention as attn_mod
 from . import blocks
 from . import ssm as ssm_mod
-from .common import apply_norm, dtype_of, init_dense, norm_params
+from .common import (apply_norm, dtype_of, init_dense, norm_params,
+                     sinusoidal_pos)
 
 # leaves kept in float32 whatever param_dtype is: the SSM's decay and skip
 # terms and the MoE router
 FLOAT32_LEAVES = ssm_mod.FLOAT32_LEAVES + ("router",)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the model families the port does not run."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder models "
-                                  f"{attn_mod.UNPORTED}")
-    if cfg.frontend != "none" or cfg.learned_pos_embed:
-        raise NotImplementedError(f"the {cfg.frontend!r} frontend and "
-                                  f"learned positions {attn_mod.UNPORTED}")
-    for spec in cfg.layers:
-        blocks.check_supported(spec)
-
-
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
 
+def _norm_shapes(cfg) -> dict:
+    return ({"scale": (cfg.d_model,), "bias": (cfg.d_model,)}
+            if cfg.use_layernorm else {"scale": (cfg.d_model,)})
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes, in ``init_params``' layout."""
-    check_supported(cfg)
     shapes: dict[str, Any] = {
         "embed": (cfg.vocab_size, cfg.d_model),
-        "final_norm": ({"scale": (cfg.d_model,), "bias": (cfg.d_model,)}
-                       if cfg.use_layernorm else {"scale": (cfg.d_model,)}),
+        "final_norm": _norm_shapes(cfg),
     }
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (cfg.d_model, cfg.vocab_size)
+    if cfg.learned_pos_embed:
+        shapes["pos_embed"] = (max(cfg.decoder_len, 1), cfg.d_model)
+    if cfg.encoder_layers:
+        shapes["enc"] = [[blocks.block_shapes(s, cfg)
+                          for _ in range(s.count)]
+                         for s in cfg.encoder_layers]
+        shapes["enc_norm"] = _norm_shapes(cfg)
     shapes["dec"] = [[blocks.block_shapes(s, cfg) for _ in range(s.count)]
                      for s in cfg.layers]
     return shapes
@@ -117,18 +121,27 @@ def param_count(cfg: ModelConfig) -> int:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device`` (the CUDA card unless given): truncated-normal fan-in
-    matrices, zero norm scales and biases, as the reference draws them."""
-    check_supported(cfg)
+    matrices (the learned positions' fan-in over d_model), zero norm
+    scales and biases (LayerNorm scales one), as the reference draws
+    them."""
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = dtype_of(cfg.param_dtype)
+    ln = cfg.use_layernorm
     p: dict[str, Any] = {
         "embed": init_dense(gen, (cfg.vocab_size, cfg.d_model), (1,), dtype),
-        "final_norm": norm_params(cfg.d_model, cfg.use_layernorm, dtype, dev),
+        "final_norm": norm_params(cfg.d_model, ln, dtype, dev),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = init_dense(gen, (cfg.d_model, cfg.vocab_size), (0,),
                                   dtype)
+    if cfg.learned_pos_embed:
+        p["pos_embed"] = init_dense(gen, (max(cfg.decoder_len, 1),
+                                          cfg.d_model), (1,), dtype)
+    if cfg.encoder_layers:
+        p["enc"] = [[blocks.block_params(gen, s, cfg, dtype)
+                     for _ in range(s.count)] for s in cfg.encoder_layers]
+        p["enc_norm"] = norm_params(cfg.d_model, ln, dtype, dev)
     p["dec"] = [[blocks.block_params(gen, s, cfg, dtype)
                  for _ in range(s.count)] for s in cfg.layers]
     return p
@@ -136,9 +149,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 def from_reference_params(params_np, cfg: ModelConfig, device=None) -> dict:
     """The reference's ``lm.init_params`` tree, as numpy arrays, in the
-    port's layout: each group's leaves, stacked over the layer axis by the
-    reference, are split into per-layer dicts."""
-    check_supported(cfg)
+    port's layout: each group's leaves (decoder and encoder), stacked over
+    the layer axis by the reference, are split into per-layer dicts."""
     dev = device_mod.resolve(device)
 
     def conv(tree, layer=None):
@@ -147,10 +159,10 @@ def from_reference_params(params_np, cfg: ModelConfig, device=None) -> dict:
         a = np.asarray(tree)
         return torch.tensor(a if layer is None else a[layer], device=dev)
 
-    p = {k: conv(v) for k, v in params_np.items() if k != "dec"}
-    p["dec"] = [[conv(g, i) for i in range(s.count)]
-                for g, s in zip(params_np["dec"], cfg.layers)]
-    return p
+    groups = {"dec": cfg.layers, "enc": cfg.encoder_layers}
+    return {k: ([[conv(g, i) for i in range(s.count)]
+                 for g, s in zip(v, groups[k])] if k in groups else conv(v))
+            for k, v in params_np.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -161,9 +173,39 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def _embed_tokens(p, cfg, tokens):
+def _embed_tokens(p, cfg, tokens, positions):
+    """Token embeddings, plus the learned positions where the config has
+    them. A position past the table's last row reads the last row: the
+    reference's gather clamps an out-of-range index (JAX), where torch
+    would raise (on the card, a device-side assert), so the port clamps
+    it explicitly — a decode past ``decoder_len`` gives the reference's
+    logits."""
     x = p["embed"][tokens.to(torch.int64)]  # (B, S, D)
+    if cfg.learned_pos_embed:
+        last = p["pos_embed"].shape[0] - 1
+        x = x + p["pos_embed"][positions.to(torch.int64).clamp(max=last)]
     return x.to(dtype_of(cfg.activation_dtype))
+
+
+def _blend_patches(x, patch_embeds):
+    """The vision frontend's stub: precomputed patch embeddings (B, P, D)
+    replace the first P positions of the sequence (prefix-image layout).
+    A sequence shorter than P raises ``ValueError``: the blend would
+    outgrow its positions."""
+    n, s = patch_embeds.shape[1], x.shape[1]
+    if s < n:
+        raise ValueError(f"a sequence of {s} tokens is shorter than its {n} "
+                         f"patch embeddings")
+    return torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+
+
+def _frontend(p, cfg, batch, positions):
+    """The decoder's input: embedded tokens, the patch prefix blended in
+    where the config has the vision frontend."""
+    x = _embed_tokens(p, cfg, batch["tokens"], positions)
+    if cfg.frontend == "vision_patches":
+        x = _blend_patches(x, batch["patch_embeds"])
+    return x
 
 
 def _head(p, cfg, x):
@@ -177,18 +219,22 @@ def _head(p, cfg, x):
     return logits
 
 
-def _run_layers(p, cfg, x, positions, cache_groups=None, flash=False):
-    """Every layer in order; returns (x, new cache groups or None, the
-    MoE layers' aux losses summed, or None without MoE)."""
+def _run_layers(groups, specs, cfg, x, positions, cache_groups=None,
+                flash=False, enc_out=None):
+    """Every layer of ``groups`` (``p["dec"]`` or ``p["enc"]``), whose
+    specs are ``specs`` (``cfg.layers`` or ``cfg.encoder_layers``), in
+    order; returns (x, new cache groups or None, the MoE layers' aux
+    losses summed, or None without MoE). ``enc_out``: the encoder's
+    states, for cross-attention layers without a cache."""
     new_groups, aux = [], None
-    for gi, (gp, spec) in enumerate(zip(p["dec"], cfg.layers)):
+    for gi, (gp, spec) in enumerate(zip(groups, specs)):
         windows = spec.window_list()
         new_layers = []
         for li, lp in enumerate(gp):
             lc = None if cache_groups is None else cache_groups[gi][li]
             x, lc, a = blocks.block_forward(lp, spec, cfg, x, positions,
                                             cache=lc, window=windows[li],
-                                            flash=flash)
+                                            flash=flash, enc_out=enc_out)
             if a is not None:
                 aux = a if aux is None else aux + a
             new_layers.append(lc)
@@ -197,17 +243,37 @@ def _run_layers(p, cfg, x, positions, cache_groups=None, flash=False):
 
 
 # ---------------------------------------------------------------------------
+# Encoder (the audio frontend's stub: the batch carries frame embeddings)
+# ---------------------------------------------------------------------------
+
+def encode(p, cfg: ModelConfig, frames, *, use_kernel: bool = True):
+    """frames: (B, S_enc, D) precomputed frame embeddings. The sinusoidal
+    table added, then the encoder groups (non-causal self-attention, on
+    the ``flash_attention`` kernel unless ``use_kernel=False``), then
+    ``enc_norm``: (B, S_enc, D)."""
+    x = frames.to(dtype_of(cfg.activation_dtype))
+    x = x + sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    positions = _positions(*x.shape[:2], x.device)
+    x, _, _ = _run_layers(p["enc"], cfg.encoder_layers, cfg, x, positions,
+                          flash=use_kernel)
+    return apply_norm(p["enc_norm"], x, cfg.norm_eps, cfg.use_layernorm)
+
+
+# ---------------------------------------------------------------------------
 # Forward / caches / prefill / decode
 # ---------------------------------------------------------------------------
 
 def forward(p, cfg: ModelConfig, batch: dict, *, use_kernel: bool = True):
-    """batch: tokens (B,S). Returns (logits (B,S,V) float32, aux loss: the
-    MoE layers' load-balancing losses summed, 0 without MoE)."""
-    check_supported(cfg)
+    """batch: tokens (B,S) [+ frames (B,S_enc,D) | patch_embeds (B,P,D)].
+    Returns (logits (B,S,V) float32, aux loss: the MoE layers'
+    load-balancing losses summed, 0 without MoE)."""
     tokens = batch["tokens"]
     positions = _positions(*tokens.shape, tokens.device)
-    x = _embed_tokens(p, cfg, tokens)
-    x, _, aux = _run_layers(p, cfg, x, positions, flash=use_kernel)
+    x = _frontend(p, cfg, batch, positions)
+    enc_out = (encode(p, cfg, batch["frames"], use_kernel=use_kernel)
+               if cfg.is_encoder_decoder else None)
+    x, _, aux = _run_layers(p["dec"], cfg.layers, cfg, x, positions,
+                            flash=use_kernel, enc_out=enc_out)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(p, cfg, x), aux
@@ -223,46 +289,73 @@ def group_kv_len(spec: LayerSpec, kv_len: int) -> int:
     return min(max(ws), kv_len)
 
 
-def init_cache(cfg: ModelConfig, batch: int, kv_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, kv_len: int, device=None, *,
+               enc_len: int = 0):
     """Per-layer caches on ``device`` (the CUDA card unless given) — a KV
-    cache for attention, an ``ssm.SSMState`` for the SSD scan — and the
-    global position, a Python int."""
-    check_supported(cfg)
+    cache for attention, an ``ssm.SSMState`` for the SSD scan, and for a
+    cross-attention layer the encoder's K/V over ``enc_len`` frames,
+    filled at prefill — and the global position, a Python int."""
     dev = device_mod.resolve(device)
     dtype = dtype_of(cfg.activation_dtype)
     return {
         "pos": 0,
         "groups": [[blocks.init_layer_cache(s, cfg, batch,
                                             group_kv_len(s, kv_len), dtype,
-                                            dev)
+                                            dev, enc_len)
                     for _ in range(s.count)] for s in cfg.layers],
     }
 
 
+def _precompute_cross(p, cfg, cache, enc_out):
+    """Fill every cross-attention layer's ``cross_k`` / ``cross_v`` in
+    place from the encoder's states (once, at prefill): enc_out · wk + bk
+    and enc_out · wv + bv."""
+    for gp, spec, gc in zip(p["dec"], cfg.layers, cache["groups"]):
+        if not spec.cross_attn:
+            continue
+        for lp, lc in zip(gp, gc):
+            if lc["cross_k"].shape[1] != enc_out.shape[1]:
+                raise ValueError(f"the cache holds {lc['cross_k'].shape[1]} "
+                                 f"encoder positions, the encoder gave "
+                                 f"{enc_out.shape[1]}")
+            cp = lp["cross"]
+            k = attn_mod._project(enc_out, cp["wk"])
+            v = attn_mod._project(enc_out, cp["wv"])
+            if "bk" in cp:
+                k, v = k + cp["bk"], v + cp["bv"]
+            lc["cross_k"].copy_(k)
+            lc["cross_v"].copy_(v)
+    return cache
+
+
 def prefill(p, cfg: ModelConfig, batch: dict, cache, *,
             use_kernel: bool = True):
-    """Run the prompt through the decoder, writing caches.
-    Returns (logits of the last position (B,V), cache)."""
-    check_supported(cfg)
+    """Run the prompt through the decoder, writing caches (an
+    encoder-decoder model first encodes ``batch["frames"]`` and writes the
+    cross-attention K/V). Returns (logits of the last position (B,V),
+    cache)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    x = _embed_tokens(p, cfg, tokens)
-    x, groups, _ = _run_layers(p, cfg, x, positions, cache["groups"],
-                               flash=use_kernel)
+    if cfg.is_encoder_decoder:
+        enc_out = encode(p, cfg, batch["frames"], use_kernel=use_kernel)
+        cache = _precompute_cross(p, cfg, cache, enc_out)
+    x = _frontend(p, cfg, batch, positions)
+    x, groups, _ = _run_layers(p["dec"], cfg.layers, cfg, x, positions,
+                               cache["groups"], flash=use_kernel)
     logits = _head(p, cfg, x[:, -1:])[:, 0]
     return logits, {"pos": s, "groups": groups}
 
 
 def decode_step(p, cfg: ModelConfig, token, cache):
     """token: (B,) integer. Returns (logits (B,V), cache)."""
-    check_supported(cfg)
     b = token.shape[0]
     pos = cache["pos"]
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=token.device)
-    x = _embed_tokens(p, cfg, token[:, None])
-    x, groups, _ = _run_layers(p, cfg, x, positions, cache["groups"])
+    x = _embed_tokens(p, cfg, token[:, None], positions)
+    x, groups, _ = _run_layers(p["dec"], cfg.layers, cfg, x, positions,
+                               cache["groups"])
     logits = _head(p, cfg, x)[:, 0]
     return logits, {"pos": pos + 1, "groups": groups}
 

@@ -2200,3 +2200,124 @@ def test_serve_mla_on_card_equals_cpu(cuda_device):
     assert np.diff(np.sort(ref.scores)).min() > 4e-5
     assert res.retained == ref.retained
     assert res.store.ledger.as_dict() == ref.store.ledger.as_dict()
+
+
+# ---------------------------------------------------------------------------
+# cross-attention, the encoder and the patch prefix (whisper-base,
+# pixtral-12b)
+# ---------------------------------------------------------------------------
+
+# (b, sq, skv, h, kvh, hd, causal, window), every one non-causal with no
+# window: whisper-base's encoder self-attention and its cross-attention at
+# serving (416 decoder tokens) and training (448) over 1500 frames, at
+# batch 2; a ragged Sq = Skv = 1500 over a group of 2; Sq > Skv (more
+# decoder tokens than frames) at 90 x 33 and 300 x 77; the reduced
+# config's cross shape
+FA_XATTN_CASES = [(2, 1500, 1500, 8, 8, 64, False, 0),
+                  (2, 416, 1500, 8, 8, 64, False, 0),
+                  (2, 448, 1500, 8, 8, 64, False, 0),
+                  (1, 1500, 1500, 8, 4, 64, False, 0),
+                  (1, 90, 33, 4, 2, 64, False, 0),
+                  (2, 300, 77, 8, 8, 64, False, 0),
+                  (2, 12, 24, 4, 4, 16, False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_XATTN_CASES)
+def test_flash_attention_non_causal_equals_plain(case, dtype, cuda_device):
+    """The forward at the new non-causal shapes against the plain version
+    (2e-5 / 2e-2), then the log-sum-exp and the backward against
+    reference_lse and reference_backward (1e-4 of each gradient's largest
+    magnitude / 2e-2)."""
+    test_flash_attention_kernel_equals_plain(*case, dtype, cuda_device)
+    _check_backward(case, dtype, cuda_device)
+
+
+def _encdec_batch(cfg, b, s, seed=3):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (b, s)))}
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.tensor(rng.standard_normal(
+            (b, 24, cfg.d_model)), dtype=torch.float32)
+    if cfg.frontend == "vision_patches":
+        out["patch_embeds"] = torch.tensor(rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_model)), dtype=torch.float32)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "pixtral-12b"])
+def test_encdec_and_patch_prefix_on_card_equal_cpu(arch, cuda_device):
+    """Reduced whisper-base (the encoder's 2 layers, the decoder's 2
+    self- and 2 cross-attention layers on flash_attention) and
+    pixtral-12b (the patch prefix) on the card against the CPU port with
+    the same weights: the forward's logits, then prefill and 6 decode
+    steps, within 2e-5; exact launches (whisper's prefill: 2 encoder, 2
+    cross, 2 causal; none at decode); a train step's loss and gradients
+    (the kernel's backward, non-causal in the encoder and the cross
+    layers) within 1e-5 relative, and each gradient leaf within 1e-4 of
+    its own largest magnitude (phase 17a's rule), the key bias ``bk``
+    within 1e-4 of its value bias's: its exact gradient is 0 (the softmax
+    removes a shift of every key), so both sides hold float noise."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = t_configs.get_config(arch, reduced=True)
+    cpu = t_lm.init_params(cfg, seed=1, device="cpu")
+    card = params_to(cpu, cuda_device)
+    s = cfg.decoder_len if cfg.is_encoder_decoder else 20
+    b_cpu = _encdec_batch(cfg, 2, s)
+    b_card = {k: v.to(cuda_device) for k, v in b_cpu.items()}
+    want, _ = t_lm.forward(cpu, cfg, b_cpu)
+    got, _ = t_lm.forward(card, cfg, b_card)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    enc = 24 if cfg.is_encoder_decoder else 0
+    t0 = 10
+    logits = []
+    for params, batch, dev in ((cpu, b_cpu, "cpu"),
+                               (card, b_card, cuda_device)):
+        cache = t_lm.init_cache(cfg, 2, s + 1, device=dev, enc_len=enc)
+        n0 = t_fa.launches
+        out, cache = t_lm.prefill(params, cfg, dict(
+            batch, tokens=batch["tokens"][:, :t0]), cache)
+        launches = t_fa.launches - n0
+        steps_out = [out]
+        for t in range(t0, s):
+            out, cache = t_lm.decode_step(params, cfg, batch["tokens"][:, t],
+                                          cache)
+            steps_out.append(out)
+        logits.append(torch.stack(steps_out, 1).cpu())
+    attn = sum(sp.count for sp in cfg.layers + cfg.encoder_layers)
+    cross = sum(sp.count for sp in cfg.layers if sp.cross_attn)
+    assert launches == attn + cross and t_fa.launches - n0 == launches
+    torch.testing.assert_close(logits[1], logits[0], rtol=2e-5, atol=2e-5)
+    b_cpu["labels"] = torch.roll(b_cpu["tokens"], -1, 1)
+    b_card["labels"] = b_cpu["labels"].to(cuda_device)
+    l_cpu, _, g_cpu = steps.loss_and_grads(cpu, cfg, b_cpu)
+    n0, b0 = t_fa.launches, t_fa.bwd_launches
+    l_card, _, g_card = steps.loss_and_grads(card, cfg, b_card)
+    assert (t_fa.launches - n0, t_fa.bwd_launches - b0) == (attn + cross,
+                                                            attn + cross)
+    np.testing.assert_allclose(float(l_card), float(l_cpu), rtol=1e-5)
+    for path, a in _paths(g_card):
+        w = _at(g_cpu, path)
+        top = float(w.abs().max())
+        if path[-1] == "bk":
+            top = float(_at(g_cpu, path[:-1] + ("bv",)).abs().max())
+            assert float(w.abs().max()) <= 1e-4 * top, path
+        assert float((a.cpu() - w).abs().max()) <= 1e-4 * top, path
+    assert len(_paths(g_card)) == len(adamw.tree_leaves(g_cpu))
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        return [q for k in tree for q in _paths(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [q for i, v in enumerate(tree) for q in _paths(v, path + (i,))]
+    return [(path, tree)]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree

@@ -3,8 +3,9 @@ the reference's weights carried across by ``from_reference_params``:
 ``get_config`` field by field for all ten architectures, parameter
 counts and shapes, ``forward``, and ``prefill`` then ``decode_step``
 against ``repro.models.lm``; prefill-then-decode against the port's own
-forward (as tests/test_decode.py holds the reference); and
-``NotImplementedError`` for the families the port does not run.
+forward (as tests/test_decode.py holds the reference). The
+encoder-decoder and vision-frontend paths, whose batches carry frame or
+patch embeddings, are held in tests/test_torch_encdec.py.
 
 Tolerance: float32 logits within 2e-5 absolute and relative of the
 reference's (matrix products and softmax sums in another order on
@@ -28,8 +29,8 @@ from repro_torch.models import lm as t_lm
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 PORTED = ["llama3.2-1b", "yi-9b", "starcoder2-3b", "command-r-plus-104b",
-          "mamba2-2.7b", "hymba-1.5b", "grok-1-314b", "deepseek-v2-236b"]
-UNPORTED = {"whisper-base": "encoder-decoder", "pixtral-12b": "frontend"}
+          "mamba2-2.7b", "hymba-1.5b", "grok-1-314b", "deepseek-v2-236b",
+          "whisper-base", "pixtral-12b"]
 
 
 def ref_setup(arch, seed=0):
@@ -75,10 +76,10 @@ def test_param_count_and_shapes_equal_reference(arch):
     ref_leaves = jax.tree_util.tree_leaves_with_path(params)
     for path, leaf in ref_leaves:
         keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
-        if keys[0] == "dec":  # stacked over the layer axis
+        if keys[0] in ("dec", "enc"):  # stacked over the layer axis
             for i in range(leaf.shape[0]):
-                node_t, node_o = tparams["dec"][keys[1]][i], \
-                    ours["dec"][keys[1]][i]
+                node_t, node_o = tparams[keys[0]][keys[1]][i], \
+                    ours[keys[0]][keys[1]][i]
                 for k in keys[2:]:
                     node_t, node_o = node_t[k], node_o[k]
                 np.testing.assert_array_equal(node_t.numpy(),
@@ -202,17 +203,6 @@ def test_prefill_then_decode_matches_forward(arch, use_kernel):
     for t in range(t0, 20):
         logits, cache = t_lm.decode_step(params, tcfg, toks[:, t], cache)
         close(logits, full[:, t], rtol=2e-3, atol=3e-4)
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise(arch):
-    cfg = t_configs.get_config(arch, reduced=True)
-    for call in (lambda: t_lm.init_params(cfg, device="cpu"),
-                 lambda: t_lm.param_count(cfg),
-                 lambda: t_lm.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=f"({UNPORTED[arch]}).*queue 1 item 10"):
-            call()
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
