@@ -53,13 +53,18 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    all, as the plan says, among them unsplit sums over 8 heads of 4096
    queries and 6 of 2048): float32 within 1e-4 of each plain gradient's
    largest magnitude, bfloat16 within 2e-2, and a second call bit-equal
-   to the first; the backward of a capped forward must raise
-   NotImplementedError; flash_attention at MLA's unequal head dims (q/k
+   to the first; the backward of a capped forward (FA_CASES' capped
+   cases and FA_BWD_CAPPED: caps of 30, 5 and 2, head dims 16 to 128)
+   and at MLA's head dims (FA_BWD_MLA: (192, 128) at deepseek-v2's
+   training launch of 8 x 1024 x 128 heads, ragged, with rows with no
+   key and a window; (24, 16) grouped, split and non-causal) under the
+   same limits, with the kernel route's and the float32 plain route's
+   distances from the float64 plain route beside;
+   flash_attention at MLA's unequal head dims (q/k
    192, v 128; deepseek-v2-236b's prefill of 8 x 1024 at 128 heads, a
    ragged Sq < Skv case, rows with no key, and the reduced config's 24
    and 16) with its log-sum-exp, and past one latent chunk (1,300 keys)
    against the model's _mla_attend_latent_chunked on the same latents;
-   the backward at unequal head dims must raise NotImplementedError;
    flash_attention non-causal with no window, forward with its
    log-sum-exp and backward, at whisper-base's encoder (8 x 1500 x 1500,
    8 heads of 64) and cross-attention (8 x 416 and 8 x 448 queries over
@@ -91,8 +96,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    card's L2 between back-to-back calls, also L2-cold (128 MiB written
    before each call); flash_attention's backward at both serve shapes,
    every launch of a call, with its 5-product bound and SDPA's backward
-   (forward plus backward less its forward), which it must beat, and
-   its launches' registers, shared memory and blocks an SM; and the
+   (forward plus backward less its forward), which it must beat, and at
+   phase 22's full-width launches (grok-1-314b's capped at 30 beside
+   flex_attention's backward; deepseek-v2-236b's at (192, 128) beside
+   SDPA's), each with its launches' registers, shared memory and blocks
+   an SM; and the
    forward with the log-sum-exp written beside without it, in turns (it
    must cost no more, within the spread);
 5. main path at full width — the defaults of examples/million_streams.py:
@@ -351,15 +359,16 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    learned decoder positions of 448, vocab 51,865, tied; 70,924,800
    parameters), 16 requests in batches of 8 with 1500 frame embeddings
    each (the conv stem is the config's stub), prompts of 416 and 32
-   generated; 21b pixtral-12b (40 layers, d_model 5120, 32 heads over 8
-   of 128, SiLU-GLU of 14,336, vocab 131,072; 12,247,782,400 parameters,
-   45.63 GiB), 16 requests in batches of 8, prompts of 2048 whose first
-   1024 positions are patch embeddings, 32 generated. Each: the first
+   generated; 21b pixtral-12b (cut to 20 of its 40 layers, d_model 5120,
+   32 heads over 8 of 128, SiLU-GLU of 14,336, vocab 131,072;
+   6,794,982,400 parameters, 25.31 GiB), 8 requests in one batch (depth
+   and requests cut for the script's time limit), prompts of 2048 whose
+   first 1024 positions are patch embeddings, 32 generated. Each: the first
    batch teacher-forced through both routes (logits within 1e-3, scores
    1e-4); decode against lm.forward over P + 8 tokens (2e-3 relative,
    3e-4 of the logits' scale); one counted run with exact launches (per
    batch whisper 6 encoder + 6 cross + 6 causal flash_attention launches
-   at prefill, pixtral 40, none at decode; 31 entropy_scores); prefill ms
+   at prefill, pixtral 20, none at decode; 31 entropy_scores); prefill ms
    a batch (whisper's lm.encode alone beside it), decode ms a step,
    tokens/s, peak memory, profiles of a prefill and of decode steps.
    Then whisper-base trains: one StreamLoader batch of 8 x 448 tokens
@@ -374,7 +383,31 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    own), one train_step timed after a warm-up step, with its peak
    memory, and 6 steps of runtime.train_loop.run (finite, falling
    losses), the flash launches and backward launches counted exactly,
-   by shape.
+   by shape;
+22. training the soft-capped and the MLA models on the card, float32,
+   seeded random weights, StreamLoader batches of 8 x 1024: 22a
+   deepseek-v2-236b at full width cut to layer 0 (MLA at head dims
+   (192, 128) and its dense FFN; 1,386,562,560 parameters, whose AdamW
+   state fits the card): the step-0 gradients on the kernel route
+   against the plain route on the card (loss and NLL within 1e-5
+   relative, the gradients as 21a holds them, MLA's query side wq_a,
+   q_norm and wq_b on the logits' path; no witness: the port's model
+   keeps norms, RoPE, attention logits and router in float32, so no
+   float64 route exists), cfg.remat beside no remat (gradients bit-equal
+   where two runs without remat are, else within their spread; ms and
+   peak memory), then 8 train_steps with AdamW (finite, falling losses;
+   one forward and one backward launch a step, counted by shape), ms a
+   step, tokens/s, peak memory and a profiled step; 22b grok-1-314b at
+   full width cut to 1 of its 64 layers (5,725,292,544 parameters; its
+   AdamW state of 85.31 GiB is larger than the card, so no train_step):
+   loss_and_grads counted (one capped launch each way) and timed, with
+   its peak memory, and its gradients against the plain route's on the
+   card, the kernel route's held on the host meanwhile (no witness: no
+   float64 copy fits); 22c python -m repro_torch.launch.train --arch
+   grok-1-314b and deepseek-v2-236b --reduced on the card (exit 0,
+   finite losses); 22d 17b's llama3.2-1b step with cfg.remat beside
+   without: gradients as 22a's rule says, then a train_step each way
+   after a warm-up, its ms and peak memory.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -384,13 +417,19 @@ kernel tests: the kernels sum in another order.
 ``python3 chip_smoke.py --fa-ab SRC`` runs none of the phases: it holds
 this tree's flash_attention to the one under SRC (another commit's src/,
 unpacked with git archive), bit for bit and timed in turns, at the four
-serve shapes of FA_RECORDED and grok-1's capped one.
+serve shapes of FA_RECORDED and grok-1's capped one, and its backward
+(uncapped, equal head dims) at llama3.2-1b's and starcoder2-3b's
+training shapes. ``python3 chip_smoke.py --fa-layouts`` runs none of the
+phases either: it times the backward at deepseek-v2-236b's training
+launch, (192, 128), under the built tile layout and the alternatives of
+FA_LAYOUTS, each in its own copy of src/ under build/layouts/.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 repository's sources beside it, the script exits non-zero and prints no
 result.
 """
+import dataclasses
 import hashlib
 import json
 import os
@@ -484,11 +523,14 @@ FA_WH_DEC = (WH_SERVE["batch"], WH_SERVE["prompt_len"],
              WH_SERVE["prompt_len"], 8, 8, 64)
 FA_WH_DEC_TRAIN = (WH_SERVE["batch"], 448, 448, 8, 8, 64)
 ENT_WH = (WH_SERVE["batch"], 51_865)  # V % 4 != 0: scalar loads
-# phase 21b: pixtral-12b at full width and depth (40 layers, 45.63 GiB of
-# float32), prompts of 2048 (the 1024 patch embeddings of n_patches, then
-# 1024 text tokens) and 32 generated
+# phase 21b: pixtral-12b at full width, prompts of 2048 (the 1024 patch
+# embeddings of n_patches, then 1024 text tokens) and 32 generated; its
+# requests cut from 16 to one batch and its depth from 40 layers (45.63
+# GiB of float32) to 20 (25.31 GiB), to keep the script inside its time
+# limit (the widths stay)
 PX_ARCH = "pixtral-12b"
-PX_SERVE = dict(requests=16, batch=8, prompt_len=2048, gen_len=32, topk=8)
+PX_SERVE = dict(requests=8, batch=8, prompt_len=2048, gen_len=32, topk=8,
+                layers=20)
 FA_PX = (PX_SERVE["batch"], PX_SERVE["prompt_len"], 32, 8, 128)
 # the kernels line's phase 21 entries, by the FA_CASES labels whose
 # largest difference each takes
@@ -1629,8 +1671,8 @@ def mla_kernel_parity(g, tols):
     FA_MLA_CASES, and at FA_MLA_LONG against the model's
     ``_mla_attend_latent_chunked`` (the reference's latent-chunked scan)
     on the same latents, expanded as ``mla_forward_expanded`` expands
-    them; then the unequal-dim backward must raise. Returns the largest
-    float32 difference."""
+    them (the backward at these pairs: ``flash_backward_parity``).
+    Returns the largest float32 difference."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import attention as attn
@@ -1678,19 +1720,6 @@ def mla_kernel_parity(g, tols):
         f"against _mla_attend_latent_chunked ({-(-s // attn.MLA_CHUNK)} "
         f"chunks of {attn.MLA_CHUNK} latents, the tail padded) max abs diff "
         f"{err:.3e} (limit 2e-05 relative and absolute)")
-    v = kv[..., nope:].contiguous()
-    out, lse = fa.forward_with_lse(q, k, v, scale=scale)
-    for call in (lambda: fa.backward(q, k, v, out, lse, torch.ones_like(out),
-                                     scale=scale),
-                 lambda: fa.flash_attention(q.requires_grad_(True), k, v,
-                                            scale=scale)):
-        try:
-            call()
-        except NotImplementedError as e:
-            log(f"parity flash_attention [MLA backward]: raises "
-                f"NotImplementedError ({e})")
-        else:
-            raise AssertionError("the backward at unequal head dims ran")
     return worst
 
 
@@ -1715,24 +1744,18 @@ def fa_uncapped_check(out, smi):
                                  f" ms is beyond its recorded spread")
 
 
-def flex_softcap_ms(q, k, v, cap):
-    """The library yardstick of the soft-capped kernel: one call of
-    ``torch.nn.attention.flex_attention`` (compiled, as it must be to run
-    fused; the port never calls it) with a ``score_mod`` of
-    cap * tanh(s / cap), a causal block mask and grouped heads, on (B,
-    heads, S, hd) copies of q, k and v (causal, every row with a visible
-    key). Its output is held once to ``ops.reference(softcap=cap)``
-    within 2e-5 relative and absolute. Returns its ms (CUDA events, mean
-    of 10 calls) and its largest absolute difference."""
+def flex_softcap(qt, kt, vt, cap):
+    """``torch.nn.attention.flex_attention`` (compiled, as it must be to
+    run fused; the port never calls it) with a ``score_mod`` of
+    cap * tanh(s / cap), a causal block mask and grouped heads, as a call
+    on (B, heads, S, hd) tensors ``qt``, ``kt`` and ``vt``."""
     # inductor's and Triton's caches go into the checkout's build tree
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
                           str(ROOT / "build" / "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
-    from repro_torch.kernels.flash_attention import ops as fa
-    s = q.shape[1]
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    s = qt.shape[2]
 
     def capped(score, b, h, q_idx, kv_idx):
         return torch.tanh(score / cap) * cap
@@ -1740,10 +1763,22 @@ def flex_softcap_ms(q, k, v, cap):
     def causal(b, h, q_idx, kv_idx):
         return q_idx >= kv_idx
 
-    mask = create_block_mask(causal, None, None, s, s, device=q.device)
+    mask = create_block_mask(causal, None, None, s, s, device=qt.device)
     flex = torch.compile(flex_attention)
-    call = lambda: flex(qt, kt, vt, score_mod=capped,  # noqa: E731
-                        block_mask=mask, enable_gqa=True)
+    return lambda: flex(qt, kt, vt, score_mod=capped, block_mask=mask,
+                        enable_gqa=True)
+
+
+def flex_softcap_ms(q, k, v, cap):
+    """The library yardstick of the soft-capped kernel: one call of
+    ``flex_softcap`` on (B, heads, S, hd) copies of q, k and v (causal,
+    every row with a visible key). Its output is held once to
+    ``ops.reference(softcap=cap)`` within 2e-5 relative and absolute.
+    Returns its ms (CUDA events, mean of 10 calls) and its largest
+    absolute difference."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    call = flex_softcap(*(x.transpose(1, 2).contiguous() for x in (q, k, v)),
+                        cap)
     err = within_tol([call().transpose(1, 2)],
                      [fa.reference(q, k, v, softcap=cap)], 2e-5)
     return cuda_ms(call, 10), err
@@ -1914,19 +1949,22 @@ def visible_pairs(b, sq, skv, h, causal):
 
 
 def fa_launch_timing(key, shape, causal, smi, backward=False, g=None,
-                     hd_v=None, backend=False):
+                     hd_v=None, backend=False, softcap=0.0):
     """One flash_attention launch shape (B, Sq, Skv, H, KV, hd), float32,
     no window, the default scale 1/sqrt(hd), v of head dim ``hd_v`` (hd
-    unless given): the forward (``flash_fwd``) or, with ``backward``,
-    every launch of a backward call under backward_plan: device ms
-    (profiler, median of WINDOWS windows, with the spread, and each
-    launch's median), wrapper ms, plain ms, the bound (the forward's two
-    products, the backward's five, a multiply-add each a visible pair as
-    3xTF32; bytes: each input read and each output written once), and
-    SDPA on (B, heads, S, hd) copies with the same mask (``is_causal``,
-    ``enable_gqa``) and scale as the library yardstick: its forward, or
-    its forward plus backward less its forward; ``backend`` names the
-    backend its dispatcher takes for the forward."""
+    unless given), logits capped at ``softcap`` (> 0): the forward
+    (``flash_fwd``) or, with ``backward``, every launch of a backward call
+    under backward_plan: device ms (profiler, median of WINDOWS windows,
+    with the spread, and each launch's median), wrapper ms, plain ms, the
+    bound (the forward's two products, the backward's five, a multiply-add
+    each a visible pair as 3xTF32: S, dQ and dK over hd, dP and dV over
+    hd_v; bytes: each input read and each output written once; a cap's
+    tanhf, one a visible pair in the forward and in each of the
+    backward's two launches, logged beside), and the library yardstick on
+    (B, heads, S, hd) copies with the same mask and scale: SDPA
+    (``is_causal``, ``enable_gqa``) or, capped, ``flex_softcap``; its
+    forward, or its forward plus backward less its forward; ``backend``
+    names the backend SDPA's dispatcher takes for the forward."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
     b, sq, skv, h, kvh, hd = shape
@@ -1936,47 +1974,58 @@ def fa_launch_timing(key, shape, causal, smi, backward=False, g=None,
         v = torch.randn((b, skv, kvh, hd_v), device="cuda", generator=g)
     pairs = visible_pairs(b, sq, skv, h, causal)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    if softcap:
+        lib = flex_softcap(qt, kt, vt, softcap)
+        lib_name = (f"torch.nn.attention.flex_attention(score_mod="
+                    f"{softcap:g}*tanh(s/{softcap:g}), causal block_mask, "
+                    f"enable_gqa=True), compiled")
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib_name = (f"torch.nn.functional.scaled_dot_product_attention("
+                    f"is_causal={causal}, enable_gqa=True)")
     lib_text = ""
     if backend:
         from torch.nn.attention import SDPBackend
         lib_text = ", backend " + SDPBackend(torch._fused_sdp_choice(
             qt, kt, vt, None, 0.0, causal)).name
     reps = 5 if pairs > 5e8 else 10
+    kw = dict(causal=causal, softcap=softcap)
     if backward:
-        dout = torch.randn(q.shape, device="cuda", generator=g)
-        o, lse = fa.forward_with_lse(q, k, v, causal=causal)
-        plan = fa.backward_plan(b, h, kvh, sq, skv, hd)
+        dout = torch.randn((b, sq, h, hd_v), device="cuda", generator=g)
+        o, lse = fa.forward_with_lse(q, k, v, **kw)
+        plan = fa.backward_plan(b, h, kvh, sq, skv, hd, hd_v)
         call = lambda: fa.backward(q, k, v, o, lse, dout,  # noqa: E731
-                                   causal=causal)
+                                   **kw)
         plain = lambda: fa.reference_backward(  # noqa: E731
-            q, k, v, o, lse, dout, causal=causal)
+            q, k, v, o, lse, dout, **kw)
         names = bwd_launch_names(plan)
         for x in (qt, kt, vt):
             x.requires_grad_(True)
         dt = dout.transpose(1, 2).contiguous()
-        fwd_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+        fwd_bwd = cuda_ms(lambda: torch.autograd.grad(lib(), (qt, kt, vt),
                                                       dt), reps)
-        fwd = cuda_ms(sdpa, reps)
+        fwd = cuda_ms(lib, reps)
         library = fwd_bwd - fwd
-        flops = 2 * 5 * hd * pairs  # S, dP, dV, dQ, dK
-        nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                      + lse.numel())  # q, o, dO, dQ; k, dK; v, dV; lse
+        flops = 2 * (3 * hd + 2 * hd_v) * pairs  # S, dQ, dK; dP, dV
+        nbytes = 4 * (2 * q.numel() + 2 * b * sq * h * hd_v
+                      + 2 * k.numel() + 2 * v.numel()
+                      + lse.numel())  # q, dQ; o, dO; k, dK; v, dV; lse
+        tanhf = 2 * pairs
         what = (f"backward (plan: {plan['warps']} warps, split "
                 f"{plan['split']}, {plan['blocks']} dK/dV blocks, "
                 f"{plan['scratch_bytes']} bytes of partials)")
         lib_text = (f"forward plus backward {fwd_bwd:.4f} less its forward "
                     f"{fwd:.4f}{lib_text}")
     else:
-        call = lambda: fa.flash_attention(q, k, v,  # noqa: E731
-                                          causal=causal)
-        plain = lambda: fa.reference(q, k, v, causal=causal)  # noqa: E731
+        call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: fa.reference(q, k, v, **kw)  # noqa: E731
         names = "flash_fwd"
-        library = cuda_ms(sdpa, reps)
+        library = cuda_ms(lib, reps)
         flops = 2 * (hd + hd_v) * pairs  # S = Q K^T, P V
         nbytes = 4 * (q.numel() + k.numel() + v.numel()
                       + b * sq * h * hd_v)
+        tanhf = pairs
         what, lib_text = "forward", "forward" + lib_text
     med, lo, hi, parts = device_ms_windows(call, reps, names, WINDOWS)
     t = {"ms": med, "lo": lo, "hi": hi, "call_ms": cuda_ms(call, reps),
@@ -1991,6 +2040,8 @@ def fa_launch_timing(key, shape, causal, smi, backward=False, g=None,
     t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                      else "operations")
     each = ", ".join(f"{n} {x:.4f}" for n, x in parts.items())
+    cap_text = (f"; softcap {softcap:g}: {tanhf:.4g} tanhf beside the "
+                f"products, on the float32 units" if softcap else "")
     log(f"timing {key} [{what}; q ({b}, {sq}, {h}, {hd}), k ({b}, {skv}, "
         f"{kvh}, {hd}), v ({b}, {skv}, {kvh}, {hd_v}) f32, causal={causal}, "
         f"no window, scale 1/sqrt({hd})]: kernel "
@@ -2000,12 +2051,11 @@ def fa_launch_timing(key, shape, causal, smi, backward=False, g=None,
         f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {pairs:.4g} "
         f"visible pairs, {flops:.4g} operations as 3xTF32 at 495/3 "
         f"TFLOP/s; {t['f32_ms']:.4f} ms at the 67 TFLOP/s of the float32 "
-        f"units; {nbytes / 1e9:.4g} GB in {t['bytes_ms']:.4f} ms); "
-        f"{med / t['bound_ms']:.2f}x its bound; {flops / med / 1e9:.2f} "
-        f"TFLOP/s; library_ms {library:.4f} = torch.nn.functional."
-        f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True) "
-        f"{lib_text} on (B, heads, S, hd) copies, never called by the port; "
-        f"{smi}")
+        f"units; {nbytes / 1e9:.4g} GB in {t['bytes_ms']:.4f} ms"
+        f"{cap_text}); {med / t['bound_ms']:.2f}x its bound; "
+        f"{flops / med / 1e9:.2f} TFLOP/s; library_ms {library:.4f} = "
+        f"{lib_name} {lib_text} on (B, heads, S, hd) copies, never called "
+        f"by the port; {smi}")
     return t
 
 
@@ -2062,50 +2112,108 @@ def bwd_launch_names(plan):
         ("flash_bwd_group_sum",) if plan["split"] > 1 else ())
 
 
+# the capped backward beyond FA_CASES' capped cases (label, B, Sq, Skv, H,
+# KV, hd, causal, window, softcap): the capped build at head dim 32
+FA_BWD_CAPPED = (
+    ("GQA 8 over 2, ragged, cap 5 biting, hd 32", 1, 130, 130, 8, 2, 32,
+     True, 0, 5.0),
+    ("non-causal, cap 2, hd 32", 1, 96, 96, 4, 4, 32, False, 0, 2.0))
+# the backward at MLA's head-dim pairs (label, B, Sq, Skv, H, KV, hd,
+# hd_v, causal, window), K and V per head as MLA expands them:
+# deepseek-v2-236b's training launch (phase 22a's), ragged Sq < Skv, rows
+# with no key, a window; the reduced config's (24, 16), also grouped (4
+# heads over 1 KV head, which backward_plan splits) and non-causal
+FA_BWD_MLA = (
+    ("deepseek-v2 training", *FA_DS[:2], FA_DS[1], FA_DS[2], FA_DS[2],
+     *FA_DS[3:], True, 0),
+    ("(192, 128) ragged Sq < Skv", 1, 200, 333, 16, 16, 192, 128, True, 0),
+    ("(192, 128) Sq > Skv: rows with no key", 1, 40, 24, 4, 4, 192, 128,
+     True, 0),
+    ("(192, 128) window 100, ragged", 2, 300, 300, 8, 8, 192, 128, True,
+     100),
+    ("(24, 16) reduced deepseek-v2, ragged", 2, 100, 100, 4, 4, 24, 16, True,
+     0),
+    ("(24, 16) Sq > Skv, window 7", 1, 90, 33, 4, 4, 24, 16, True, 7),
+    ("(24, 16) 4 over 1, group split", 1, 130, 130, 4, 1, 24, 16, True, 0),
+    ("(24, 16) non-causal Sq < Skv", 1, 65, 129, 4, 4, 24, 16, False, 0))
+
+
+def bwd_inputs(g, b, sq, skv, h, kvh, hd, hd_v, dtype, q_scale=1.0):
+    """q (times ``q_scale``), k, v and dO from ``g``: v and dO at head dim
+    ``hd_v``."""
+    q, k, v, dout = (torch.randn(shape, device="cuda", generator=g)
+                     for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
+                                   (b, skv, kvh, hd_v), (b, sq, h, hd_v)))
+    return (q * q_scale).to(dtype), k.to(dtype), v.to(dtype), dout.to(dtype)
+
+
+def f64_distances(q, k, v, dout, got, kw):
+    """How far the kernel route's gradients ``got`` (its forward's output
+    and lse, its backward) and the float32 plain route's (reference,
+    reference_lse, reference_backward) lie from the float64 plain route on
+    the same inputs, one batch row at a time: for dq, dk and dv, the
+    largest absolute difference over the float64 gradient's largest
+    magnitude. Returns (kernel's, float32 plain's)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    diff = [[0.0] * 3, [0.0] * 3]
+    top = [0.0] * 3
+    for i in range(q.shape[0]):
+        row = [x[i:i + 1] for x in (q, k, v, dout)]
+        wide = [x.double() for x in row]
+        o64 = fa.reference(*wide[:3], **kw)
+        g64 = fa.reference_backward(*wide[:3], o64, fa.reference_lse(
+            *wide[:3], **kw), wide[3], **kw)
+        o32 = fa.reference(*row[:3], **kw)
+        g32 = fa.reference_backward(*row[:3], o32, fa.reference_lse(
+            *row[:3], **kw), row[3], **kw)
+        for j in range(3):
+            w = g64[j]
+            top[j] = max(top[j], float(w.abs().max()))
+            diff[0][j] = max(diff[0][j], float(
+                (got[j][i:i + 1].double() - w).abs().max()))
+            diff[1][j] = max(diff[1][j], float((g32[j].double() - w)
+                                               .abs().max()))
+        del wide, o64, g64, o32, g32
+    return tuple([d / max(t, 1e-300) for d, t in zip(part, top)]
+                 for part in diff)
+
+
 def flash_backward_parity():
     """flash_attention's backward and the forward's row log-sum-exp against
     reference_backward and reference_lse on the card, float32 (1e-4 of
     each plain gradient's largest magnitude; the lse within 2e-5 relative
     and absolute) and bfloat16 (2e-2), under backward_plan (FA_CASES,
-    FA_BWD_SEAMS, FA_BWD_LONG), a second call bit-equal to the first: the
-    largest absolute difference of a float32 gradient. FA_CASES' capped
-    cases have no backward yet: it must raise NotImplementedError, through
-    ops.backward and through the autograd route. Returns the errors of
-    the kernels line's entries: every case's, and those of FA_ENTRIES'
-    whisper-base cases."""
+    capped ones included, with q scaled by FA_CAP_QS under a cap below
+    10, FA_BWD_SEAMS, FA_BWD_LONG, FA_BWD_CAPPED and FA_BWD_MLA), a
+    second call bit-equal to the first. At the capped and MLA cases, the
+    float32 kernel route's and plain route's distances from the float64
+    plain route (``f64_distances``) are logged beside. Returns the largest
+    absolute difference of a float32 gradient: every case's, and those of
+    the kernels line's entries (FA_ENTRIES' whisper-base cases, grok-1's
+    capped prefill shape, deepseek-v2's training shape)."""
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(6)
     worst, errs = 0.0, {}
-    for label, b, sq, skv, h, kvh, hd, causal, window, cap in FA_CASES:
-        if not cap:
-            continue
-        q, k, v = fa_inputs(torch.Generator(device="cuda").manual_seed(61),
-                            1, 64, 64, h, kvh, hd, torch.float32)
-        out, lse = fa.forward_with_lse(q, k, v, softcap=cap)
-        for call in (lambda: fa.backward(q, k, v, out, lse, q, softcap=cap),
-                     lambda: fa.flash_attention(q.requires_grad_(True), k, v,
-                                                softcap=cap)):
-            try:
-                call()
-            except NotImplementedError as e:
-                said = str(e)
-            else:
-                raise AssertionError(f"the capped backward [{label}] did not "
-                                     f"raise")
-        log(f"parity flash_attention_bwd [{label}] softcap={cap}: raises "
-            f"NotImplementedError ({said})")
-        del q, k, v, out, lse
-    uncapped = tuple(c[:9] for c in FA_CASES if not c[9])
-    for label, b, sq, skv, h, kvh, hd, causal, window in (
-            uncapped + FA_BWD_SEAMS + FA_BWD_LONG):
+    entries = (*FA_ENTRIES[:2], ("grok-1 prefill", GK_ARCH),
+               ("deepseek-v2 training", DS_ARCH))
+    cases = ([(c[0], *c[1:7], c[6], *c[7:]) for c in FA_CASES]
+             + [(*c[:7], c[6], *c[7:], 0.0) for c in FA_BWD_SEAMS
+                + FA_BWD_LONG]
+             + [(*c[:7], c[6], *c[7:]) for c in FA_BWD_CAPPED]
+             + [(*c, 0.0) for c in FA_BWD_MLA])
+    for (label, b, sq, skv, h, kvh, hd, hd_v, causal, window,
+         cap) in cases:
+        new = bool(cap) or hd != hd_v
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            q, k, v = fa_inputs(g, b, sq, skv, h, kvh, hd, dtype)
-            dout = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
-            kw = dict(causal=causal, window=window)
+            q, k, v, dout = bwd_inputs(g, b, sq, skv, h, kvh, hd, hd_v,
+                                       dtype, FA_CAP_QS if 0 < cap < 10
+                                       else 1.0)
+            kw = dict(causal=causal, window=window, softcap=cap)
             out, lse = fa.forward_with_lse(q, k, v, **kw)
             want = fa.reference_backward(q, k, v, out, lse, dout, **kw)
-            within_tol([lse], [fa.reference_lse(q, k, v, **kw)], 2e-5)
-            plan = fa.backward_plan(b, h, kvh, sq, skv, hd)
+            lse_err = within_tol([lse], [fa.reference_lse(q, k, v, **kw)],
+                                 2e-5)
+            plan = fa.backward_plan(b, h, kvh, sq, skv, hd, hd_v)
             got = fa.backward(q, k, v, out, lse, dout, **kw)
             torch.cuda.synchronize()
             rel, diff = [], 0.0
@@ -2117,36 +2225,50 @@ def flash_backward_parity():
                 top = float(r.float().abs().max())
                 rel.append(d / top if top else d)
                 diff = max(diff, d)
+            del want
             again = fa.backward(q, k, v, out, lse, dout, **kw)
             same = all(torch.equal(x, y) for x, y in zip(got, again))
+            del again
+            f64_text = ""
+            if new and dtype == torch.float32:
+                kern, plain = f64_distances(q, k, v, dout, got, kw)
+                f64_text = (f"; from the float64 plain route (dq, dk, dv, "
+                            f"over its largest magnitude): kernel route "
+                            f"{kern[0]:.3e}, {kern[1]:.3e}, {kern[2]:.3e}, "
+                            f"float32 plain route {plain[0]:.3e}, "
+                            f"{plain[1]:.3e}, {plain[2]:.3e}")
             log(f"parity flash_attention_bwd [{label}] B={b} Sq={sq} "
-                f"Skv={skv} H={h} KV={kvh} hd={hd} causal={causal} "
-                f"window={window} {str(dtype)[6:]}, {plan['warps']} warps, "
-                f"split {plan['split']}: dq, dk, dv max abs diff over the "
-                f"largest magnitude {rel[0]:.3e}, {rel[1]:.3e}, {rel[2]:.3e} "
-                f"(limit {tol}); max abs diff {diff:.3e}; a second call "
-                f"bit-equal {same}")
+                f"Skv={skv} H={h} KV={kvh} hd={hd} hd_v={hd_v} "
+                f"causal={causal} window={window} softcap={cap} "
+                f"{str(dtype)[6:]}, {plan['warps']} warps, split "
+                f"{plan['split']}: dq, dk, dv max abs diff over the largest "
+                f"magnitude {rel[0]:.3e}, {rel[1]:.3e}, {rel[2]:.3e} (limit "
+                f"{tol}); max abs diff {diff:.3e}; lse {lse_err:.3e}; a "
+                f"second call bit-equal {same}{f64_text}")
             if max(rel) > tol or not same:
                 raise AssertionError(f"flash_attention's backward differs "
                                      f"from reference_backward or from "
                                      f"itself [{label}, {dtype}]")
             if dtype == torch.float32:
                 worst = max(worst, diff)
-                for prefix, entry in FA_ENTRIES[:2]:
+                for prefix, entry in entries:
                     if label.startswith(prefix):
                         key = f"flash_attention_bwd@{entry}"
                         errs[key] = max(errs.get(key, 0.0), diff)
-            del q, k, v, dout, out, lse, want, got, again
+            del q, k, v, dout, out, lse, got
     return {"flash_attention_bwd": worst, **errs}
 
 
 def flash_backward_timings(smi):
     """flash_attention's backward at both serve shapes, causal, through
     ``fa_launch_timing`` (every launch of a call under backward_plan
-    beside SDPA's backward, which it must beat), with the launches'
+    beside SDPA's backward, which it must beat), and at phase 22's
+    full-width launches, grok-1-314b's capped at 30 (beside
+    ``flex_softcap``'s backward) and deepseek-v2-236b's at head dims
+    (192, 128) (beside SDPA's, its backend named), with the launches'
     registers, shared memory and blocks an SM; then the forward with the
     row log-sum-exp written beside without it, windows in turns. The
-    first shape goes into the kernels line."""
+    first shape and the two full-width ones go into the kernels line."""
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(7)
     out = {}
@@ -2164,6 +2286,19 @@ def flash_backward_timings(smi):
             raise AssertionError(f"{key}: the backward's {t['ms']:.4f} ms is "
                                  f"not below SDPA's backward "
                                  f"{t['library_ms']:.4f} ms")
+    for key, (b, s, h, kvh, hd), hd_v, cap in (
+            (f"flash_attention_bwd@{GK_ARCH}", FA_GK, FA_GK[4], GK_CAP),
+            (f"flash_attention_bwd@{DS_ARCH}",
+             (*FA_DS[:2], FA_DS[2], FA_DS[2], FA_DS[3]), FA_DS[4], 0.0)):
+        out[key] = fa_launch_timing(key, (b, s, s, h, kvh, hd), True, smi,
+                                    backward=True, g=g, hd_v=hd_v,
+                                    backend=not cap, softcap=cap)
+        info = "; ".join(f"{n} {r} registers, {m} bytes of shared memory, "
+                         f"{n_sm} blocks an SM" for n, (r, m, n_sm)
+                         in fa.backward_info(hd, torch.float32, hd_v,
+                                             bool(cap)).items())
+        log(f"backward launches [{fa.BWD_WARPS[hd] * 16} keys a dK/dV "
+            f"block, hd {hd}, hd_v {hd_v}, softcap {cap:g}, f32]: {info}")
     # the forward with the log-sum-exp written against without it,
     # windows in turns (off, on, on, off, ...)
     b, s, h, kvh, hd = FA_PATH
@@ -5845,33 +5980,65 @@ def moe_serve(smi):
 FA_AB = (("llama3.2-1b", FA_PATH, 0, 0.0), ("starcoder2-3b", FA_SC, 0, 0.0),
          ("hymba-1.5b", FA_HY, HY_WINDOW, 0.0), ("grok-1", FA_GK, 0, 0.0),
          ("grok-1 capped", FA_GK, 0, GK_CAP))
+# (label, (B, S, H, KV, hd)): the backward (uncapped, equal head dims) at
+# the two training shapes of phase 4's timings
+FA_AB_BWD = (("llama3.2-1b backward", FA_PATH),
+             ("starcoder2-3b backward", FA_SC))
 
 
-def fa_child(src, path):
-    """``--fa-child SRC PATH``: flash_attention of the repro_torch under SRC
-    (built there) at FA_AB on float32 inputs from a fixed seed; each
-    output's sha256 and its device ms (CUDA events, median of WINDOWS
-    means of 10 calls) written to PATH as JSON."""
+def fa_child(src, path, what="ab"):
+    """``--fa-child SRC PATH [mla]``: flash_attention of the repro_torch
+    under SRC (built there) at FA_AB, and its backward (``ops.backward``)
+    at FA_AB_BWD, on float32 inputs from a fixed seed; each output's
+    sha256 (the backward's dq, dk and dv together) and its device ms
+    (CUDA events, median of WINDOWS means of 10 calls) written to PATH as
+    JSON. With ``mla``, a turn of ``--fa-layouts`` instead: the backward
+    at FA_BWD_MLA's first case, its ms (median of WINDOWS means of 3
+    calls) and its largest difference from reference_backward over the
+    largest magnitude, each of dq, dk and dv."""
     sys.path.insert(0, src)
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(20)
     got = {}
+    if what == "mla":
+        _, b, sq, skv, h, kvh, hd, hd_v, *_ = FA_BWD_MLA[0]
+        q, k, v, dout = bwd_inputs(g, b, sq, skv, h, kvh, hd, hd_v,
+                                   torch.float32)
+        out, lse = fa.forward_with_lse(q, k, v)
+        call = lambda: fa.backward(q, k, v, out, lse, dout)  # noqa: E731
+        ms = statistics.median(cuda_ms(call, 3) for _ in range(WINDOWS))
+        err = [float((a - r).abs().max() / r.abs().max()) for a, r in
+               zip(call(), fa.reference_backward(q, k, v, out, lse, dout))]
+        Path(path).write_text(json.dumps({"ms": ms, "err": err}))
+        return 0
+
+    def record(label, call):
+        ms = statistics.median(cuda_ms(call, 10) for _ in range(WINDOWS))
+        outs = call()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        digest = hashlib.sha256(b"".join(
+            x.cpu().numpy().tobytes() for x in outs)).hexdigest()
+        got[label] = (digest, ms)
+
     for label, (b, s, h, kvh, hd), window, cap in FA_AB:
         q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
-        call = lambda: fa.flash_attention(q, k, v, window=window,  # noqa
-                                          softcap=cap)
-        ms = statistics.median(cuda_ms(call, 10) for _ in range(WINDOWS))
-        digest = hashlib.sha256(call().cpu().numpy().tobytes()).hexdigest()
-        got[label] = (digest, ms)
+        record(label, lambda: fa.flash_attention(q, k, v, window=window,
+                                                 softcap=cap))
+    for label, (b, s, h, kvh, hd) in FA_AB_BWD:
+        q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
+        dout = torch.randn(q.shape, device="cuda", generator=g)
+        out, lse = fa.forward_with_lse(q, k, v)
+        record(label, lambda: fa.backward(q, k, v, out, lse, dout))
     Path(path).write_text(json.dumps(got))
     return 0
 
 
 def fa_ab(parent_src, smi):
     """``--fa-ab SRC``: this tree's flash_attention against the one under
-    SRC (a parent commit's src/, unpacked with git archive) at FA_AB, in
-    turns (SRC, this, this, SRC), each turn its own process: every output
-    bit-equal to the first turn's, and each side's two medians logged."""
+    SRC (a parent commit's src/, unpacked with git archive) at FA_AB and
+    its backward at FA_AB_BWD, in turns (SRC, this, this, SRC), each turn
+    its own process: every output bit-equal to the first turn's, and each
+    side's two medians logged."""
     runs = []
     for i, src in enumerate((parent_src, str(ROOT / "src"),
                              str(ROOT / "src"), parent_src)):
@@ -5881,7 +6048,7 @@ def fa_ab(parent_src, smi):
                         timeout=900)
         runs.append(json.loads(path.read_text()))
         path.unlink()
-    for label, *_ in FA_AB:
+    for label, *_ in FA_AB + FA_AB_BWD:
         same = len({r[label][0] for r in runs}) == 1
         ms = [r[label][1] for r in runs]
         log(f"fa-ab [{label}]: outputs bit-equal across the four turns: "
@@ -5890,6 +6057,79 @@ def fa_ab(parent_src, smi):
             f"means of 10 calls); {smi}")
         if not same:
             raise AssertionError(f"fa-ab [{label}]: outputs differ")
+    return 0
+
+
+# the backward's tile layouts at MLA's (192, 128) for ``--fa-layouts``:
+# (label, [(file under kernels/flash_attention/, text, its replacement)]),
+# the built layout first; DkdvShape's warps and ops.BWD_WARPS in step
+FA_LAYOUTS = (
+    ("built: dQ 8-key tiles (two 103 KB blocks an SM), dK/dV 8 warps with "
+     "16-row tiles (205 KB, one block)", ()),
+    ("dQ 16-key tiles (123 KB, one block an SM)",
+     (("csrc/flash_attention_bwd.cu", "(HD <= 128 ? 16 : 8)", "16"),)),
+    ("dK/dV 4 warps with 16-row tiles (123 KB, one block an SM)",
+     (("csrc/flash_attention_dkdv.cu", "NW = HD >= 128 ? 8 : 4",
+       "NW = HD == 128 ? 8 : 4"),
+      ("ops.py", "128: 8, 192: 8}", "128: 8, 192: 4}"))),
+    ("dK/dV 2 warps with 16-row tiles (82 KB, two blocks an SM)",
+     (("csrc/flash_attention_dkdv.cu", "NW = HD >= 128 ? 8 : 4",
+       "NW = HD == 128 ? 8 : (HD > 128 ? 2 : 4)"),
+      ("ops.py", "128: 8, 192: 8}", "128: 8, 192: 2}"))))
+
+
+def fa_layouts(smi):
+    """``--fa-layouts``: the backward at deepseek-v2's training launch
+    (FA_BWD_MLA's first case) under each layout of FA_LAYOUTS, each a copy
+    of src/ under build/layouts/ with its lines rewritten, built together
+    (one nvcc each), then timed in turns (the built one first and last),
+    each turn its own process (``--fa-child SRC PATH mla``): each
+    layout's two medians and its largest difference from
+    reference_backward (limit 1e-4 of the largest magnitude)."""
+    import shutil
+    trees = []
+    for i, (_, edits) in enumerate(FA_LAYOUTS):
+        root = ROOT / "build" / "layouts" / str(i)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(ROOT / "src", root / "src")
+        pkg = root / "src" / "repro_torch" / "kernels" / "flash_attention"
+        for name, old, new in edits:
+            text = (pkg / name).read_text()
+            if text.count(old) != 1:
+                raise AssertionError(f"fa-layouts: {old!r} is not in {name} "
+                                     f"once")
+            (pkg / name).write_text(text.replace(old, new))
+        trees.append(str(root / "src"))
+    t0 = time.perf_counter()
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from repro_torch.kernels import build; "
+         "build.build(['flash_attention'])", src]) for src in trees]
+    if any(p.wait(timeout=900) for p in builds):
+        raise AssertionError("fa-layouts: a build failed")
+    log(f"fa-layouts: {len(trees)} builds in {time.perf_counter() - t0:.1f}s")
+    turns = list(range(len(trees))) + list(range(len(trees)))[::-1]
+    runs = {i: [] for i in range(len(trees))}
+    for n, i in enumerate(turns):
+        path = ROOT / "build" / f"fa_layout_{n}.json"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--fa-child", trees[i], str(path), "mla"],
+                       check=True, timeout=900)
+        runs[i].append(json.loads(path.read_text()))
+        path.unlink()
+    _, b, sq, _, h, _, hd, hd_v, *_ = FA_BWD_MLA[0]
+    for i, (label, _) in enumerate(FA_LAYOUTS):
+        err = max(max(r["err"]) for r in runs[i])
+        log(f"fa-layouts [{label}]: the backward at q and k ({b}, {sq}, {h}, "
+            f"{hd}), v ({b}, {sq}, {h}, {hd_v}), causal: "
+            f"{' / '.join(f'{r['ms']:.4f}' for r in runs[i])} ms (CUDA "
+            f"events, median of {WINDOWS} means of 3 calls; turns "
+            f"{' '.join(map(str, turns))}); largest difference from "
+            f"reference_backward {err:.3e} of the largest magnitude (limit "
+            f"1e-4); {smi}")
+        if err > 1e-4:
+            raise AssertionError(f"fa-layouts [{label}]: the backward differs "
+                                 f"from reference_backward")
     return 0
 
 
@@ -6088,7 +6328,8 @@ def prefill_launches(cfg):
 
 
 def frontend_serve(smi, arch, sub, run):
-    """Phase 21a/b: ``arch`` at full width and depth with random weights
+    """Phase 21a/b: ``arch`` at full width and depth (``run["layers"]``,
+    where given, cuts a single-group decoder's depth) with random weights
     from a seeded torch.Generator on the card, driven through the model's
     own entry points (``model_generate``): the first batch teacher-forced
     through both routes; decode against the forward; one counted run of
@@ -6106,7 +6347,11 @@ def frontend_serve(smi, arch, sub, run):
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()  # the previous phases' blocks
     held = torch.cuda.memory_allocated() / 2**30
-    cfg = configs.get_config(arch)
+    full = configs.get_config(arch)
+    cfg = full
+    if "layers" in run:
+        cfg = full.replace(layers=(dataclasses.replace(
+            full.layers[0], count=run["layers"]),))
     label = f"{sub} {arch}"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -6118,10 +6363,12 @@ def frontend_serve(smi, arch, sub, run):
            f" layers with cross-attention, learned positions of "
            f"{cfg.decoder_len}, LayerNorm, GELU, biases"
            if cfg.is_encoder_decoder else
-           f"{cfg.n_layers} layers, the first {cfg.n_patches} positions "
+           f"{cfg.n_layers} of {full.n_layers} layers, the first "
+           f"{cfg.n_patches} positions "
            f"replaced by patch embeddings, RoPE theta {cfg.rope_theta:g}, "
            f"{cfg.ffn_act}")
-    log(f"serve [{label}]: full width and depth ({enc}; d_model "
+    depth = "and depth" if cfg.n_layers == full.n_layers else "depth cut"
+    log(f"serve [{label}]: full width, {depth} ({enc}; d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads "
         f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
         f"embeddings {cfg.tie_embeddings}, {cfg.param_dtype}): "
@@ -6197,20 +6444,32 @@ def frontend_serve(smi, arch, sub, run):
 def on_logit_path(path):
     """Whether a gradient leaf reaches the loss only through attention
     logits: the query and key projections of an attention (``wq``,
-    ``bq``, ``wk``, ``bk``) and the cross-attention's LayerNorm, which
-    feeds its queries alone. Each row of the softmax's gradient dS sums
-    to 0 exactly, so these leaves are sums whose terms cancel (the key
-    bias's exact gradient is 0), and whatever leaves a residue in a
-    row's sum (float32 rounding; the kernel's rounding of the logits and
-    of Delta = rowsum(dO * O) from the forward's output) lands on them
-    undiminished."""
-    return path[-1] in ("wq", "bq", "wk", "bk") or "norm_cross" in path
+    ``bq``, ``wk``, ``bk``; MLA's low-rank query ``wq_a``, ``q_norm``,
+    ``wq_b``) and the cross-attention's LayerNorm, which feeds its
+    queries alone. Each row of the softmax's gradient dS sums to 0
+    exactly, so these leaves are sums whose terms cancel (the key bias's
+    exact gradient is 0), and whatever leaves a residue in a row's sum
+    (float32 rounding; the kernel's rounding of the logits and of
+    Delta = rowsum(dO * O) from the forward's output) lands on them
+    undiminished. MLA's ``wkv_a``, ``kv_norm`` and ``wkv_b`` feed V too,
+    so they are off this path."""
+    return (path[-1] in ("wq", "bq", "wk", "bk", "wq_a", "q_norm", "wq_b")
+            or "norm_cross" in path)
+
+
+def square_sum(x):
+    """Sum of the squares of ``x``'s elements in float64, a slice of 2^24
+    at a time (no float64 copy of a large leaf)."""
+    return sum(float(c.double().square().sum())
+               for c in x.reshape(-1).split(1 << 24))
 
 
 def grads_check(got, want, witness, label, frac=1e-4):
     """The kernel route's gradient tree ``got`` against the plain route's
-    ``want`` on the card (the same paths), and ``witness``, the CPU
-    port's plain route on the same weights and batch, against ``want``.
+    ``want`` on the card (the same paths; ``got`` may lie on the host,
+    its leaves are moved to the card one at a time), and ``witness``, the
+    CPU port's plain route on the same weights and batch, against
+    ``want`` (None: no witness fits, and none is checked).
     The kernel route: the whole within ``frac`` relative (L2); each leaf
     off the logits' path (``on_logit_path``) within ``frac`` of its own
     largest magnitude (17a's rule), each leaf on it within ``frac`` of
@@ -6222,18 +6481,18 @@ def grads_check(got, want, witness, label, frac=1e-4):
     leaves of each class with the ratio of the kernel route's difference
     to the witness's, then raises past a limit. Returns (the whole's
     relative difference, the worst ratio to a limit's scale in each
-    class, the median kernel / witness ratio)."""
+    class, the median kernel / witness ratio, nan without a witness)."""
     leaves = []
 
     def walk(a, w, c, path):
         if isinstance(a, dict):
             for k in a:
-                walk(a[k], w[k], c[k], path + (k,))
+                walk(a[k], w[k], None if c is None else c[k], path + (k,))
         elif isinstance(a, list):
             for i, x in enumerate(a):
-                walk(x, w[i], c[i], path + (i,))
+                walk(x, w[i], None if c is None else c[i], path + (i,))
         else:
-            leaves.append((path, a.float(), w.float(), c.float().to(w.device)))
+            leaves.append((path, a, w, c))
 
     walk(got, want, witness, ())
 
@@ -6244,14 +6503,21 @@ def grads_check(got, want, witness, label, frac=1e-4):
     for path, _, w, _ in leaves:
         tops[path] = float(w.abs().max())
         scale[layer(path)] = max(scale.get(layer(path), 0.0), tops[path])
+    nan = float("nan")
     rows, sums = [], [0.0, 0.0, 0.0]
     for path, a, w, c in leaves:
         own = max(tops[path], 1e-30)
-        ek = float((a - w).abs().max())
-        ew = float((c - w).abs().max())
-        sums[0] += float((a - w).double().square().sum())
-        sums[1] += float((c - w).double().square().sum())
-        sums[2] += float(w.double().square().sum())
+        d = a.float().to(w.device) - w.float()
+        ek = float(d.abs().max())
+        sums[0] += square_sum(d)
+        sums[2] += square_sum(w)
+        del d
+        ew = nan
+        if c is not None:
+            d = c.float().to(w.device) - w.float()
+            ew = float(d.abs().max())
+            sums[1] += square_sum(d)
+            del d
         logit = on_logit_path(path)
         w_ref = tops[path[:-1] + ("bv",)] if path[-1] == "bk" else own
         rows.append({"path": path, "own": own, "ek": ek, "ew": ew,
@@ -6261,7 +6527,7 @@ def grads_check(got, want, witness, label, frac=1e-4):
                      "w_ratio": ew / max(w_ref, 1e-30),
                      "vs": ek / max(ew, 1e-30)})
     whole = (sums[0] / max(sums[2], 1e-300)) ** 0.5
-    whole_w = (sums[1] / max(sums[2], 1e-300)) ** 0.5
+    whole_w = (sums[1] / max(sums[2], 1e-300)) ** 0.5 if witness else nan
     vs = statistics.median(r["vs"] for r in rows)
     worst = {}
     for logit, name in ((False, "own"), (True, "layer")):
@@ -6278,13 +6544,19 @@ def grads_check(got, want, witness, label, frac=1e-4):
                 f"{r['path']} {r['ratio']:.2e} ({r['own']:.2e}; "
                 f"{r['ek'] / r['own']:.2e}; {r['ew'] / r['own']:.2e}; "
                 f"{r['vs']:.3g})" for r in part[:6]))
-    w_worst = max(r["w_ratio"] for r in rows)
-    log(f"{label} gradients: the whole {whole:.3e} relative (L2) from the "
-        f"plain route on the card, the witness (the CPU port's plain route) "
-        f"{whole_w:.3e}, its leaves within {w_worst:.2e} of their own "
-        f"largest magnitude (the key biases of their value biases'); a "
-        f"leaf's kernel difference over the witness's median {vs:.3g}, max "
-        f"{max(r['vs'] for r in rows):.4g} over {len(rows)} leaves")
+    if witness is None:
+        log(f"{label} gradients: the whole {whole:.3e} relative (L2) from the "
+            f"plain route on the card; no witness (none fits beside the two "
+            f"routes)")
+    else:
+        w_worst = max(r["w_ratio"] for r in rows)
+        log(f"{label} gradients: the whole {whole:.3e} relative (L2) from "
+            f"the plain route on the card, the witness (the CPU port's plain "
+            f"route) {whole_w:.3e}, its leaves within {w_worst:.2e} of their "
+            f"own largest magnitude (the key biases of their value biases'); "
+            f"a leaf's kernel difference over the witness's median "
+            f"{vs:.3g}, max {max(r['vs'] for r in rows):.4g} over "
+            f"{len(rows)} leaves")
     bad = max(rows, key=lambda r: r["ratio"])
     if whole > frac or bad["ratio"] > frac:
         raise AssertionError(f"{label}: the gradients differ by {whole:.3e} "
@@ -6292,7 +6564,7 @@ def grads_check(got, want, witness, label, frac=1e-4):
                              f"{bad['ratio']:.3e} of "
                              f"{'its layer' if bad['logit'] else 'its own'}"
                              f" largest magnitude (limit {frac})")
-    if w_worst > frac:
+    if witness is not None and w_worst > frac:
         raise AssertionError(f"{label}: the CPU port's plain route differs "
                              f"from the card's by {w_worst:.3e} of a leaf's "
                              f"largest magnitude (limit {frac})")
@@ -6414,7 +6686,8 @@ def encdec_train(smi):
 
 def encdec_frontends(smi):
     """Phase 21: whisper-base served (21a) and trained, then pixtral-12b
-    served (21b), each at full width and depth. Returns the launches of
+    served (21b), each at full width (21b cut in depth). Returns the
+    launches of
     the kernels line's entries: in all, and those of each entry's shape
     (whisper's encoder and cross-attention, forward at serving and
     backward in training; pixtral's prefill)."""
@@ -6444,6 +6717,371 @@ def encdec_frontends(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: training the soft-capped and the MLA models on the card;
+# rematerialisation
+# ---------------------------------------------------------------------------
+
+TC_TRAIN = dict(batch=8, seq=1024, steps=8, reservoir_k=16)  # 22a
+# 22c: the launcher on the reduced configs
+TC_ARGV = ["--reduced", "--steps", "20", "--seq", "64", "--batch", "4",
+           "--device", "cuda"]
+
+
+def leaves_equal(a, b):
+    """Whether two gradient trees are equal bit for bit, and the largest
+    absolute difference of a leaf over that leaf's largest magnitude."""
+    from repro_torch.optim.adamw import tree_leaves
+    same, worst = True, 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if not torch.equal(x, y):
+            same = False
+            worst = max(worst, float((x - y).abs().max())
+                        / max(float(y.abs().max()), 1e-30))
+    return same, worst
+
+
+def timed_grads(params, cfg, batch, **kw):
+    """``steps.loss_and_grads`` on the card timed by the host clock, the
+    device synced, with its peak memory: (loss, metrics, grads, ms, peak
+    GiB)."""
+    from repro_torch.runtime import steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, met, grads = steps.loss_and_grads(params, cfg, batch, **kw)
+    torch.cuda.synchronize()
+    return (loss, met, grads, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def remat_check(params, cfg, batch, grads, label):
+    """``cfg.remat`` against the run without it from the same weights and
+    batch (``grads``, taken without remat): a second run without remat
+    gives the spread of two such runs; the remat run's gradients must be
+    bit-equal to ``grads`` where the two runs without it are, and
+    otherwise within their spread. Returns (ms and peak GiB without, with
+    remat)."""
+    loss0, _, again, ms0, peak0 = timed_grads(params, cfg, batch)
+    steady, spread = leaves_equal(again, grads)
+    del again
+    loss1, _, remat, ms1, peak1 = timed_grads(params, cfg.replace(remat=True),
+                                              batch)
+    same, diff = leaves_equal(remat, grads)
+    del remat
+    log(f"train [{label}] remat: loss_and_grads {ms1:.3f} ms, peak "
+        f"{peak1:.3f} GiB with cfg.remat, {ms0:.3f} ms, peak {peak0:.3f} GiB "
+        f"without (host clock, the device synced); losses "
+        f"{float(loss1):.6f} / {float(loss0):.6f}; gradients bit-equal to "
+        f"the run without remat: {same} (largest leaf difference {diff:.3e} "
+        f"of its magnitude); two runs without remat bit-equal: {steady} "
+        f"(spread {spread:.3e}); {torch.cuda.get_device_name(0)}")
+    if not (same if steady else diff <= spread):
+        raise AssertionError(f"{label}: the remat gradients differ by "
+                             f"{diff:.3e}, beyond the spread {spread:.3e}")
+    return (ms0, peak0), (ms1, peak1)
+
+
+def deepseek_train(smi):
+    """22a: deepseek-v2-236b at full width cut to layer 0 alone (MLA at
+    head dims (192, 128) and its dense FFN; its AdamW state fits the
+    card), TC_TRAIN's StreamLoader batches: the step-0 gradients on the
+    kernel route against the plain route on the card (``grads_check``,
+    no witness), remat beside no remat (``remat_check``), then the counted
+    run of ``steps`` train_steps (losses finite and falling; one forward
+    and one backward launch a step, at (192, 128)) and a profiled step.
+    Returns the counted launches and those at the training shape."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import StreamLoader
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import lm
+    from repro_torch.runtime import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    full = configs.get_config(DS_ARCH)
+    cfg = full.replace(layers=full.layers[:1])
+    b, s, n = TC_TRAIN["batch"], TC_TRAIN["seq"], TC_TRAIN["steps"]
+    t0 = time.perf_counter()
+    state = steps.init_train_state(cfg, seed=0,
+                                   reservoir_k=TC_TRAIN["reservoir_k"],
+                                   device="cuda")
+    torch.cuda.synchronize()
+    log(f"train [22a {DS_ARCH} full width]: depth cut to layer 0 of "
+        f"{full.n_layers} ({cfg.layers[0].mixer} + {cfg.layers[0].ffn} "
+        f"FFN of d_ff {cfg.d_ff}; MLA with {cfg.n_heads} heads at q/k head "
+        f"dim {cfg.qk_nope_head_dim + cfg.qk_rope_head_dim}, v head dim "
+        f"{cfg.v_head_dim}; d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype}): {lm.param_count(cfg)} parameters drawn on the "
+        f"card with their AdamW moments in {time.perf_counter() - t0:.3f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; {smi}")
+    loader = StreamLoader(cfg, ShapeConfig("22a", seq_len=s, global_batch=b,
+                                           kind="train"), seed=0)
+    batches = [{k: torch.as_tensor(x, device="cuda")
+                for k, x in loader.batch_for_step(i).items()}
+               for i in range(n + 1)]
+    loss_k, met_k, g_k, ms_k, _ = timed_grads(state.params, cfg, batches[0])
+    loss_p, met_p, g_p, ms_p, _ = timed_grads(state.params, cfg, batches[0],
+                                              use_kernel=False)
+    rel = float(((met_k["per_example_nll"].double()
+                  - met_p["per_example_nll"].double()).abs()
+                 / met_p["per_example_nll"].double().abs()).max())
+    g_whole, g_worst, _ = grads_check(g_k, g_p, None, "train [22a]")
+    del g_p
+    log(f"train [22a] step-0 gradients, {b} x {s} tokens: kernel route vs "
+        f"plain route on the card: loss {float(loss_k):.6f} / "
+        f"{float(loss_p):.6f}, per-example NLL within {rel:.2e} relative "
+        f"(limit 1e-5); gradients {g_whole:.2e} relative (L2), the leaves "
+        f"off the logits' path within {g_worst['own']:.2e} of their own "
+        f"largest magnitude and those on it (MLA's query side) within "
+        f"{g_worst['layer']:.2e} of their layer's (limits 1e-4); no witness: "
+        f"the port's model computes its norms, RoPE, attention logits and "
+        f"router in float32 whatever the weights' type, so no float64 route "
+        f"exists (the attention's own distance from float64 is phase 3's); "
+        f"loss_and_grads {ms_k:.3f} ms on the kernel route, {ms_p:.3f} on "
+        f"the plain route; {smi}")
+    if rel > 1e-5:
+        raise AssertionError("22a: the kernel route's NLL differs from the "
+                             "plain route's")
+    remat = remat_check(state.params, cfg, batches[0], g_k, "22a")
+    del g_k
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the counted run: counters to 0, n steps, read
+    fa.launches = fa.bwd_launches = 0
+    fa.launches_at.clear()
+    fa.bwd_launches_at.clear()
+    losses, ms = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        state, met = steps.train_step(state, batches[i], cfg, lr=TR_LR)
+        losses.append(float(met["loss"]))  # the step's one sync
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shape = (b, s, s, cfg.n_heads, cfg.n_heads,
+             cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, True)
+    counted = {"flash_attention": fa.launches,
+               "flash_attention_bwd": fa.bwd_launches,
+               f"flash_attention_bwd@{DS_ARCH}": fa.bwd_launches_at[shape]}
+    med = statistics.median(ms[1:])
+    log(f"train [22a] {n} train_steps: losses "
+        f"{' '.join(f'{x:.6f}' for x in losses)}; step ms "
+        f"{' '.join(f'{x:.3f}' for x in ms)}; median after the first "
+        f"{med:.3f} ms (min {min(ms[1:]):.3f}, max {max(ms[1:]):.3f}); "
+        f"{b * s / med * 1e3:.6g} tokens/s; peak device memory {peak:.3f} "
+        f"GiB (params, grads, moments and activations); launches {counted} "
+        f"(want {n} each: one a step); remat's loss_and_grads "
+        f"{remat[1][0]:.3f} ms, peak {remat[1][1]:.3f} GiB, beside "
+        f"{remat[0][0]:.3f} ms, {remat[0][1]:.3f} GiB; host clock, the loss "
+        f"read syncs; {smi}")
+    if set(counted.values()) != {n}:
+        raise AssertionError(f"22a launches {counted} != {n} each")
+    if not all(np.isfinite(losses)) or \
+            not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"22a: losses not finite or not falling: "
+                             f"{losses}")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, met = steps.train_step(state, batches[n], cfg, lr=TR_LR)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = profile_report(prof, f"train [22a {DS_ARCH} step, {b} x {s}]", 1,
+                          wall, smi)
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    bwd = sum(e.time_range.end - e.time_range.start for e in dev
+              if "flash_bwd" in e.name) / 1e3
+    log(f"train [22a] flash_attention's backward in the profiled step: "
+        f"{bwd:.3f} ms = {bwd / busy:.4f} of the device's busy {busy:.3f} "
+        f"ms; {smi}")
+    del state, met, batches, prof
+    torch.cuda.empty_cache()
+    return counted
+
+
+def grok_grads(smi):
+    """22b: grok-1-314b at full width cut to 1 of its 64 layers (soft-capped
+    attention and the MoE; its AdamW state, 16 bytes a parameter, is
+    larger than the card, so no train_step runs): loss_and_grads of a
+    StreamLoader batch of TC_TRAIN's size, counted (one capped forward and
+    backward launch) and timed, its peak memory; the gradients against
+    the plain route's on the card (``grads_check``, no witness: a float64
+    copy does not fit), the kernel route's moved to the host meanwhile.
+    Returns the counted launches and those at the capped training
+    shape."""
+    from repro_torch import configs
+    from repro_torch.configs.base import LayerSpec, ShapeConfig
+    from repro_torch.data.pipeline import StreamLoader
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    full = configs.get_config(GK_ARCH)
+    cfg = full.replace(layers=(LayerSpec(count=1, mixer="attn", ffn="moe"),))
+    b, s = TC_TRAIN["batch"], TC_TRAIN["seq"]
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = lm.param_count(cfg)
+    log(f"train [22b {GK_ARCH} full width]: depth cut to 1 of "
+        f"{full.n_layers} identical attn + moe layers (attention logit "
+        f"soft-cap {cfg.attn_logit_softcap}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} of {cfg.head_dim}, {cfg.n_experts} experts of "
+        f"d_ff {cfg.d_ff_expert}, top-{cfg.top_k_experts}, capacity factor "
+        f"{cfg.capacity_factor}): {n_params} parameters drawn on the card "
+        f"in {time.perf_counter() - t0:.3f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; no train_step: "
+        f"AdamW's state of {16 * n_params / 2**30:.2f} GiB (parameters, "
+        f"gradients, two moments) is larger than the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+        f"GiB; {smi}")
+    loader = StreamLoader(cfg, ShapeConfig("22b", seq_len=s, global_batch=b,
+                                           kind="train"), seed=0)
+    batch = {k: torch.as_tensor(x, device="cuda")
+             for k, x in loader.batch_for_step(0).items()}
+    fa.launches = fa.bwd_launches = 0
+    fa.launches_at.clear()
+    fa.bwd_launches_at.clear()
+    loss_k, met_k, g_k, ms, peak = timed_grads(params, cfg, batch)
+    shape = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True)
+    counted = {"flash_attention": fa.launches,
+               "flash_attention_bwd": fa.bwd_launches,
+               f"flash_attention_bwd@{GK_ARCH}": fa.bwd_launches_at[shape]}
+    if set(counted.values()) != {1}:
+        raise AssertionError(f"22b launches {counted} != 1 each")
+    t0 = time.perf_counter()
+    # the kernel route's gradients into pinned host memory (fast copies
+    # both ways)
+    g_k = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                         pin_memory=True).copy_(x), g_k)
+    host_s = time.perf_counter() - t0
+    loss_p, met_p, g_p, ms_p, peak_p = timed_grads(params, cfg, batch,
+                                                   use_kernel=False)
+    rel = float(((met_k["per_example_nll"].double()
+                  - met_p["per_example_nll"].double()).abs()
+                 / met_p["per_example_nll"].double().abs()).max())
+    g_whole, g_worst, _ = grads_check(g_k, g_p, None, "train [22b]")
+    log(f"train [22b] loss_and_grads of {b} x {s} tokens: {ms:.3f} ms "
+        f"(the first call at this shape, its set-up included), "
+        f"{b * s / ms * 1e3:.6g} tokens/s, "
+        f"peak device memory {peak:.3f} GiB (weights, gradients and "
+        f"activations; host clock, the device synced); launches {counted}; "
+        f"the plain route {ms_p:.3f} ms, peak {peak_p:.3f} GiB; kernel route "
+        f"vs plain route: loss {float(loss_k):.6f} / {float(loss_p):.6f}, "
+        f"per-example NLL within {rel:.2e} relative (limit 1e-5); gradients "
+        f"{g_whole:.2e} relative (L2), the leaves off the logits' path within "
+        f"{g_worst['own']:.2e} of their own largest magnitude and those on "
+        f"it within {g_worst['layer']:.2e} of their layer's (limits 1e-4); "
+        f"no witness: a float64 copy of {n_params} parameters does not fit; "
+        f"the kernel route's gradients held on the host ({host_s:.1f}s to "
+        f"move); {smi}")
+    if rel > 1e-5:
+        raise AssertionError("22b: the kernel route's NLL differs from the "
+                             "plain route's")
+    del params, batch, g_k, g_p
+    torch.cuda.empty_cache()
+    return counted
+
+
+def launcher_reduced():
+    """22c: ``python -m repro_torch.launch.train --arch A`` TC_ARGV on the
+    reduced grok-1-314b and deepseek-v2-236b, both processes at once on
+    the card: exit code 0 and finite losses."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    runs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         *TC_ARGV], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=ROOT) for arch in (GK_ARCH, DS_ARCH)}
+    for arch, proc in runs.items():
+        out, err = proc.communicate(timeout=600)
+        lines = out.strip().splitlines()
+        losses = [float(x.split()[-1]) for x in lines
+                  if x.strip().startswith("step ")]
+        said = next((x for x in lines if x.startswith("done:")), "")
+        log(f"train [22c] python -m repro_torch.launch.train --arch {arch} "
+            f"{' '.join(TC_ARGV)}: exit {proc.returncode} after "
+            f"{time.perf_counter() - t0:.1f}s (both launchers at once); "
+            f"{len(losses)} step losses logged; {said.strip()}")
+        if proc.returncode != 0 or not losses or \
+                not np.isfinite(losses).all():
+            raise AssertionError(f"22c: the launcher failed on {arch}:\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+
+
+def llama_remat(smi):
+    """22d: 17b's llama3.2-1b at full width, 8 x 1024 tokens: the
+    gradients with cfg.remat against without (``remat_check``), then a
+    train_step each way after a warm-up step, with its ms and peak
+    memory."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import StreamLoader
+    from repro_torch.runtime import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(ARCH)
+    b, s = TR_FULL["batch"], TR_FULL["seq"]
+    state = steps.init_train_state(cfg, seed=0,
+                                   reservoir_k=TR_FULL["reservoir_k"],
+                                   device="cuda")
+    loader = StreamLoader(cfg, ShapeConfig("22d", seq_len=s, global_batch=b,
+                                           kind="train"), seed=0)
+    batch = {k: torch.as_tensor(x, device="cuda")
+             for k, x in loader.batch_for_step(0).items()}
+    grads = steps.loss_and_grads(state.params, cfg, batch)[2]
+    remat_check(state.params, cfg, batch, grads, "22d")
+    del grads
+    out = {}
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        state, met = steps.train_step(state, batch, c, lr=TR_LR)  # warm-up
+        float(met["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, met = steps.train_step(state, batch, c, lr=TR_LR)
+        float(met["loss"])
+        out[remat] = ((time.perf_counter() - t0) * 1e3,
+                      torch.cuda.max_memory_allocated() / 2**30)
+    log(f"train [22d {ARCH} full width, {b} x {s}] train_step after a "
+        f"warm-up: {out[True][0]:.3f} ms, peak {out[True][1]:.3f} GiB with "
+        f"cfg.remat; {out[False][0]:.3f} ms, peak {out[False][1]:.3f} GiB "
+        f"without; host clock, the loss read syncs; {smi}")
+    del state, met, batch
+    torch.cuda.empty_cache()
+
+
+def capped_mla_training(smi):
+    """Phase 22: 22a deepseek-v2-236b trained at full width (layer 0), 22b
+    grok-1-314b's gradients at full width (1 layer), 22c the launcher on
+    both reduced configs, 22d remat at llama3.2-1b's full width. Returns
+    the launches of 22a and 22b for the kernels line."""
+    from torch.utils.checkpoint import checkpoint
+    # torch.utils.checkpoint sets itself up at its first call (seconds of
+    # imports): paid here, before any remat run is timed
+    t0 = time.perf_counter()
+    x = torch.ones(1, device="cuda", requires_grad=True)
+    checkpoint(torch.sin, x, use_reentrant=False).sum().backward()
+    log(f"train [22] the first torch.utils.checkpoint call, set-up "
+        f"included: {time.perf_counter() - t0:.3f}s")
+    out = {}
+    for part in (deepseek_train(smi), grok_grads(smi)):
+        for key, n in part.items():
+            out[key] = out.get(key, 0) + n
+    launcher_reduced()
+    llama_remat(smi)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6460,10 +7098,12 @@ def main():
     if sys.argv[1:2] == ["--chaos-child"]:
         return chaos_child(sys.argv[2])  # phase 15b's child process
     if sys.argv[1:2] == ["--fa-child"]:
-        return fa_child(*sys.argv[2:4])  # a turn of --fa-ab
+        return fa_child(*sys.argv[2:5])  # a turn of --fa-ab / --fa-layouts
     smi = environment()
     if sys.argv[1:2] == ["--fa-ab"]:
         return fa_ab(sys.argv[2], smi)
+    if sys.argv[1:2] == ["--fa-layouts"]:
+        return fa_layouts(smi)
     with phase_clock("build and log2 rule (phase 2)"):
         build_kernels()
         log2_rule()
@@ -6529,6 +7169,10 @@ def main():
                      "(phase 21)"):
         for key, n in encdec_frontends(smi).items():
             launches[key] = launches.get(key, 0) + n
+    with phase_clock("training the soft-capped and the MLA models; remat "
+                     "(phase 22)"):
+        for key, n in capped_mla_training(smi).items():
+            launches[key] = launches.get(key, 0) + n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",
@@ -6559,14 +7203,21 @@ def main():
         "flash_attention_bwd@whisper-cross":
             "src/repro/models/attention.py:113",
         f"flash_attention@{PX_ARCH}":
-            "src/repro/kernels/flash_attention/flash_attention.py:64"}
+            "src/repro/kernels/flash_attention/flash_attention.py:64",
+        # the backward at phase 22's full-width launches, each entry's
+        # launches those of its shape: grok-1-314b's soft-capped and
+        # deepseek-v2-236b's at MLA's head dims (192, 128)
+        f"flash_attention_bwd@{GK_ARCH}": "src/repro/models/attention.py:113",
+        f"flash_attention_bwd@{DS_ARCH}":
+            "src/repro/models/attention.py:113"}
     kernels = []
     for name in replaces:
         t = times[name]
-        src = name.split("@")[0].removesuffix("_bwd")
+        base = name.split("@")[0]  # flash_attention_bwd: the backward's .cu
+        src = base.removesuffix("_bwd")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
+            "source": f"src/repro_torch/kernels/{src}/csrc/{base}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

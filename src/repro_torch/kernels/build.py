@@ -1,16 +1,18 @@
 """Build and load the hand-written CUDA kernels.
 
-Each kernel package keeps its source under ``csrc/<name>.cu`` with a plain
-C interface. ``library(name)`` compiles it with ``nvcc`` for Hopper
-(``sm_90a``) into ``build/kernels/`` at the repository root on first use
-and loads it with ``ctypes``. The library's file name carries a hash of
-the source and the flags, so an edited source is never served a stale
-build. Nothing here runs on import: the CPU tests import every module on
-a machine without ``nvcc``.
+Each kernel package keeps its sources under ``csrc/``, ``<name>.cu`` and
+any further ``*.cu`` (with shared ``*.cuh`` headers), behind a plain C
+interface. ``library(name)`` compiles each source with ``nvcc`` for
+Hopper (``sm_90a``), all at once, links them into one library in
+``build/kernels/`` at the repository root on first use and loads it with
+``ctypes``. The library's file name carries a hash of the sources and
+the flags, so an edited source is never served a stale build. Nothing
+here runs on import: the CPU tests import every module on a machine
+without ``nvcc``.
 
 The build reports to the compile-cache probe ``"kernels.build"``
 (``obs.jits``), keyed by kernel name: a kernel compiled by ``nvcc`` is a
-miss (``compile_s``: the seconds until its ``nvcc`` exits), a library
+miss (``compile_s``: the seconds until its library is linked), a library
 found up to date by ``build`` or loaded from ``build/kernels/`` by
 ``library`` is a hit.
 """
@@ -24,14 +26,14 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 from repro_torch.obs import jits
 
 KERNELS = ("batched_topk", "tier_assign", "logmem_update", "topk_filter",
            "plan_solve", "entropy_scores", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -39,12 +41,17 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def source(name: str) -> Path:
-    return _PKG / name / "csrc" / f"{name}.cu"
+def sources(name: str) -> List[Path]:
+    """The kernel's translation units: every ``csrc/*.cu`` of its
+    package."""
+    return sorted((_PKG / name / "csrc").glob("*.cu"))
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256(source(name).read_bytes())
+    h = hashlib.sha256()
+    for path in sorted((_PKG / name / "csrc").glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -68,35 +75,49 @@ def nvcc() -> str:
 
 def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel that has no up-to-date library, one
-    ``nvcc`` process per source, all started together. Returns
-    {name: ptxas report} for the kernels compiled now (empty for those
-    already built). Raises if any compile fails."""
+    ``nvcc -c`` process per source file, all started together, then link
+    each kernel's objects into its library. Returns {name: ptxas report}
+    for the kernels compiled now (empty for those already built). Raises
+    if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     probe = jits.probe("kernels.build")
-    procs = {}
+    jobs = {}
     t0 = time.perf_counter()
     for name in names:
         target = _target(name)
         if target.exists():
             probe.record(False, 0.0, key=name, cache_size=_cached())
             continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(source(name))]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, target)
+        work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        procs = []
+        for i, src in enumerate(sources(name)):
+            obj = work / f"{i}-{src.stem}.o"
+            procs.append((subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), obj))
+        jobs[name] = (procs, work, target)
     reports, failed = {}, []
-    for name, (proc, tmp, target) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name}:\n{out}")
+    for name, (procs, work, target) in jobs.items():
+        outs = [(proc.communicate()[0], proc.returncode) for proc, _ in procs]
+        report = "".join(out for out, _ in outs)
+        if any(rc != 0 for _, rc in outs):
+            failed.append(f"{name}:\n{report}")
+            shutil.rmtree(work, ignore_errors=True)
             continue
-        os.replace(tmp, target)  # atomic: a reader never sees a partial .so
-        probe.record(True, time.perf_counter() - t0, key=name,
-                     cache_size=_cached())
-        reports[name] = out
+        lib = work / "lib.so"
+        link = subprocess.run([nvcc(), "-shared", "-o", str(lib),
+                               *(str(obj) for _, obj in procs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"{name} (link):\n{link.stdout}{link.stderr}")
+        else:
+            # atomic: a reader never sees a partial .so
+            os.replace(lib, target)
+            probe.record(True, time.perf_counter() - t0, key=name,
+                         cache_size=_cached())
+            reports[name] = report
+        shutil.rmtree(work, ignore_errors=True)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports

@@ -15,7 +15,8 @@ c · tanh(x / c) before the mask, as the reference's model attention
 no cap; the kernel computes it inside, with the accurate ``tanhf``.
 
 The device of the input decides what runs: a CUDA tensor launches the
-hand-written kernel (``csrc/flash_attention.cu``) or raises, a CPU tensor
+hand-written kernel (``csrc/flash_attention.cu``; its backward
+``csrc/flash_attention_bwd.cu``) or raises, a CPU tensor
 runs the plain PyTorch version ``reference``, which autograd
 differentiates. There is no switch between the two.
 
@@ -32,13 +33,12 @@ fill the card; each part then writes float32 partials, and a third
 launch adds them in part order. No atomics: the
 same inputs give the same bits. It is the counterpart of XLA's
 derivative of the reference's training attention; the reference has no
-Pallas backward. ``reference_lse`` and ``reference_backward`` are the
-plain versions the backward is held to. The backward of a soft-capped
-forward is not written yet (ROADMAP queue 2): with ``softcap`` > 0 it
-raises ``NotImplementedError`` on the card, where the CPU's plain version
-is differentiated by autograd. Nor is the backward at unequal head dims
-(MLA's): on the card it raises ``NotImplementedError`` in the same way,
-so the kernel serves MLA but does not train it.
+Pallas backward. The backward is built for every pair the forward is:
+with ``softcap`` > 0 (equal head dims) both launches recompute the
+capped logit with the forward's ``tanhf`` and take dS times 1 − t², and
+at MLA's pairs dQ and dK run over the q/k head dim, dV over v's.
+``reference_lse`` and ``reference_backward`` are the plain versions the
+backward is held to.
 """
 from __future__ import annotations
 
@@ -52,8 +52,8 @@ import torch
 from .. import build
 
 NEG = -2.0e9  # the reference's mask value
-# (q/k head dim, v head dim) pairs the forward kernel is compiled for; the
-# backward takes the equal ones. MLA's unequal pairs are built uncapped.
+# (q/k head dim, v head dim) pairs the forward and backward kernels are
+# compiled for. MLA's unequal pairs are built uncapped.
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128), (24, 16))
 ROWS = 64  # the fewest query rows a block of the kernel takes
 MAX_GRID = 65535  # the kernel's grid: batch and Sq / ROWS each up to this
@@ -61,10 +61,10 @@ SMS = 132  # streaming multiprocessors of an H100 SXM
 # dK/dV blocks the backward wants before it splits the query-head groups:
 # four for each SM
 BWD_FILL = 4 * SMS
-# warps of a dK/dV block (16 keys each) by head dim, as the kernel is
+# warps of a dK/dV block (16 keys each) by q/k head dim, as the kernel is
 # compiled (DkdvShape in the .cu): the faster layout at the training
 # shapes timed on the card (PERF.md, row 7b)
-BWD_WARPS = {16: 4, 32: 4, 64: 4, 128: 8}
+BWD_WARPS = {16: 4, 24: 4, 32: 4, 64: 4, 128: 8, 192: 8}
 
 # kernel launches made by ``flash_attention`` since the last reset: the
 # forward, and the backward (counted once a call, whatever its launches);
@@ -74,7 +74,7 @@ bwd_launches = 0
 launches_at: collections.Counter = collections.Counter()
 bwd_launches_at: collections.Counter = collections.Counter()
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's types
 
 
 def _check(q, k, v) -> None:
@@ -86,9 +86,11 @@ def _check(q, k, v) -> None:
                          f"fit q {tuple(q.shape)}")
     if h % k.shape[2]:
         raise ValueError(f"{k.shape[2]} KV heads do not divide {h} heads")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+            torch.float32, torch.bfloat16, torch.float64):
+        raise ValueError(f"q, k, v must share float32, bfloat16 or (the "
+                         f"plain versions) float64, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must share a device")
 
@@ -105,14 +107,20 @@ def _visible(sq, skv, causal, window, device):
     return ok
 
 
+def _wide(x):
+    """The plain versions' working type: float64 for float64 inputs (a
+    witness of float32's rounding), float32 otherwise."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _logits(q, k, causal, window, scale, softcap=0.0):
-    """(B, H, Sq, Skv) float32 logits, scaled, soft-capped when ``softcap``
-    > 0 and then masked with −2e9, and the visibility mask; KV heads
-    repeated to the query heads."""
+    """(B, H, Sq, Skv) float32 (float64) logits, scaled, soft-capped when
+    ``softcap`` > 0 and then masked with −2e9, and the visibility mask;
+    KV heads repeated to the query heads."""
     b, sq, h, hd = q.shape
-    skv = k.shape[1]
-    kf = k.to(torch.float32).repeat_interleave(h // k.shape[2], dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * scale
+    skv, wide = k.shape[1], _wide(q)
+    kf = k.to(wide).repeat_interleave(h // k.shape[2], dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(wide), kf) * scale
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
     ok = _visible(sq, skv, causal, window, q.device)
@@ -125,11 +133,11 @@ def reference(q, k, v, *, causal: bool = True, window: int = 0,
     float32 logits scaled after the product, soft-capped (``softcap`` >
     0), masked with −2e9, softmax, float32 product with v, cast to q's
     dtype; KV heads mapped to query heads by repetition. Any head dims:
-    the output takes v's."""
+    the output takes v's. Float64 inputs run in float64."""
     _check(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     g = q.shape[2] // k.shape[2]
-    vf = v.to(torch.float32).repeat_interleave(g, dim=2)
+    vf = v.to(_wide(q)).repeat_interleave(g, dim=2)
     logits, _ = _logits(q, k, causal, window, scale, softcap)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
@@ -138,7 +146,8 @@ def reference(q, k, v, *, causal: bool = True, window: int = 0,
 def reference_lse(q, k, v, *, causal: bool = True, window: int = 0,
                   scale: float | None = None, softcap: float = 0.0):
     """Plain version of the forward's second output: (B, H, Sq) float32
-    log-sum-exp of each row's scaled, soft-capped, masked logits."""
+    (float64 for float64 inputs) log-sum-exp of each row's scaled,
+    soft-capped, masked logits."""
     _check(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     return torch.logsumexp(_logits(q, k, causal, window, scale, softcap)[0],
@@ -146,12 +155,16 @@ def reference_lse(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def reference_backward(q, k, v, out, lse, dout, *, causal: bool = True,
-                       window: int = 0, scale: float | None = None):
+                       window: int = 0, scale: float | None = None,
+                       softcap: float = 0.0):
     """Plain version of the backward: (dq, dk, dv) in the inputs' dtype,
-    from the explicit formulas in float32. P = exp(S·scale − lse),
-    dP = dO Vᵀ, Delta = rowsum(dO ∘ O), dS = P ∘ (dP − Delta) on visible
-    pairs and 0 on masked ones; dQ = dS K · scale, dK = dSᵀ Q · scale
-    and dV = Pᵀ dO, summed over the query heads of each KV head. A row
+    from the explicit formulas in float32 (float64 for float64 inputs).
+    With x = S·scale, the logit is y = x, or y = c·t with t = tanh(x / c)
+    under ``softcap`` c > 0; P = exp(y − lse), dP = dO Vᵀ, Delta =
+    rowsum(dO ∘ O), dS = P ∘ (dP − Delta), times 1 − t² under the cap, on
+    visible pairs and 0 on masked ones; dQ = dS K · scale, dK = dSᵀ Q ·
+    scale and dV = Pᵀ dO, summed over the query heads of each KV head. dP
+    and Delta run over v's head dim, dQ and dK over q's and k's. A row
     whose keys are all masked is the uniform average of v in the forward,
     so its P is 1 / Skv and its dS is 0."""
     _check(q, k, v)
@@ -159,22 +172,28 @@ def reference_backward(q, k, v, out, lse, dout, *, causal: bool = True,
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     scale = scale or 1.0 / math.sqrt(hd)
-    f32 = lambda x: x.to(torch.float32)  # noqa: E731
-    kf = f32(k).repeat_interleave(g, dim=2)
-    vf = f32(v).repeat_interleave(g, dim=2)
-    qf, of, dof = f32(q), f32(out), f32(dout)
+    wide = _wide(q)
+    kf = k.to(wide).repeat_interleave(g, dim=2)
+    vf = v.to(wide).repeat_interleave(g, dim=2)
+    qf, of, dof = q.to(wide), out.to(wide), dout.to(wide)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
     ok = _visible(sq, skv, causal, window, q.device)
     dead = ~ok.any(dim=1)  # rows with no visible key
-    p = torch.where(ok, torch.exp(s - f32(lse)[..., None]), 0.0)
+    p = torch.where(ok, torch.exp(s - lse.to(wide)[..., None]), 0.0)
     p = torch.where(dead[:, None], 1.0 / skv, p)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = torch.einsum("bqhd,bqhd->bhq", dof, of)
-    ds = torch.where(ok, p * (dp - delta[..., None]), 0.0)
+    ds = p * (dp - delta[..., None])
+    if softcap > 0:
+        ds = ds * (1.0 - t * t)
+    ds = torch.where(ok, ds, 0.0)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    group = lambda x: x.reshape(b, skv, kvh, g, hd).sum(dim=3)  # noqa: E731
+    group = lambda x: x.reshape(b, skv, kvh, g, -1).sum(dim=3)  # noqa: E731
     return dq.to(q.dtype), group(dk).to(k.dtype), group(dv).to(v.dtype)
 
 
@@ -191,27 +210,31 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     fn = build.library("flash_attention").flash_attention_backward_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def backward_plan(b, h, kvh, sq, skv, hd) -> dict:
-    """How the backward launches at this shape: ``warps`` a dK/dV block
-    (16 keys each, ``BWD_WARPS``), ``split``, the parts each group of
-    ``h // kvh`` query heads is cut into, the dK/dV grid's ``blocks`` and
-    the partials' ``scratch_bytes``. A pure function of the shape.
+def backward_plan(b, h, kvh, sq, skv, hd, hd_v=None) -> dict:
+    """How the backward launches at this shape (v's head dim ``hd_v``, hd
+    unless given): ``warps`` a dK/dV block (16 keys each, ``BWD_WARPS``),
+    ``split``, the parts each group of ``h // kvh`` query heads is cut
+    into, the dK/dV grid's ``blocks`` and the partials' ``scratch_bytes``.
+    A pure function of the shape.
 
     When ``kvh · b · ⌈Skv / keys⌉`` blocks reach ``BWD_FILL`` the group is
     not split. Otherwise ``split`` is the smallest divisor of the group
     that brings the blocks to ``BWD_FILL`` (the whole group when none
     does), so every part holds as many heads; its float32 dK and dV
     partials take ``split`` times the bytes of float32 dK and dV."""
+    hd_v = hd_v or hd
     warps = BWD_WARPS[hd]
     group, keys = h // kvh, 16 * warps
     blocks = kvh * b * -(-skv // keys)
-    per_part = 2 * 4 * b * skv * kvh * hd  # dK and dV partials, float32
+    per_part = 4 * b * skv * kvh * (hd + hd_v)  # dK and dV, float32
     divisors = [d for d in range(1, group + 1) if group % d == 0]
     split = 1
     if 0 < blocks < BWD_FILL:
@@ -221,18 +244,20 @@ def backward_plan(b, h, kvh, sq, skv, hd) -> dict:
             "scratch_bytes": per_part * split if split > 1 else 0}
 
 
-def backward_info(hd, dtype=torch.float32):
+def backward_info(hd, dtype=torch.float32, hd_v=None, softcap=False):
     """{launch: (registers a thread, shared memory bytes a block, blocks
-    an SM)} of the backward's three kernels at this head dim and type,
-    from the CUDA runtime (needs the card)."""
+    an SM)} of the backward's three kernels at this head-dim pair (v's
+    ``hd_v``, hd unless given), type and build (capped or not), from the
+    CUDA runtime (needs the card)."""
     fn = build.library("flash_attention").flash_attention_backward_info
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = {}
     for which, name in enumerate(("flash_bwd_dq", "flash_bwd_dkdv",
                                   "flash_bwd_group_sum")):
         info = (ctypes.c_int * 3)()
-        err = fn(hd, _DTYPES[dtype], which, info)
+        err = fn(hd, hd_v or hd, int(bool(softcap)), _DTYPES[dtype], which,
+                 info)
         if err:
             raise RuntimeError(f"{name}: CUDA error {err}")
         out[name] = tuple(info)
@@ -245,6 +270,9 @@ def _prepare(q, k, v, softcap=0.0):
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v)
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"the flash_attention kernel takes float32 or "
+                         f"bfloat16, not {q.dtype}")
     b, sq, h, hd = q.shape
     skv, pair = k.shape[1], (hd, v.shape[3])
     if pair not in HEAD_DIMS:
@@ -285,21 +313,23 @@ def _launch_forward(q, k, v, causal, window, scale, with_lse, softcap=0.0):
     return out, lse
 
 
-def _launch_backward(q, k, v, out, lse, dout, causal, window, scale):
+def _launch_backward(q, k, v, out, lse, dout, causal, window, scale,
+                     softcap=0.0):
     """The backward launches on prepared inputs, as ``backward_plan``
     says: (dq, dk, dv)."""
     global bwd_launches
     b, sq, h, hd = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     dout = dout.to(q.dtype).contiguous()
     if dout.data_ptr() % 16:
         dout = dout.clone()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    split = backward_plan(b, h, kvh, sq, skv, hd)["split"]
+    split = backward_plan(b, h, kvh, sq, skv, hd, hd_v)["split"]
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    part = (torch.empty((2, split) + tuple(k.shape), dtype=torch.float32,
+    # dK's partials, then dV's: (split, B, Skv, KV, hd), (split, ..., hd_v)
+    part = (torch.empty(split * (k.numel() + v.numel()), dtype=torch.float32,
                         device=q.device) if split > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -308,8 +338,9 @@ def _launch_backward(q, k, v, out, lse, dout, causal, window, scale):
                             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                             dv.data_ptr(),
                             0 if part is None else part.data_ptr(), b, sq,
-                            skv, h, kvh, hd, scale, int(causal), int(window),
-                            split, _DTYPES[q.dtype], stream)
+                            skv, h, kvh, hd, hd_v, scale, int(causal),
+                            int(window), float(softcap), split,
+                            _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")
@@ -318,33 +349,17 @@ def _launch_backward(q, k, v, out, lse, dout, causal, window, scale):
     return dq, dk, dv
 
 
-def _no_capped_backward(softcap) -> None:
-    if softcap > 0:
-        raise NotImplementedError(
-            "the backward of soft-capped flash_attention is not written yet "
-            "(ROADMAP queue 2)")
-
-
-def _no_unequal_backward(q, v) -> None:
-    if q.shape[-1] != v.shape[-1]:
-        raise NotImplementedError(
-            f"the backward of flash_attention at unequal head dims "
-            f"({q.shape[-1]}, {v.shape[-1]}: MLA) is not written yet "
-            f"(ROADMAP queue 2)")
-
-
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel with its gradient: the forward launch with the row
     log-sum-exp kept, the backward launches on the saved tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, softcap=0.0):
-        _no_capped_backward(softcap)
-        _no_unequal_backward(q, v)
-        q, k, v = _prepare(q, k, v)
-        out, lse = _launch_forward(q, k, v, causal, window, scale, True)
+        q, k, v = _prepare(q, k, v, softcap)
+        out, lse = _launch_forward(q, k, v, causal, window, scale, True,
+                                   softcap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, window, scale)
+        ctx.args = (causal, window, scale, softcap)
         return out
 
     @staticmethod
@@ -366,15 +381,13 @@ def backward(q, k, v, out, lse, dout, *, causal: bool = True,
              window: int = 0, scale: float | None = None,
              softcap: float = 0.0):
     """The backward launches on CUDA tensors, as ``backward_plan`` says:
-    (dq, dk, dv), held to ``reference_backward``. A soft-capped forward's
-    backward, and one at unequal head dims, raise
-    ``NotImplementedError``."""
-    _no_capped_backward(softcap)
-    _no_unequal_backward(q, v)
-    q, k, v = _prepare(q, k, v)
+    (dq, dk, dv), held to ``reference_backward`` (``softcap`` the
+    forward's)."""
+    softcap = float(softcap or 0.0)
+    q, k, v = _prepare(q, k, v, softcap)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     return _launch_backward(q, k, v, out.contiguous(), lse.contiguous(),
-                            dout, causal, window, scale)
+                            dout, causal, window, scale, softcap)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -390,8 +403,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     CUDA tensors run the kernel, CPU tensors the plain version. On a
     CUDA tensor with grad enabled and an input that requires grad, the
     call runs ``FlashAttentionFn``, whose backward runs the backward
-    kernels (``backward``); with a cap or unequal head dims it raises
-    ``NotImplementedError`` (ROADMAP queue 2)."""
+    kernels (``backward``), capped and at MLA's head dims too."""
     softcap = float(softcap or 0.0)
     if q.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window, scale=scale,

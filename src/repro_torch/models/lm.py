@@ -23,23 +23,25 @@ Python loop where the reference scans. KV and MLA latent caches are
 updated in place and SSM states replaced; a cross-attention layer's
 encoder K/V are written into its cache once, at prefill. The forward
 writes into no tensor that autograd saved, so ``lm_loss`` differentiates
-through it. ``use_kernel=False`` takes the plain grouped attention for
-prefill, the encoder and the forward, the reference's own route;
-otherwise their attention runs on the ``flash_attention`` kernel
-(cross-attention too, under its non-causal mask), and a gradient through
-the forward on the card runs the kernel's backward (not yet for
-soft-capped attention, which raises there, nor for MLA's unequal head
-dims). Decode's attention, MLA's decode over its latent cache, the SSD
-scan and the MoE's routing, dispatch and combine are plain tensor
-operations on either route (``models.attention``, ``models.ssm``,
-``models.ffn``).
+through it; under ``cfg.remat`` each layer is rematerialised in the
+backward (``torch.utils.checkpoint``). ``use_kernel=False`` takes the
+plain grouped attention for prefill, the encoder and the forward, the
+reference's own route; otherwise their attention runs on the
+``flash_attention`` kernel (cross-attention too, under its non-causal
+mask), and a gradient through the forward on the card runs the kernel's
+backward (soft-capped and at MLA's head dims too). Decode's attention,
+MLA's decode over its latent cache, the SSD scan and the MoE's routing,
+dispatch and combine are plain tensor operations on either route
+(``models.attention``, ``models.ssm``, ``models.ffn``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -225,16 +227,24 @@ def _run_layers(groups, specs, cfg, x, positions, cache_groups=None,
     specs are ``specs`` (``cfg.layers`` or ``cfg.encoder_layers``), in
     order; returns (x, new cache groups or None, the MoE layers' aux
     losses summed, or None without MoE). ``enc_out``: the encoder's
-    states, for cross-attention layers without a cache."""
+    states, for cross-attention layers without a cache.
+
+    Under ``cfg.remat``, while autograd records and no cache is written,
+    each layer runs through ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are dropped after the forward and recomputed in the
+    backward, the reference's ``jax.checkpoint`` of the layer body."""
+    layer = blocks.block_forward
+    if cfg.remat and cache_groups is None and torch.is_grad_enabled():
+        layer = functools.partial(checkpoint, layer, use_reentrant=False)
     new_groups, aux = [], None
     for gi, (gp, spec) in enumerate(zip(groups, specs)):
         windows = spec.window_list()
         new_layers = []
         for li, lp in enumerate(gp):
             lc = None if cache_groups is None else cache_groups[gi][li]
-            x, lc, a = blocks.block_forward(lp, spec, cfg, x, positions,
-                                            cache=lc, window=windows[li],
-                                            flash=flash, enc_out=enc_out)
+            x, lc, a = layer(lp, spec, cfg, x, positions, cache=lc,
+                             window=windows[li], flash=flash,
+                             enc_out=enc_out)
             if a is not None:
                 aux = a if aux is None else aux + a
             new_layers.append(lc)

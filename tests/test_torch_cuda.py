@@ -2025,19 +2025,78 @@ def test_flash_attention_softcap_equals_plain(b, sq, skv, h, kvh, hd, causal,
                                rtol=tol, atol=tol)
 
 
+# the capped backward's cases (FA_CAP_CASES' masks and heads) at the
+# capped build's head dims 16, 32, 64 and 128: (b, sq, skv, h, kvh, hd,
+# causal, window, softcap, q scale)
+FA_CAP_BWD_CASES = FA_CAP_CASES + [(2, 130, 130, 4, 2, 16, True, 0, 30.0,
+                                    1.0),
+                                   (1, 90, 33, 4, 1, 32, True, 7, 5.0, 8.0),
+                                   (1, 100, 100, 24, 2, 128, True, 0, 5.0,
+                                    8.0)]
+
+
+def _check_capped_backward(case, dtype, device):
+    """ops.backward of a soft-capped forward against reference_backward
+    (float32 within 1e-4 of each gradient's largest magnitude, bfloat16
+    2e-2), a second call bit-equal; returns the inputs and gradients."""
+    b, sq, skv, h, kvh, hd, causal, window, cap, qs = case
+    rng = np.random.default_rng(sq * 5 + skv + hd)
+    q, k, v = (torch.tensor(x, device=device)
+               for x in fa_case(b, sq, skv, h, kvh, hd, sq + skv + 3))
+    q, k, v = (q * qs).to(dtype), k.to(dtype), v.to(dtype)
+    dout = torch.tensor(rng.standard_normal(q.shape), device=device).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = t_fa.forward_with_lse(q, k, v, **kw)
+    before = t_fa.bwd_launches
+    got = t_fa.backward(q, k, v, out, lse, dout, **kw)
+    again = t_fa.backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert t_fa.bwd_launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, r in zip(got, t_fa.reference_backward(q, k, v, out, lse, dout,
+                                                 **kw)):
+        assert a.shape == r.shape and a.dtype == r.dtype == dtype
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * float(r.float().abs().max()), err
+    return (q, k, v), got
+
+
 @pytest.mark.cuda
-def test_flash_attention_capped_backward_raises(cuda_device):
-    """No backward for a soft-capped forward yet: the autograd route and
-    ops.backward raise, and nothing falls back to the plain version."""
-    q, k, v = (torch.tensor(x, device=cuda_device)
-               for x in fa_case(1, 64, 64, 2, 2, 64, 9))
-    out, lse = t_fa.forward_with_lse(q, k, v, softcap=30.0)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        t_fa.backward(q, k, v, out, lse, torch.ones_like(q), softcap=30.0)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        t_fa.flash_attention(q.requires_grad_(True), k, v, softcap=30.0)
-    with torch.no_grad():  # serving needs no backward
-        t_fa.flash_attention(q, k, v, softcap=30.0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_CAP_BWD_CASES)
+def test_flash_attention_capped_backward_equals_plain(case, dtype,
+                                                      cuda_device):
+    """The backward of a soft-capped forward (the capped build of both
+    launches: dS times 1 − t²) against reference_backward(softcap=), with
+    caps of 30, 5 and 2 that bite, at head dims 16 to 128."""
+    _check_capped_backward(case, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [FA_CAP_CASES[0], FA_CAP_CASES[4]])
+def test_flash_attention_capped_autograd_equals_plain_route(case,
+                                                            cuda_device):
+    """flash_attention with a cap and inputs that require grad runs
+    FlashAttentionFn (one forward and one backward launch, no fallback);
+    its gradients equal autograd through the capped plain version within
+    1e-4 of each gradient's largest magnitude."""
+    b, sq, skv, h, kvh, hd, causal, window, cap, qs = case
+    kw = dict(causal=causal, window=window, softcap=cap)
+    base = [torch.tensor(x, device=cuda_device)
+            for x in fa_case(b, sq, skv, h, kvh, hd, 13)]
+    base[0] = base[0] * qs
+    grads = []
+    for route in (t_fa.flash_attention, t_fa.reference):
+        xs = [x.clone().requires_grad_(True) for x in base]
+        n0, b0 = t_fa.launches, t_fa.bwd_launches
+        (route(*xs, **kw).square() * 0.5).sum().backward()
+        torch.cuda.synchronize()
+        if route is t_fa.flash_attention:
+            assert (t_fa.launches - n0, t_fa.bwd_launches - b0) == (1, 1)
+        grads.append([x.grad for x in xs])
+    for a, r in zip(*grads):
+        assert float((a - r).abs().max()) <= 1e-4 * float(r.abs().max())
 
 
 @pytest.mark.cuda
@@ -2159,24 +2218,123 @@ def test_flash_attention_unequal_head_dims_equal_plain(
                                rtol=tol, atol=tol)
 
 
+# (b, sq, skv, h, hd, hd_v, causal, window) of the backward at MLA's
+# pairs: FA_MLA_CASES, deepseek's heads split by backward_plan at batch 1
+# (one head a KV head: no split), and a grouped (24, 16) call whose group
+# the plan splits
+FA_MLA_BWD_CASES = FA_MLA_CASES + [(2, 130, 130, 4, 24, 16, False, 0)]
+
+
+def _mla_inputs(b, sq, skv, h, hd, hd_v, dtype, device, kvh=None):
+    rng = np.random.default_rng(sq + skv + hd)
+    kvh = kvh or h
+    return [torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device=device).to(dtype)
+            for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
+                          (b, skv, kvh, hd_v), (b, sq, h, hd_v))]
+
+
 @pytest.mark.cuda
-def test_flash_attention_unequal_head_dims_backward_and_cap_raise(
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,hd,hd_v,causal,window",
+                         FA_MLA_BWD_CASES)
+def test_flash_attention_unequal_head_dims_backward_equals_plain(
+        b, sq, skv, h, hd, hd_v, causal, window, dtype, cuda_device):
+    """The backward at (q/k, v) head dims (192, 128) and (24, 16) against
+    reference_backward: dq and dk at hd, dv at hd_v, float32 within 1e-4
+    of each gradient's largest magnitude, bfloat16 2e-2; a second call
+    bit-equal."""
+    q, k, v, dout = _mla_inputs(b, sq, skv, h, hd, hd_v, dtype, cuda_device)
+    kw = dict(causal=causal, window=window, scale=hd ** -0.5)
+    out, lse = t_fa.forward_with_lse(q, k, v, **kw)
+    got = t_fa.backward(q, k, v, out, lse, dout, **kw)
+    again = t_fa.backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, r in zip(got, t_fa.reference_backward(q, k, v, out, lse, dout,
+                                                 **kw)):
+        assert a.shape == r.shape and a.dtype == r.dtype == dtype
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * float(r.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_flash_attention_unequal_head_dims_grouped_split_backward(
         cuda_device):
-    """No backward at unequal head dims yet, and no capped build of MLA's
-    pairs: the autograd route, ops.backward and a capped call raise, and
-    nothing falls back to the plain version."""
+    """(24, 16) with 4 query heads over 1 KV head at batch 1: the plan
+    splits the group into 4 parts, whose dK (24) and dV (16) partials the
+    group sum adds in order; against reference_backward."""
+    assert t_fa.backward_plan(1, 4, 1, 100, 100, 24, 16)["split"] == 4
+    q, k, v, dout = _mla_inputs(1, 100, 100, 4, 24, 16, torch.float32,
+                                cuda_device, kvh=1)
+    out, lse = t_fa.forward_with_lse(q, k, v)
+    got = t_fa.backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for a, r in zip(got, t_fa.reference_backward(q, k, v, out, lse, dout)):
+        assert a.shape == r.shape
+        assert float((a - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_unequal_head_dims_cap_raises(cuda_device):
+    """No capped build of MLA's pairs (no config has both): a capped call
+    raises, and nothing falls back to the plain version; the autograd
+    route at (192, 128) runs the kernels' backward."""
     q = torch.randn((1, 64, 2, 192), device=cuda_device)
     k = torch.randn((1, 64, 2, 192), device=cuda_device)
     v = torch.randn((1, 64, 2, 128), device=cuda_device)
-    out, lse = t_fa.forward_with_lse(q, k, v)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        t_fa.backward(q, k, v, out, lse, torch.ones_like(out))
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        t_fa.flash_attention(q.requires_grad_(True), k, v)
     with pytest.raises(NotImplementedError, match="soft-cap"):
-        t_fa.flash_attention(q.detach(), k, v, softcap=30.0)
-    with torch.no_grad():  # serving needs no backward
-        t_fa.flash_attention(q, k, v)
+        t_fa.flash_attention(q, k, v, softcap=30.0)
+    out, lse = t_fa.forward_with_lse(q, k, v)
+    with pytest.raises(NotImplementedError, match="soft-cap"):
+        t_fa.backward(q, k, v, out, lse, torch.ones_like(out), softcap=30.0)
+    n0, b0 = t_fa.launches, t_fa.bwd_launches
+    qg = q.clone().requires_grad_(True)
+    t_fa.flash_attention(qg, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert (t_fa.launches - n0, t_fa.bwd_launches - b0) == (1, 1)
+    assert qg.grad.shape == q.shape and bool(qg.grad.abs().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v2-236b"])
+def test_train_step_capped_and_mla_on_card_equals_cpu(arch, cuda_device):
+    """Reduced grok-1-314b (soft-capped attention, MoE) and
+    deepseek-v2-236b (MLA at (24, 16), MoE) train on the card: the
+    gradients within 1e-4 of each leaf's largest magnitude of the CPU
+    port's from the same state and batch, one flash_attention launch and
+    one backward a layer; then a train_step each: loss, NLL and
+    grad_norm within 1e-5 relative, the reservoir's ids equal (as
+    test_train_step_on_card_equals_cpu holds llama3.2-1b)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import StreamLoader
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = t_configs.get_config(arch, reduced=True)
+    cpu = steps.init_train_state(cfg, seed=0, reservoir_k=16, device="cpu")
+    loader = StreamLoader(cfg, ShapeConfig("t", seq_len=64, global_batch=8,
+                                           kind="train"), seed=0)
+    card = _state_to(cpu, cuda_device)
+    host = loader.batch_for_step(0)
+    b_cpu = {k: torch.as_tensor(x) for k, x in host.items()}
+    b_card = {k: torch.as_tensor(x, device=cuda_device)
+              for k, x in host.items()}
+    _, _, g_cpu = steps.loss_and_grads(cpu.params, cfg, b_cpu)
+    n0, b0 = t_fa.launches, t_fa.bwd_launches
+    _, _, g_card = steps.loss_and_grads(card.params, cfg, b_card)
+    assert (t_fa.launches - n0, t_fa.bwd_launches - b0) == \
+        (cfg.n_layers, cfg.n_layers)
+    for a, w in zip(adamw.tree_leaves(g_card), adamw.tree_leaves(g_cpu)):
+        top = float(w.abs().max())
+        assert top > 0
+        assert float((a.cpu() - w).abs().max()) <= 1e-4 * top
+    nxt, m_cpu = steps.train_step(cpu, b_cpu, cfg)
+    card, m_card = steps.train_step(card, b_card, cfg)
+    for key in ("loss", "per_example_nll", "grad_norm"):
+        np.testing.assert_allclose(m_card[key].cpu().numpy(),
+                                   m_cpu[key].numpy(), rtol=1e-5)
+    torch.testing.assert_close(card.reservoir.ids.cpu(), nxt.reservoir.ids)
 
 
 @pytest.mark.cuda

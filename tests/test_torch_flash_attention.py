@@ -241,23 +241,30 @@ SCRATCH_LIMIT = 128 << 20
 
 def _plan_archs():
     from repro_torch import configs
-    return [a for a in configs.ARCHS
-            if configs.get_config(a).n_heads
-            and not configs.get_config(a).use_mla]
+    return [a for a in configs.ARCHS if configs.get_config(a).n_heads]
+
+
+def _plan_heads(cfg):
+    """(H, KV, hd, hd_v) of a config's training launch: MLA's K and V per
+    head at (q/k, v) head dims (nope + rope, v_head_dim), GQA's at hd."""
+    if cfg.use_mla:
+        return (cfg.n_heads, cfg.n_heads,
+                cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim
 
 
 @pytest.mark.parametrize("arch", _plan_archs())
 @pytest.mark.parametrize("batch", [4, 8])
 def test_backward_plan_invariants_at_every_config(arch, batch):
-    """At each config's full width and batch x 1024 tokens: the dK/dV
-    block the kernel is compiled with; 1 <= split <= g with split | g
-    (even parts); the dK/dV grid is the unsplit one times split; the
-    group is split exactly when that grid is below BWD_FILL; the
-    partials stay within SCRATCH_LIMIT."""
+    """At each config's full width and batch x 1024 tokens (MLA's at its
+    head-dim pair): the dK/dV block the kernel is compiled with;
+    1 <= split <= g with split | g (even parts); the dK/dV grid is the
+    unsplit one times split; the group is split exactly when that grid is
+    below BWD_FILL; the partials (dK's and dV's, float32) stay within
+    SCRATCH_LIMIT."""
     from repro_torch import configs
-    cfg = configs.get_config(arch)
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    plan = t_ops.backward_plan(batch, h, kvh, 1024, 1024, hd)
+    h, kvh, hd, hd_v = _plan_heads(configs.get_config(arch))
+    plan = t_ops.backward_plan(batch, h, kvh, 1024, 1024, hd, hd_v)
     g, warps = h // kvh, t_ops.BWD_WARPS[hd]
     base = kvh * batch * -(-1024 // (16 * warps))
     assert plan["warps"] == warps and plan["keys"] == 16 * warps
@@ -268,8 +275,23 @@ def test_backward_plan_invariants_at_every_config(arch, batch):
         assert plan["split"] == 1 and plan["scratch_bytes"] == 0
     else:
         assert plan["split"] > 1
-        assert plan["scratch_bytes"] == (plan["split"] * 2 * 4 * batch
-                                         * 1024 * kvh * hd)
+        assert plan["scratch_bytes"] == (plan["split"] * 4 * batch * 1024
+                                         * kvh * (hd + hd_v))
+
+
+def test_backward_plan_at_mla_head_dims():
+    """deepseek-v2's training launch, q and k (8, 1024, 128, 192), v (8,
+    1024, 128, 128): 128 keys a dK/dV block, 8,192 blocks, no split; a
+    batch-1 call at (24, 16) whose group is split counts dK's and dV's
+    partials at their own head dims."""
+    plan = t_ops.backward_plan(8, 128, 128, 1024, 1024, 192, 128)
+    assert plan == {"warps": 8, "keys": 128, "split": 1, "blocks": 8192,
+                    "scratch_bytes": 0}
+    plan = t_ops.backward_plan(1, 4, 1, 100, 100, 24, 16)
+    assert plan["warps"] == 4 and plan["split"] == 4
+    assert plan["scratch_bytes"] == 4 * 4 * 100 * 1 * (24 + 16)
+    assert t_ops.backward_plan(1, 4, 1, 100, 100, 24)["scratch_bytes"] == \
+        4 * 4 * 100 * 1 * (24 + 24)
 
 
 def test_backward_plan_leaves_a_full_grid_unsplit():
@@ -455,8 +477,8 @@ def test_plain_unequal_head_dims_match_reference(b, sq, skv, h, hd, hd_v,
 
 def test_unequal_head_dims_shape_checks_and_gradient():
     """v may differ from q and k in its last dim alone; on the CPU the
-    plain version's gradient is autograd's (the card's backward at unequal
-    head dims raises, as for the cap)."""
+    plain version's gradient is autograd's, and the backward's kernel
+    takes no CPU tensor."""
     q, k, v = to_torch(make_mla(1, 8, 8, 2, 24, 16, seed=3), torch.float32)
     with pytest.raises(ValueError, match="do not fit"):
         t_ops.flash_attention(q, k[..., :16], v)
@@ -467,6 +489,6 @@ def test_unequal_head_dims_shape_checks_and_gradient():
     gq, gk, gv = torch.autograd.grad(out.square().sum(), (q, k, v))
     assert gv.shape == v.shape and all(bool(x.abs().any())
                                        for x in (gq, gk, gv))
-    with pytest.raises(NotImplementedError, match="unequal head dims"):
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
         t_ops.backward(q, k, v, out, torch.zeros((1, 2, 8)),
                        torch.ones_like(out))
