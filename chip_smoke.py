@@ -408,6 +408,29 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    finite losses); 22d 17b's llama3.2-1b step with cfg.remat beside
    without: gradients as 22a's rule says, then a train_step each way
    after a warm-up, its ms and peak memory.
+23. the model-side mesh and the dry run (repro_torch.parallel's ctx,
+   sharding and collectives; repro_torch.launch's dryrun, op_count,
+   roofline and inspect_cell). 23a: dryrun.run_cell on the host for
+   DRY_ARCHS (dense, MLA and MoE) at train_4k x single, a line a record
+   (status, per-chip argument bytes, FLOPs, link-bytes, bottleneck; the
+   other seven archs are left to the CLI: the ten take ~40 s of host
+   time); 23b: the per-chip slice of llama3.2-1b's train_4k on the
+   single pod, batch 1 x 4096 (1/256 of the cell's tokens), full width
+   and depth, bfloat16, cfg.remat, as inspect_cell --device cuda runs it
+   (flash_attention forward and backward): 2 warm train_steps, 5 timed
+   with CUDA events, a profiled one (the top five kernels by device
+   time) and one under op_count, whose FLOPs x 256 must equal the dry
+   run's global FLOPs within 1% (a check that the meta route and the
+   card route count alike, not that the count is right; the bytes are
+   printed beside, not held:
+   the optimizer's and the weights' bytes do not scale with the batch);
+   the step ms beside the roofline's per-chip t_compute and t_memory,
+   the peak memory beside the slice's traced peak live bytes plus its
+   arguments; launches counted exactly (32 forward, 16 backward a step),
+   each at FA_SLICE, the shape phase 3 holds to the plain version;
+   23c: compressed_psum over two shards on cuda:0, 64 rounds of error
+   feedback on a (4,194,304,) float32 gradient, bit for bit against the
+   CPU port's rounds, with the payload bytes, int8 beside float32.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -532,6 +555,9 @@ PX_ARCH = "pixtral-12b"
 PX_SERVE = dict(requests=8, batch=8, prompt_len=2048, gen_len=32, topk=8,
                 layers=20)
 FA_PX = (PX_SERVE["batch"], PX_SERVE["prompt_len"], 32, 8, 128)
+# phase 23b's launches: llama3.2-1b's train_4k a chip (1/256 of its
+# tokens), (B, S, H, KV, hd), causal; backward_plan splits its group of 4
+FA_SLICE = (1, 4096, 32, 8, 64)
 # the kernels line's phase 21 entries, by the FA_CASES labels whose
 # largest difference each takes
 FA_ENTRIES = (("whisper-base encoder", "whisper-encoder"),
@@ -1542,7 +1568,11 @@ FA_CASES = (("serve prefill", *FA_PATH[:2], *FA_PATH[1:], True, 0, 0.0),
             ("whisper-base decoder, training, causal, group 1",
              *FA_WH_DEC_TRAIN, True, 0, 0.0),
             ("pixtral-12b prefill, 32 over 8, hd 128", FA_PX[0], FA_PX[1],
-             *FA_PX[1:], True, 0, 0.0))
+             *FA_PX[1:], True, 0, 0.0),
+            # phase 23b's per-chip slice of llama3.2-1b's train_4k: 4096
+            # keys in one batch row, the backward split 2 with the group sum
+            ("llama3.2-1b train_4k per-chip slice, 32 over 8",
+             *FA_SLICE[:2], *FA_SLICE[1:], True, 0, 0.0))
 
 
 def fa_inputs(g, b, sq, skv, h, kvh, hd, dtype):
@@ -7082,6 +7112,183 @@ def capped_mla_training(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the model-side mesh and the dry run
+# ---------------------------------------------------------------------------
+
+# 23a's archs: dense, MLA and MoE (the ten take ~40 s of host time; the
+# rest are the CLI's: python -m repro_torch.launch.dryrun --all)
+DRY_ARCHS = ("llama3.2-1b", "deepseek-v2-236b", "grok-1-314b")
+PSUM_N, PSUM_ROUNDS, PSUM_SHARDS = 4_194_304, 64, 2  # 23c
+
+
+def dry_run_records(smi):
+    """23a: dryrun.run_cell at train_4k x single for DRY_ARCHS, on the
+    host; a line a record."""
+    from repro_torch.launch import dryrun
+    recs = {}
+    t0 = time.perf_counter()
+    for arch in DRY_ARCHS:
+        rec = dryrun.run_cell(arch, "train_4k", "single", verbose=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run [23a {arch}]: {rec}")
+        roof = rec["roofline"]
+        log(f"dry run [23a {arch} x train_4k x single] {rec['status']}: "
+            f"{rec['n_chips']} chips, per chip argument bytes "
+            f"{rec['memory']['argument_bytes']}, temp bytes "
+            f"{rec['memory']['temp_bytes']}, flops "
+            f"{roof['flops_per_chip']:.6e}, HBM bytes "
+            f"{roof['hbm_bytes_per_chip']:.6e}, link-bytes "
+            f"{roof['collective_link_bytes_per_chip']:.6e}, t_compute "
+            f"{roof['t_compute_s']:.6g} s, t_memory {roof['t_memory_s']:.6g}"
+            f" s, t_collective {roof['t_collective_s']:.6g} s -> "
+            f"{roof['bottleneck']}; useful flops "
+            f"{rec['useful_flops_ratio']:.4f}; traced in {rec['trace_s']} s "
+            f"(host; bounds at the H100 SXM's published peaks; {smi})")
+        recs[arch] = rec
+    log(f"dry run [23a] {len(DRY_ARCHS)} cells in "
+        f"{time.perf_counter() - t0:.1f}s of host time; {smi}")
+    return recs
+
+
+def dry_run_slice(smi, rec):
+    """23b: the per-chip slice of llama3.2-1b's train_4k on the card
+    (inspect_cell.card_slice), held to the dry run's record ``rec``.
+    Returns its flash_attention launches."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import dryrun, inspect_cell
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.ctx import LogicalMesh
+    torch.cuda.empty_cache()
+    shape = configs.get_shape("train_4k")
+    cfg = dryrun.cell_config(ARCH, shape, "single")
+    sl, scale = inspect_cell.slice_shape(shape, rec["n_chips"])
+    fa.launches = fa.bwd_launches = 0
+    fa.launches_at.clear()
+    fa.bwd_launches_at.clear()
+    res = inspect_cell.card_slice(ARCH, "train_4k", "single", warm=2,
+                                  timed=5, top=5)
+    launches = {"flash_attention": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches}
+    # every launch at the shape phase 3 holds to the plain version
+    at = (*FA_SLICE[:2], *FA_SLICE[1:], True)
+    shapes = set(fa.launches_at) | set(fa.bwd_launches_at)
+    if shapes != {at}:
+        raise AssertionError(f"dry run [23b] flash_attention launched at "
+                             f"{sorted(shapes)}, not only at phase 3's "
+                             f"slice case {at}")
+    b, seq, h, kvh, hd = FA_SLICE
+    plan = fa.backward_plan(b, h, kvh, seq, seq, hd)
+    log(f"dry run [23b] flash_attention launched {launches} times, all at "
+        f"B={b} Sq=Skv={seq} H={h} KV={kvh} hd={hd} causal (phase 3's "
+        f"slice case; the backward split {plan['split']}); {smi}")
+    n_steps = 2 + 5 + 1 + 1  # warm, timed, profiled, counted
+    layers = cfg.n_layers
+    want = {"flash_attention": 2 * layers * n_steps,  # forward + remat's
+            "flash_attention_bwd": layers * n_steps}
+    if launches != want:
+        raise AssertionError(f"dry run [23b] launches {launches} != {want}")
+    roof = rec["roofline"]
+    count = res["count"]
+    ratio = count["flops"] * scale / roof["detail"]["global_flops"]
+    bytes_ratio = count["bytes"] * scale / roof["detail"]["global_bytes"]
+    med = res["median_ms"]
+    log(f"dry run [23b {ARCH} slice {sl.global_batch} x {sl.seq_len}, "
+        f"1/{scale:g} of train_4k, bfloat16, remat] train_step "
+        f"{med:.3f} ms median of {len(res['ms'])} (CUDA events; "
+        f"{', '.join(f'{t:.3f}' for t in res['ms'])}); roofline per chip "
+        f"for the same tokens: t_compute {roof['t_compute_s'] * 1e3:.3f} ms"
+        f" (share {roof['t_compute_s'] * 1e3 / med:.4f}), t_memory "
+        f"{roof['t_memory_s'] * 1e3:.3f} ms (share "
+        f"{roof['t_memory_s'] * 1e3 / med:.4f}); {smi}")
+    log(f"dry run [23b] op_count of the card step: flops "
+        f"{count['flops']:.6e} x {scale:g} = {count['flops'] * scale:.6e} "
+        f"beside the dry run's {roof['detail']['global_flops']:.6e} "
+        f"(ratio {ratio:.6f}, held within 1%: the meta route and the card "
+        f"route count alike — not a check that the count is right, which "
+        f"tests/test_torch_dryrun.py::"
+        f"test_reduced_cells_against_the_reference_dry_run makes against "
+        f"hlo_parse); bytes "
+        f"{count['bytes']:.6e} x {scale:g} beside "
+        f"{roof['detail']['global_bytes']:.6e} (ratio {bytes_ratio:.4f}, "
+        f"not held: the weights' and the optimizer's bytes do not scale "
+        f"with the batch); {count['operations']} operations; {smi}")
+    if abs(ratio - 1.0) > 0.01:
+        raise AssertionError(f"dry run [23b] card flops x {scale:g} off "
+                             f"the dry run's by {ratio:.6f}")
+    # the slice's own trace on meta: its peak live bytes above its
+    # arguments (the state and the batch), beside the card's peak
+    oc, _, _ = dryrun.trace(cfg.replace(seq_parallel=False), sl)
+    one = LogicalMesh((1, 1), ("data", "model"))
+    _, args, in_sp, _ = dryrun.build_cell(cfg, sl, one)
+    traced = oc.peak_bytes + shd.local_bytes(one, args, in_sp)
+    if oc.flops != count["flops"]:
+        raise AssertionError(f"dry run [23b] the card step's flops "
+                             f"{count['flops']} != the meta trace's "
+                             f"{oc.flops}")
+    log(f"dry run [23b] peak memory {res['peak_bytes'] / 2**30:.3f} GiB "
+        f"(max_memory_allocated over the timed steps) beside the slice's "
+        f"traced {traced / 2**30:.3f} GiB (peak live "
+        f"{oc.peak_bytes / 2**30:.3f} + arguments "
+        f"{(traced - oc.peak_bytes) / 2**30:.3f}): ratio "
+        f"{res['peak_bytes'] / traced:.4f}; the meta trace's flops equal "
+        f"the card step's; {smi}")
+    for name, dev_ms, calls in res["top_kernels"]:
+        log(f"dry run [23b] top kernel {dev_ms:9.4f} ms in {calls} calls "
+            f"(one profiled step; {smi})  {name[:90]}")
+    return launches
+
+
+def dry_run_psum(smi):
+    """23c: compressed_psum over PSUM_SHARDS shards on cuda:0 against the
+    CPU port, PSUM_ROUNDS rounds of error feedback, bit for bit."""
+    from repro_torch.parallel import collectives as coll
+    rng = np.random.default_rng(23)
+    # each round's gradient: a seeded base per shard at a round's scale
+    base = rng.standard_normal((PSUM_SHARDS, PSUM_N), dtype=np.float32)
+    scales = 10.0 ** rng.uniform(-3, 1, (PSUM_ROUNDS, PSUM_SHARDS))
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        errs = None
+        t0 = time.perf_counter()
+        means = []
+        shards = torch.from_numpy(base).to(dev)
+        for r in range(PSUM_ROUNDS):
+            m, errs = coll.compressed_psum(
+                [shards[i] * float(scales[r, i])
+                 for i in range(PSUM_SHARDS)], errs)
+            means.append(m[0].cpu())
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        out[dev] = (means, [e.cpu() for e in errs],
+                    time.perf_counter() - t0)
+    for r, (a, b) in enumerate(zip(out["cuda:0"][0], out["cpu"][0])):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"dry run [23c] round {r}: the card's mean "
+                                 f"differs from the CPU's")
+    for a, b in zip(out["cuda:0"][1], out["cpu"][1]):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError("dry run [23c] the card's residual "
+                                 "differs from the CPU's")
+    log(f"dry run [23c] compressed_psum, {PSUM_SHARDS} shards on cuda:0, "
+        f"{PSUM_ROUNDS} rounds of error feedback on ({PSUM_N},) float32: "
+        f"means and residuals bit-equal to the CPU port's; payload "
+        f"{PSUM_N + 4} bytes a shard (int8 and its float32 scale) beside "
+        f"{4 * PSUM_N} float32; {out['cuda:0'][2]:.3f} s on the card "
+        f"(host clock, a host copy a round), {out['cpu'][2]:.3f} s on the "
+        f"CPU; {smi}")
+
+
+def dry_run(smi):
+    """Phase 23: 23a the dry-run records, 23b the per-chip slice on the
+    card, 23c compressed_psum on the card. Returns 23b's launches."""
+    recs = dry_run_records(smi)
+    launches = dry_run_slice(smi, recs[ARCH])
+    dry_run_psum(smi)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7173,6 +7380,9 @@ def main():
                      "(phase 22)"):
         for key, n in capped_mla_training(smi).items():
             launches[key] = launches.get(key, 0) + n
+    with phase_clock("the model-side mesh and the dry run (phase 23)"):
+        for key, n in dry_run(smi).items():
+            launches[key] += n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",

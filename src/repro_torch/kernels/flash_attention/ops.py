@@ -39,6 +39,14 @@ capped logit with the forward's ``tanhf`` and take dS times 1 − t², and
 at MLA's pairs dQ and dK run over the q/k head dim, dV over v's.
 ``reference_lse`` and ``reference_backward`` are the plain versions the
 backward is held to.
+
+Counting the work: each forward and backward call, on the card and on
+``meta``, tells the ``observers`` (``launch.op_count.OpCount`` while one
+is active) its operations and bytes as ``work`` reckons them: the
+products of the visible (query, key) pairs alone, as the kernel computes
+them. A ``meta`` tensor takes ``MetaFlashFn``: the kernel's output
+shapes, and its backward's, with no launch and no arithmetic, so that a
+step traced on ``meta`` passes through the kernel as the card runs it.
 """
 from __future__ import annotations
 
@@ -73,6 +81,9 @@ launches = 0
 bwd_launches = 0
 launches_at: collections.Counter = collections.Counter()
 bwd_launches_at: collections.Counter = collections.Counter()
+# objects with a ``kernel(name, flops, nbytes, shapes)`` method, told of
+# each forward and backward call's work (``work``) on the card and on meta
+observers: list = []
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's types
 
@@ -264,11 +275,67 @@ def backward_info(hd, dtype=torch.float32, hd_v=None, softcap=False):
     return out
 
 
-def _prepare(q, k, v, softcap=0.0):
-    """Checks for a kernel launch; returns q, k, v contiguous and 16-byte
-    aligned (the kernel copies 16-byte pieces of rows)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+def _ramp(a: int, b: int, cap: int) -> int:
+    """Σ max(0, min(x, cap)) over the integers x from a to b."""
+    a = max(a, 1)
+    top = min(b, cap)
+    rise = (a + top) * (top - a + 1) // 2 if top >= a else 0
+    return rise + cap * max(0, b - max(a, cap + 1) + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks leave visible (``_visible``'s
+    count), in closed form. Query row i sits at position p = i + Skv − Sq
+    (p0 = Skv − Sq to Skv − 1) and sees the keys from max(0, p − window
+    + 1) (0 with no window) to p (causal) or Skv − 1: causal, min(p + 1,
+    window) of them; non-causal, min(Skv, Skv + window − 1 − p). Pure
+    integer arithmetic, so that no tensor operation runs inside a
+    dispatch mode that counts them."""
+    p0 = skv - sq
+    if causal:
+        return _ramp(p0 + 1, skv, window if window > 0 else skv)
+    if window <= 0:
+        return sq * skv
+    return _ramp(window, skv + window - 1 - p0, skv)
+
+
+def work(b, sq, skv, h, kvh, hd, hd_v, causal, window, itemsize,
+         backward=False) -> tuple:
+    """(operations, bytes) of one call as the kernel does it, the
+    kernel table's reckoning: the forward's two products, 2 · (hd + hd_v)
+    a visible pair a query head; the backward's five (S, dP, dV, dQ, dK),
+    2 · (3 · hd + 2 · hd_v). Bytes: each input read once, each output
+    written once (the forward's q, k, v and out with its float32 row
+    log-sum-exp; the backward's q, k, v, out, dout and lse, then dq, dk
+    and dv)."""
+    pairs = b * h * visible_pairs(sq, skv, causal, window)
+    q_el, k_el, v_el = b * sq * h * hd, b * skv * kvh * hd, b * skv * kvh * hd_v
+    o_el, lse_b = b * sq * h * hd_v, 4 * b * h * sq
+    if backward:
+        return (2 * (3 * hd + 2 * hd_v) * pairs,
+                2 * (q_el + k_el + v_el) * itemsize + 2 * o_el * itemsize
+                + lse_b)
+    return (2 * (hd + hd_v) * pairs,
+            (q_el + k_el + v_el + o_el) * itemsize + lse_b)
+
+
+def _notify(q, k, v, causal, window, backward=False) -> None:
+    """Tell each observer one call's work (``work``)."""
+    if not observers:
+        return
+    b, sq, h, hd = q.shape
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    flops, nbytes = work(b, sq, skv, h, kvh, hd, hd_v, causal, window,
+                         q.element_size(), backward)
+    name = "flash_attention_bwd" if backward else "flash_attention"
+    shapes = (tuple(q.shape), tuple(k.shape), tuple(v.shape))
+    for obs in observers:
+        obs.kernel(name, flops, nbytes, shapes)
+
+
+def _check_build(q, k, v, softcap=0.0):
+    """The shapes and types the kernel is built for; raises on others."""
     _check(q, k, v)
     if q.dtype not in _DTYPES:
         raise ValueError(f"the flash_attention kernel takes float32 or "
@@ -286,6 +353,14 @@ def _prepare(q, k, v, softcap=0.0):
         raise ValueError(f"the flash_attention kernel takes a batch and "
                          f"Sq / {ROWS} and Skv / {ROWS} up to {MAX_GRID}, "
                          f"got {b}, {sq} and {skv}")
+
+
+def _prepare(q, k, v, softcap=0.0):
+    """Checks for a kernel launch; returns q, k, v contiguous and 16-byte
+    aligned (the kernel copies 16-byte pieces of rows)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_build(q, k, v, softcap)
     q, k, v = (x.contiguous() for x in (q, k, v))
     return tuple(x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
 
@@ -310,6 +385,7 @@ def _launch_forward(q, k, v, causal, window, scale, with_lse, softcap=0.0):
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
     launches_at[(b, sq, skv, h, kvh, hd, bool(causal))] += 1
+    _notify(q, k, v, causal, window)
     return out, lse
 
 
@@ -346,6 +422,7 @@ def _launch_backward(q, k, v, out, lse, dout, causal, window, scale,
                            f"error {err}")
     bwd_launches += 1
     bwd_launches_at[(b, sq, skv, h, kvh, hd, bool(causal))] += 1
+    _notify(q, k, v, causal, window, backward=True)
     return dq, dk, dv
 
 
@@ -367,6 +444,25 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _launch_backward(q, k, v, out, lse, dout, *ctx.args)
         return dq, dk, dv, None, None, None, None
+
+
+class MetaFlashFn(torch.autograd.Function):
+    """The kernel on ``meta`` tensors: its outputs' shapes and its
+    backward's, no launch; each call's work goes to the observers."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        _notify(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window)
+        return q.new_empty(q.shape[:3] + v.shape[3:])
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        _notify(q, k, v, *ctx.args, backward=True)
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None, None)
 
 
 def forward_with_lse(q, k, v, *, causal: bool = True, window: int = 0,
@@ -400,7 +496,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     masked averages v over all Skv keys, as the reference's plain version
     does.
 
-    CUDA tensors run the kernel, CPU tensors the plain version. On a
+    CUDA tensors run the kernel, CPU tensors the plain version, ``meta``
+    tensors ``MetaFlashFn`` (shapes and the work, no arithmetic). On a
     CUDA tensor with grad enabled and an input that requires grad, the
     call runs ``FlashAttentionFn``, whose backward runs the backward
     kernels (``backward``), capped and at MLA's head dims too."""
@@ -408,6 +505,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window, scale=scale,
                          softcap=softcap)
+    if q.device.type == "meta":
+        _check_build(q, k, v, softcap)
+        return MetaFlashFn.apply(q, k, v, causal, window)
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, window, scale, softcap)

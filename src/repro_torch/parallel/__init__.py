@@ -1,8 +1,8 @@
-"""Fleet-axis sharding — the port of the reference's ``repro.parallel``
-(its fleet side, ``parallel.fleet``).
-
-The model side of the reference's package (``ctx``, ``sharding``,
-``collectives``: parameters, optimizer moments and gradients across a
-pod) belongs with training and is not ported here.
+"""Sharding — the port of the reference's ``repro.parallel``: the fleet
+axis (``fleet``: the stream dimension split across shards of one
+process), and the model side (``ctx``: the logical mesh and its marker
+rules; ``sharding``: the parameter, optimizer, batch and cache specs;
+``collectives``: the int8 error-feedback mean over shards), which the
+dry run (``repro_torch.launch.dryrun``) prices per chip.
 """
 from . import fleet  # noqa: F401

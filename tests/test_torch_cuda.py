@@ -2479,3 +2479,49 @@ def _at(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+@pytest.mark.cuda
+def test_card_slice_count_scales_to_the_dry_run(cuda_device):
+    """The per-chip slice of llama3.2-1b's train_4k (batch 1 x 4096,
+    bfloat16, cfg.remat) on the card under op_count: its FLOPs x 256
+    equal the dry run's global FLOPs within 1% (in fact exactly: every
+    product scales with the batch), and equal the slice's own trace on
+    meta; 32 forward and 16 backward flash_attention launches a step."""
+    from repro_torch.launch import dryrun, inspect_cell
+    rec = dryrun.run_cell("llama3.2-1b", "train_4k", "single", verbose=False)
+    n0, b0 = t_fa.launches, t_fa.bwd_launches
+    res = inspect_cell.card_slice("llama3.2-1b", "train_4k", warm=1,
+                                  timed=1, top=3)
+    assert (t_fa.launches - n0, t_fa.bwd_launches - b0) == (4 * 32, 4 * 16)
+    glob = rec["roofline"]["detail"]["global_flops"]
+    assert abs(res["count"]["flops"] * res["scale"] / glob - 1) < 0.01
+    shape = t_configs.get_shape("train_4k")
+    cfg = dryrun.cell_config("llama3.2-1b", shape, "single")
+    sl, _ = inspect_cell.slice_shape(shape, 256)
+    oc, _, _ = dryrun.trace(cfg.replace(seq_parallel=False), sl)
+    assert oc.flops == res["count"]["flops"]
+    assert res["median_ms"] > 0 and len(res["top_kernels"]) == 3
+
+
+@pytest.mark.cuda
+def test_compressed_psum_on_card_equals_cpu(cuda_device):
+    """Two shards on the card, 8 rounds of error feedback: the means and
+    residuals bit-equal to the CPU port's (IEEE division, round half to
+    even, exact int32 sums and the scales added in shard order)."""
+    from repro_torch.parallel import collectives as coll
+    rng = np.random.default_rng(5)
+    grads = [[(rng.standard_normal(65_536) * 10.0 ** rng.uniform(-3, 1))
+              .astype(np.float32) for _ in range(2)] for _ in range(8)]
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        errs, means = None, []
+        for g in grads:
+            m, errs = coll.compressed_psum(
+                [torch.from_numpy(x).to(dev) for x in g], errs)
+            assert m[0].device.type == dev.type
+            means.append(m[0].cpu())
+        out[dev.type] = (means, [e.cpu() for e in errs])
+    for a, b in zip(out["cuda"][0] + out["cuda"][1],
+                    out["cpu"][0] + out["cpu"][1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
