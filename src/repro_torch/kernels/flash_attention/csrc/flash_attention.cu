@@ -37,7 +37,24 @@
 // 495 / 3 = 165 TFLOP/s (0.21 ms and 0.31 ms at the shapes above),
 // against 67 TFLOP/s on the float32 units (0.51 ms and 0.77 ms). The
 // split uses integer operations (add half a TF32 ulp, clear the low 13
-// bits), not cvt.rna.tf32, which issues at a quarter of the rate.
+// bits), not cvt.rna.tf32, which runs at a quarter of the rate; small
+// goes to the tensor core as it is, which reads its top bits truncated
+// (rounding it too measured no closer to a float64 route).
+//
+// Accumulation. The tensor core adds inside an mma with truncation toward
+// zero, so a sum carried in one accumulator through many mma drifts, the
+// more the longer the sum. Carried so, O (a sum over every key) lies 2-10
+// times as far from a float64 route as a float32 plain route does, and
+// the backward, which reads Delta = rowsum(dO * O) from this output,
+// leaves that error in every row of dS (whose exact sum is 0): at
+// whisper-base's encoder the key bias's gradient, made of those residues
+// alone, comes out 11 times the plain route's. So each product is promoted
+// (mma3_add): the three mma of 8 k-steps sum into a zeroed fragment,
+// which a float32 add, rounded to nearest, puts into S (every 8 dims of
+// the head) or into O (every 8 keys, after O's rescale by alpha). Both
+// then sit closer to a float64 route than a float32 plain route does
+// (PERF.md, the float64 table). The adds make the forward about a fifth
+// slower at head dims 64 and 128.
 //
 // Design: a block of 4 warps owns 64 * MT query rows of one (batch, head);
 // warp w owns MT m-tiles of 16 rows, so it needs no other warp's rows and
@@ -175,7 +192,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const T* kt = ks + buf * BK * kLd;
     const T* vt = vs + buf * BK * vLd;
 
-    // S = Q K^T, each product as three TF32 mma
+    // S = Q K^T, each product as three TF32 mma, promoted every 8 dims
     float s[MT][NT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -201,14 +218,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         split(ld1(kr), bb0, bs0);
         split(ld1(kr + 4), bb1, bs1);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_tf32(s[mt][n], as[mt][0], as[mt][1], as[mt][2], as[mt][3], bb0,
-                   bb1);
-          mma_tf32(s[mt][n], ab[mt][0], ab[mt][1], ab[mt][2], ab[mt][3], bs0,
-                   bs1);
-          mma_tf32(s[mt][n], ab[mt][0], ab[mt][1], ab[mt][2], ab[mt][3], bb0,
-                   bb1);
-        }
+        for (int mt = 0; mt < MT; ++mt)
+          mma3_add(s[mt][n], ab[mt], as[mt], bb0, bs0, bb1, bs1);
       }
     }
 
@@ -259,7 +270,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           }
       }
 
-    // O += P V
+    // O += P V, promoted every 8 keys
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       // P fragments of keys 8n..8n+7: k index t is key 2t, t + 4 key 2t + 1
@@ -278,14 +289,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         split(ld1(vr + 8 * d), bb0, bs0);
         split(ld1(vr + vLd + 8 * d), bb1, bs1);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_tf32(o[mt][d], as[mt][0], as[mt][1], as[mt][2], as[mt][3], bb0,
-                   bb1);
-          mma_tf32(o[mt][d], ab[mt][0], ab[mt][1], ab[mt][2], ab[mt][3], bs0,
-                   bs1);
-          mma_tf32(o[mt][d], ab[mt][0], ab[mt][1], ab[mt][2], ab[mt][3], bb0,
-                   bb1);
-        }
+        for (int mt = 0; mt < MT; ++mt)
+          mma3_add(o[mt][d], ab[mt], as[mt], bb0, bs0, bb1, bs1);
       }
     }
   }

@@ -1,9 +1,9 @@
 // What the forward (flash_attention.cu) and the backward
 // (flash_attention_bwd.cu) of flash_attention share: the constants,
 // the padded tiles and their cp.async loads, the 3xTF32 split and
-// mma.sync, the base-2 logit with its optional soft-cap, and the
-// head-dim pairs the kernels are built for. Each translation unit
-// compiles its own copy (an anonymous namespace).
+// mma.sync, the promoted product, the base-2 logit with its optional
+// soft-cap, and the head-dim pairs the kernels are built for. Each
+// translation unit compiles its own copy (an anonymous namespace).
 #pragma once
 
 #include <cstdint>
@@ -67,7 +67,8 @@ __device__ __forceinline__ void load_tile(T* tile, const T* base, int r0,
 
 // x = big + small: big is x rounded to TF32 (half an ulp added, the low 13
 // bits cleared), small = x - big exactly; the tensor core reads small's
-// top 11 significant bits, so big + small keeps about 22 bits of x
+// top 11 significant bits (truncated: rounding them measured no closer to
+// float64 and cost time), so big + small keeps about 22 bits of x
 __device__ __forceinline__ void split(float x, uint32_t& big,
                                      uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
@@ -83,6 +84,32 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a * b as 3xTF32: small * big, big * small, big * big
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0,
+                                     uint32_t bs0, uint32_t bb1,
+                                     uint32_t bs1) {
+  mma_tf32(d, as[0], as[1], as[2], as[3], bb0, bb1);
+  mma_tf32(d, ab[0], ab[1], ab[2], ab[3], bs0, bs1);
+  mma_tf32(d, ab[0], ab[1], ab[2], ab[3], bb0, bb1);
+}
+
+// mma3 promoted: the three products of 8 k-steps summed into a zeroed
+// fragment, which a float32 add, rounded to nearest, puts into d. The
+// tensor core truncates the sum inside an mma, so a sum carried in one
+// accumulator through many mma drifts toward zero; this keeps each
+// truncation to the 8 k-steps' own sum.
+__device__ __forceinline__ void mma3_add(float (&d)[4],
+                                         const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4],
+                                         uint32_t bb0, uint32_t bs0,
+                                         uint32_t bb1, uint32_t bs1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(t, ab, as, bb0, bs0, bb1, bs1);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) d[c] += t[c];
 }
 
 // a logit in base-2 units: x * scale * log2 e, or with the cap

@@ -63,8 +63,16 @@
 // split in two. Each query tile's products therefore go into a zeroed
 // fragment (a chain of 3 * BM / 8 mma), which a float32 add, rounded to
 // nearest, puts into the totals: 2.6e-6 at the training shape, 3.3e-6
-// over 8 heads of 4096 queries. dQ's sums over keys, whose dS rows sum to
-// zero, stay within 4e-6 at 4096 keys and are carried as they are.
+// over 8 heads of 4096 queries. dQ's sums over keys drift the same way:
+// carried in one accumulator they sit up to 8.8 times as far from a
+// float64 route as a float32 plain route's, so dS K is promoted every 8
+// keys (mma3_add: three mma into a zeroed fragment, then a float32 add).
+// The recomputed S and dP, sums over the head dim, are promoted every 8
+// dims in both launches, as the forward's S is: carried whole in the dq
+// launch they would put dQ up to 4.5 times as far from float64 as the plain
+// route, in the dK/dV launch dK up to 2.8 and dV up to 3.2 times. With
+// all of them, every gradient sits closer to a float64 route than a
+// float32 plain route does (PERF.md, the float64 table).
 //
 // Splitting the group: when kvh * B * ceil(Skv / (16 NW)) blocks cannot
 // fill the card (ops.backward_plan decides), the g query heads of each KV
@@ -240,7 +248,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     const T* kt = ks + buf * BK * kLd;
     const T* vt = vs + buf * BK * vLd;
 
-    // S = Q K^T over HDK and dP = dO V^T over HDV
+    // S = Q K^T over HDK and dP = dO V^T over HDV, promoted every 8 dims
     float s[MT][NT][4], dp[MT][NT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -265,13 +273,13 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           frag_b(kt + (8 * n + g) * kLd + kk + t4, 4, bb0, bs0, bb1, bs1);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
-            mma3(s[mt][n], qb[mt], qsm[mt], bb0, bs0, bb1, bs1);
+            mma3_add(s[mt][n], qb[mt], qsm[mt], bb0, bs0, bb1, bs1);
         }
         if (kk < HDV) {
           frag_b(vt + (8 * n + g) * vLd + kk + t4, 4, bb0, bs0, bb1, bs1);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
-            mma3(dp[mt][n], ob[mt], osm[mt], bb0, bs0, bb1, bs1);
+            mma3_add(dp[mt][n], ob[mt], osm[mt], bb0, bs0, bb1, bs1);
         }
       }
     }
@@ -307,7 +315,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           }
       }
 
-    // dQ += dS K
+    // dQ += dS K, promoted every 8 keys
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       uint32_t ab[MT][4], as[MT][4];
@@ -320,7 +328,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
         frag_b(kr + 8 * d, kLd, bb0, bs0, bb1, bs1);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma3(acc[mt][d], ab[mt], as[mt], bb0, bs0, bb1, bs1);
+          mma3_add(acc[mt][d], ab[mt], as[mt], bb0, bs0, bb1, bs1);
       }
     }
   }

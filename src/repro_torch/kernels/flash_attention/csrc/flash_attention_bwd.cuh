@@ -1,7 +1,7 @@
 // What the two translation units of flash_attention's backward
 // (flash_attention_bwd.cu: dQ, the group sum and the entry points;
-// flash_attention_dkdv.cu: dK and dV) share: the fragment loads and
-// 3xTF32 products, the recomputed logit, the dispatch over dtypes,
+// flash_attention_dkdv.cu: dK and dV) share: the fragment loads, the
+// recomputed logit, the dispatch over dtypes,
 // head-dim pairs and the cap, and the dK/dV launch's interface.
 #pragma once
 
@@ -45,16 +45,6 @@ __device__ __forceinline__ void frag_b(const T* p, int step, uint32_t& b0,
                                        uint32_t& s1) {
   split(ld1(p), b0, s0);
   split(ld1(p + step), b1, s1);
-}
-
-// d += a * b as 3xTF32: small * big, big * small, big * big
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], uint32_t bb0,
-                                     uint32_t bs0, uint32_t bb1,
-                                     uint32_t bs1) {
-  mma_tf32(d, as[0], as[1], as[2], as[3], bb0, bb1);
-  mma_tf32(d, ab[0], ab[1], ab[2], ab[3], bs0, bs1);
-  mma_tf32(d, ab[0], ab[1], ab[2], ab[3], bb0, bb1);
 }
 
 // logit2<CAP> of a recomputed product x, as the forward forms it; with

@@ -147,7 +147,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     const float* dlt = dls + buf * BM;
 
     // S^T = K Q^T over HDK and dP^T = V dO^T over HDV: the warp's 16 keys
-    // by BM queries
+    // by BM queries, promoted every 8 dims
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -163,11 +163,11 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
         uint32_t bb0, bs0, bb1, bs1;
         if (kk < HDK) {
           frag_b(qt + (8 * n + g) * kLd + kk + t4, 4, bb0, bs0, bb1, bs1);
-          mma3(s[n], kb, ksm, bb0, bs0, bb1, bs1);
+          mma3_add(s[n], kb, ksm, bb0, bs0, bb1, bs1);
         }
         if (kk < HDV) {
           frag_b(dt + (8 * n + g) * vLd + kk + t4, 4, bb0, bs0, bb1, bs1);
-          mma3(dp[n], vb, vsm, bb0, bs0, bb1, bs1);
+          mma3_add(dp[n], vb, vsm, bb0, bs0, bb1, bs1);
         }
       }
     }

@@ -25,9 +25,12 @@ requires it, ``flash_attention`` runs ``FlashAttentionFn``. Its forward is
 the same kernel with the row log-sum-exp written beside the output, and
 its backward the hand-written backward of the same source: a dQ launch,
 then a dK/dV launch, every product on the tensor cores as 3xTF32
-``mma.sync`` with P and dS kept in registers and each query tile's dK/dV
-products added to the totals in float32 (the tensor cores truncate
-inside long sums). ``backward_plan`` picks how many even parts the dK/dV
+``mma.sync`` with P and dS kept in registers. The tensor cores truncate
+inside long sums, so in the forward and backward alike each 8-step chunk
+of a product (S and dP over the head dim, O and dQ over the keys) and
+each query tile's dK/dV products are added to their totals in float32,
+which keeps the float32 gradients as close to a float64 route as the
+plain version's. ``backward_plan`` picks how many even parts the dK/dV
 launch cuts each group of query heads into when its blocks alone cannot
 fill the card; each part then writes float32 partials, and a third
 launch adds them in part order. No atomics: the

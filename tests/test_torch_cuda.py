@@ -1865,6 +1865,52 @@ def test_flash_attention_backward_long_sums_equal_plain(case, dtype,
     _check_backward(case, dtype, cuda_device)
 
 
+def _f64_gap(grads, g64):
+    """dq, dk and dv's largest absolute difference from the float64 plain
+    route's over its largest magnitude; then the key-bias residue, the
+    largest |sum of dk over the keys| of a batch row, KV head and dim over
+    dk's largest float64 magnitude (the key bias's exact gradient is 0:
+    each row of dS sums to 0)."""
+    gap = [float((a.double() - w).abs().max() / w.abs().max())
+           for a, w in zip(grads, g64)]
+    return gap + [float(grads[1].double().sum(dim=1).abs().max()
+                        / g64[1].abs().max())]
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_float64_witness(cuda_device):
+    """The float32 kernel route's backward at a non-causal shape with 1024
+    keys behind a key bias (whisper-base's attention carries one) against
+    a float64 plain route: dq, dk and dv at most 3 times as far from it
+    as the float32 plain route's (reference, reference_lse,
+    reference_backward), and the key-bias residue at most 3 times the
+    float32 plain route's. Where Delta = rowsum(dO * O) comes from the
+    forward's output and O or dQ sum over the keys in one tensor-core
+    accumulator, the residue comes out orders of magnitude larger."""
+    b, sq, skv, h, kvh, hd = 2, 256, 1024, 4, 4, 64
+    rng = np.random.default_rng(34)
+    q, k, v, dout = (torch.tensor(rng.standard_normal(shape),
+                                  device=cuda_device, dtype=torch.float32)
+                     for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
+                                   (b, skv, kvh, hd), (b, sq, h, hd)))
+    k = k + torch.tensor(rng.standard_normal(hd), device=cuda_device,
+                         dtype=torch.float32)
+    kw = dict(causal=False)
+    out, lse = t_fa.forward_with_lse(q, k, v, **kw)
+    kernel = t_fa.backward(q, k, v, out, lse, dout, **kw)
+
+    def plain(dtype):
+        xs = [x.to(dtype) for x in (q, k, v, dout)]
+        o = t_fa.reference(*xs[:3], **kw)
+        return t_fa.reference_backward(
+            *xs[:3], o, t_fa.reference_lse(*xs[:3], **kw), xs[3], **kw)
+
+    g64 = plain(torch.float64)
+    got, want = _f64_gap(kernel, g64), _f64_gap(plain(torch.float32), g64)
+    for name, a, w in zip(("dq", "dk", "dv", "key-bias residue"), got, want):
+        assert a <= 3 * w, (name, a, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case,split", [
