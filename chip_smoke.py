@@ -115,8 +115,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    stream ingested with ingest_chunks in 16 chunks of 16, meter off, and
    finalize_tiers; launch counters, per-tier counts and 256 sampled
    streams against core.simulator replays;
-6. metered self-check at the defaults of examples/multi_tenant_streams.py:
-   1024 tenants, survivors against simulator replays and finalize_tiers
+6. metered self-check: examples_torch/multi_tenant_streams.py's run() at
+   its defaults (1024 tenants, the fleet, shuffled ingest and replay
+   check of examples/multi_tenant_streams.py), then on the engine it
+   returns survivors against simulator replays and finalize_tiers
    against the meter's attribution; its own launch counters must show
    both kernels on this path too;
 7. a torch.profiler profile of full-width steps: the compute engine's
@@ -435,7 +437,22 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    each at FA_SLICE, the shape phase 3 holds to the plain version;
    23c: compressed_psum over two shards on cuda:0, 64 rounds of error
    feedback on a (4,194,304,) float32 gradient, bit for bit against the
-   CPU port's rounds, with the payload bytes, int8 beside float32.
+   CPU port's rounds, with the payload bytes, int8 beside float32;
+24. the example scripts on the card: each script of examples_torch/
+   (the ports of examples/) through its run() in this process, but
+   multi_tenant_streams, which phase 6 runs: million_streams --ci
+   --devices 8 (64,000 streams and 64 logmem tenants at K=65,536 as 8
+   shards on cuda:0), online_replanning, fleet_telemetry,
+   cost_attribution, chaos_recovery (whose child, the script run with
+   --role child, is a subprocess), serve_topk --tenants 4, quickstart,
+   three_tier_cloud and capacity_slo_cloud, each at its defaults, their
+   outputs under build/examples24/ (removed at the end). Each script's
+   printed lines, exit status, wall seconds and launches of every
+   kernel are logged; a script that fails ends the run, one that does
+   not launch the kernels its path runs (none for the two host
+   scripts) too, and so do serve_topk's tenants not each retaining
+   their top-K and quickstart's device reservoir not equal to its host
+   curator.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -2690,44 +2707,30 @@ def main_path():
 # phase 6: metered self-check
 # ---------------------------------------------------------------------------
 
+def example(name):
+    """The module of examples_torch/<name>.py."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def self_check():
-    from repro_torch.core import costs, placement, simulator
+    """examples_torch/multi_tenant_streams.py's run() at its defaults
+    (1024 tenants, 256 docs, batches of 32, seed 0): its fleet, its
+    shuffled ingest and its replay check, then its engine's launches and
+    finalize_tiers against the meter's attribution."""
     from repro_torch.kernels.batched_topk import ops as btk
     from repro_torch.kernels.tier_assign import ops as ta
-    from repro_torch.streams import StreamEngine, StreamSpec
-    m, docs, batch = 1024, 256, 32
-    rng = np.random.default_rng(0)
-    specs = []
-    for i in range(m):
-        k = (4, 8, 16, 32)[i % 4]
-        cm = costs.hbm_host_preset(
-            n_docs=docs, k=k, doc_gb=float(rng.uniform(1e-6, 1e-4)),
-            window_seconds=float(rng.uniform(10.0, 600.0)),
-            hbm_bw_gbps=819.0, host_link_gbps=float(rng.uniform(8.0, 64.0)),
-            hbm_capacity_premium=float(rng.uniform(5.0, 500.0)))
-        specs.append(StreamSpec(stream_id=i, k=k, cost_model=cm))
-    eng = StreamEngine(specs)
-    traces = np.stack([simulator.random_rank_trace(docs, rng)
-                       for _ in range(m)]).astype(np.float32)
-    sids = np.arange(m)
+    script = example("multi_tenant_streams")
+    args = script.parse_args([])
+    m, docs, batch = args.streams, args.docs, args.batch
     # the counted run: counters to 0, drive, read after finalize_tiers
     btk.launches = ta.launches = 0
-    t0 = time.perf_counter()
-    for t in range(0, docs, batch):
-        mixed_sids = np.repeat(sids, batch)
-        mixed_dids = np.tile(np.arange(t, t + batch), m)
-        perm = rng.permutation(mixed_sids.size)
-        eng.ingest(mixed_sids[perm],
-                   traces[:, t:t + batch].reshape(-1)[perm],
-                   mixed_dids[perm])
-    t_ingest = time.perf_counter() - t0
-    survivors = eng.finalize()
-    match = 0
-    for i, spec in enumerate(specs):
-        pol = placement.Policy(r=eng.meter.rs[eng.stream_row(i)],
-                               migrate_at_r=eng.plan.migrate(i))
-        sim = simulator.simulate(traces[i].astype(np.float64), spec.k, pol)
-        match += np.array_equal(survivors[i], sim.survivor_ids)
+    res = script.run(args)
+    eng, t_ingest, match = res.engine, res.ingest_s, res.matched
     tiers = eng.finalize_tiers()
     launches = {"batched_topk": btk.launches, "tier_assign": ta.launches}
     n_buckets = len(eng.buckets)
@@ -7502,7 +7505,110 @@ def dry_run(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the example scripts on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_OUT = ROOT / "build" / "examples24"
+# each script of examples_torch/ but multi_tenant_streams (phase 6 runs
+# it) with its argv, at its defaults but for million_streams' CI scale
+# and the outputs put under build/, and the kernels it must launch (none
+# for the two host scripts, which must launch none)
+EXAMPLE_RUNS = (
+    ("million_streams", ["--ci", "--devices", str(SHARDS), "--out",
+                         str(EXAMPLES_OUT / "million_streams.json")],
+     ("plan_solve", "batched_topk", "logmem_update")),
+    ("online_replanning", [], ("batched_topk",)),
+    ("fleet_telemetry", ["--out", str(EXAMPLES_OUT / "obs_out")],
+     ("batched_topk",)),
+    ("cost_attribution", [], ("batched_topk",)),
+    ("chaos_recovery", ["--ckpt-dir", str(EXAMPLES_OUT / "chaos_ckpt"),
+                        "--out", str(EXAMPLES_OUT / "chaos_out")],
+     ("batched_topk",)),
+    ("serve_topk", ["--tenants", "4"], ("flash_attention", "entropy_scores")),
+    ("quickstart", [], ("flash_attention", "flash_attention_bwd")),
+    ("three_tier_cloud", [], ()),
+    ("capacity_slo_cloud", [], ()))
+# what phase 24 holds of a script's result where the script has no gate
+# of its own
+EXAMPLE_CHECKS = {
+    "serve_topk": ("every tenant retains its top-K", lambda res: all(
+        len(res.res.retained[t]) == spec.k
+        for t, spec in enumerate(res.res.specs))),
+    "quickstart": ("device reservoir == host curator", lambda res: res.same)}
+
+
+def kernel_counters():
+    """{kernel: (ops module, its counter's name)} for every kernel."""
+    from repro_torch.kernels.batched_topk import ops as btk
+    from repro_torch.kernels.entropy_scores import ops as ent
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.logmem_update import ops as lm_ops
+    from repro_torch.kernels.plan_solve import ops as ps
+    from repro_torch.kernels.tier_assign import ops as ta
+    from repro_torch.kernels.topk_filter import ops as tf
+    return {"batched_topk": (btk, "launches"),
+            "tier_assign": (ta, "launches"),
+            "logmem_update": (lm_ops, "launches"),
+            "topk_filter": (tf, "launches"),
+            "plan_solve": (ps, "launches"),
+            "entropy_scores": (ent, "launches"),
+            "flash_attention": (fa, "launches"),
+            "flash_attention_bwd": (fa, "bwd_launches")}
+
+
+def example_scripts():
+    """Phase 24: each script's run(parse_args(argv)) in this process
+    (chaos_recovery starts its child as a subprocess, as the script
+    does), its printed lines logged, its wall seconds and its launches of
+    every kernel (the counters set to 0 just before it and read just
+    after). A script that fails ends the run. Returns the launches summed
+    over the scripts."""
+    import contextlib
+    import io
+    import shutil
+    counters = kernel_counters()
+    total = dict.fromkeys(counters, 0)
+    shutil.rmtree(EXAMPLES_OUT, ignore_errors=True)
+    EXAMPLES_OUT.mkdir(parents=True)
+    walls = {}
+    for name, argv, kernels in EXAMPLE_RUNS:
+        script = example(name)
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = script.run(script.parse_args(argv))
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts = {key: getattr(mod, attr)
+                  for key, (mod, attr) in counters.items()}
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"examples [24 {name}] | {line}")
+        launched = {key: n for key, n in counts.items() if n}
+        log(f"examples [24 {name}]: exit 0, {walls[name]:.3f}s wall, last "
+            f"line {lines[-1]!r}, launches {launched}")
+        if name in EXAMPLE_CHECKS:
+            what, check = EXAMPLE_CHECKS[name]
+            log(f"examples [24 {name}]: {what}: {bool(check(res))}")
+            if not check(res):
+                raise AssertionError(f"{name}: not {what}")
+        missed = [key for key in kernels if not counts[key]]
+        if missed or (not kernels and launched):
+            raise AssertionError(f"{name}: expected launches of "
+                                 f"{list(kernels)}, got {launched}")
+        for key, n in counts.items():
+            total[key] += n
+    log(f"examples [24]: {len(walls)} scripts in {sum(walls.values()):.3f}s "
+        f"wall (limit 90 s by the phase clock), launches {total}")
+    shutil.rmtree(EXAMPLES_OUT, ignore_errors=True)
+    return total
+
+
 def main():
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -7598,6 +7704,9 @@ def main():
     with phase_clock("the model-side mesh and the dry run (phase 23)"):
         for key, n in dry_run(smi).items():
             launches[key] += n
+    with phase_clock("the example scripts on the card (phase 24)"):
+        for key, n in example_scripts().items():
+            launches[key] += n
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",
@@ -7647,6 +7756,8 @@ def main():
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    log(f"phase clock: the whole run took "
+        f"{time.perf_counter() - t_main:.1f}s (limit 1200 s)")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ from types import SimpleNamespace
 
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import LayerSpec, ModelConfig, ShapeConfig
 from repro_torch.core import costs, placement, shp, tiers
@@ -87,11 +88,8 @@ def run(args, curator_wrapper=None):
     object with its ``observe_batch``). Returns a namespace of cfg, loader,
     plan, policy, store, curator, report (train_loop's), seconds and
     hardest (the retained payloads by id)."""
-    dev = torch.device(args.device)
+    dev = device_mod.for_script(args.device)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("no CUDA device: pass --device cpu to run on "
-                             "the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = build_cfg(args)

@@ -15,3 +15,14 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError("no CUDA device available: pass device='cpu' "
                            "to run the port on the CPU")
     return torch.device("cuda")
+
+
+def for_script(name) -> torch.device:
+    """A script's ``--device`` as a ``torch.device``. A CUDA device
+    without a card ends the script (``SystemExit``) before it builds or
+    writes anything: there is no fallback to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the "
+                         "CPU")
+    return dev

@@ -45,6 +45,7 @@ Run: PYTHONPATH=src python -m repro_torch.launch.serve [--requests 64]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import signal
 import time
 from dataclasses import dataclass, field
@@ -85,6 +86,13 @@ def make_tenant_engine(tenants: int, requests: int, topk: int, doc_gb: float,
                                        window_seconds=window)
         specs.append(StreamSpec(stream_id=t, k=k, cost_model=cm))
     return StreamEngine(specs, device=device, obs=obs, mesh=mesh), specs
+
+
+def request_log_plan(requests: int, topk: int, doc_gb: float):
+    """The proactive SHP plan of the single-tenant request log."""
+    cm = costs.hbm_host_preset(n_docs=requests, k=topk, doc_gb=doc_gb,
+                               window_seconds=60.0)
+    return shp.plan_placement(cm)
 
 
 @dataclass
@@ -179,7 +187,7 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
           gen_len: int, topk: int, tenants: int = 1, device=None,
           seed: int = 0, obs=None, hold_s: float = 0.0,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 4,
-          stop=None, mesh=None) -> ServeResult:
+          stop=None, mesh=None, engine=None, specs=None) -> ServeResult:
     """Serve ``requests`` requests in batches of ``batch`` (random prompts
     of ``prompt_len`` tokens from ``np.random.default_rng(seed)``, as the
     reference's example draws them), generate ``gen_len`` tokens each,
@@ -196,21 +204,23 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
     generation and chunk). ``stop`` (a callable) is asked before each
     batch: once it returns true the loop ends, the batch in flight
     having finished. ``mesh`` (a ``parallel.fleet.FleetMesh``, tenants >
-    1) shards the tenant engine."""
+    1) shards the tenant engine. ``engine`` and ``specs`` (tenants > 1)
+    are a tenant engine and its specs from ``make_tenant_engine``, built
+    here when not given."""
     dev = device_mod.resolve(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     doc_gb = (prompt_len + gen_len) * 4 / 1e9
-    curator = store = engine = None
-    specs: list = []
+    curator = store = None
     if tenants > 1:
-        engine, specs = make_tenant_engine(tenants, requests, topk, doc_gb,
-                                           device=dev, obs=obs, mesh=mesh)
+        if engine is None:
+            engine, specs = make_tenant_engine(tenants, requests, topk,
+                                               doc_gb, device=dev, obs=obs,
+                                               mesh=mesh)
     else:
+        engine, specs = None, []
         # proactive placement for the request-log stream
-        cm = costs.hbm_host_preset(n_docs=requests, k=topk, doc_gb=doc_gb,
-                                   window_seconds=60.0)
-        pol = placement.from_plan(shp.plan_placement(cm))
+        pol = placement.from_plan(request_log_plan(requests, topk, doc_gb))
         store = tiers.TieredStore(
             pol, tiers.HotTier(topk, (prompt_len + gen_len,),
                                dtype=torch.int32, device=dev),
@@ -271,7 +281,7 @@ def serve(cfg, params, *, requests: int, batch: int, prompt_len: int,
     return res
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--full", action="store_true",
@@ -315,12 +325,21 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=4, metavar="N",
                     help="checkpoint every N ingested chunks (0 = final "
                          "checkpoint only)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def check_flags(args) -> None:
+    """Exits on flags that need ``--tenants > 1``."""
     if args.mesh > 1 and args.tenants <= 1:
         raise SystemExit("--mesh requires --tenants > 1")
     if args.ckpt_dir is not None and args.tenants <= 1:
         raise SystemExit("--ckpt-dir requires --tenants > 1")
-    dev = device_mod.resolve(args.device)
+
+
+def setup(args, dev):
+    """The fleet mesh (``--mesh``), the obs layer (``--obs-out`` /
+    ``--obs-port``) and its endpoint, each startup line printed: (mesh,
+    obs, obs_server), None where not asked for."""
     mesh = None
     if args.mesh > 1:
         from repro_torch.parallel import fleet
@@ -344,9 +363,16 @@ def main(argv=None):
         obs_server = obs_http.serve(obs, port=args.obs_port)
         print(f"obs endpoint: {obs_server.url}/metrics "
               f"{obs_server.url}/snapshot", flush=True)
-    # graceful shutdown: SIGTERM/SIGINT only request a stop — the loop
-    # finishes its in-flight batch, then the normal teardown runs (final
-    # blocking checkpoint, obs artifacts, endpoint drain)
+    return mesh, obs, obs_server
+
+
+@contextlib.contextmanager
+def graceful_stop(obs_server=None):
+    """SIGTERM and SIGINT only request a stop: yields a dict whose
+    ``"signal"`` the handler sets, so that the loop finishes its batch in
+    flight and the normal teardown runs (final blocking checkpoint, obs
+    artifacts). On exit the previous handlers come back and
+    ``obs_server`` is stopped."""
     stop = {"signal": None}
 
     def _request_stop(signum, frame):
@@ -355,12 +381,21 @@ def main(argv=None):
     previous = {s: signal.signal(s, _request_stop)
                 for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        _serve_and_report(args, dev, obs, stop, mesh)
+        yield stop
     finally:
         for s, handler in previous.items():
             signal.signal(s, handler)
         if obs_server is not None:
             obs_server.stop()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    check_flags(args)
+    dev = device_mod.resolve(args.device)
+    mesh, obs, obs_server = setup(args, dev)
+    with graceful_stop(obs_server) as stop:
+        _serve_and_report(args, dev, obs, stop, mesh)
 
 
 def _serve_and_report(args, dev, obs, stop, mesh) -> None:
@@ -377,6 +412,13 @@ def _serve_and_report(args, dev, obs, stop, mesh) -> None:
                 hold_s=args.obs_hold, ckpt_dir=args.ckpt_dir,
                 ckpt_every=args.ckpt_every,
                 stop=lambda: stop["signal"] is not None, mesh=mesh)
+    report(args, res, obs, stop)
+
+
+def report(args, res: ServeResult, obs, stop) -> None:
+    """The lines printed after serving: the shutdown signal if one came,
+    the throughput, the final checkpoint, the tenant ledgers or the
+    curator's, and the obs artifacts written to ``--obs-out``."""
     served = len(res.scores)
     if stop["signal"] is not None:
         print(f"graceful shutdown on {signal.Signals(stop['signal']).name}: "
