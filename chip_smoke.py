@@ -75,8 +75,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    1500 frames) launches and at batch 2, a ragged Sq = Skv = 1500 over a
    group of 2 and Sq > Skv (90 x 33); whisper-base's causal decoder
    self-attention (8 x 416 and 8 x 448, a group of 1) and pixtral-12b's
-   causal prefill (8 x 2048, 32 heads over 8 of 128); entropy_scores at
-   whisper-base's vocabulary of 51,865 (scalar loads);
+   causal prefill (8 x 2048, 32 heads over 8 of 128), and phase 25's
+   causal prefills (8 x 1024 at head dim 128: yi-9b's 32 heads over 4,
+   command-r-plus-104b's 96 over 8); entropy_scores at whisper-base's
+   vocabulary of 51,865 (scalar loads) and at yi-9b's 64,000 and
+   command-r-plus-104b's 256,000;
 4. timings: each kernel, its plain version and its bound (bytes, or
    operations where they take longer), with the PyTorch call that
    computes the same function where there is one; flash_attention and
@@ -89,8 +92,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    deepseek-v2-236b's MLA prefill at head dims 192 and 128 beside SDPA
    with is_causal and the same scale, its backend named; whisper-base's
    encoder and cross-attention launches, forward and backward, every
-   pair visible, and pixtral-12b's prefill, each beside SDPA with the
-   same mask and enable_gqa),
+   pair visible, pixtral-12b's prefill and phase 25's two, each beside
+   SDPA with the same mask and enable_gqa; entropy_scores at phase 25's
+   vocabularies beside cross_entropy),
    batched_topk and tier_assign at the main path's, logmem_update and
    topk_filter at their paths' shapes and a large one, and each
    plan_solve launch (with the kernel and launch plan it took; the
@@ -236,10 +240,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    (evacuated rows, moved docs, bills, re-plan events, ledger rows bit
    for bit). 15c: python -m repro_torch.launch.serve --device cuda
    --tenants 8 --requests 64 --batch 8 --ckpt-dir --ckpt-every 1
-   --obs-out --obs-hold 60 (reduced llama3.2-1b) as a subprocess, SIGTERM
-   after its first checkpoint: exit 0, both shutdown lines, metrics.json,
-   and the final checkpoint restores with the printed cursor. The
-   checkpoints are written under build/ and removed;
+   --obs-out --obs-hold 60 (reduced llama3.2-1b), a child of the
+   launcher batch (below; it runs beside phase 3), SIGTERM after its
+   first checkpoint: exit 0, both shutdown lines, metrics.json, and the
+   final checkpoint restores with the printed cursor. The checkpoints
+   are written under build/ and removed;
 16. fleet-axis sharding (repro_torch.parallel.fleet) at full width on a
    FleetMesh of 8 shards on cuda:0 (examples/million_streams.py's
    --devices 8; one card, so the shards share it). 16a: phase 5's plan
@@ -259,7 +264,8 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    docs/s sharded beside unsharded, and a profile of 4 steps of each
    (as phase 7's). 16c: python -m
    repro_torch.launch.serve --device cuda --tenants 8 --requests 64
-   --batch 8 with --mesh 2 and without, retained and ledger lines equal;
+   --batch 8 with --mesh 2 and without (two children of the launcher
+   batch), retained and ledger lines equal;
    serve() in this process with a 2-shard mesh, every tenant's retained
    set and meter ledgers equal;
 17. training with top-K curation (repro_torch.runtime) on the card. 17a:
@@ -293,10 +299,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    steps against 4 steps plus 4 resumed from the checkpoint, bit for bit
    under torch.use_deterministic_algorithms(True). 17d: python -m
    repro_torch.launch.train --arch llama3.2-1b --reduced --steps 40
-   --device cuda --ckpt-dir build/train17d, sent SIGTERM once its first
-   checkpoint is on disk: exit 0, stopped before step 40, and the final
-   checkpoint restores at the step its last line names. Checkpoint
-   directories are removed at the end;
+   --device cuda --ckpt-dir build/train17d, a child of the launcher
+   batch, sent SIGTERM once its first checkpoint is on disk: exit 0,
+   stopped before step 40, and the final checkpoint restores at the
+   step its last line names. Checkpoint directories are removed at the
+   end;
 18. the SSM and hybrid score producers at full width, seeded random
    weights on the card, float32: 18a mamba2-2.7b (64 SSD layers,
    d_model 2560, 80 heads of 64, state 128, chunk 128, vocab 50,280,
@@ -411,10 +418,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    its peak memory, and its gradients against the plain route's on the
    card, the kernel route's held on the host meanwhile (no witness: no
    float64 copy fits); 22c python -m repro_torch.launch.train --arch
-   grok-1-314b and deepseek-v2-236b --reduced on the card (exit 0,
-   finite losses); 22d 17b's llama3.2-1b step with cfg.remat beside
-   without: gradients as 22a's rule says, then a train_step each way
-   after a warm-up, its ms and peak memory.
+   grok-1-314b and deepseek-v2-236b --reduced on the card, two children
+   of the launcher batch (exit 0, finite losses); 22d 17b's llama3.2-1b
+   step with cfg.remat beside without: gradients as 22a's rule says,
+   then a train_step each way after a warm-up, its ms and peak memory.
 23. the model-side mesh and the dry run (repro_torch.parallel's ctx,
    sharding and collectives; repro_torch.launch's dryrun, op_count,
    roofline and inspect_cell). 23a: dryrun.run_cell on the host for
@@ -452,7 +459,32 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    not launch the kernels its path runs (none for the two host
    scripts) too, and so do serve_topk's tenants not each retaining
    their top-K and quickstart's device reservoir not equal to its host
-   curator.
+   curator;
+25. the two dense GQA configs no earlier phase serves, at full width,
+   float32, seeded random weights on the card, each serving 16 requests
+   in batches of 8 (prompts of 1024, 32 generated, top-8) as phase 12
+   serves starcoder2-3b (the same function): 25a yi-9b at full depth
+   (48 layers, d_model 4096, 32 heads over 4 KV heads of 128, SiLU-GLU
+   of 11,008, vocab 64,000, RoPE theta 5e6; 8.83e9 parameters, 32.89
+   GiB), 25b command-r-plus-104b cut to 2 of its 64 identical layers
+   (d_model 12,288, 96 heads over 8 of 128, SiLU-GLU of 33,792, vocab
+   256,000 tied, RoPE theta 75e6; 6.29e9 parameters, the whole model's
+   1.04e11 beside). Each: the first batch teacher-forced through both
+   routes (logits within 1e-3, scores 1e-4), one counted single-tenant
+   serve run with exact launches (a flash_attention launch a layer a
+   batch: 96 and 4; 62 entropy_scores), the retained set against the
+   top-K of the scores, prefill ms a batch, decode ms a step, peak
+   memory, and profiles of a prefill and of decode steps.
+
+The launcher batch starts the subprocesses of 15c, 16c (two), 17d and
+22c (two) at once after the build, each its own interpreter and CUDA
+context, and watches them in one loop on a thread (SIGTERM to 15c and
+17d after their first checkpoints) while phase 3's parity checks run in
+this process (nothing is timed there; phase 4's timings wait for the
+batch's end); each phase's check then reads its children's output, exit
+code and wall. It logs each child's wall and the batch's beside their
+sum; the run's last phase clock line sets what the batch saved beside
+phase 25's clock.
 
 Phase 3 also holds flash_attention and entropy_scores against their
 plain versions (float32 and bfloat16) within 2e-5 (float32) and 2e-2
@@ -586,11 +618,23 @@ FA_PX = (PX_SERVE["batch"], PX_SERVE["prompt_len"], 32, 8, 128)
 # phase 23b's launches: llama3.2-1b's train_4k a chip (1/256 of its
 # tokens), (B, S, H, KV, hd), causal; backward_plan splits its group of 4
 FA_SLICE = (1, 4096, 32, 8, 64)
-# the kernels line's phase 21 entries, by the FA_CASES labels whose
-# largest difference each takes
+# phase 25: the two dense GQA configs no earlier phase serves, at
+# SC_SERVE's run: yi-9b whole (8.83e9 parameters, 32.89 GiB of float32)
+# and command-r-plus-104b at full width cut to CR_LAYERS of its 64
+# identical layers (6.29e9 parameters with its tied embedding of
+# 256,000 x 12,288; the whole model's 386.7 GiB fit no card)
+YI_ARCH = "yi-9b"
+CR_ARCH = "command-r-plus-104b"
+CR_LAYERS = 2
+FA_YI = (SC_SERVE["batch"], SC_SERVE["prompt_len"], 32, 4, 128)
+FA_CR = (SC_SERVE["batch"], SC_SERVE["prompt_len"], 96, 8, 128)
+ENT_YI = (SC_SERVE["batch"], 64_000)
+ENT_CR = (SC_SERVE["batch"], 256_000)
+# the kernels line's phase 21 and 25 entries, by the FA_CASES labels
+# whose largest difference each takes
 FA_ENTRIES = (("whisper-base encoder", "whisper-encoder"),
               ("whisper-base cross", "whisper-cross"),
-              (PX_ARCH, PX_ARCH))
+              (PX_ARCH, PX_ARCH), (YI_ARCH, YI_ARCH), (CR_ARCH, CR_ARCH))
 # the uncapped flash_attention medians and spreads [min, max] that PERF.md's
 # kernel table (row 7) records at the llama3.2-1b, starcoder2-3b and
 # hymba-1.5b shapes (NVIDIA H100 80GB HBM3 at 700.00 W) for the kernel with
@@ -625,10 +669,11 @@ class phase_clock:
 
     def __enter__(self):
         self.t0 = time.perf_counter()
+        return self
 
     def __exit__(self, *exc):
-        log(f"phase clock: {self.label} took "
-            f"{time.perf_counter() - self.t0:.1f}s")
+        self.seconds = time.perf_counter() - self.t0
+        log(f"phase clock: {self.label} took {self.seconds:.1f}s")
 
 
 def cuda_ms(fn, reps):
@@ -1602,6 +1647,12 @@ FA_CASES = (("serve prefill", *FA_PATH[:2], *FA_PATH[1:], True, 0, 0.0),
              *FA_WH_DEC_TRAIN, True, 0, 0.0),
             ("pixtral-12b prefill, 32 over 8, hd 128", FA_PX[0], FA_PX[1],
              *FA_PX[1:], True, 0, 0.0),
+            # phase 25's prefills: yi-9b's group of 8 and
+            # command-r-plus-104b's 96 query heads over 8, at head dim 128
+            (f"{YI_ARCH} prefill, 32 over 4, hd 128", *FA_YI[:2],
+             *FA_YI[1:], True, 0, 0.0),
+            (f"{CR_ARCH} prefill, 96 over 8, hd 128", *FA_CR[:2],
+             *FA_CR[1:], True, 0, 0.0),
             # phase 23b's per-chip slice of llama3.2-1b's train_4k: 4096
             # keys in one batch row, the backward split 2 with the group sum
             ("llama3.2-1b train_4k per-chip slice, 32 over 8",
@@ -1695,6 +1746,8 @@ def score_kernel_parity():
                               (*ENT_MB, "normal", f"{MB_ARCH} decode step"),
                               (*ENT_HY, "normal",
                                f"{HY_ARCH} decode step, scalar loads"),
+                              (*ENT_YI, "normal", f"{YI_ARCH} decode step"),
+                              (*ENT_CR, "normal", f"{CR_ARCH} decode step"),
                               (*ENT_LARGE, "normal", "large scorer shape"),
                               (132, 128_256, "normal", "132 rows, 2 spans"),
                               (5, 5001, "normal", "V=5001, scalar loads"),
@@ -1953,6 +2006,8 @@ def score_kernel_timings(smi):
                         ("entropy_scores@starcoder2", ENT_SC),
                         ("entropy_scores@mamba2", ENT_MB),
                         ("entropy_scores@hymba", ENT_HY),
+                        (f"entropy_scores@{YI_ARCH}", ENT_YI),
+                        (f"entropy_scores@{CR_ARCH}", ENT_CR),
                         ("entropy_scores@large", ENT_LARGE)):
         logits, labels = ent_inputs(g, b, v, "normal", torch.float32)
         lab64 = labels.long()
@@ -2126,8 +2181,9 @@ def encdec_kernel_timings(g, smi):
     """flash_attention at phase 21's launches: whisper-base's encoder
     self-attention and its cross-attention at serving, forward, and the
     encoder's and the cross-attention's backward at training (every pair
-    visible: non-causal, no window), and pixtral-12b's causal prefill,
-    under their kernels-line names."""
+    visible: non-causal, no window), pixtral-12b's causal prefill and
+    phase 25's (yi-9b's, command-r-plus-104b's), under their kernels-line
+    names."""
     return {
         "flash_attention@whisper-encoder": fa_launch_timing(
             "flash_attention@whisper-encoder", FA_WH_ENC, False, smi, g=g),
@@ -2141,7 +2197,14 @@ def encdec_kernel_timings(g, smi):
             smi, backward=True, g=g),
         "flash_attention@pixtral-12b": fa_launch_timing(
             "flash_attention@pixtral-12b", (FA_PX[0], FA_PX[1], *FA_PX[1:]),
-            True, smi, g=g)}
+            True, smi, g=g),
+        # phase 25's prefills
+        f"flash_attention@{YI_ARCH}": fa_launch_timing(
+            f"flash_attention@{YI_ARCH}", (*FA_YI[:2], *FA_YI[1:]), True,
+            smi, g=g),
+        f"flash_attention@{CR_ARCH}": fa_launch_timing(
+            f"flash_attention@{CR_ARCH}", (*FA_CR[:2], *FA_CR[1:]), True,
+            smi, g=g)}
 
 
 # flash_attention's backward at the seams beyond FA_CASES (label, B, Sq,
@@ -3400,49 +3463,98 @@ def score_producer(smi):
     return launches
 
 
-def starcoder_serve(smi):
-    """Phase 12: starcoder2-3b at full width (head dim 128, 24 heads over
-    2 KV heads, LayerNorm, GELU, biases, window 4096), random weights
-    from a seeded torch.Generator on the card: the first batch
-    teacher-forced through both routes, then one counted single-tenant
-    serve run whose launches must be exact, then the profiles. Returns
-    the launches."""
+def dense_serve(smi, arch, run, layers=None, phase=None):
+    """A dense GQA model at full width served on the card (phase 12's
+    starcoder2-3b, phase 25's yi-9b and command-r-plus-104b), its depth
+    cut to ``layers`` of its identical attn + dense layers where given,
+    random weights from a seeded torch.Generator on the card: the first
+    batch teacher-forced through both routes, then one counted
+    single-tenant serve run of ``run`` whose launches must be exact, the
+    retained set against the top-K of the scores, peak memory, then the
+    profiles. ``phase`` labels the lines "[phase arch]" and logs the
+    depth, the whole model's count and the memory held before the draw.
+    Returns the launches."""
     from repro_torch import configs
+    from repro_torch.configs.base import LayerSpec
     from repro_torch.kernels.entropy_scores import ops as ent
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve
     from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()  # the previous model's blocks
-    cfg = configs.get_config(SC_ARCH)
+    held = torch.cuda.memory_allocated() / 2**30
+    full = configs.get_config(arch)
+    cfg = full if layers is None else full.replace(
+        layers=(LayerSpec(count=layers, mixer="attn", ffn="dense"),))
+    label = arch if phase is None else f"{phase} {arch}"
+    window = cfg.layers[0].windows
+    shape = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, head_dim "
+             f"{cfg.head_dim}, d_ff {cfg.d_ff} {cfg.ffn_act}, vocab "
+             f"{cfg.vocab_size}, "
+             + (f"window {window[0]}" if window else
+                f"RoPE theta {cfg.rope_theta:g}, tied embeddings "
+                f"{cfg.tie_embeddings}") + f", {cfg.param_dtype}")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"serve {SC_ARCH}: full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
-        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.ffn_act}, vocab "
-        f"{cfg.vocab_size}, window {cfg.layers[0].windows[0]}, "
-        f"{cfg.param_dtype}): {lm.param_count(cfg)} parameters drawn on the "
-        f"card in {time.perf_counter() - t0:.3f}s; {smi}")
-    b, plen = SC_SERVE["batch"], SC_SERVE["prompt_len"]
+    drawn = time.perf_counter() - t0
+    if phase is None:
+        log(f"serve {arch}: full width ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {shape}): {lm.param_count(cfg)} parameters "
+            f"drawn on the card in {drawn:.3f}s; {smi}")
+    else:
+        log(f"serve [{label}]: full width, {cfg.n_layers} of "
+            f"{full.n_layers} identical attn + dense layers (d_model "
+            f"{cfg.d_model}, {shape}): {lm.param_count(cfg)} parameters "
+            f"(the whole model {lm.param_count(full)}) drawn on the card in "
+            f"{drawn:.3f}s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB while "
+            f"drawn ({held:.3f} GiB held by earlier phases); TF32 off; "
+            f"{smi}")
+    b, plen = run["batch"], run["prompt_len"]
     first = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, plen)), device="cuda")
-    teacher_forced(params, cfg, first, SC_SERVE["gen_len"])
+    torch.cuda.reset_peak_memory_stats()
+    teacher_forced(params, cfg, first, run["gen_len"])
+    log(f"serve [{label}]: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB in the "
+        f"teacher-forced check (the plain route's attention included)")
     torch.cuda.reset_peak_memory_stats()
     # the counted run: counters to 0, serve, read
     fa.launches = ent.launches = 0
-    res = serve.serve(cfg, params, tenants=1, device="cuda", **SC_SERVE)
-    launches = check_serve(res, cfg, SC_SERVE, f"{SC_ARCH}, single tenant",
-                           smi)
-    order = np.lexsort((np.arange(SC_SERVE["requests"]), -res.scores))
-    want = sorted(order[:SC_SERVE["topk"]].tolist())
-    log(f"serve [{SC_ARCH}]: scores "
+    res = serve.serve(cfg, params, tenants=1, device="cuda", **run)
+    launches = check_serve(res, cfg, run, f"{label}, single tenant", smi)
+    order = np.lexsort((np.arange(run["requests"]), -res.scores))
+    want = sorted(order[:run["topk"]].tolist())
+    log(f"serve [{label}]: scores "
         f"{' '.join(f'{x:.7g}' for x in res.scores)}; retained "
-        f"{res.retained}, top-{SC_SERVE['topk']} of the scores (ties to the "
+        f"{res.retained}, top-{run['topk']} of the scores (ties to the "
         f"lower id) {want}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if res.retained != want:
         raise AssertionError("retained set is not the top-K of the scores")
     serve_profile(params, cfg, first, smi)
+    return launches
+
+
+def dense_full(smi):
+    """Phase 25: yi-9b at full width and depth (25a) and
+    command-r-plus-104b at full width cut to CR_LAYERS layers (25b), each
+    through ``dense_serve`` at SC_SERVE's run. Returns the launches of
+    flash_attention and entropy_scores summed over the two counted serve
+    runs, and each one's flash launches under its kernels-line name."""
+    launches = {"flash_attention": 0, "entropy_scores": 0}
+    for sub, arch, layers in (("25a", YI_ARCH, None),
+                              ("25b", CR_ARCH, CR_LAYERS)):
+        depth = "and depth" if layers is None else f"{layers} layers"
+        with phase_clock(f"{arch} at full width {depth} (phase {sub})"):
+            got = dense_serve(smi, arch, SC_SERVE, layers=layers,
+                              phase="25")
+        launches[f"flash_attention@{arch}"] = got["flash_attention"]
+        for key, n in got.items():
+            launches[key] += n
     return launches
 
 
@@ -4440,6 +4552,150 @@ def observability(bounds, mig, rate5, smi):
 
 
 # ---------------------------------------------------------------------------
+# the launcher batch: the launcher subprocesses of 15c, 16c, 17d and 22c
+# ---------------------------------------------------------------------------
+
+READY_S = 300.0  # a launcher's first checkpoint, as when each ran alone
+
+
+@dataclasses.dataclass
+class Launch:
+    """A launcher subprocess of the batch: its argv and time limit, and
+    ``ready``, a test whose first success (within READY_S seconds) sends
+    it SIGTERM; None lets it run to its end. The batch fills in its
+    stdout, stderr, exit code, wall seconds and the seconds until
+    ``ready``."""
+    argv: list
+    limit: float
+    ready: object = None
+    out: str = ""
+    err: str = ""
+    rc: int | None = None
+    wall: float = 0.0
+    first_s: float | None = None
+
+
+def launcher_runs():
+    """The batch's six launchers: 15c's serve drained by SIGTERM after its
+    first checkpoint, 16c's serve with --mesh 2 and without, 17d's
+    training drained after its first checkpoint, and 22c's training of
+    the reduced grok-1-314b and deepseek-v2-236b; their limits as when
+    each ran alone."""
+    serve = [sys.executable, "-m", "repro_torch.launch.serve"]
+    train = [sys.executable, "-m", "repro_torch.launch.train"]
+    ckpt = DRAIN_DIR / "ckpt"
+    first = TRAIN_DIR / "ckpt_00000020" / "manifest.json"
+    runs = {
+        "15c": Launch([*serve, *DRAIN_ARGV, "--ckpt-dir", str(ckpt),
+                       "--obs-out", str(DRAIN_DIR / "obs")], 420.0,
+                      ready=lambda: ckpt.is_dir() and any(
+                          d.startswith("ckpt_") for d in os.listdir(ckpt))),
+        "16c mesh": Launch([*serve, *MESH_ARGV, "--mesh", "2"], 300.0),
+        "16c plain": Launch([*serve, *MESH_ARGV], 300.0),
+        "17d": Launch([*train, *TRAIN_ARGV, "--ckpt-dir", str(TRAIN_DIR)],
+                      600.0, ready=first.exists)}
+    for arch in (GK_ARCH, DS_ARCH):
+        runs[f"22c {arch}"] = Launch([*train, "--arch", arch, *TC_ARGV],
+                                     600.0)
+    return runs
+
+
+class LauncherBatch:
+    """The six launchers of ``launcher_runs`` started at once on the card
+    (each its own interpreter and CUDA context) and watched by one
+    polling loop on a thread, while this process goes on with work that
+    is not timed: SIGTERM to a child once its ``ready`` holds, its exit
+    code and wall when it ends. A child that misses its checkpoint or its
+    limit ends the batch, every child killed; ``wait`` then raises."""
+
+    def __init__(self):
+        self.runs = launcher_runs()
+        self.logs = ROOT / "build" / "launchers"
+        self.procs, self.error = {}, None
+
+    def start(self):
+        import shutil
+        import threading
+        for d in (DRAIN_DIR, TRAIN_DIR, self.logs):
+            shutil.rmtree(d, ignore_errors=True)
+        self.logs.mkdir(parents=True)
+        torch.cuda.empty_cache()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.t0 = time.perf_counter()
+        for name, run in self.runs.items():
+            with open(self.stem(name) + ".out", "w") as out, \
+                    open(self.stem(name) + ".err", "w") as err:
+                self.procs[name] = subprocess.Popen(
+                    run.argv, stdout=out, stderr=err, cwd=ROOT, env=env)
+        self.watcher = threading.Thread(target=self.watch, daemon=True)
+        self.watcher.start()
+
+    def stem(self, name):
+        return str(self.logs / name.replace(" ", "_"))
+
+    def watch(self):
+        import signal
+        try:
+            while any(run.rc is None for run in self.runs.values()):
+                now = time.perf_counter() - self.t0
+                for name, proc in self.procs.items():
+                    run = self.runs[name]
+                    if run.rc is not None:
+                        continue
+                    rc = proc.poll()
+                    if run.ready and run.first_s is None:
+                        if run.ready():
+                            run.first_s = now
+                            proc.send_signal(signal.SIGTERM)
+                        elif rc is not None or now > READY_S:
+                            raise AssertionError(f"launcher {name}: no "
+                                                 f"first checkpoint (exit "
+                                                 f"{rc})")
+                    if rc is not None:
+                        run.rc, run.wall = rc, now
+                    elif now > run.limit:
+                        raise AssertionError(f"launcher {name}: still "
+                                             f"running after "
+                                             f"{run.limit:.0f}s")
+                # 17d's first checkpoint comes 20 steps before its last
+                time.sleep(0.005)
+        except AssertionError as e:
+            self.error = str(e)
+        finally:
+            self.wall = time.perf_counter() - self.t0
+            self.kill()
+
+    def kill(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def wait(self):
+        """Waits for every child; logs each one's wall and the batch's
+        beside their sum. Returns the runs by name, for the checks of
+        15c, 16c, 17d and 22c, and the sum less the batch's wall."""
+        import shutil
+        self.watcher.join()
+        if self.error:
+            raise AssertionError(self.error)
+        for name, run in self.runs.items():
+            run.out = Path(self.stem(name) + ".out").read_text()
+            run.err = Path(self.stem(name) + ".err").read_text()
+            sent = (f", SIGTERM after {run.first_s:.3f}s" if run.first_s
+                    is not None else "")
+            log(f"launcher batch [{name}] {' '.join(run.argv[1:])}: exit "
+                f"{run.rc} after {run.wall:.3f}s{sent}")
+        total = sum(run.wall for run in self.runs.values())
+        log(f"launcher batch: {len(self.runs)} launchers at once in "
+            f"{self.wall:.3f}s of wall; the sum of their own walls "
+            f"{total:.3f}s, {total - self.wall:.3f}s more; "
+            f"{os.cpu_count()} CPUs (os.cpu_count())")
+        shutil.rmtree(self.logs, ignore_errors=True)
+        return self.runs, total - self.wall
+
+
+# ---------------------------------------------------------------------------
 # phase 15: crash recovery, the chaos drill and graceful drain on the card
 # ---------------------------------------------------------------------------
 
@@ -4452,6 +4708,7 @@ RS_FAULTS = dict(seed=14, transient_rate=0.1, duplicate_rate=0.1,
 CH_TENANTS, CH_K, CH_W = 4_096, 8, 32  # 15b: examples/chaos_recovery.py
 CH_CHUNKS, CH_EXTRA, CH_EVERY, CH_KILL_AT = 12, 6, 2, 7
 CH_SAMPLE = 512  # 15b tenants held to the port's CPU run
+DRAIN_DIR = ROOT / "build" / "drain15c"  # 15c's checkpoints and obs
 DRAIN_ARGV = ["--device", "cuda", "--tenants", "8", "--requests", "64",
               "--batch", "8", "--ckpt-every", "1", "--obs-hold", "60"]
 
@@ -4870,48 +5127,26 @@ def chaos_cpu_parity(eng, summary, bills, planned):
         raise AssertionError(f"15b differs from the CPU run: {checks}")
 
 
-def graceful_drain():
+def graceful_drain(run):
     """15c: the serving launcher on the card with --ckpt-dir, SIGTERM
-    after its first checkpoint: exit 0, both lines, the obs artifacts,
-    and the final checkpoint restores with the printed cursor."""
-    import os
+    after its first checkpoint (``run``, the launcher batch's child):
+    exit 0, both lines, the obs artifacts, and the final checkpoint
+    restores with the printed cursor."""
     import shutil
-    import signal
-    import subprocess
     from repro_torch.launch import serve
     from repro_torch.obs import Observability, ObsConfig
     from repro_torch.resilience import FleetCheckpointer
-    base = ROOT / "build" / "drain15c"
-    shutil.rmtree(base, ignore_errors=True)
+    base = DRAIN_DIR
     ckpt, obs = base / "ckpt", base / "obs"
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve", *DRAIN_ARGV,
-         "--ckpt-dir", str(ckpt), "--obs-out", str(obs)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    try:
-        while not (ckpt.is_dir() and any(d.startswith("ckpt_")
-                                         for d in os.listdir(ckpt))):
-            if proc.poll() is not None or time.perf_counter() - t0 > 300:
-                raise AssertionError("the launcher wrote no checkpoint")
-            time.sleep(0.2)
-        first_s = time.perf_counter() - t0
-        proc.send_signal(signal.SIGTERM)
-        out, _ = proc.communicate(timeout=120)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    lines = [ln for ln in out.splitlines()
+    lines = [ln for ln in run.out.splitlines()
              if ln.startswith(("graceful shutdown", "final checkpoint"))]
     log(f"resilience [15c]: launcher {' '.join(DRAIN_ARGV)}: first "
-        f"checkpoint after {first_s:.3f}s, SIGTERM, exit "
-        f"{proc.returncode} after {time.perf_counter() - t0:.3f}s: "
-        f"{lines}")
-    if proc.returncode != 0 or len(lines) != 2 or \
+        f"checkpoint after {run.first_s:.3f}s, SIGTERM, exit "
+        f"{run.rc} after {run.wall:.3f}s (in the launcher batch): {lines}")
+    if run.rc != 0 or len(lines) != 2 or \
             not (obs / "metrics.json").exists():
-        raise AssertionError(f"the graceful drain failed:\n{out[-3000:]}")
+        raise AssertionError(f"the graceful drain failed:\n"
+                             f"{run.out[-3000:]}{run.err[-3000:]}")
     chunk = int(lines[1].split(" at chunk ")[1].split()[0])
     eng, _ = serve.make_tenant_engine(8, 64, 8, (16 + 12) * 4 / 1e9,
                                       obs=Observability(ObsConfig()))
@@ -4924,12 +5159,13 @@ def graceful_drain():
     shutil.rmtree(base, ignore_errors=True)
 
 
-def resilience(bounds, mig):
-    """Phase 15. Returns the launches of 15a's and 15b's counted runs."""
+def resilience(bounds, mig, batch):
+    """Phase 15 (15c's launcher from ``batch``). Returns the launches of
+    15a's and 15b's counted runs."""
     launches = crash_recovery(bounds, mig)
     for key, n in chaos_drill().items():
         launches[key] = launches.get(key, 0) + n
-    graceful_drain()
+    graceful_drain(batch["15c"])
     return launches
 
 
@@ -5162,27 +5398,23 @@ def sharded_ingest(bounds, mig, mesh):
     return launches
 
 
-def mesh_launcher():
+def mesh_launcher(batch):
     """16c: the serving launcher with --mesh 2 (2 shards on the card: one
-    card is visible) against the same run without it, as subprocesses;
-    then serve() in this process with and without a 2-shard mesh, every
-    tenant's retained set and meter equal."""
-    import os
+    card is visible) against the same run without it, both children of
+    the launcher batch (``batch``); then serve() in this process with and
+    without a 2-shard mesh, every tenant's retained set and meter
+    equal."""
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.parallel import fleet
     outs = {}
-    for label, extra in (("mesh", ["--mesh", "2"]), ("plain", [])):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", *MESH_ARGV,
-             *extra], capture_output=True, text=True, cwd=ROOT, timeout=300,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        if proc.returncode:
+    for label in ("mesh", "plain"):
+        run = batch[f"16c {label}"]
+        if run.rc:
             raise AssertionError(f"the launcher ({label}) failed:\n"
-                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-        outs[label] = (proc.stdout, time.perf_counter() - t0)
+                                 f"{run.out[-2000:]}{run.err[-2000:]}")
+        outs[label] = (run.out, run.wall)
 
     def kept(text):
         return [ln for ln in text.splitlines()
@@ -5194,7 +5426,8 @@ def mesh_launcher():
     equal = kept(outs["mesh"][0]) == kept(outs["plain"][0])
     log(f"sharded [16c]: launcher {' '.join(MESH_ARGV)} --mesh 2: "
         f"{mesh_line} ({outs['mesh'][1]:.1f}s; without --mesh "
-        f"{outs['plain'][1]:.1f}s); {len(kept(outs['mesh'][0]))} retained "
+        f"{outs['plain'][1]:.1f}s; both in the launcher batch); "
+        f"{len(kept(outs['mesh'][0]))} retained "
         f"and ledger lines {'equal' if equal else 'DIFFERENT'}")
     if not (mesh_line and kept(outs["plain"][0]) and equal):
         raise AssertionError("serve --mesh 2 differs from the unsharded run")
@@ -5220,8 +5453,8 @@ def mesh_launcher():
         raise AssertionError("serve(mesh=) differs from the unsharded run")
 
 
-def sharded(bounds, mig, plan5):
-    """Phase 16. Returns its launches."""
+def sharded(bounds, mig, plan5, batch):
+    """Phase 16 (16c's launchers from ``batch``). Returns its launches."""
     from repro_torch.parallel import fleet
     mesh = fleet.fleet_mesh(SHARDS, device="cuda:0")
     b16, m16, ps_launches = sharded_plan(mesh, plan5)
@@ -5229,7 +5462,7 @@ def sharded(bounds, mig, plan5):
         raise AssertionError("the sharded plan's boundaries differ")
     launches = sharded_ingest(bounds, mig, mesh)
     launches["plan_solve"] = ps_launches
-    mesh_launcher()
+    mesh_launcher(batch)
     return launches
 
 
@@ -5239,6 +5472,7 @@ def sharded(bounds, mig, plan5):
 
 TR_LR = 3e-4  # 17a's and 17b's learning rate
 TR_FULL = dict(batch=8, seq=1024, steps=8, reservoir_k=16)  # 17b
+TRAIN_DIR = ROOT / "build" / "train17d"  # 17d's checkpoints
 TRAIN_ARGV = ["--arch", ARCH, "--reduced", "--steps", "40", "--seq", "512",
               "--batch", "32", "--device", "cuda"]  # 17d's launcher
 
@@ -5575,46 +5809,23 @@ def resume_check(cfg, loader, lr):
             "flash_attention_bwd": fa.bwd_launches}
 
 
-def train_drain():
+def train_drain(run):
     """17d: the training launcher on the card, SIGTERM once its first
-    checkpoint is on disk."""
+    checkpoint is on disk (``run``, the launcher batch's child)."""
     import shutil
-    import signal
     from repro_torch import configs
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.runtime import steps
-    d = ROOT / "build" / "train17d"
-    shutil.rmtree(d, ignore_errors=True)
-    argv = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
-            "--ckpt-dir", str(d)]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, env=env,
-                            cwd=str(ROOT))
-    try:
-        first = d / "ckpt_00000020" / "manifest.json"
-        while not first.exists():
-            if proc.poll() is not None or time.perf_counter() - t0 > 300:
-                raise AssertionError(f"17d: no first checkpoint "
-                                     f"(exit {proc.poll()})")
-            time.sleep(0.002)
-        seen = time.perf_counter() - t0
-        proc.send_signal(signal.SIGTERM)
-        out, err = proc.communicate(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    lines = out.strip().splitlines()
-    log(f"train [17d] {' '.join(argv[1:])}: first checkpoint after "
-        f"{seen:.3f}s, SIGTERM sent; exit {proc.returncode} after "
-        f"{time.perf_counter() - t0:.3f}s; last lines: "
+    d = TRAIN_DIR
+    lines = run.out.strip().splitlines()
+    log(f"train [17d] {' '.join(run.argv[1:])}: first checkpoint after "
+        f"{run.first_s:.3f}s, SIGTERM sent; exit {run.rc} after "
+        f"{run.wall:.3f}s (in the launcher batch); last lines: "
         f"{' | '.join(lines[-2:])}")
-    if proc.returncode != 0 or not lines or \
+    if run.rc != 0 or not lines or \
             not lines[-1].startswith("stopped by a signal at step "):
         raise AssertionError(f"17d: the launcher did not drain: exit "
-                             f"{proc.returncode}\n{out}\n{err[-2000:]}")
+                             f"{run.rc}\n{run.out}\n{run.err[-2000:]}")
     step = int(lines[-1].split("at step ")[1].split()[0])
     mgr = CheckpointManager(str(d))
     cfg = configs.get_config(ARCH, reduced=True)
@@ -5628,13 +5839,14 @@ def train_drain():
                              "the printed step")
 
 
-def training(smi):
-    """Phase 17. Returns the flash launches of its counted runs."""
+def training(smi, batch):
+    """Phase 17 (17d's launcher from ``batch``). Returns the flash
+    launches of its counted runs."""
     launches = train_card_vs_cpu(smi)
     for part in (train_full_width(smi), curated_training(smi)):
         for key, n in part.items():
             launches[key] += n
-    train_drain()
+    train_drain(batch["17d"])
     return launches
 
 
@@ -7236,30 +7448,23 @@ def grok_grads(smi):
     return counted
 
 
-def launcher_reduced():
+def launcher_reduced(batch):
     """22c: ``python -m repro_torch.launch.train --arch A`` TC_ARGV on the
-    reduced grok-1-314b and deepseek-v2-236b, both processes at once on
-    the card: exit code 0 and finite losses."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    runs = {arch: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
-         *TC_ARGV], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, env=env, cwd=ROOT) for arch in (GK_ARCH, DS_ARCH)}
-    for arch, proc in runs.items():
-        out, err = proc.communicate(timeout=600)
-        lines = out.strip().splitlines()
+    reduced grok-1-314b and deepseek-v2-236b, children of the launcher
+    batch (``batch``): exit code 0 and finite losses."""
+    for arch in (GK_ARCH, DS_ARCH):
+        run = batch[f"22c {arch}"]
+        lines = run.out.strip().splitlines()
         losses = [float(x.split()[-1]) for x in lines
                   if x.strip().startswith("step ")]
         said = next((x for x in lines if x.startswith("done:")), "")
         log(f"train [22c] python -m repro_torch.launch.train --arch {arch} "
-            f"{' '.join(TC_ARGV)}: exit {proc.returncode} after "
-            f"{time.perf_counter() - t0:.1f}s (both launchers at once); "
-            f"{len(losses)} step losses logged; {said.strip()}")
-        if proc.returncode != 0 or not losses or \
-                not np.isfinite(losses).all():
+            f"{' '.join(TC_ARGV)}: exit {run.rc} after {run.wall:.1f}s (in "
+            f"the launcher batch); {len(losses)} step losses logged; "
+            f"{said.strip()}")
+        if run.rc != 0 or not losses or not np.isfinite(losses).all():
             raise AssertionError(f"22c: the launcher failed on {arch}:\n"
-                                 f"{out[-2000:]}\n{err[-4000:]}")
+                                 f"{run.out[-2000:]}\n{run.err[-4000:]}")
 
 
 def llama_remat(smi):
@@ -7306,11 +7511,12 @@ def llama_remat(smi):
     torch.cuda.empty_cache()
 
 
-def capped_mla_training(smi):
+def capped_mla_training(smi, batch):
     """Phase 22: 22a deepseek-v2-236b trained at full width (layer 0), 22b
     grok-1-314b's gradients at full width (1 layer), 22c the launcher on
-    both reduced configs, 22d remat at llama3.2-1b's full width. Returns
-    the launches of 22a and 22b for the kernels line."""
+    both reduced configs (from ``batch``), 22d remat at llama3.2-1b's
+    full width. Returns the launches of 22a and 22b for the kernels
+    line."""
     from torch.utils.checkpoint import checkpoint
     # torch.utils.checkpoint sets itself up at its first call (seconds of
     # imports): paid here, before any remat run is timed
@@ -7323,7 +7529,7 @@ def capped_mla_training(smi):
     for part in (deepseek_train(smi), grok_grads(smi)):
         for key, n in part.items():
             out[key] = out.get(key, 0) + n
-    launcher_reduced()
+    launcher_reduced(batch)
     llama_remat(smi)
     return out
 
@@ -7635,13 +7841,22 @@ def main():
     with phase_clock("build and log2 rule (phase 2)"):
         build_kernels()
         log2_rule()
-    with phase_clock("parity and timings (phases 3-4)"):
-        errs, solves = kernel_parity()
+    with phase_clock("parity (phase 3) beside the launcher batch (the "
+                     "launchers of 15c, 16c, 17d and 22c)"):
+        launchers = LauncherBatch()
+        launchers.start()
+        try:
+            errs, solves = kernel_parity()
+            errs.update(score_kernel_parity())
+            errs.update(flash_backward_parity())
+        except BaseException:
+            launchers.kill()
+            raise
+        batch, saved = launchers.wait()
+    with phase_clock("timings (phase 4)"):
         times = kernel_timings()
         times["plan_solve"] = plan_solve_timings(solves)
         del solves
-        errs.update(score_kernel_parity())
-        errs.update(flash_backward_parity())
         times.update(score_kernel_timings(smi))
         times.update(flash_backward_timings(smi))
     with phase_clock("main path, self-check, step profile (phases 5-7)"):
@@ -7659,7 +7874,7 @@ def main():
     with phase_clock("score producer (phase 11)"):
         launches.update(score_producer(smi))
     with phase_clock(f"{SC_ARCH} at full width (phase 12)"):
-        for key, n in starcoder_serve(smi).items():
+        for key, n in dense_serve(smi, SC_ARCH, SC_SERVE).items():
             launches[key] += n
     with phase_clock("drift-aware re-planning at fleet scale (phase 13)"):
         for key, n in replanning(smi).items():
@@ -7669,16 +7884,16 @@ def main():
             launches[key] += n
     with phase_clock("crash recovery, chaos drill, graceful drain "
                      "(phase 15)"):
-        for key, n in resilience(bounds, mig).items():
+        for key, n in resilience(bounds, mig, batch).items():
             launches[key] += n
     with phase_clock(f"fleet-axis sharding, {SHARDS} shards on the card "
                      "(phase 16)"):
-        for key, n in sharded(bounds, mig, plan5).items():
+        for key, n in sharded(bounds, mig, plan5, batch).items():
             launches[key] += n
         del plan5
     with phase_clock("training with top-K curation (phase 17)"):
         launches["flash_attention_bwd"] = 0
-        for key, n in training(smi).items():
+        for key, n in training(smi, batch).items():
             launches[key] += n
     with phase_clock("ssm and hybrid score producers (phase 18)"):
         for key, n in ssm_hybrid(smi).items():
@@ -7699,7 +7914,7 @@ def main():
             launches[key] = launches.get(key, 0) + n
     with phase_clock("training the soft-capped and the MLA models; remat "
                      "(phase 22)"):
-        for key, n in capped_mla_training(smi).items():
+        for key, n in capped_mla_training(smi, batch).items():
             launches[key] = launches.get(key, 0) + n
     with phase_clock("the model-side mesh and the dry run (phase 23)"):
         for key, n in dry_run(smi).items():
@@ -7707,6 +7922,12 @@ def main():
     with phase_clock("the example scripts on the card (phase 24)"):
         for key, n in example_scripts().items():
             launches[key] += n
+    with phase_clock(f"{YI_ARCH} and {CR_ARCH} at full width "
+                     "(phase 25)") as p25:
+        for key, n in dense_full(smi).items():
+            launches[key] = launches.get(key, 0) + n
+    log(f"phase clock: the launcher batch ran {saved:.1f}s shorter than its "
+        f"launchers' own walls added up; phase 25 took {p25.seconds:.1f}s")
     replaces = {
         "batched_topk": "src/repro/kernels/batched_topk/batched_topk.py:32",
         "tier_assign": "src/repro/kernels/tier_assign/tier_assign.py:47",
@@ -7737,6 +7958,12 @@ def main():
         "flash_attention_bwd@whisper-cross":
             "src/repro/models/attention.py:113",
         f"flash_attention@{PX_ARCH}":
+            "src/repro/kernels/flash_attention/flash_attention.py:64",
+        # phase 25's prefills: yi-9b's group of 8, command-r-plus-104b's
+        # 96 query heads over 8
+        f"flash_attention@{YI_ARCH}":
+            "src/repro/kernels/flash_attention/flash_attention.py:64",
+        f"flash_attention@{CR_ARCH}":
             "src/repro/kernels/flash_attention/flash_attention.py:64",
         # the backward at phase 22's full-width launches, each entry's
         # launches those of its shape: grok-1-314b's soft-capped and

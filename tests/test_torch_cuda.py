@@ -1051,6 +1051,23 @@ def test_flash_attention_odd_group_window_equals_plain(
                                              window, dtype, cuda_device)
 
 
+# (b, sq, skv, h, kvh, hd, causal, window): the prefills of 8 x 1024 at
+# head dim 128 that chip_smoke.py's phase 25 serves, yi-9b's 32 query
+# heads over 4 (a group of 8) and command-r-plus-104b's 96 over 8
+FA_DENSE_FULL_CASES = [(8, 1024, 1024, 32, 4, 128, True, 0),
+                       (8, 1024, 1024, 96, 8, 128, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window",
+                         FA_DENSE_FULL_CASES)
+def test_flash_attention_dense_full_prefills_equal_plain(
+        b, sq, skv, h, kvh, hd, causal, window, dtype, cuda_device):
+    test_flash_attention_kernel_equals_plain(b, sq, skv, h, kvh, hd, causal,
+                                             window, dtype, cuda_device)
+
+
 @pytest.mark.cuda
 def test_flash_attention_head_dim_outside_the_build_raises(cuda_device):
     q = torch.zeros((1, 4, 2, 48), device=cuda_device)
@@ -1060,10 +1077,11 @@ def test_flash_attention_head_dim_outside_the_build_raises(cuda_device):
 
 # (b, v): one span and many (ops.split_columns), starcoder2-3b's
 # vocabulary, rows that fill the card (one span a row) and 132 rows (two),
-# hymba-1.5b's (V % 4 != 0: scalar loads) and mamba2-2.7b's decode steps
+# hymba-1.5b's (V % 4 != 0: scalar loads), mamba2-2.7b's, yi-9b's and
+# command-r-plus-104b's decode steps
 ENT_CASES = [(1, 128), (3, 300), (8, 2048), (5, 5000), (16, 32000),
              (8, 128256), (4, 128257), (8, 49152), (132, 128256),
-             (300, 5001), (8, 32001), (8, 50280)]
+             (300, 5001), (8, 32001), (8, 50280), (8, 64000), (8, 256000)]
 
 
 @pytest.mark.cuda

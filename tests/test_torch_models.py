@@ -3,7 +3,10 @@ the reference's weights carried across by ``from_reference_params``:
 ``get_config`` field by field for all ten architectures, parameter
 counts and shapes, ``forward``, and ``prefill`` then ``decode_step``
 against ``repro.models.lm``; prefill-then-decode against the port's own
-forward (as tests/test_decode.py holds the reference). The
+forward (as tests/test_decode.py holds the reference); yi-9b's and
+command-r-plus-104b's attention geometry (head dim 128, query groups of
+8 and 12, RoPE theta 5e6 and 75e6) over a prefill of 1024 positions at
+a narrow width, and their full parameter counts. The
 encoder-decoder and vision-frontend paths, whose batches carry frame or
 patch embeddings, are held in tests/test_torch_encdec.py.
 
@@ -109,7 +112,8 @@ def test_init_dense_is_a_truncated_fan_in_normal():
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "yi-9b", "starcoder2-3b",
-                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b",
+                                  "command-r-plus-104b", "mamba2-2.7b",
+                                  "hymba-1.5b", "grok-1-314b",
                                   "deepseek-v2-236b"])
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_forward_matches_reference(arch, use_kernel):
@@ -126,8 +130,9 @@ def test_forward_matches_reference(arch, use_kernel):
     assert (float(aux) == 0.0) == (cfg.n_experts == 0)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b",
-                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b",
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "yi-9b", "starcoder2-3b",
+                                  "command-r-plus-104b", "mamba2-2.7b",
+                                  "hymba-1.5b", "grok-1-314b",
                                   "deepseek-v2-236b"])
 def test_prefill_and_decode_match_reference(arch):
     """Logits of the prefill and of each decode step, then every layer's
@@ -184,8 +189,9 @@ def test_prefill_and_decode_match_reference(arch):
                      "deepseek-v2-236b": {"mla"}}.get(arch, {"kv"})
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b",
-                                  "mamba2-2.7b", "hymba-1.5b", "grok-1-314b",
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "yi-9b", "starcoder2-3b",
+                                  "command-r-plus-104b", "mamba2-2.7b",
+                                  "hymba-1.5b", "grok-1-314b",
                                   "deepseek-v2-236b"])
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_prefill_then_decode_matches_forward(arch, use_kernel):
@@ -311,3 +317,78 @@ def test_deepseek_full_size_param_count():
     shapes = t_lm.param_shapes(cfg)["dec"][1][0]["attn"]
     assert shapes["wkv_b"] == (512, 128, 256) and shapes["wq_b"] == (
         1536, 128, 192)
+
+
+def test_yi_and_command_r_full_size_param_counts():
+    """yi-9b (8,829,407,232 parameters, served whole on the card) and
+    command-r-plus-104b (103,810,609,152) as the reference counts them;
+    and the 2-of-64-layer cut the card serves: 6,291,517,440, the tied
+    embedding's 3,145,728,000 among them."""
+    from repro_torch.configs.base import LayerSpec
+    counts = {"yi-9b": 8_829_407_232, "command-r-plus-104b": 103_810_609_152}
+    for arch, n in counts.items():
+        assert t_lm.param_count(t_configs.get_config(arch)) == n == \
+            r_lm.param_count(r_configs.get_config(arch))
+    cfg = t_configs.get_config("command-r-plus-104b")
+    cut = cfg.replace(layers=(LayerSpec(count=2, mixer="attn", ffn="dense"),))
+    assert cfg.tie_embeddings and "lm_head" not in t_lm.param_shapes(cut)
+    assert t_lm.param_count(cut) == 6_291_517_440
+    assert t_lm.param_shapes(cut)["embed"] == (256_000, 12_288)
+
+
+# (arch, query heads, KV heads): the full configs' head dim of 128 and
+# query group (yi-9b 32 over 4: 8; command-r-plus-104b 96 over 8: 12) at
+# a narrow width, two KV heads
+GEOMETRY = [("yi-9b", 16, 2), ("command-r-plus-104b", 24, 2)]
+GEOMETRY_PROMPT, GEOMETRY_STEPS = 1024, 6
+
+
+@pytest.mark.parametrize("arch,heads,kv_heads", GEOMETRY)
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_full_attention_geometry_matches_reference(arch, heads, kv_heads,
+                                                   use_kernel):
+    """Each config narrowed in width (2 layers, d_model 128, d_ff 256,
+    vocab 512) but kept at head dim 128, its query group and its own RoPE
+    theta (5e6, 75e6) and tied or untied head: a prefill of 1024
+    positions, then decode steps past it, the logits of each against
+    ``repro.models.lm``'s within TOL, and the rotary embedding at those
+    theta and positions against the reference's ``apply_rope``."""
+    from repro.configs.base import LayerSpec as RSpec
+    from repro.models import common as r_common
+    from repro_torch.configs.base import LayerSpec as TSpec
+    narrow = dict(d_model=128, d_ff=256, vocab_size=512, n_heads=heads,
+                  n_kv_heads=kv_heads)
+    cfg = r_configs.get_config(arch).replace(
+        layers=(RSpec(count=2, mixer="attn", ffn="dense"),), **narrow)
+    tcfg = t_configs.get_config(arch).replace(
+        layers=(TSpec(count=2, mixer="attn", ffn="dense"),), **narrow)
+    assert (tcfg.head_dim, tcfg.rope_theta) == (128, {
+        "yi-9b": 5e6, "command-r-plus-104b": 75e6}[arch])
+    params = r_lm.init_params(cfg, jax.random.PRNGKey(6))
+    tparams = t_lm.from_reference_params(jax.tree.map(np.asarray, params),
+                                         tcfg, device="cpu")
+    total = GEOMETRY_PROMPT + GEOMETRY_STEPS
+    toks = tokens_for(cfg, 2, total, seed=7)
+    r_cache = r_lm.init_cache(cfg, 2, total + 1)
+    r_logits, r_cache = r_lm.prefill(
+        params, cfg, {"tokens": jnp.asarray(toks[:, :GEOMETRY_PROMPT])},
+        r_cache)
+    t_cache = t_lm.init_cache(tcfg, 2, total + 1, device="cpu")
+    t_logits, t_cache = t_lm.prefill(
+        tparams, tcfg, {"tokens": torch.tensor(toks[:, :GEOMETRY_PROMPT])},
+        t_cache, use_kernel=use_kernel)
+    close(t_logits, r_logits)
+    for t in range(GEOMETRY_PROMPT, total):
+        r_logits, r_cache = r_lm.decode_step(params, cfg,
+                                             jnp.asarray(toks[:, t]), r_cache)
+        t_logits, t_cache = t_lm.decode_step(tparams, tcfg,
+                                             torch.tensor(toks[:, t]),
+                                             t_cache)
+        close(t_logits, r_logits)
+    x = np.random.default_rng(8).standard_normal(
+        (2, total, heads, 128)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(total, dtype=np.int32), (2, total))
+    close(t_common.apply_rope(torch.tensor(x), torch.tensor(pos),
+                              tcfg.rope_theta),
+          r_common.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                              cfg.rope_theta))
