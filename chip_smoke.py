@@ -2130,8 +2130,8 @@ def fa_launch_timing(key, shape, causal, smi, backward=False, g=None,
                       + 2 * k.numel() + 2 * v.numel()
                       + lse.numel())  # q, dQ; o, dO; k, dK; v, dV; lse
         tanhf = 2 * pairs
-        what = (f"backward (plan: {plan['warps']} warps, split "
-                f"{plan['split']}, {plan['blocks']} dK/dV blocks, "
+        what = (f"backward (plan: {bwd_layout_text(plan)}, "
+                f"{plan['blocks']} dK/dV blocks, "
                 f"{plan['scratch_bytes']} bytes of partials)")
         lib_text = (f"forward plus backward {fwd_bwd:.4f} less its forward "
                     f"{fwd:.4f}{lib_text}")
@@ -2230,6 +2230,14 @@ FA_BWD_SEAMS = (
 FA_BWD_LONG = (
     ("g 8, 4096 keys, batch 9", 9, 4096, 4096, 8, 1, 64, True, 0),
     ("g 6, 2048 keys, batch 9, hd 128", 9, 2048, 2048, 24, 4, 128, True, 0))
+
+
+def bwd_layout_text(plan):
+    """A backward plan's two launch layouts and split, as text."""
+    return "; ".join(
+        f"{n}: {plan[n]['rows']} rows a block, {plan[n]['tile_rows']}-row "
+        f"tiles, {plan[n]['stages']} stages, {plan[n]['smem_bytes']} bytes"
+        for n in ("dq", "dkdv")) + f"; split {plan['split']}"
 
 
 def bwd_launch_names(plan):
@@ -2376,7 +2384,7 @@ def flash_backward_parity():
             want = fa.reference_backward(q, k, v, out, lse, dout, **kw)
             lse_err = within_tol([lse], [fa.reference_lse(q, k, v, **kw)],
                                  2e-5)
-            plan = fa.backward_plan(b, h, kvh, sq, skv, hd, hd_v)
+            plan = fa.backward_plan(b, h, kvh, sq, skv, hd, hd_v, dtype)
             got = fa.backward(q, k, v, out, lse, dout, **kw)
             torch.cuda.synchronize()
             rel, diff = [], 0.0
@@ -2406,8 +2414,8 @@ def flash_backward_parity():
             log(f"parity flash_attention_bwd [{label}] B={b} Sq={sq} "
                 f"Skv={skv} H={h} KV={kvh} hd={hd} hd_v={hd_v} "
                 f"causal={causal} window={window} softcap={cap} "
-                f"{str(dtype)[6:]}, {plan['warps']} warps, split "
-                f"{plan['split']}: dq, dk, dv max abs diff over the largest "
+                f"{str(dtype)[6:]}, {bwd_layout_text(plan)}: dq, dk, dv "
+                f"max abs diff over the largest "
                 f"magnitude {rel[0]:.3e}, {rel[1]:.3e}, {rel[2]:.3e} (limit "
                 f"{tol}); max abs diff {diff:.3e}; lse {lse_err:.3e}; a "
                 f"second call bit-equal {same}{f64_text}")
@@ -2430,16 +2438,34 @@ def flash_backward_parity():
     return {"flash_attention_bwd": worst, **errs}
 
 
+def bwd_launch_info(plan, hd, hd_v, cap):
+    """``backward_info``'s registers, shared memory and blocks an SM of
+    each float32 backward launch, as text; the dq and dK/dV launches'
+    shared memory must be the bytes ``backward_plan`` reckons (ops'
+    mirror of the compiled layout)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    info = fa.backward_info(hd, torch.float32, hd_v, bool(cap))
+    for name, launch in (("flash_bwd_dq", "dq"), ("flash_bwd_dkdv", "dkdv")):
+        if info[name][1] != plan[launch]["smem_bytes"]:
+            raise AssertionError(f"{name} takes {info[name][1]} bytes of "
+                                 f"shared memory, backward_plan reckons "
+                                 f"{plan[launch]['smem_bytes']}")
+    return "; ".join(f"{n} {r} registers, {m} bytes of shared memory, "
+                     f"{n_sm} blocks an SM"
+                     for n, (r, m, n_sm) in info.items())
+
+
 def flash_backward_timings(smi):
     """flash_attention's backward at both serve shapes, causal, through
     ``fa_launch_timing`` (every launch of a call under backward_plan
     beside SDPA's backward, which it must beat), and at phase 22's
     full-width launches, grok-1-314b's capped at 30 (beside
     ``flex_softcap``'s backward) and deepseek-v2-236b's at head dims
-    (192, 128) (beside SDPA's, its backend named), with the launches'
-    registers, shared memory and blocks an SM; then the forward with the
-    row log-sum-exp written beside without it, windows in turns. The
-    first shape and the two full-width ones go into the kernels line."""
+    (192, 128) (beside SDPA's, its backend named, which it must beat too),
+    with the launches' registers, shared memory and blocks an SM
+    (``bwd_launch_info``); then the forward with the row log-sum-exp
+    written beside without it, windows in turns. The first shape and the
+    two full-width ones go into the kernels line."""
     from repro_torch.kernels.flash_attention import ops as fa
     g = torch.Generator(device="cuda").manual_seed(7)
     out = {}
@@ -2448,11 +2474,8 @@ def flash_backward_timings(smi):
         t = out[key] = fa_launch_timing(key, (b, s, s, h, kvh, hd), True,
                                         smi, backward=True, g=g)
         plan = fa.backward_plan(b, h, kvh, s, s, hd)
-        info = "; ".join(f"{n} {r} registers, {m} bytes of shared memory, "
-                         f"{n_sm} blocks an SM" for n, (r, m, n_sm)
-                         in fa.backward_info(hd, torch.float32).items())
-        log(f"backward launches [{plan['keys']} keys a dK/dV block, hd {hd} "
-            f"f32]: {info}")
+        log(f"backward launches [{bwd_layout_text(plan)}; hd {hd} f32]: "
+            f"{bwd_launch_info(plan, hd, hd, 0.0)}")
         if t["ms"] >= t["library_ms"]:
             raise AssertionError(f"{key}: the backward's {t['ms']:.4f} ms is "
                                  f"not below SDPA's backward "
@@ -2461,15 +2484,17 @@ def flash_backward_timings(smi):
             (f"flash_attention_bwd@{GK_ARCH}", FA_GK, FA_GK[4], GK_CAP),
             (f"flash_attention_bwd@{DS_ARCH}",
              (*FA_DS[:2], FA_DS[2], FA_DS[2], FA_DS[3]), FA_DS[4], 0.0)):
-        out[key] = fa_launch_timing(key, (b, s, s, h, kvh, hd), True, smi,
-                                    backward=True, g=g, hd_v=hd_v,
-                                    backend=not cap, softcap=cap)
-        info = "; ".join(f"{n} {r} registers, {m} bytes of shared memory, "
-                         f"{n_sm} blocks an SM" for n, (r, m, n_sm)
-                         in fa.backward_info(hd, torch.float32, hd_v,
-                                             bool(cap)).items())
-        log(f"backward launches [{fa.BWD_WARPS[hd] * 16} keys a dK/dV "
-            f"block, hd {hd}, hd_v {hd_v}, softcap {cap:g}, f32]: {info}")
+        t = out[key] = fa_launch_timing(key, (b, s, s, h, kvh, hd), True,
+                                        smi, backward=True, g=g, hd_v=hd_v,
+                                        backend=not cap, softcap=cap)
+        plan = fa.backward_plan(b, h, kvh, s, s, hd, hd_v)
+        log(f"backward launches [{bwd_layout_text(plan)}; hd {hd}, hd_v "
+            f"{hd_v}, softcap {cap:g}, f32]: "
+            f"{bwd_launch_info(plan, hd, hd_v, cap)}")
+        if not cap and t["ms"] >= t["library_ms"]:
+            raise AssertionError(f"{key}: the backward's {t['ms']:.4f} ms is "
+                                 f"not below SDPA's backward "
+                                 f"{t['library_ms']:.4f} ms")
     # the forward with the log-sum-exp written against without it,
     # windows in turns (off, on, on, off, ...)
     b, s, h, kvh, hd = FA_PATH
@@ -6248,10 +6273,23 @@ def moe_serve(smi):
 FA_AB = (("llama3.2-1b", FA_PATH, 0, 0.0), ("starcoder2-3b", FA_SC, 0, 0.0),
          ("hymba-1.5b", FA_HY, HY_WINDOW, 0.0), ("grok-1", FA_GK, 0, 0.0),
          ("grok-1 capped", FA_GK, 0, GK_CAP))
-# (label, (B, S, H, KV, hd)): the backward (uncapped, equal head dims) at
-# the two training shapes of phase 4's timings
-FA_AB_BWD = (("llama3.2-1b backward", FA_PATH),
-             ("starcoder2-3b backward", FA_SC))
+# (label, (B, Sq, Skv, H, KV, hd, hd_v), causal, softcap): the backward at
+# phase 4's training shapes: the two serve shapes, deepseek-v2's at MLA's
+# head dims, grok-1's capped and whisper-base's encoder and training
+# cross-attention (non-causal)
+FA_AB_BWD = (
+    ("llama3.2-1b backward", (*FA_PATH[:2], *FA_PATH[1:], FA_PATH[4]), True,
+     0.0),
+    ("starcoder2-3b backward", (*FA_SC[:2], *FA_SC[1:], FA_SC[4]), True,
+     0.0),
+    ("deepseek-v2 backward", (*FA_DS[:2], FA_DS[1], FA_DS[2], FA_DS[2],
+                              *FA_DS[3:]), True, 0.0),
+    ("grok-1 capped backward", (*FA_GK[:2], *FA_GK[1:], FA_GK[4]), True,
+     GK_CAP),
+    ("whisper-base encoder backward", (*FA_WH_ENC, FA_WH_ENC[5]), False,
+     0.0),
+    ("whisper-base cross backward", (*FA_WH_CROSS_TRAIN,
+                                     FA_WH_CROSS_TRAIN[5]), False, 0.0))
 
 
 def forward_gap(q, k, v, out, kw):
@@ -6273,7 +6311,8 @@ def forward_gap(q, k, v, out, kw):
 def fa_child(src, path, what="ab"):
     """``--fa-child SRC PATH [mla]``: flash_attention of the repro_torch
     under SRC (built there) at FA_AB, and its backward (``ops.backward``)
-    at FA_AB_BWD, on float32 inputs from a fixed seed; each output's
+    at FA_AB_BWD (v and dO at its hd_v, its mask and cap), on float32
+    inputs from a fixed seed; each output's
     sha256 (the backward's dq, dk and dv together), its device ms (CUDA
     events, median of WINDOWS means of 10 calls) and its distance from the
     float64 plain route beside the float32 plain route's (``forward_gap``;
@@ -6312,12 +6351,16 @@ def fa_child(src, path, what="ab"):
         record(label, lambda: fa.flash_attention(q, k, v, **kw),
                lambda outs: [[x] for x in forward_gap(q, k, v, outs[0],
                                                       kw)])
-    for label, (b, s, h, kvh, hd) in FA_AB_BWD:
-        q, k, v = fa_inputs(g, b, s, s, h, kvh, hd, torch.float32)
-        dout = torch.randn(q.shape, device="cuda", generator=g)
-        out, lse = fa.forward_with_lse(q, k, v)
-        record(label, lambda: fa.backward(q, k, v, out, lse, dout),
-               lambda outs: f64_distances(q, k, v, dout, outs, {}))
+    for label, (b, sq, skv, h, kvh, hd, hd_v), causal, cap in FA_AB_BWD:
+        q, k, v = fa_inputs(g, b, sq, skv, h, kvh, hd, torch.float32)
+        if hd_v != hd:
+            v = torch.randn((b, skv, kvh, hd_v), device="cuda", generator=g)
+        dout = torch.randn((b, sq, h, hd_v), device="cuda", generator=g)
+        kw = dict(causal=causal, softcap=cap)
+        out, lse = fa.forward_with_lse(q, k, v, **kw)
+        record(label, lambda: fa.backward(q, k, v, out, lse, dout, **kw),
+               lambda outs: f64_distances(q, k, v, dout, outs, kw))
+        del q, k, v, dout, out, lse
     Path(path).write_text(json.dumps(got))
     return 0
 
@@ -6328,7 +6371,9 @@ def fa_ab(parent_src, smi):
     its backward at FA_AB_BWD, in turns (SRC, this, this, SRC), each turn
     its own process: each side's two medians and both trees' distances
     from the float64 plain route (the float32 plain route's beside)
-    logged; each tree's two turns must be bit-equal."""
+    logged; each tree's two turns must be bit-equal, the forward's
+    outputs bit-equal across the trees, and no backward of this tree
+    slower than SRC's (the mean of each side's two medians)."""
     runs = []
     for i, src in enumerate((parent_src, str(ROOT / "src"),
                              str(ROOT / "src"), parent_src)):
@@ -6357,25 +6402,42 @@ def fa_ab(parent_src, smi):
         if not all(same):
             raise AssertionError(f"fa-ab [{label}]: a tree's two turns "
                                  f"differ")
+        if label in dict((x[0], x) for x in FA_AB):
+            if runs[0][label][0] != runs[1][label][0]:
+                raise AssertionError(f"fa-ab [{label}]: the forward's "
+                                     f"output differs from SRC's")
+        elif ms[1] + ms[2] > ms[0] + ms[3]:
+            raise AssertionError(f"fa-ab [{label}]: this tree's backward is "
+                                 f"slower than SRC's")
     return 0
 
 
-# the backward's tile layouts at MLA's (192, 128) for ``--fa-layouts``:
+# the backward's launch layouts at MLA's (192, 128) for ``--fa-layouts``:
 # (label, [(file under kernels/flash_attention/, text, its replacement)]),
-# the built layout first; DkdvShape's warps and ops.BWD_WARPS in step
+# the built layout first; Shape in the .cuh and ops.BWD_LAYOUTS in step.
+# A block holds 64 resident rows in two consumer warpgroups' registers;
+# what is left to choose at (192, 128) float32 is the streamed tile's rows
+# (32 fits twice in the 227 KB a block may have), the promoted chunk of S
+# and dP, and the hand-off buffers between the warpgroups.
 FA_LAYOUTS = (
-    ("built: dQ 8-key tiles (two 103 KB blocks an SM), dK/dV 8 warps with "
-     "16-row tiles (205 KB, one block)", ()),
-    ("dQ 16-key tiles (123 KB, one block an SM)",
-     (("csrc/flash_attention_bwd.cu", "(HD <= 128 ? 16 : 8)", "16"),)),
-    ("dK/dV 4 warps with 16-row tiles (123 KB, one block an SM)",
-     (("csrc/flash_attention_dkdv.cu", "NW = HD >= 128 ? 8 : 4",
-       "NW = HD == 128 ? 8 : 4"),
-      ("ops.py", "128: 8, 192: 8}", "128: 8, 192: 4}"))),
-    ("dK/dV 2 warps with 16-row tiles (82 KB, two blocks an SM)",
-     (("csrc/flash_attention_dkdv.cu", "NW = HD >= 128 ? 8 : 4",
-       "NW = HD == 128 ? 8 : (HD > 128 ? 2 : 4)"),
-      ("ops.py", "128: 8, 192: 8}", "128: 8, 192: 2}"))))
+    ("built: 32-row tiles, 2 stages, S and dP promoted every 8 k-steps, 2 "
+     "hand-off buffers (dq 209 KB, dK/dV 210 KB)", ()),
+    ("dK/dV 16-query tiles (106 KB)",
+     (("csrc/flash_attention_bwd.cuh", "static constexpr int BN = 32;",
+       "static constexpr int BN = DKDV && HDK > 128 ? 16 : 32;"),
+      ("ops.py", "128: (32, 2, 1, 2), 192: (32, 2, 1, 2)}}",
+       "128: (32, 2, 1, 2), 192: (16, 2, 1, 2)}}"))),
+    ("S and dP promoted every 4 k-steps",
+     (("csrc/flash_attention_bwd.cuh",
+       "static constexpr int KC = HDK > 128 ? 8 : (HDK > 32 ? 4 : 1);",
+       "static constexpr int KC = HDK > 32 ? 4 : 1;"),)),
+    ("one hand-off buffer (dq 185 KB, dK/dV 202 KB)",
+     (("csrc/flash_attention_bwd.cuh", "static constexpr int NB = 2;",
+       "static constexpr int NB = HDK > 128 ? 1 : 2;"),
+      ("ops.py", "128: (32, 2, 1, 2), 192: (32, 2, 1, 2)},",
+       "128: (32, 2, 1, 2), 192: (32, 2, 1, 1)},"),
+      ("ops.py", "128: (32, 2, 1, 2), 192: (32, 2, 1, 2)}}",
+       "128: (32, 2, 1, 2), 192: (32, 2, 1, 1)}}"))))
 
 
 def edited_tree(root, edits):

@@ -24,11 +24,12 @@ The gradient: on a CUDA tensor, with grad enabled and an input that
 requires it, ``flash_attention`` runs ``FlashAttentionFn``. Its forward is
 the same kernel with the row log-sum-exp written beside the output, and
 its backward the hand-written backward of the same source: a dQ launch,
-then a dK/dV launch, every product on the tensor cores as 3xTF32
-``mma.sync`` with P and dS kept in registers. The tensor cores truncate
-inside long sums, so in the forward and backward alike each 8-step chunk
-of a product (S and dP over the head dim, O and dQ over the keys) and
-each query tile's dK/dV products are added to their totals in float32,
+then a dK/dV launch of one warp-specialised kernel body, every product
+on the tensor cores as 3xTF32 ``wgmma``, the streamed tiles brought by
+TMA into a ring of shared-memory stages (``BWD_LAYOUTS``). The tensor
+cores truncate inside long sums, so in the forward and backward alike
+each chunk of a product (S and dP over the head dim, O over the keys,
+dQ, dK and dV over a tile's rows) is added to its total in float32,
 which keeps the float32 gradients as close to a float64 route as the
 plain version's. ``backward_plan`` picks how many even parts the dK/dV
 launch cuts each group of query heads into when its blocks alone cannot
@@ -72,10 +73,18 @@ SMS = 132  # streaming multiprocessors of an H100 SXM
 # dK/dV blocks the backward wants before it splits the query-head groups:
 # four for each SM
 BWD_FILL = 4 * SMS
-# warps of a dK/dV block (16 keys each) by q/k head dim, as the kernel is
-# compiled (DkdvShape in the .cu): the faster layout at the training
-# shapes timed on the card (PERF.md, row 7b)
-BWD_WARPS = {16: 4, 24: 4, 32: 4, 64: 4, 128: 8, 192: 8}
+# the backward's launch layouts by launch and q/k head dim, as the kernel
+# is compiled (Shape in csrc/flash_attention_bwd.cuh): (streamed rows a
+# tile, panel stages, bfloat16's TMA slots (a float32 tile lands in its
+# stage), buffers of each hand-off between the two consumer warpgroups). A block holds 64 resident rows (dq: queries;
+# dK/dV: keys), a producer warpgroup and two consumers.
+BWD_LAYOUTS = {
+    "dq": {16: (32, 3, 2, 2), 24: (32, 3, 2, 2), 32: (32, 3, 2, 2),
+           64: (32, 3, 2, 2), 128: (32, 2, 1, 2), 192: (32, 2, 1, 2)},
+    "dkdv": {16: (32, 3, 2, 2), 24: (32, 3, 2, 2), 32: (32, 3, 2, 2),
+             64: (32, 3, 2, 2), 128: (32, 2, 1, 2), 192: (32, 2, 1, 2)}}
+SMEM_LIMIT = 232_448  # shared memory a block may have (227 KB)
+
 
 # kernel launches made by ``flash_attention`` since the last reset: the
 # forward, and the backward (counted once a call, whatever its launches);
@@ -232,12 +241,50 @@ def _bwd_kernel():
     return fn
 
 
-def backward_plan(b, h, kvh, sq, skv, hd, hd_v=None) -> dict:
+def _up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def backward_smem(launch, hd, hd_v=None, dtype=torch.float32) -> int:
+    """Shared-memory bytes a block of ``launch`` ("dq" or "dkdv") takes at
+    this head-dim pair and type, as ``BwdLayout`` in the .cuh adds them:
+    the stages' float32 panel tiles of a streamed tile (its rows' hi, and
+    for float32 their lo below); the 64 x tile-rows scratch panels (hi
+    and lo) that products read as B (dq: dS, one pair a hand-off buffer;
+    dK/dV: P and dS); the hand-off buffers of masked P; for bfloat16 the
+    TMA slots a tile lands in as it lies in memory (in dK/dV with its lse
+    and Delta; a float32 tile lands in its stage); dK/dV's lse and Delta
+    of each stage; the mbarriers; and 1024 bytes to align the base. Each
+    panel region is 1024-byte aligned, each TMA destination 128-byte
+    aligned."""
+    hd_v = hd_v or hd
+    bn, ps, rs, nb = BWD_LAYOUTS[launch][hd]
+    dkdv, item = launch == "dkdv", torch.empty((), dtype=dtype).element_size()
+    npan = 2 if dtype == torch.float32 else 1
+    stage = _up(npan * bn * hd * 4, 1024) + _up(npan * bn * hd_v * 4, 1024)
+    scr = (4 if dkdv else 2 * nb) * _up(64 * bn * 4, 1024)
+    pbuf = nb * 64 * bn * 4
+    raw = (_up(bn * hd * item, 128) + _up(bn * hd_v * item, 128)
+           + (2 * _up(bn * 4, 128) if dkdv else 0))
+    rs = 0 if npan == 2 else rs
+    vec = ps * 2 * _up(bn * 4, 128) if dkdv else 0
+    used = ps * stage + scr + pbuf + rs * raw
+    landed = ps if npan == 2 else rs
+    return _up(used + vec, 8) + 8 * (2 * ps + landed + 4 * nb) + 1024
+
+
+def backward_plan(b, h, kvh, sq, skv, hd, hd_v=None, dtype=torch.float32,
+                  softcap=0.0) -> dict:
     """How the backward launches at this shape (v's head dim ``hd_v``, hd
-    unless given): ``warps`` a dK/dV block (16 keys each, ``BWD_WARPS``),
-    ``split``, the parts each group of ``h // kvh`` query heads is cut
-    into, the dK/dV grid's ``blocks`` and the partials' ``scratch_bytes``.
-    A pure function of the shape.
+    unless given; ``dtype`` and ``softcap`` as the call's): for each of
+    ``dq`` and ``dkdv`` its layout (``BWD_LAYOUTS``: ``rows`` resident a
+    block, ``warpgroups`` consumers on them, ``tile_rows`` streamed a
+    tile, ``stages``, ``tma_slots``, ``handoffs``), its ``threads``,
+    ``grid`` and ``smem_bytes`` (``backward_smem``); ``keys`` a dK/dV
+    block; ``split``, the parts each group of ``h // kvh`` query heads is
+    cut into, the dK/dV grid's ``blocks`` and the partials'
+    ``scratch_bytes``. A pure function of the shape (the cap changes
+    nothing of the layout, the type only the shared memory).
 
     When ``kvh · b · ⌈Skv / keys⌉`` blocks reach ``BWD_FILL`` the group is
     not split. Otherwise ``split`` is the smallest divisor of the group
@@ -245,15 +292,25 @@ def backward_plan(b, h, kvh, sq, skv, hd, hd_v=None) -> dict:
     does), so every part holds as many heads; its float32 dK and dV
     partials take ``split`` times the bytes of float32 dK and dV."""
     hd_v = hd_v or hd
-    warps = BWD_WARPS[hd]
-    group, keys = h // kvh, 16 * warps
+    launches = {}
+    for launch, n in (("dq", sq), ("dkdv", skv)):
+        bn, ps, rs, nb = BWD_LAYOUTS[launch][hd]
+        launches[launch] = {
+            "rows": 64, "warpgroups": 2, "tile_rows": bn, "stages": ps,
+            "tma_slots": rs, "handoffs": nb, "threads": 384,
+            "smem_bytes": backward_smem(launch, hd, hd_v, dtype),
+            "grid": ((h, b, -(-n // 64)) if launch == "dq"
+                     else (kvh, b, -(-n // 64)))}
+    group, keys = h // kvh, launches["dkdv"]["rows"]
     blocks = kvh * b * -(-skv // keys)
     per_part = 4 * b * skv * kvh * (hd + hd_v)  # dK and dV, float32
     divisors = [d for d in range(1, group + 1) if group % d == 0]
     split = 1
     if 0 < blocks < BWD_FILL:
         split = next((d for d in divisors if d * blocks >= BWD_FILL), group)
-    return {"warps": warps, "keys": keys, "split": split,
+    g = launches["dkdv"]["grid"]
+    launches["dkdv"]["grid"] = (g[0] * split, g[1], g[2])
+    return {**launches, "keys": keys, "split": split,
             "blocks": blocks * split,
             "scratch_bytes": per_part * split if split > 1 else 0}
 
@@ -406,7 +463,9 @@ def _launch_backward(q, k, v, out, lse, dout, causal, window, scale,
     if q.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     split = backward_plan(b, h, kvh, sq, skv, hd, hd_v)["split"]
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # the dq launch's copy of lse, then Delta, rows padded to 4 floats
+    delta = torch.empty(2 * b * h * (-(-sq // 4) * 4), dtype=torch.float32,
+                        device=q.device)
     # dK's partials, then dV's: (split, B, Skv, KV, hd), (split, ..., hd_v)
     part = (torch.empty(split * (k.numel() + v.numel()), dtype=torch.float32,
                         device=q.device) if split > 1 else None)

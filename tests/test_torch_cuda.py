@@ -2341,6 +2341,28 @@ def test_flash_attention_unequal_head_dims_grouped_split_backward(
 
 
 @pytest.mark.cuda
+def test_flash_attention_mla_training_shape_backward(cuda_device):
+    """deepseek-v2's training launch at a reduced batch and head count:
+    q and k (2, 1024, 16, 192), v and dO (2, 1024, 16, 128), causal,
+    float32 (the backward's largest layouts: 64 query rows a dq block over
+    32-key tiles, 64 keys a dK/dV block over 32-query tiles) against
+    reference_backward within 1e-4 of each gradient's largest magnitude;
+    a second call bit-equal."""
+    plan = t_fa.backward_plan(2, 16, 16, 1024, 1024, 192, 128)
+    assert plan["split"] == 1 and plan["dq"]["tile_rows"] == 32
+    q, k, v, dout = _mla_inputs(2, 1024, 1024, 16, 192, 128, torch.float32,
+                                cuda_device)
+    out, lse = t_fa.forward_with_lse(q, k, v)
+    got = t_fa.backward(q, k, v, out, lse, dout)
+    again = t_fa.backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for a, r in zip(got, t_fa.reference_backward(q, k, v, out, lse, dout)):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert float((a - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.cuda
 def test_flash_attention_unequal_head_dims_cap_raises(cuda_device):
     """No capped build of MLA's pairs (no config has both): a capped call
     raises, and nothing falls back to the plain version; the autograd

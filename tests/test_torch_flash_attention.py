@@ -257,17 +257,30 @@ def _plan_heads(cfg):
 @pytest.mark.parametrize("batch", [4, 8])
 def test_backward_plan_invariants_at_every_config(arch, batch):
     """At each config's full width and batch x 1024 tokens (MLA's at its
-    head-dim pair): the dK/dV block the kernel is compiled with;
-    1 <= split <= g with split | g (even parts); the dK/dV grid is the
-    unsplit one times split; the group is split exactly when that grid is
-    below BWD_FILL; the partials (dK's and dV's, float32) stay within
-    SCRATCH_LIMIT."""
+    head-dim pair): each launch's layout as the kernel is compiled
+    (BWD_LAYOUTS), its grid and shared memory; 1 <= split <= g with
+    split | g (even parts); the dK/dV grid is the unsplit one times split;
+    the group is split exactly when that grid is below BWD_FILL; the
+    partials (dK's and dV's, float32) stay within SCRATCH_LIMIT."""
     from repro_torch import configs
     h, kvh, hd, hd_v = _plan_heads(configs.get_config(arch))
     plan = t_ops.backward_plan(batch, h, kvh, 1024, 1024, hd, hd_v)
-    g, warps = h // kvh, t_ops.BWD_WARPS[hd]
-    base = kvh * batch * -(-1024 // (16 * warps))
-    assert plan["warps"] == warps and plan["keys"] == 16 * warps
+    g = h // kvh
+    for launch in ("dq", "dkdv"):
+        bn, ps, rs, nb = t_ops.BWD_LAYOUTS[launch][hd]
+        got = plan[launch]
+        assert (got["tile_rows"], got["stages"], got["tma_slots"],
+                got["handoffs"]) == (bn, ps, rs, nb)
+        assert (got["rows"], got["warpgroups"], got["threads"]) == (64, 2,
+                                                                    384)
+        assert got["smem_bytes"] == t_ops.backward_smem(launch, hd, hd_v)
+        assert got["smem_bytes"] <= t_ops.SMEM_LIMIT
+    keys = plan["dkdv"]["rows"]
+    base = kvh * batch * -(-1024 // keys)
+    assert plan["keys"] == keys
+    assert plan["dq"]["grid"] == (h, batch, -(-1024 // plan["dq"]["rows"]))
+    assert plan["dkdv"]["grid"] == (kvh * plan["split"], batch,
+                                    -(-1024 // keys))
     assert 1 <= plan["split"] <= g and g % plan["split"] == 0
     assert plan["blocks"] == base * plan["split"]
     assert plan["scratch_bytes"] <= SCRATCH_LIMIT
@@ -281,14 +294,21 @@ def test_backward_plan_invariants_at_every_config(arch, batch):
 
 def test_backward_plan_at_mla_head_dims():
     """deepseek-v2's training launch, q and k (8, 1024, 128, 192), v (8,
-    1024, 128, 128): 128 keys a dK/dV block, 8,192 blocks, no split; a
+    1024, 128, 128): 64 query rows a dq block and 32-key tiles, 64 keys a
+    dK/dV block and 32-query tiles, each in two stages, 16,384 dK/dV
+    blocks, no split; a
     batch-1 call at (24, 16) whose group is split counts dK's and dV's
     partials at their own head dims."""
     plan = t_ops.backward_plan(8, 128, 128, 1024, 1024, 192, 128)
-    assert plan == {"warps": 8, "keys": 128, "split": 1, "blocks": 8192,
-                    "scratch_bytes": 0}
+    assert (plan["keys"], plan["split"], plan["blocks"],
+            plan["scratch_bytes"]) == (64, 1, 16384, 0)
+    assert plan["dq"]["rows"] == 64 and plan["dq"]["tile_rows"] == 32
+    assert plan["dq"]["grid"] == (128, 8, 16)
+    assert (plan["dkdv"]["tile_rows"], plan["dkdv"]["stages"]) == (32, 2)
+    assert plan["dq"]["smem_bytes"] == 214_128
+    assert plan["dkdv"]["smem_bytes"] == 214_640
     plan = t_ops.backward_plan(1, 4, 1, 100, 100, 24, 16)
-    assert plan["warps"] == 4 and plan["split"] == 4
+    assert plan["keys"] == 64 and plan["split"] == 4
     assert plan["scratch_bytes"] == 4 * 4 * 100 * 1 * (24 + 16)
     assert t_ops.backward_plan(1, 4, 1, 100, 100, 24)["scratch_bytes"] == \
         4 * 4 * 100 * 1 * (24 + 24)
@@ -297,21 +317,22 @@ def test_backward_plan_at_mla_head_dims():
 def test_backward_plan_leaves_a_full_grid_unsplit():
     """llama3.2-1b's training shape (phase 17b): 8 KV heads x 8 x 16 key
     blocks = 1,024 dK/dV blocks fill the 132 SMs, so no split and no
-    scratch."""
+    scratch; dq holds 64 query rows a block and streams 32-key tiles."""
     plan = t_ops.backward_plan(8, 32, 8, 1024, 1024, 64)
-    assert plan == {"warps": 4, "keys": 64, "split": 1, "blocks": 1024,
-                    "scratch_bytes": 0}
+    assert (plan["keys"], plan["split"], plan["blocks"],
+            plan["scratch_bytes"]) == (64, 1, 1024, 0)
+    assert plan["dq"]["tile_rows"] == 32 and plan["dq"]["grid"] == (32, 8, 16)
     assert plan["blocks"] >= t_ops.BWD_FILL >= t_ops.SMS
 
 
-@pytest.mark.parametrize("batch,split", [(4, 12), (8, 6)])
+@pytest.mark.parametrize("batch,split", [(4, 6), (8, 3)])
 def test_backward_plan_splits_the_head_dim_128_group(batch, split):
     """q (batch, 1024, 24, 128), k and v (batch, 1024, 2, 128): 2 x batch
-    x 8 blocks of 128 keys leave the card short, so the 12 heads of a
+    x 16 blocks of 64 keys leave the card short, so the 12 heads of a
     group are cut into the fewest even parts that reach BWD_FILL; 768
-    blocks and 96 MiB of float32 partials."""
+    blocks and 48 MiB of float32 partials."""
     plan = t_ops.backward_plan(batch, 24, 2, 1024, 1024, 128)
-    assert plan["warps"] == 8 and plan["keys"] == 128
+    assert plan["keys"] == plan["dkdv"]["rows"] == 64
     assert plan["split"] == split and plan["blocks"] == 768
     assert plan["scratch_bytes"] == split * 2 * 4 * batch * 1024 * 2 * 128
     assert plan["scratch_bytes"] <= SCRATCH_LIMIT
@@ -330,9 +351,89 @@ def test_backward_plan_small_grids():
     plan = t_ops.backward_plan(1, 12, 1, 32_768, 32_768, 64)
     assert plan["split"] == 2 and plan["blocks"] == 1024
     assert plan["scratch_bytes"] == 2 * 2 * 4 * 32_768 * 64
-    # 256 blocks of 128 keys at head dim 128: 2 parts fall short, 3 reach
+    # the same at head dim 128: every dK/dV block holds 64 keys
     plan = t_ops.backward_plan(1, 12, 1, 32_768, 32_768, 128)
-    assert plan["split"] == 3 and plan["blocks"] == 768
+    assert plan["split"] == 2 and plan["blocks"] == 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pair,capped", [
+    (pair, capped) for pair in t_ops.HEAD_DIMS for capped in (False, True)
+    if not capped or pair[0] == pair[1]])
+def test_backward_layout_fits_shared_memory(pair, capped, dtype):
+    """Each launch's block, at every head-dim pair the kernel is built for,
+    in float32 and bfloat16, capped or not (where the pair has a capped
+    build), takes at most the 227 KB of shared memory a block may have
+    (one block an SM); bfloat16 takes less than float32 (its tiles land
+    in half the bytes and carry no low parts). MLA's pairs are built
+    without the cap."""
+    hd, hd_v = pair
+    plan = t_ops.backward_plan(2, 8, 2, 300, 300, hd, hd_v, dtype=dtype,
+                               softcap=30.0 if capped else 0.0)
+    for launch in ("dq", "dkdv"):
+        got = plan[launch]
+        assert got["smem_bytes"] <= t_ops.SMEM_LIMIT
+        if dtype == torch.bfloat16:
+            assert got["smem_bytes"] < t_ops.backward_smem(launch, hd, hd_v)
+
+
+def _tiles(plan, sq, skv):
+    """The row ranges the plan's launches cover: each dq block's and dK/dV
+    block's resident row groups (64 rows each) and, for each launch, its
+    streamed tiles over the other side (dq: keys; dK/dV: queries)."""
+    out = {}
+    for launch, n, other in (("dq", sq, skv), ("dkdv", skv, sq)):
+        got = plan[launch]
+        z, groups = got["grid"][2], got["rows"] // 64
+        resident = [(64 * (blk * groups + c), 64 * (blk * groups + c) + 64)
+                    for blk in range(z) for c in range(groups)]
+        bn = got["tile_rows"]
+        streamed = [(t * bn, t * bn + bn) for t in range(-(-other // bn))]
+        out[launch] = (resident, n, streamed, other)
+    return out
+
+
+@pytest.mark.parametrize("pair", t_ops.HEAD_DIMS)
+@pytest.mark.parametrize("sq,skv", [(1024, 1024), (90, 33), (130, 333),
+                                    (1, 65), (1500, 448)])
+def test_backward_tiles_cover_every_row_once(pair, sq, skv):
+    """Every query row is one dq warpgroup's resident row and falls in
+    exactly one of the dK/dV launch's streamed query tiles; every key is
+    one dK/dV warpgroup's and falls in exactly one of dq's key tiles. The
+    tiles past the ragged end cover nothing real (the kernels mask them):
+    a block's spare warpgroup, or the rows of the last tile past the end."""
+    hd, hd_v = pair
+    plan = t_ops.backward_plan(2, 8, 2, sq, skv, hd, hd_v)
+    for launch, (resident, n, streamed, other) in _tiles(plan, sq,
+                                                         skv).items():
+        for ranges, size in ((resident, n), (streamed, other)):
+            seen = np.zeros(size, dtype=int)
+            for lo, hi in ranges:
+                seen[lo:min(hi, size)] += 1
+            assert (seen == 1).all(), (launch, size)
+        per_block = plan[launch]["rows"]
+        assert resident[-1][1] - per_block < n <= resident[-1][1]
+        assert streamed[-1][0] < other <= streamed[-1][1]
+
+
+def test_backward_plan_is_a_pure_function_of_the_shape():
+    """The same shape gives the same plan, call after call and whatever
+    the launch counters say; the cap changes nothing of it, the type only
+    the shared memory."""
+    args = (8, 128, 128, 1024, 1024, 192, 128)
+    first = t_ops.backward_plan(*args)
+    t_ops.bwd_launches += 1
+    try:
+        assert t_ops.backward_plan(*args) == first
+    finally:
+        t_ops.bwd_launches -= 1
+    assert t_ops.backward_plan(*args, softcap=30.0) == first
+    half = t_ops.backward_plan(*args, dtype=torch.bfloat16)
+    for launch in ("dq", "dkdv"):
+        assert {k: v for k, v in half[launch].items() if k != "smem_bytes"} \
+            == {k: v for k, v in first[launch].items() if k != "smem_bytes"}
+    assert {k: half[k] for k in ("keys", "split", "blocks")} == \
+        {k: first[k] for k in ("keys", "split", "blocks")}
 
 
 # ---------------------------------------------------------------------------
