@@ -18,7 +18,12 @@ The device of the input decides what runs: a CUDA tensor launches the
 hand-written kernel (``csrc/flash_attention.cu``; its backward
 ``csrc/flash_attention_bwd.cu``) or raises, a CPU tensor
 runs the plain PyTorch version ``reference``, which autograd
-differentiates. There is no switch between the two.
+differentiates. There is no switch between the two. The forward is a
+warp-specialised kernel: a producer warpgroup brings the key and value
+tiles by TMA and turns them into ``wgmma`` panels (V transposed) in a
+ring of shared-memory stages, and two consumer warpgroups of 64 query
+rows each run both products on the tensor cores as 3xTF32 ``wgmma``
+(``FWD_LAYOUTS``, ``forward_smem``).
 
 The gradient: on a CUDA tensor, with grad enabled and an input that
 requires it, ``flash_attention`` runs ``FlashAttentionFn``. Its forward is
@@ -84,6 +89,12 @@ BWD_LAYOUTS = {
     "dkdv": {16: (32, 3, 2, 2), 24: (32, 3, 2, 2), 32: (32, 3, 2, 2),
              64: (32, 3, 2, 2), 128: (32, 2, 1, 2), 192: (32, 2, 1, 2)}}
 SMEM_LIMIT = 232_448  # shared memory a block may have (227 KB)
+# the forward's launch layouts by q/k head dim, as the kernel is compiled
+# (FwdShape in csrc/flash_attention.cu): (keys a tile, panel stages, TMA
+# slots a K and a V tile land in as they lie in memory). A block holds
+# two consumer warpgroups of 64 query rows and a producer.
+FWD_LAYOUTS = {16: (64, 3, 2), 24: (64, 3, 2), 32: (64, 3, 2),
+               64: (64, 2, 2), 128: (32, 2, 2), 192: (32, 2, 1)}
 
 
 # kernel launches made by ``flash_attention`` since the last reset: the
@@ -243,6 +254,39 @@ def _bwd_kernel():
 
 def _up(x: int, to: int) -> int:
     return -(-x // to) * to
+
+
+def forward_smem(hd, hd_v=None, dtype=torch.float32) -> int:
+    """Shared-memory bytes a forward block takes at this head-dim pair and
+    type, as ``FwdLayout`` in the .cu adds them: the stages, each the key
+    tile's float32 panel tile (its rows' hi, and for float32 their lo
+    below) and V's transposed one (hd_v rows over the tile's keys, hi and
+    lo), each 1024-byte aligned; the TMA slots where a key and a value
+    tile land as they lie in memory, each 128-byte aligned; the
+    mbarriers (full and empty a stage, one a slot); and 1024 bytes to
+    align the base."""
+    hd_v = hd_v or hd
+    bn, ps, rs = FWD_LAYOUTS[hd]
+    item = torch.empty((), dtype=dtype).element_size()
+    npan = 2 if dtype == torch.float32 else 1
+    stage = _up(npan * bn * hd * 4, 1024) + _up(npan * hd_v * bn * 4, 1024)
+    raw = _up(bn * hd * item, 128) + _up(bn * hd_v * item, 128)
+    return _up(ps * stage + rs * raw, 8) + 8 * (2 * ps + rs) + 1024
+
+
+def forward_info(hd, dtype=torch.float32, hd_v=None, softcap=False):
+    """(registers a thread, shared memory bytes a block, blocks an SM) of
+    the forward kernel at this head-dim pair (v's ``hd_v``, hd unless
+    given), type and build (capped or not), from the CUDA runtime (needs
+    the card)."""
+    fn = build.library("flash_attention").flash_attention_forward_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 3)()
+    err = fn(hd, hd_v or hd, int(bool(softcap)), _DTYPES[dtype], info)
+    if err:
+        raise RuntimeError(f"flash_fwd: CUDA error {err}")
+    return tuple(info)
 
 
 def backward_smem(launch, hd, hd_v=None, dtype=torch.float32) -> int:
@@ -417,7 +461,7 @@ def _check_build(q, k, v, softcap=0.0):
 
 def _prepare(q, k, v, softcap=0.0):
     """Checks for a kernel launch; returns q, k, v contiguous and 16-byte
-    aligned (the kernel copies 16-byte pieces of rows)."""
+    aligned (the TMA reads rows from 16-byte aligned bases)."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_build(q, k, v, softcap)

@@ -1007,7 +1007,12 @@ FA_CASES = [(1, 128, 128, 2, 2, 64, True, 0), (2, 256, 256, 1, 1, 32, True, 0),
             # Sq < Skv with a window, non-causal, rows with no key
             (1, 256, 256, 24, 2, 128, True, 0), (2, 300, 300, 8, 2, 128, True, 0),
             (1, 100, 700, 8, 2, 128, True, 256), (1, 96, 96, 4, 4, 128, False, 0),
-            (1, 40, 24, 2, 1, 128, True, 0)]
+            (1, 40, 24, 2, 1, 128, True, 0),
+            # the forward's blocks of 128 query rows (64 a consumer
+            # warpgroup): a last block of one row, of two, a second
+            # consumer partly filled, Sq past Skv over twelve blocks
+            (1, 257, 64, 2, 2, 64, True, 0), (2, 130, 333, 2, 1, 16, True, 0),
+            (1, 90, 33, 2, 2, 32, True, 0), (1, 1500, 448, 4, 2, 128, True, 0)]
 
 
 def fa_case(b, sq, skv, h, kvh, hd, seed):
@@ -1927,6 +1932,35 @@ def test_flash_attention_backward_float64_witness(cuda_device):
     got, want = _f64_gap(kernel, g64), _f64_gap(plain(torch.float32), g64)
     for name, a, w in zip(("dq", "dk", "dv", "key-bias residue"), got, want):
         assert a <= 3 * w, (name, a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("llama3.2-1b", 1024, 32, 8, 64, 64, 0.0),
+    ("grok-1 capped", 1024, 48, 8, 128, 128, 30.0),
+    ("deepseek-v2", 1024, 128, 128, 192, 128, 0.0)])
+def test_flash_attention_forward_float64_witness(case, cuda_device):
+    """The float32 forward kernel's output at three prefill shapes cut to
+    one batch row (causal; llama3.2-1b's, grok-1's capped at 30 and
+    deepseek-v2's at head dims (192, 128)) against a float64 plain route:
+    its largest difference at most 3 times the float32 plain route's
+    (FA_F64_RATIO in chip_smoke.py). The tensor cores truncate inside a
+    sum; a product carried in one accumulator over every key or the whole
+    head dim lies further from float64 than the plain route."""
+    _, s, h, kvh, hd, hd_v, cap = case
+    rng = np.random.default_rng(hd + h)
+    q, k, v = (torch.tensor(rng.standard_normal(shape), device=cuda_device,
+                            dtype=torch.float32)
+               for shape in ((1, s, h, hd), (1, s, kvh, hd),
+                             (1, s, kvh, hd_v)))
+    kw = dict(causal=True, softcap=cap)
+    out = t_fa.flash_attention(q, k, v, **kw)
+    o64 = t_fa.reference(*(x.double() for x in (q, k, v)), **kw)
+    top = o64.abs().max()
+    got = float((out.double() - o64).abs().max() / top)
+    want = float((t_fa.reference(q, k, v, **kw).double() - o64).abs().max()
+                 / top)
+    assert got <= 3 * want, (case[0], got, want)
 
 
 @pytest.mark.cuda

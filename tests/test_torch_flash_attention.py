@@ -416,6 +416,39 @@ def test_backward_tiles_cover_every_row_once(pair, sq, skv):
         assert streamed[-1][0] < other <= streamed[-1][1]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pair,capped", [
+    (pair, capped) for pair in t_ops.HEAD_DIMS for capped in (False, True)
+    if not capped or pair[0] == pair[1]])
+def test_forward_layout_fits_shared_memory(pair, capped, dtype):
+    """The forward's block, at every head-dim pair the kernel is built
+    for, in float32 and bfloat16, capped or not, takes at most the 227 KB
+    a block may have (one block an SM), as FWD_LAYOUTS lays it out:
+    PS stages of the key panel tile and the transposed value panel tile
+    (float32: hi and lo rows), RS TMA slots, the mbarriers and 1024
+    bytes of alignment; bfloat16 takes less (its tiles land in half the
+    bytes and carry no lo rows). The cap changes nothing of it."""
+    hd, hd_v = pair
+    smem = t_ops.forward_smem(hd, hd_v, dtype)
+    bn, ps, rs = t_ops.FWD_LAYOUTS[hd]
+    assert smem <= t_ops.SMEM_LIMIT
+    npan = 2 if dtype == torch.float32 else 1
+    item = 4 if dtype == torch.float32 else 2
+    panels = ps * (npan * bn * hd * 4 + npan * hd_v * bn * 4)
+    assert panels + rs * bn * (hd + hd_v) * item < smem
+    if dtype == torch.bfloat16:
+        assert smem < t_ops.forward_smem(hd, hd_v)
+
+
+def test_forward_smem_at_mla_head_dims():
+    """deepseek-v2's prefill at (192, 128), float32: 32-key tiles in two
+    stages of 48 KB of key panels and 32 KB of value panels, one TMA slot
+    of 40 KB, 205,864 bytes."""
+    smem = t_ops.forward_smem(192, 128)
+    assert smem == 2 * (48 + 32) * 1024 + 40 * 1024 + 40 + 1024
+    assert smem == 205_864
+
+
 def test_backward_plan_is_a_pure_function_of_the_shape():
     """The same shape gives the same plan, call after call and whatever
     the launch counters say; the cap changes nothing of it, the type only
